@@ -12,9 +12,14 @@ non-zero exit and no result line:
 2. build     the CUDA kernels from ``chunkflow_tpu_torch/csrc/``, timed
 3. kernels   each kernel against its plain PyTorch version on the card,
              bitwise, at the main path's shapes and on small fixtures
-             (every gather dtype at unaligned starts; both accumulate
-             flavours on dense overlap with validity-0 rows); per-launch
-             time, bound and plain-version time at the main path's shapes
+             (every gather dtype at unaligned starts, and a sweep of x
+             starts mod 16, px % 4 != 0, two channels and a storage-offset
+             view, and rows wider than the gather's shared-memory tile;
+             both accumulate flavours on dense overlap with
+             validity-0 rows); the gather's registers, shared memory and
+             resident blocks; per-launch time, bound and plain-version
+             time at the main path's shapes, and the gather's on uint16,
+             float32 and unaligned starts
 4. identity  ``Inferencer(framework="identity")`` on a 64x512x512 uint8
              chunk (20x256x256 patches, 4x64x64 overlap, 3 channels,
              batch 2) and on a ragged uint16 chunk with an odd patch
@@ -53,6 +58,8 @@ OVERLAP = (4, 64, 64)
 CHANNELS = 3
 BATCH = 2
 RAGGED = (40, 456, 456)  # 3 x 3 x 3 = 27 patches: one validity-0 row
+GATHER_DTYPES = ("uint8", "int8", "uint16", "int16", "int32", "uint32",
+                 "float32")
 
 # the H100 SXM's published peaks (NVIDIA data sheet): device memory
 # bytes/s and float32 operations/s outside the tensor cores; the bounds
@@ -84,6 +91,13 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 * 2**20, dtype=torch.uint8,
                                  device="cuda")
+        # a process's first profiler session can start tracing after the
+        # kernels queued in it have run: open one and discard it
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            self.flush.zero_()
+            torch.cuda.synchronize()
 
     def _trace(self, fn, reps):
         from torch.autograd import DeviceType
@@ -243,16 +257,47 @@ def main() -> int:
     # gather: every dtype, main-path chunk size, unaligned starts
     odd = torch.tensor([[3, 7, 13], [41, 250, 255], [0, 1, 2]],
                        dtype=torch.int32)
+    big_chunks = {}
     for dt in ("uint8", "uint16", "int32", "float32"):
-        if dt == "float32":
-            raw = rng.random((1,) + CHUNK, dtype=np.float32)
-        else:
-            hi = min(np.iinfo(dt).max, 2**31 - 1)
-            raw = rng.integers(0, hi, (1,) + CHUNK).astype(dt)
-        chunk = torch.from_numpy(raw).to(dev)
+        chunk = torch.from_numpy(_raw(rng, dt, (1,) + CHUNK)).to(dev)
+        if dt in ("uint16", "float32"):
+            big_chunks[dt] = chunk
         for starts in (odd, in_b):
             note_err("gather", gather.gather_patches(chunk, starts, PIN),
                      gather.gather_patches_plain(chunk, starts, PIN))
+    # gather alignment sweep: every x start mod 16, rows of px % 4 != 0
+    # floats, a row pitch (57 elements) that is no multiple of 16 bytes,
+    # two channels, and a view one element into its storage; one launch
+    sweep = 0
+    zyx_a = (2, 6, 20, 57)
+    for dt in GATHER_DTYPES:
+        n_el = int(np.prod(zyx_a))
+        big = torch.from_numpy(_raw(rng, dt, (n_el + 1,))).to(dev)
+        for off in (0, 1):
+            chunk = big[off:off + n_el].view(zyx_a)
+            for px in (16, 18):
+                for m in range(16):
+                    starts = torch.tensor(
+                        [[0, 0, m], [1, 3, 16 + m], [3, 15, 57 - px]],
+                        dtype=torch.int32)
+                    before = gather.launches
+                    got = gather.gather_patches(chunk, starts, (3, 5, px))
+                    require(gather.launches == before + 1,
+                            "gather: not one launch for 3 rows")
+                    note_err("gather", got, gather.gather_patches_plain(
+                        chunk, starts, (3, 5, px)))
+                    sweep += 1
+    # rows wider than one shared-memory tile (24,560 bytes), which the
+    # kernel stages in segments: every dtype, unaligned, offset view
+    for dt in GATHER_DTYPES:
+        px = 50_000 // np.dtype(dt).itemsize + 3
+        zyx_w = (3, 4, px + 29)
+        n_el = 2 * int(np.prod(zyx_w))
+        chunk = torch.from_numpy(_raw(rng, dt, (n_el + 1,))).to(dev)[1:]
+        chunk = chunk.view((2,) + zyx_w)
+        starts = torch.tensor([[0, 0, 13], [1, 2, 29]], dtype=torch.int32)
+        note_err("gather", gather.gather_patches(chunk, starts, (2, 2, px)),
+                 gather.gather_patches_plain(chunk, starts, (2, 2, px)))
     # accumulate: dense overlap with validity-0 rows, both flavours
     co, zyx, pout = 3, (5, 32, 40), (3, 12, 16)
     dense = torch.tensor([[0, 0, 0], [1, 6, 8], [2, 12, 16], [1, 6, 8],
@@ -279,8 +324,10 @@ def main() -> int:
         axis=1).astype(np.int32))
     chunk = torch.from_numpy(rng.integers(0, 255, (2,) + zyx).astype(
         np.uint8)).to(dev)
+    before = gather.launches
     note_err("gather", gather.gather_patches(chunk, many, pout),
              gather.gather_patches_plain(chunk, many, pout))
+    require(gather.launches == before + 2, "gather: 70 rows, not 2 launches")
     preds_m = torch.from_numpy(
         rng.standard_normal((70, co) + pout, dtype=np.float32)).to(dev)
     valid_m = torch.from_numpy((rng.random(70) > 0.2).astype(
@@ -308,8 +355,19 @@ def main() -> int:
     note_err("accumulate", got[0], ref[0])
     note_err("accumulate", got[1], ref[1])
     torch.cuda.synchronize()
-    phase("kernels", f"kernel == plain bitwise; launches in this phase: "
+    phase("kernels", f"kernel == plain bitwise, gather alignment sweep "
+                     f"{sweep} cases, rows wider than a tile in "
+                     f"{len(GATHER_DTYPES)} dtypes; launches in this phase: "
                      f"{counts()}")
+    per_sm, sms = gather.occupancy(torch.uint8)
+    ptxas = _build.library_path("gather").with_suffix(".log").read_text()
+    used = sorted({line.split(":", 1)[1].strip()
+                   for line in ptxas.splitlines() if "Used" in line})
+    spills = sorted({line.strip() for line in ptxas.splitlines()
+                     if "spill" in line})
+    phase("kernels", f"gather: {per_sm} resident blocks/SM x {sms} SMs "
+                     f"(uint8 instance); ptxas per instance: {used}; "
+                     f"{spills}")
 
     # per-launch times at the main path's shapes
     chunk_u8 = Chunk.create(size=CHUNK, dtype=np.uint8, pattern="sin")
@@ -357,7 +415,22 @@ def main() -> int:
                          f"device time by profiler, L2 flushed), bound "
                          f"{k['bound_ms']:.4f} ms ({w['bytes'] / 1e6:.1f} MB, "
                          f"{k['bound_by']}), plain {k['plain_ms']:.4f} ms")
-    del base_out, base_w
+    # the gather on other chunk types and on unaligned x starts, same shape
+    unaligned = torch.tensor([[0, 0, 13], [0, 192, 200]], dtype=torch.int32)
+    for label, chunk, starts in (
+            ("uint16", big_chunks["uint16"], in_b),
+            ("float32", big_chunks["float32"], in_b),
+            ("uint8 at x 13 and 200", raw_dev, unaligned)):
+        ms = timer.kernel_ms(
+            lambda: gather.gather_patches(chunk, starts, PIN), "gather_kernel")
+        plain_ms = timer.call_ms(
+            lambda: gather.gather_patches_plain(chunk, starts, PIN))
+        nbytes = BATCH * P * (chunk.element_size() + 4) + starts.numel() * 4
+        bound = nbytes / PEAK_BW * 1e3
+        phase("kernels", f"gather, {label}: {ms:.4f} ms/launch, bound "
+                         f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, bytes), "
+                         f"{bound / ms:.0%} of bound, plain {plain_ms:.4f} ms")
+    del big_chunks, base_out, base_w
 
     # ---- 4. identity main path ------------------------------------------
     def run_paths(inferencer, chunk, label):
@@ -521,6 +594,18 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _raw(rng, dtype, shape):
+    """Random values of a chunk dtype over its whole range, or floats in
+    [0, 1)."""
+    import numpy as np
+
+    if dtype == "float32":
+        return rng.random(shape, dtype=np.float32)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape,
+                        endpoint=True).astype(dtype)
 
 
 def _flax_layout(state):

@@ -19,7 +19,8 @@ and has no counterpart here.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from contextlib import nullcontext
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ _DTYPE_CODES = {
     torch.uint32: 5,
     torch.float32: 6,
 }
+
+
 def int_scale(dtype) -> Optional[np.float32]:
     """The normalization scale ``float32(1/iinfo.max)`` of an int dtype
     (numpy or torch); None for floats."""
@@ -73,6 +76,12 @@ def convert_chunk(chunk: torch.Tensor) -> torch.Tensor:
     return chunk.to(torch.float32)
 
 
+# each dtype's kernel arguments: its code and its scale (1.0 for float32,
+# which the kernel never scales)
+_LAUNCH_ARGS = {dtype: (code, float(int_scale(dtype) or 1.0))
+                for dtype, code in _DTYPE_CODES.items()}
+
+
 def _check(chunk: torch.Tensor, in_starts: torch.Tensor,
            input_patch_size: Triple) -> Tuple[int, ...]:
     if chunk.dim() != 4:
@@ -89,13 +98,14 @@ def _check(chunk: torch.Tensor, in_starts: torch.Tensor,
     if in_starts.device.type != "cpu":
         raise ValueError("in_starts is the host starts table: pass it on "
                          "the CPU")
-    pin = tuple(int(p) for p in input_patch_size)
-    zyx = tuple(chunk.shape[1:])
-    starts = in_starts.numpy()
-    if len(starts) and ((starts < 0).any()
-                        or (starts + np.asarray(pin) > np.asarray(zyx)).any()):
-        raise ValueError(f"patch windows of size {pin} at {starts.tolist()} "
-                         f"leave the chunk {zyx}")
+    pin = pz, py, px = tuple(int(p) for p in input_patch_size)
+    _, Z, Y, X = chunk.shape
+    # plain Python: a few rows check in a fraction of numpy's call overhead
+    for z, y, x in in_starts.tolist():
+        if min(z, y, x) < 0 or z + pz > Z or y + py > Y or x + px > X:
+            raise ValueError(f"patch windows of size {pin} at "
+                             f"{in_starts.tolist()} leave the chunk "
+                             f"{(Z, Y, X)}")
     return pin
 
 
@@ -114,24 +124,42 @@ def gather_patches_plain(chunk: torch.Tensor, in_starts: torch.Tensor,
     return out
 
 
-_lib = None
+class _Kernel(NamedTuple):
+    lib: ctypes.CDLL
+    max_batch: int              # starts rows one launch takes
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+_kernel: Optional[_Kernel] = None
+
+
+def _library() -> _Kernel:
+    global _kernel
+    if _kernel is None:
         lib = _build.load("gather")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gather_patches_launch.argtypes = [
             p, i, p, i, p, i, i, i, i, i, i, i, ctypes.c_float, p,
         ]
         lib.gather_patches_launch.restype = i
-        lib.gather_max_batch.argtypes = []
-        lib.gather_max_batch.restype = i
+        lib.gather_max_batch.argtypes, lib.gather_max_batch.restype = [], i
+        lib.gather_occupancy.argtypes = [i, ctypes.POINTER(i),
+                                         ctypes.POINTER(i)]
+        lib.gather_occupancy.restype = i
         lib.gather_error_string.argtypes = [i]
         lib.gather_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _kernel = _Kernel(lib, lib.gather_max_batch())
+    return _kernel
+
+
+def occupancy(dtype: torch.dtype) -> Tuple[int, int]:
+    """``(blocks per SM, SMs)`` of the kernel's instance for a chunk dtype
+    on the current CUDA device: one launch holds at most their product of
+    blocks, all resident at once."""
+    kernel = _library()
+    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+    _build.check(kernel.lib, "gather", kernel.lib.gather_occupancy(
+        _DTYPE_CODES[dtype], ctypes.byref(per_sm), ctypes.byref(sms)))
+    return per_sm.value, sms.value
 
 
 def gather_patches(chunk: torch.Tensor, in_starts: torch.Tensor,
@@ -139,37 +167,42 @@ def gather_patches(chunk: torch.Tensor, in_starts: torch.Tensor,
     """Gather and convert one batch of patches out of the RAW chunk.
 
     chunk:     ``[ci, Z, Y, X]`` uint8/int8/uint16/int16/int32/uint32/
-               float32, contiguous
+               float32, contiguous (a view with a storage offset is fine)
     in_starts: ``[B, 3]`` int32 zyx corners on the CPU (the host table;
                it rides in the kernel's launch parameters)
     returns:   ``[B, ci, pz, py, px]`` float32 on ``chunk``'s device
 
-    A CUDA chunk launches the kernel (once per ``gather_max_batch()`` rows);
-    a CPU chunk runs the plain version.
+    A CUDA chunk launches the kernel (once per ``max_batch`` rows of the
+    table, in ascending order); a CPU chunk runs the plain version.
     """
     if chunk.device.type == "cpu":
         return gather_patches_plain(chunk, in_starts, input_patch_size)
     if chunk.device.type != "cuda":
         raise ValueError(f"gather runs on cuda or cpu, not {chunk.device}")
     pz, py, px = _check(chunk, in_starts, input_patch_size)
+    kernel = _library()
     in_starts = in_starts.contiguous()
     B, ci = in_starts.shape[0], chunk.shape[0]
     out = torch.empty((B, ci, pz, py, px), dtype=torch.float32,
                       device=chunk.device)
-    lib = _library()
-    scale = int_scale(chunk.dtype)
-    step = lib.gather_max_batch()
+    code, scale = _LAUNCH_ARGS[chunk.dtype]
+    step = kernel.max_batch
+    # sub-launch i0 starts at starts row i0 (12 bytes a row) and at output
+    # patch i0
+    out_ptr, out_stride = out.data_ptr(), ci * pz * py * px * 4
+    starts_ptr = in_starts.data_ptr()
+    index = chunk.device.index
+    guard = (torch.cuda.device(index)
+             if index != torch.cuda.current_device() else nullcontext())
     global launches
-    with torch.cuda.device(chunk.device):
+    with guard:
         stream = torch.cuda.current_stream().cuda_stream
         for i0 in range(0, B, step):
-            rows = in_starts[i0:i0 + step]
-            code = lib.gather_patches_launch(
-                chunk.data_ptr(), _DTYPE_CODES[chunk.dtype], rows.data_ptr(),
-                rows.shape[0], out[i0:i0 + step].data_ptr(), ci,
-                *chunk.shape[1:], pz, py, px,
-                float(scale) if scale is not None else 1.0, stream,
+            status = kernel.lib.gather_patches_launch(
+                chunk.data_ptr(), code, starts_ptr + i0 * 12,
+                min(step, B - i0), out_ptr + i0 * out_stride, ci,
+                *chunk.shape[1:], pz, py, px, scale, stream,
             )
-            _build.check(lib, "gather", code)
+            _build.check(kernel.lib, "gather", status)
             launches += 1
     return out

@@ -24,23 +24,43 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["uint8", "int8", "uint16", "int16",
-                                   "int32", "float32"])
-def test_gather_kernel_is_its_plain_version(cuda, dtype):
-    rng = np.random.default_rng(0)
+def _raw(dtype, rng, shape):
     if dtype == "float32":
-        raw = rng.standard_normal((2, 9, 40, 50)).astype(np.float32)
-    else:
-        info = np.iinfo(np.dtype(dtype))
-        raw = rng.integers(info.min, info.max, (2, 9, 40, 50),
-                           endpoint=True).astype(dtype)
-    chunk = torch.from_numpy(raw).to(cuda)
-    starts = torch.tensor([[0, 0, 0], [1, 7, 13], [6, 28, 32], [2, 19, 5]],
-                          dtype=torch.int32)
+        return rng.standard_normal(shape).astype(np.float32)
+    info = np.iinfo(np.dtype(dtype))
+    return rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
+
+
+# wider than one shared-memory tile of the kernel (24,560 bytes a row):
+# the kernel stages such a row in segments
+WIDE = 50_000
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("ci", [1, 2])
+@pytest.mark.parametrize("px", [16, 18, WIDE])
+@pytest.mark.parametrize("x_mod16", [0, 1, 7, 8, 15])
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "uint16", "int16",
+                                   "int32", "uint32", "float32"])
+def test_gather_kernel_is_its_plain_version(cuda, dtype, x_mod16, px, ci,
+                                            offset):
+    """Any x start, rows of px % 4 != 0 floats, a row pitch that is no
+    multiple of 16 bytes, rows wider than a tile, and a contiguous view
+    ``offset`` elements into its storage (the kernel aligns by the
+    absolute address): bitwise the plain version, in one launch."""
+    if px == WIDE:
+        px = WIDE // np.dtype(dtype).itemsize + 3
+    zyx, pin = (6, 20, px + 41), (3, 5, px)
+    n_el = ci * int(np.prod(zyx))
+    raw = _raw(dtype, np.random.default_rng(x_mod16), (n_el + offset,))
+    chunk = torch.from_numpy(raw).to(cuda)[offset:].view((ci,) + zyx)
+    assert chunk.storage_offset() == offset and chunk.is_contiguous()
+    starts = torch.tensor([[0, 0, x_mod16], [1, 3, 16 + x_mod16],
+                           [3, 15, zyx[2] - px]], dtype=torch.int32)
     before = gather.launches
-    got = gather.gather_patches(chunk, starts, (3, 12, 18))
+    got = gather.gather_patches(chunk, starts, pin)
     assert gather.launches == before + 1
-    ref = gather.gather_patches_plain(chunk.cpu(), starts, (3, 12, 18))
+    ref = gather.gather_patches_plain(chunk.cpu(), starts, pin)
     assert torch.equal(got.cpu(), ref)
 
 
@@ -79,9 +99,11 @@ def test_batches_larger_than_one_launch(cuda):
         axis=1).astype(np.int32))
     chunk = torch.from_numpy(rng.integers(0, 65535, (1,) + zyx).astype(
         np.uint16))
+    before = gather.launches
     assert torch.equal(
         gather.gather_patches(chunk.to(cuda), starts, pout).cpu(),
         gather.gather_patches_plain(chunk, starts, pout))
+    assert gather.launches == before + 2
     preds = torch.from_numpy(rng.standard_normal((n, 2) + pout).astype(
         np.float32))
     valid = torch.from_numpy((rng.random(n) > 0.2).astype(np.float32))

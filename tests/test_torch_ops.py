@@ -47,6 +47,25 @@ def test_gather_plain_matches_jax_convert_and_slice(dtype):
         assert np.array_equal(got[b], exp), (dtype, b)
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "uint16", "int16",
+                                   "int32", "uint32", "float32"])
+def test_gather_plain_storage_offset_view_matches_jax(dtype):
+    """A contiguous view one element into its storage, at starts with
+    every x alignment the CUDA kernel must handle."""
+    shape = (2, 9, 40, 50)
+    raw = _raw(dtype, np.random.default_rng(6), (int(np.prod(shape)) + 1,))
+    view = raw[1:].reshape(shape)
+    full = np.asarray(pallas_gather.convert_chunk(jnp.asarray(view)))
+    chunk = torch.from_numpy(raw).flatten()[1:].view(shape)
+    assert chunk.storage_offset() == 1 and chunk.is_contiguous()
+    starts = np.array([[0, 0, 13], [1, 7, 1], [6, 28, 15], [2, 19, 31]],
+                      np.int32)
+    got = gather.gather_patches(chunk, torch.from_numpy(starts), PIN).numpy()
+    for b, (z, y, x) in enumerate(starts):
+        exp = full[:, z:z + PIN[0], y:y + PIN[1], x:x + PIN[2]]
+        assert np.array_equal(got[b], exp), (dtype, b)
+
+
 @pytest.mark.parametrize("dtype", ["uint8", "uint16", "int32", "float32"])
 def test_gather_plain_matches_pallas_interpret(dtype):
     raw = _raw(dtype, np.random.default_rng(2))
