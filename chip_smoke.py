@@ -30,6 +30,16 @@ non-zero exit and no result line:
              time, Mvox/s and peak memory
 6. cli       ``create-chunk ... inference -f identity ... save-npy``
              through the port's CLI, equal to phase 4's result
+7. models    every convnet family at full width (parity UNet3D, RSUNet
+             through a reference ``model.py`` and a BatchNorm ``.pt``
+             checkpoint, the ``tpu`` and ``tpu_s2d4`` flagships; ``tpu_mxu``
+             is ``tpu``'s module), float32 (TF32 off) and bfloat16, on the
+             same chunk: kernel path == plain path bitwise, sigmoid maps,
+             float32 one 8x64x64 patch GPU vs CPU within 1e-4, bfloat16 vs
+             float32 on that patch within 0.02 max-abs and 0.005 mean-abs,
+             and on four 8x64x64 crops of the chunk and on the chunk
+             within 0.005 mean-abs, wall time, Mvox/s, peak memory,
+             forward device time per batch and TFLOP/s
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -66,6 +76,21 @@ GATHER_DTYPES = ("uint8", "int8", "uint16", "int16", "int32", "uint32",
 # hold only for the card that reports this name
 H100_SXM = "H100 80GB HBM3"
 PEAK_BW, PEAK_F32 = 3.35e12, 67e12
+# dense bf16 tensor-core operations/s (the same data sheet)
+PEAK_BF16 = 989e12
+
+# the convnet families of phase 7, each in both compute dtypes
+FAMILIES = ("parity", "rsunet", "tpu", "tpu_s2d4")
+# the JAX package's bf16 gates, max-abs and mean-abs vs float32
+# (tests/inference/test_precision.py), measured there on ~46 K outputs:
+# held here on one 8x64x64 patch (98 K outputs); on the 50 M outputs of a
+# chunk the mean is held and the max, the tail of bf16 rounding, printed
+BF16_MAX, BF16_MEAN = 0.02, 0.005
+# (z, y, x) starts of four 8x64x64 crops of the chunk, on which phase 7
+# prints each family's bf16 gap; tests/test_torch_models.py reads the
+# JAX package's own gap on the same crops with the same weights
+BF16_CROPS = ((0, 0, 0), (0, 192, 192), (16, 64, 320), (40, 384, 96))
+CROP = (8, 64, 64)
 
 
 class SmokeFailure(Exception):
@@ -174,14 +199,15 @@ def main() -> int:
             f"package")
     from chunkflow_tpu_torch import Chunk, _build
     from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.inference import engines
     from chunkflow_tpu_torch.inference.bump import bump_map
     from chunkflow_tpu_torch.inference.inferencer import Inferencer
     from chunkflow_tpu_torch.inference.patching import (
         enumerate_patches,
         pad_to_batch,
     )
-    from chunkflow_tpu_torch.models.convert import unet3d_state_from_flax
-    from chunkflow_tpu_torch.models.unet3d import UNet3D
+    from chunkflow_tpu_torch.models.convert import state_from_flax
+    from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
     from chunkflow_tpu_torch.ops import accumulate, gather
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -512,10 +538,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    seeded = UNet3D(in_channels=1, out_channels=CHANNELS).reset_parameters(
-        torch.Generator().manual_seed(0))
+    seeded = seeded_init(UNet3D(in_channels=1, out_channels=CHANNELS),
+                         torch.Generator().manual_seed(0))
     flax_tree = _flax_layout(seeded.state_dict())
-    state = unet3d_state_from_flax(flax_tree)
+    state = state_from_flax(flax_tree)
     for key, value in seeded.state_dict().items():
         require(torch.equal(state[key], value),
                 f"convert: {key} did not round-trip")
@@ -582,6 +608,104 @@ def main() -> int:
     phase("cli", "create-chunk | inference -f identity | save-npy == "
                  "phase 4 result")
 
+    # ---- 7. every convnet family, both compute dtypes --------------------
+    rsunet_files = _reference_rsunet(torch, OUT_DIR, dev)
+    tpu = engines.create_engine("pytorch", model_variant="tpu").model
+    mxu = engines.create_engine("pytorch", model_variant="tpu_mxu").model
+    require(type(tpu) is type(mxu) and all(
+        k == j and torch.equal(a, b) for (k, a), (j, b) in zip(
+            tpu.state_dict().items(), mxu.state_dict().items())),
+        "models: tpu_mxu does not build tpu's module and weights")
+    phase("models", "tpu_mxu builds the tpu module with the same seeded "
+                    "weights (one module: the variants differ only in the "
+                    "JAX package's XLA lowering); not timed twice")
+    del tpu, mxu
+    gaps = {}
+    x_patch = torch.from_numpy(rng.random((1, 1, 8, 64, 64),
+                                          dtype=np.float32))
+    crops = torch.from_numpy(np.stack([
+        np.asarray(chunk_u8.array)[tuple(slice(s, s + n)
+                                         for s, n in zip(start, CROP))]
+        for start in BF16_CROPS])[:, None].astype(np.float32)
+        * np.float32(1 / 255))
+    for variant in FAMILIES:
+        f32_out = None
+        for dtype in ("float32", "bfloat16"):
+            label = f"{variant} {dtype}"
+            files = rsunet_files if variant == "rsunet" else {}
+            inf = Inferencer(
+                input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                num_output_channels=CHANNELS, framework="pytorch",
+                batch_size=BATCH, model_variant=variant, dtype=dtype,
+                **files)
+            model = inf.engine.model
+            torch.cuda.reset_peak_memory_stats()
+            result, wall, launched = run_paths(inf, chunk_u8, label)
+            peak = torch.cuda.max_memory_allocated()
+            out = result.array
+            require(tuple(out.shape) == (CHANNELS,) + CHUNK
+                    and bool(torch.isfinite(out).all())
+                    and float(out.min()) >= 0.0
+                    and float(out.max()) <= 1.0 + 1e-6,
+                    f"{label}: output not finite sigmoid maps of the chunk's "
+                    f"shape")
+            with torch.no_grad():
+                fwd_ms = timer.call_ms(lambda: model(patches), reps=3)
+            flops = conv_flops(model, patches)
+            peak_ops = PEAK_BF16 if dtype == "bfloat16" else PEAK_F32
+            phase("models", f"{label}: widths {_widths(model)}, "
+                            f"{sum(p.numel() for p in model.parameters())} "
+                            f"parameters, launches {launched}, kernel == "
+                            f"plain bitwise, {wall:.4f} s, "
+                            f"{vox / wall / 1e6:.3f} Mvox/s, peak memory "
+                            f"{peak / 2**30:.2f} GiB")
+            phase("models", f"{label}: forward {fwd_ms:.2f} ms/batch (device "
+                            f"time), {flops / 1e12:.3f} TFLOP of "
+                            f"convolutions = {flops / fwd_ms / 1e9:.1f} "
+                            f"TFLOP/s, {flops / fwd_ms / 1e9 / (peak_ops / 1e12):.1%}"
+                            f" of {peak_ops / 1e12:.0f} TFLOP/s; x "
+                            f"{n_batches} batches = {fwd_ms * n_batches:.1f} "
+                            f"ms")
+            with torch.no_grad():
+                on_gpu = model(x_patch.to(dev)).cpu()
+                on_crops = model(crops.to(dev)).cpu()
+            if dtype == "float32":
+                f32_out, f32_patch, f32_crops = out, on_gpu, on_crops
+                with torch.no_grad():
+                    on_cpu = copy.deepcopy(model).cpu()(x_patch)
+                gpu_cpu = float((on_gpu - on_cpu).abs().max())
+                require(gpu_cpu <= 1e-4, f"{label}: GPU vs CPU max abs "
+                                         f"{gpu_cpu} > 1e-4")
+                phase("models", f"{label}: one 8x64x64 patch, GPU vs CPU: "
+                                f"max abs {gpu_cpu:.3g} <= 1e-4")
+            else:
+                on_patch = (on_gpu - f32_patch).abs()
+                on_crop = (on_crops - f32_crops).abs()
+                on_chunk = (out - f32_out).abs()
+                gaps[variant] = {
+                    "patch max": float(on_patch.max()),
+                    "patch mean": float(on_patch.mean()),
+                    "crops mean": float(on_crop.mean()),
+                    "chunk mean": float(on_chunk.mean()),
+                }
+                phase("models", f"{label} vs float32: one 8x64x64 patch max "
+                                f"abs {float(on_patch.max()):.4g}, mean abs "
+                                f"{float(on_patch.mean()):.4g}; four 8x64x64 "
+                                f"crops of the chunk max abs "
+                                f"{float(on_crop.max()):.4g}, mean abs "
+                                f"{float(on_crop.mean()):.4g}; the chunk max "
+                                f"abs {float(on_chunk.max()):.4g}, mean abs "
+                                f"{float(on_chunk.mean()):.4g} (gates: max "
+                                f"{BF16_MAX} on the patch, mean {BF16_MEAN})")
+            del inf, model, result, out
+        del f32_out
+    for variant, gap in gaps.items():
+        require(gap["patch max"] <= BF16_MAX
+                and max(gap["patch mean"], gap["crops mean"],
+                        gap["chunk mean"]) <= BF16_MEAN,
+                f"{variant}: bfloat16 vs float32 {gap} beyond the gates "
+                f"(max {BF16_MAX}, mean {BF16_MEAN})")
+
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
@@ -606,6 +730,43 @@ def _raw(rng, dtype, shape):
     info = np.iinfo(dtype)
     return rng.integers(info.min, info.max, shape,
                         endpoint=True).astype(dtype)
+
+
+def _widths(model):
+    return getattr(model, "feature_maps", None) or model.width
+
+
+def _reference_rsunet(torch, out_dir, dev):
+    """A reference ``model.py`` and its ``{"state_dict": ...}`` checkpoint,
+    with seeded weights and non-trivial BatchNorm statistics; the port's
+    migrated RSUNet is checked against the reference model itself on one
+    8x64x64 patch on the card. Returns the Inferencer's file arguments."""
+    import numpy as np
+
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.models import migrate, reference_rsunet
+    from chunkflow_tpu_torch.models.unet3d import seeded_init
+
+    model_py = out_dir / "rsunet_model.py"
+    model_py.write_text(reference_rsunet.model_py())
+    ref = migrate.load_user_module(str(model_py)).InstantiatedModel
+    gen = torch.Generator().manual_seed(0)
+    reference_rsunet.seed_batchnorm(seeded_init(ref, gen), gen)
+    ckpt = out_dir / "rsunet_seed0.pt"
+    torch.save({"state_dict": ref.state_dict()}, ckpt)
+    files = {"model_path": str(model_py), "weight_path": str(ckpt)}
+    port = engines.create_engine("pytorch", model_variant="rsunet",
+                                 **files).model
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (1, 1, 8, 64, 64), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        diff = float((port.to(dev)(x) - ref.eval().to(dev)(x)).abs().max())
+    require(diff <= 1e-4, f"rsunet: migrated model vs the reference model "
+                          f"max abs {diff} > 1e-4")
+    phase("models", f"rsunet: reference model.py + BatchNorm .pt migrated by "
+                    f"name (BatchNorm folded); vs the reference model on one "
+                    f"8x64x64 patch on the card: max abs {diff:.3g} <= 1e-4")
+    return files
 
 
 def _flax_layout(state):

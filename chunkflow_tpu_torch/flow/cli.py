@@ -119,7 +119,10 @@ def _inference_options(p):
                    default="flax")
     p.add_argument("--model-path", "--convnet-model", "-m", default="")
     p.add_argument("--weight-path", "--convnet-weight-path", "-w",
-                   default=None, help=".pt/.pth state dict of the UNet3D")
+                   default=None,
+                   help="weights: a .pt/.pth state dict (by name, BatchNorm "
+                        "folded) or a flax .msgpack file; none: a seeded "
+                        "init")
     p.add_argument("--batch-size", "-b", type=int, default=1)
     p.add_argument("--bump", choices=["wu", "zung"], default="wu")
     p.add_argument("--augment", action=argparse.BooleanOptionalAction,

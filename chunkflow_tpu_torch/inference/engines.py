@@ -2,26 +2,32 @@
 
 The counterpart of ``chunkflow_tpu/inference/engines.py``. An engine's
 ``apply`` maps a ``[B, Cin, *in_patch]`` float32 batch to ``[B, Cout,
-*out_patch]`` float32 on the batch's device; ``model`` (when there is
-one) is the ``nn.Module`` the inferencer moves to its device. Frameworks:
+*out_patch]`` on the batch's device; ``model`` (when there is one) is the
+``nn.Module`` the inferencer moves to its device. Frameworks:
 ``identity`` (the test oracle), ``pytorch`` / ``flax`` / ``jax`` (the
-built-in parity UNet3D — the names are kept for CLI parity with the JAX
-package, whose flax engine loads the same ``.pt`` weights), and
-``prebuilt`` (an ``Engine`` passed in).
+convnet engine: the built-in model families or a user model file — the
+names are kept for CLI parity with the JAX package, whose flax engine
+serves them all), ``universal`` (a user engine file) and ``prebuilt``
+(an ``Engine`` passed in).
 """
 from __future__ import annotations
 
-import os
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from chunkflow_tpu_torch.models.unet3d import UNet3D
+from chunkflow_tpu_torch.models import migrate
+from chunkflow_tpu_torch.models.convert import init_or_load_weights
+from chunkflow_tpu_torch.models.rsunet import RSUNet
+from chunkflow_tpu_torch.models.unet3d import UNet3D, create_tpu_optimized_model
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MODEL_VARIANTS = ("parity", "rsunet", "tpu", "tpu_mxu", "tpu_s2d4")
 
 
 class Engine(NamedTuple):
-    apply: Callable  # [B, Cin, *pin] float32 -> [B, Cout, *pout] float32
+    apply: Callable  # [B, Cin, *pin] float32 -> [B, Cout, *pout]
     num_input_channels: int
     num_output_channels: int
     model: Optional[nn.Module] = None
@@ -49,41 +55,102 @@ def create_identity_engine(
                   num_output_channels=num_output_channels)
 
 
-def create_unet3d_engine(
+def build_model(model_variant: str = "parity", num_input_channels: int = 1,
+                num_output_channels: int = 3,
+                dtype: str = "float32") -> nn.Module:
+    """The built-in model of a family at its full widths: ``parity`` the
+    reference-class UNet3D, ``rsunet`` the production RSUNet mirror,
+    ``tpu`` / ``tpu_mxu`` the (1, 2, 2) space-to-depth flagship (one
+    module: they differ only in the JAX package's XLA lowering) and
+    ``tpu_s2d4`` its (1, 4, 4) stem."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, got {dtype!r}")
+    kwargs = dict(in_channels=num_input_channels,
+                  out_channels=num_output_channels,
+                  dtype=COMPUTE_DTYPES[dtype])
+    if model_variant in ("tpu", "tpu_mxu", "tpu_s2d4"):
+        return create_tpu_optimized_model(
+            s2d_factor=(1, 4, 4) if model_variant == "tpu_s2d4"
+            else (1, 2, 2), **kwargs)
+    if model_variant == "rsunet":
+        return RSUNet(**kwargs)
+    if model_variant == "parity":
+        return UNet3D(**kwargs)
+    raise ValueError(f"unknown model_variant {model_variant!r}; one of "
+                     f"{MODEL_VARIANTS}")
+
+
+def create_convnet_engine(
+    model_path: str,
     weight_path: Optional[str],
     num_input_channels: int = 1,
     num_output_channels: int = 3,
-    seed: int = 0,
+    dtype: str = "float32",
+    model_variant: str = "parity",
 ) -> Engine:
-    """The parity UNet3D; weights from a ``.pt``/``.pth`` state dict (a
-    ``{"state_dict": ...}`` wrapper and DataParallel ``module.`` prefixes
-    are accepted), or a seeded init when ``weight_path`` is None."""
-    model = UNet3D(in_channels=num_input_channels,
-                   out_channels=num_output_channels)
-    if weight_path:
-        if not weight_path.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{weight_path}: the port loads .pt/.pth state dicts; flax "
-                "msgpack/orbax checkpoints are not ported yet (ROADMAP, "
-                "queue 1: convnet engines)"
-            )
-        if not os.path.exists(weight_path):
-            raise FileNotFoundError(f"weights not found: {weight_path}")
-        state = torch.load(weight_path, map_location="cpu", weights_only=True)
-        if "state_dict" in state:
-            state = state["state_dict"]
-        model.load_state_dict(
-            {k.removeprefix("module."): v for k, v in state.items()}
-        )
+    """The convnet engine (``create_flax_engine``).
+
+    ``model_path`` may be empty (the built-in model of ``model_variant``,
+    see :func:`build_model`), a python file exposing
+    ``create_model(num_input_channels, num_output_channels)`` that
+    returns an ``nn.Module``, or a reference-chunkflow pytorch
+    ``model.py`` (``InstantiatedModel`` / ``load_model``) whose weights
+    load by name into the built-in mirror (``models/migrate.py``).
+    ``weight_path`` may be a ``.pt`` state dict or a flax ``.msgpack``
+    file (``models/convert.py:init_or_load_weights``); without one the
+    weights are a seeded init. ``dtype`` is the built-in models' compute
+    dtype; a ``create_model`` module computes in what it chooses, as in
+    the JAX package. The engine returns float32.
+    """
+    module = migrate.load_user_module(model_path) if model_path else None
+    if module is not None and hasattr(module, "create_model"):
+        model = module.create_model(num_input_channels, num_output_channels)
     else:
-        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model = build_model(model_variant, num_input_channels,
+                            num_output_channels, dtype)
+    if module is not None and not hasattr(module, "create_model"):
+        migrate.load_reference_model(module, weight_path, model)
+    else:
+        init_or_load_weights(model, weight_path)
     model.eval()
 
     def apply(batch):
-        return model(batch)
+        return model(batch).float()
 
     return Engine(apply=apply, num_input_channels=num_input_channels,
                   num_output_channels=num_output_channels, model=model)
+
+
+def create_universal_engine(
+    model_path: str,
+    weight_path: Optional[str],
+    input_patch_size,
+    output_patch_size,
+    num_input_channels: int = 1,
+    num_output_channels: int = 3,
+) -> Engine:
+    """A user engine file exposing ``create_engine(weight_path,
+    input_patch_size, output_patch_size, num_input_channels,
+    num_output_channels) -> (params, apply)``, with ``apply(params,
+    batch)`` on tensors. When ``params`` is an ``nn.Module`` it is the
+    engine's ``model``, which the inferencer moves to its device."""
+    module = migrate.load_user_module(model_path,
+                                      "chunkflow_universal_engine")
+    params, user_apply = module.create_engine(
+        weight_path,
+        tuple(input_patch_size),
+        tuple(output_patch_size),
+        num_input_channels,
+        num_output_channels,
+    )
+
+    def apply(batch):
+        return user_apply(params, batch)
+
+    return Engine(apply=apply, num_input_channels=num_input_channels,
+                  num_output_channels=num_output_channels,
+                  model=params if isinstance(params, nn.Module) else None)
 
 
 def create_engine(framework: str, **kwargs) -> Engine:
@@ -102,20 +169,21 @@ def create_engine(framework: str, **kwargs) -> Engine:
             num_input_channels=kwargs.get("num_input_channels", 1),
         )
     if framework in ("pytorch", "flax", "jax"):
-        if kwargs.get("model_path"):
-            raise NotImplementedError(
-                "user model files (model_path) are not ported yet; the "
-                "port runs the built-in parity UNet3D (ROADMAP, queue 1: "
-                "convnet engines)"
-            )
-        return create_unet3d_engine(
+        return create_convnet_engine(
+            kwargs.get("model_path", ""),
             kwargs.get("weight_path"),
             num_input_channels=kwargs.get("num_input_channels", 1),
             num_output_channels=kwargs.get("num_output_channels", 3),
+            dtype=kwargs.get("dtype", "float32"),
+            model_variant=kwargs.get("model_variant", "parity"),
         )
     if framework == "universal":
-        raise NotImplementedError(
-            "the universal engine is not ported yet (ROADMAP, queue 1: "
-            "convnet engines)"
+        return create_universal_engine(
+            kwargs["model_path"],
+            kwargs.get("weight_path"),
+            kwargs["input_patch_size"],
+            kwargs["output_patch_size"],
+            num_input_channels=kwargs.get("num_input_channels", 1),
+            num_output_channels=kwargs.get("num_output_channels", 3),
         )
     raise ValueError(f"unknown inference framework: {framework!r}")

@@ -133,11 +133,6 @@ class Inferencer:
         if precision is not None:
             _not_ported("the precision ladder (precision=)",
                         "precision ladder")
-        if dtype != "float32":
-            _not_ported(f"dtype={dtype!r} compute", "precision ladder")
-        if model_variant != "parity":
-            _not_ported(f"model_variant={model_variant!r}",
-                        "convnet engines")
         self.shape_bucket = (
             Cartesian.from_collection(shape_bucket)
             if shape_bucket is not None and any(shape_bucket)
@@ -167,6 +162,8 @@ class Inferencer:
             num_input_channels=num_input_channels,
             model_path=model_path,
             weight_path=weight_path,
+            dtype=dtype,
+            model_variant=model_variant,
         )
         if self.engine.model is not None:
             self.engine.model.to(self.device)

@@ -130,3 +130,29 @@ def test_identity_inferencer_card_equals_cpu(cuda, dtype):
     assert on_card.is_on_device
     assert gather.launches > 0 and accumulate.launches > 0
     assert np.array_equal(on_card.host().array, on_cpu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["parity", "rsunet", "tpu", "tpu_s2d4"])
+def test_convnet_kernel_path_is_the_plain_path(cuda, monkeypatch, variant,
+                                               dtype):
+    """Every family at full width, seeded weights, in both compute
+    dtypes: the kernels give bitwise what their plain versions give
+    around the same deterministic cuDNN forward."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    chunk = Chunk.create(size=(6, 48, 48), dtype=np.uint8, pattern="random")
+    inferencer = Inferencer(input_patch_size=(4, 32, 32),
+                            output_patch_overlap=(2, 16, 16),
+                            num_output_channels=3, framework="pytorch",
+                            model_variant=variant, dtype=dtype, batch_size=2)
+    gather.launches = accumulate.launches = 0
+    got = inferencer(chunk).host().array
+    assert gather.launches > 0 and accumulate.launches > 0
+    monkeypatch.setattr(gather, "gather_patches", gather.gather_patches_plain)
+    monkeypatch.setattr(accumulate, "fused_accumulate_patches",
+                        accumulate.fused_accumulate_patches_plain)
+    ref = inferencer(chunk).host().array
+    assert np.isfinite(got).all() and 0 <= got.min() and got.max() <= 1
+    assert np.array_equal(got, ref)

@@ -23,7 +23,7 @@ from chunkflow_tpu_torch import Chunk
 from chunkflow_tpu_torch.flow import cli
 from chunkflow_tpu_torch.inference import engines
 from chunkflow_tpu_torch.inference.inferencer import Inferencer
-from chunkflow_tpu_torch.models.convert import unet3d_state_from_flax
+from chunkflow_tpu_torch.models.convert import state_from_flax
 from chunkflow_tpu_torch.models.unet3d import UNet3D
 from chunkflow_tpu_torch.ops import accumulate, gather
 
@@ -166,7 +166,7 @@ def _unet_engines(cout=3, seed=0):
                                     num_output_channels=cout)
     model = UNet3D(in_channels=1, out_channels=cout, feature_maps=FEATS,
                    down_factors=DOWNS).eval()
-    model.load_state_dict(unet3d_state_from_flax(
+    model.load_state_dict(state_from_flax(
         jax.tree_util.tree_map(np.asarray, params)))
     port_engine = engines.Engine(apply=model, num_input_channels=1,
                                  num_output_channels=cout, model=model)
@@ -217,8 +217,8 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     ({"mesh": "data=2"}, "multi-GPU"),
     ({"sharding": "patch"}, "multi-GPU"),
     ({"precision": "bf16"}, "precision"),
-    ({"dtype": "bfloat16"}, "precision"),
-    ({"model_variant": "rsunet"}, "convnet engines"),
+    ({"precision": "int8"}, "precision"),
+    ({"mesh": "y=2"}, "multi-GPU"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -22,7 +22,8 @@ from chunkflow_tpu_torch.ops import accumulate, gather
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "chunkflow_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chunkflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "chunkflow_tpu")
 
 
 def _forbidden(module: str) -> bool:

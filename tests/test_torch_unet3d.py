@@ -1,7 +1,7 @@
 """The port's UNet3D and converter against the flax UNet3D, on the CPU.
 
 One set of flax-layout params, drawn with numpy from a seed, runs in
-both packages through ``unet3d_state_from_flax``. The forward is
+both packages through ``state_from_flax``. The forward is
 not bitwise (XLA and oneDNN sum convolutions in other orders); the gate
 is max-abs <= 1e-5 in float32 (3.9e-7 was measured on this fixture).
 """
@@ -14,8 +14,8 @@ import jax.numpy as jnp
 
 from chunkflow_tpu.models import unet3d as flax_unet3d
 from chunkflow_tpu_torch.inference import engines
-from chunkflow_tpu_torch.models.convert import unet3d_state_from_flax
-from chunkflow_tpu_torch.models.unet3d import UNet3D
+from chunkflow_tpu_torch.models.convert import state_from_flax
+from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
 
 FEATS = (4, 6, 8)
 DOWNS = ((1, 2, 2), (2, 2, 2))
@@ -53,7 +53,7 @@ def test_unet3d_matches_flax(cin, cout, seed):
     fnet, params = _params(seed, cin, cout)
     tnet = UNet3D(in_channels=cin, out_channels=cout, feature_maps=FEATS,
                   down_factors=DOWNS).eval()
-    tnet.load_state_dict(unet3d_state_from_flax(_numpy_tree(params)))
+    tnet.load_state_dict(state_from_flax(_numpy_tree(params)))
     x = np.random.default_rng(seed).random((2, cin, 4, 16, 16)).astype(
         np.float32)
     ref = np.moveaxis(np.asarray(fnet.apply(
@@ -69,7 +69,7 @@ def test_parity_widths_state_dict_converts_strictly():
     the same shape, under the flax module names, and nothing is left."""
     _, params = _params(feats=(28, 36, 48, 64),
                         downs=((1, 2, 2), (2, 2, 2), (2, 2, 2)))
-    state = unet3d_state_from_flax(_numpy_tree(params))
+    state = state_from_flax(_numpy_tree(params))
     tnet = UNet3D()
     assert set(state) == set(tnet.state_dict())
     tnet.load_state_dict(state)  # strict
@@ -82,7 +82,7 @@ def test_transposed_conv_kernel_is_flipped():
     """flax's ConvTranspose places its kernel unflipped; torch's flips it,
     so the converter flips the spatial axes (and only for up{i})."""
     k = np.arange(2 * 2 * 2 * 3 * 5, dtype=np.float32).reshape(2, 2, 2, 3, 5)
-    state = unet3d_state_from_flax({"up0": {"kernel": k, "bias": np.zeros(5)},
+    state = state_from_flax({"up0": {"kernel": k, "bias": np.zeros(5)},
                                     "conv_in": {"kernel": k,
                                                 "bias": np.zeros(5)}})
     assert np.array_equal(state["up0.weight"].numpy(),
@@ -92,12 +92,9 @@ def test_transposed_conv_kernel_is_flipped():
 
 
 def test_seeded_init_is_deterministic_and_device_free():
-    a = UNet3D(feature_maps=FEATS, down_factors=DOWNS).reset_parameters(
-        torch.Generator().manual_seed(3))
-    b = UNet3D(feature_maps=FEATS, down_factors=DOWNS).reset_parameters(
-        torch.Generator().manual_seed(3))
-    c = UNet3D(feature_maps=FEATS, down_factors=DOWNS).reset_parameters(
-        torch.Generator().manual_seed(4))
+    a, b, c = (seeded_init(UNet3D(feature_maps=FEATS, down_factors=DOWNS),
+                           torch.Generator().manual_seed(seed))
+               for seed in (3, 3, 4))
     for (ka, va), vb, vc in zip(a.state_dict().items(),
                                 b.state_dict().values(),
                                 c.state_dict().values()):
@@ -110,7 +107,7 @@ def test_seeded_init_is_deterministic_and_device_free():
 def test_engine_loads_pt_weights(tmp_path):
     """The pytorch/flax/jax frameworks load a reference-style .pt state
     dict (DataParallel prefixes and a state_dict wrapper accepted)."""
-    seeded = UNet3D().reset_parameters(torch.Generator().manual_seed(9))
+    seeded = seeded_init(UNet3D(), torch.Generator().manual_seed(9))
     path = tmp_path / "w.pt"
     torch.save({"state_dict": {f"module.{k}": v
                                for k, v in seeded.state_dict().items()}},
@@ -125,13 +122,9 @@ def test_engine_loads_pt_weights(tmp_path):
     assert torch.equal(fresh.model.conv_out.weight, again.model.conv_out.weight)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    ({"framework": "universal", "model_path": "m.py"}, "universal"),
-    ({"framework": "pytorch", "model_path": "m.py"}, "model_path"),
-    ({"framework": "flax", "weight_path": "w.msgpack"}, "msgpack"),
-])
-def test_engine_unported_options_raise(kwargs, match):
-    framework = kwargs.pop("framework")
-    with pytest.raises(NotImplementedError, match=match):
-        engines.create_engine(framework, input_patch_size=(4, 16, 16),
-                              output_patch_size=(4, 16, 16), **kwargs)
+@pytest.mark.parametrize("framework", ["pytorch", "flax", "jax"])
+def test_engine_unported_options_raise(framework, tmp_path):
+    """An orbax checkpoint directory (a flax weight format the port does
+    not read) raises, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
+        engines.create_engine(framework, weight_path=str(tmp_path))
