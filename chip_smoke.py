@@ -40,6 +40,21 @@ non-zero exit and no result line:
              and on four 8x64x64 crops of the chunk and on the chunk
              within 0.005 mean-abs, wall time, Mvox/s, peak memory,
              forward device time per batch and TFLOP/s
+8. stream    six distinct seeded 64x512x512 uint8 chunks through
+             ``Inferencer.stream`` (adaptive and static) and the CLI's
+             ``inference --async-depth 3`` stage, for ``tpu_s2d4`` in
+             bfloat16 and the parity UNet3D in float32: bitwise the serial
+             loop, 18 + 18 launches per chunk, the dispatch path (``stage``
+             + ``infer_async``) clean under ``torch.cuda``'s sync debug
+             mode "error", and at least one download overlapping the next
+             chunk's kernels in the device trace; serial and streamed
+             s/chunk, Mvox/s, copy overlap and compute idle shares, peak
+             memory
+9. fold      ``blend="fold"``: the identity engine on the card bitwise the
+             CPU port on the 64x512x512 chunk (no kernel launched); the
+             parity UNet3D in float32, wall time, Mvox/s and peak memory;
+             fold within 1e-5 of scatter on a uniform 68x640x640 chunk,
+             where their patch grids coincide
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -91,6 +106,16 @@ BF16_MAX, BF16_MEAN = 0.02, 0.005
 # JAX package's own gap on the same crops with the same weights
 BF16_CROPS = ((0, 0, 0), (0, 192, 192), (16, 64, 320), (40, 384, 96))
 CROP = (8, 64, 64)
+# phase 8: distinct seeded chunks streamed per family; the family whose
+# host-side share is the largest, and the parity UNet3D
+STREAM_K = 6
+STREAM_FAMILIES = (("tpu_s2d4", "bfloat16"), ("parity", "float32"))
+# phase 9: a chunk on which the fold and scatter patch grids coincide
+UNIFORM = (68, 640, 640)
+# profiler sessions taken before a trace counts as lost; the busy-wait
+# (GPU clock cycles, ~1 ms on an H100) ahead of a CUDA-event timing
+TRACE_TRIES = 4
+LEAD_CYCLES = 2_000_000
 
 
 class SmokeFailure(Exception):
@@ -124,38 +149,73 @@ class Timer:
             self.flush.zero_()
             torch.cuda.synchronize()
 
-    def _trace(self, fn, reps):
+    def _trace(self, fn, reps, complete):
+        """The device events of ``reps`` calls of ``fn``, or None when no
+        session's trace was ``complete``: the profiler can drop a
+        session's device events (one session traced 0 of 15 launches, one
+        3 of 30), so an incomplete trace is discarded and taken again."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         self.torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.zero_()
-                fn()
-            self.torch.cuda.synchronize()
-        # the flush is a fill kernel (or a memset); nothing timed here
-        # fills
-        return [e for e in prof.events()
-                if e.device_type == DeviceType.CUDA
-                and "FillFunctor" not in e.name and "Memset" not in e.name]
+        for _ in range(TRACE_TRIES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+                self.torch.cuda.synchronize()
+            # the flush is a fill kernel (or a memset); nothing timed here
+            # fills
+            events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "FillFunctor" not in e.name
+                      and "Memset" not in e.name]
+            if complete(events):
+                return events
+            time.sleep(1)
+        return None
+
+    def _event_ms(self, fn, reps):
+        """Median device time of one call of ``fn`` between two CUDA
+        events, L2 flushed. A busy-wait kernel ahead of the first event
+        keeps the card busy while the host queues the call, so the host's
+        launch time is not counted."""
+        torch = self.torch
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
 
     def kernel_ms(self, fn, kernel: str, reps: int = 15) -> float:
         """Median device time of one launch of the kernel named
-        ``kernel``."""
-        durations = [e.time_range.elapsed_us() / 1e3
-                     for e in self._trace(fn, reps) if kernel in e.name]
-        require(len(durations) == reps,
-                f"the profiler traced {len(durations)} launches of "
-                f"{kernel} in {reps} calls")
-        return statistics.median(durations)
+        ``kernel``; ``fn`` launches that kernel and nothing else."""
+        events = self._trace(fn, reps, lambda ev: sum(
+            kernel in e.name for e in ev) == reps)
+        if events is None:
+            return self._fallback(fn, reps, f"{reps} launches of {kernel}")
+        return statistics.median(e.time_range.elapsed_us() / 1e3
+                                 for e in events if kernel in e.name)
 
     def call_ms(self, fn, reps: int = 5) -> float:
         """Device time of all the kernels one call of ``fn`` runs."""
-        events = self._trace(fn, reps)
-        require(bool(events), "the profiler traced no device time")
+        events = self._trace(fn, reps, bool)
+        if events is None:
+            return self._fallback(fn, reps, "any device time")
         return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+
+    def _fallback(self, fn, reps, wanted):
+        phase("timer", f"the profiler did not trace {wanted} in "
+                       f"{TRACE_TRIES} sessions: timed with CUDA events")
+        return self._event_ms(fn, reps)
 
 
 def conv_flops(model, x) -> int:
@@ -706,6 +766,192 @@ def main() -> int:
                 f"{variant}: bfloat16 vs float32 {gap} beyond the gates "
                 f"(max {BF16_MAX}, mean {BF16_MEAN})")
 
+    # ---- 8. the streamed worker loop ------------------------------------
+    from chunkflow_tpu_torch.flow.runtime import new_task, process_stream
+
+    stream_rng = np.random.default_rng(8)
+    stream_chunks = [
+        Chunk(stream_rng.integers(0, 256, CHUNK, dtype=np.uint8),
+              voxel_offset=(CHUNK[0] * i, 0, 0))
+        for i in range(STREAM_K)]
+    def consume(results):
+        """A worker's loop: take each result on the host and drop it."""
+        for _ in results:
+            pass
+
+    def per_chunk_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / STREAM_K
+
+    for variant, dtype in STREAM_FAMILIES:
+        label = f"{variant} {dtype}"
+        kwargs = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                      num_output_channels=CHANNELS, batch_size=BATCH)
+        inf = Inferencer(framework="pytorch", model_variant=variant,
+                         dtype=dtype, **kwargs)
+        inf(stream_chunks[0]).host()  # warm-up
+        # correctness: every route against the serial loop, bitwise
+        serial = [inf(c).host().array for c in stream_chunks]
+        streamed = list(inf.stream(iter(stream_chunks)))
+        static = list(inf.stream(iter(stream_chunks), adaptive=False))
+        # the CLI's inference stage (--async-depth 3), fed the same chunks
+        _, cli_stages = cli.build_stages([
+            "inference", "--framework", "pytorch", "--model-variant",
+            variant, "--dtype", dtype,
+            "--input-patch-size", *map(str, PIN),
+            "--output-patch-overlap", *map(str, OVERLAP),
+            "--num-output-channels", str(CHANNELS),
+            "--batch-size", str(BATCH), "--async-depth", "3"])
+        via_cli = []
+
+        def source(seed_stream):
+            for _seed in seed_stream:
+                for c in stream_chunks:
+                    task = new_task()
+                    task["chunk"] = c
+                    yield task
+
+        def sink(task_stream):
+            for task in task_stream:
+                via_cli.append(task["chunk"].array)
+                yield task
+
+        require(process_stream([source, *cli_stages, sink]) == STREAM_K,
+                f"stream {label}: the CLI stage lost tasks")
+        for route, outs in (("adaptive", [o.array for o in streamed]),
+                            ("static", [o.array for o in static]),
+                            ("cli", via_cli)):
+            require(len(outs) == STREAM_K and all(
+                np.array_equal(a, b) for a, b in zip(outs, serial)),
+                f"stream {label}: the {route} route differs from the serial "
+                f"loop")
+        del streamed, static, via_cli
+        # the dispatch path never waits for the card
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [inf.infer_async(inf.stage(c), consume=True)
+                    for c in stream_chunks[:3]]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(all(np.array_equal(o.host().array, s)
+                    for o, s in zip(outs, serial)),
+                f"stream {label}: the checked dispatch differs")
+        del outs, serial
+        # host time to stage and to dispatch one chunk, each chunk started
+        # on an idle card, and the device time left after the dispatch
+        stage_ms, dispatch_ms, rest_ms = [], [], []
+        for c in stream_chunks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = inf.stage(c)
+            t1 = time.perf_counter()
+            out = inf.infer_async(staged, consume=True)
+            t2 = time.perf_counter()
+            out.host()
+            stage_ms.append((t1 - t0) * 1e3)
+            dispatch_ms.append((t2 - t1) * 1e3)
+            rest_ms.append((time.perf_counter() - t2) * 1e3)
+            del staged, out
+        # timed: a worker's loops, results dropped as they come; the
+        # adaptive stream is the counted main path
+        serial_s = per_chunk_s(
+            lambda: consume(inf(c).host() for c in stream_chunks))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stream_s = per_chunk_s(lambda: consume(inf.stream(
+            iter(stream_chunks))))
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated()
+        for kname, n in launched.items():
+            require(n == 18 * STREAM_K,
+                    f"stream {label}: {kname} launched {n} times, not "
+                    f"{18 * STREAM_K} (18 per chunk)")
+        static_s = per_chunk_s(lambda: consume(inf.stream(
+            iter(stream_chunks), adaptive=False)))
+        # overlap and idle shares from the device trace
+        s_trace = _device_trace(torch, lambda: consume(
+            inf(c).host() for c in stream_chunks))
+        # the chunks twice: twice the chunk-to-chunk hand-overs in which a
+        # download can meet the next chunk's kernels
+        t_trace = _device_trace(torch, lambda: consume(inf.stream(
+            iter(stream_chunks * 2))), downloads=2 * STREAM_K)
+        busy_ms = sum(b - a for a, b in _union(
+            [(s, e) for n, s, e in s_trace if not n.startswith("Memcpy")]
+        )) / STREAM_K / 1e3
+        s_idle = _idle_share(s_trace)
+        t_idle = _idle_share(t_trace)
+        share, d2h_overlapping, n_d2h = _copy_overlap(t_trace)
+        require(d2h_overlapping >= 1,
+                f"stream {label}: no download overlaps the next chunk's "
+                f"kernels ({n_d2h} downloads traced)")
+        phase("stream", f"{label}: {STREAM_K} chunks, launches {launched} "
+                        f"(18 + 18 per chunk), adaptive, static and CLI "
+                        f"routes == serial bitwise, dispatch clean under "
+                        f"sync debug mode 'error'")
+        phase("stream", f"{label}: per chunk, host: stage "
+                        f"{statistics.median(stage_ms):.1f} ms, dispatch "
+                        f"{statistics.median(dispatch_ms):.1f} ms, then "
+                        f"{statistics.median(rest_ms):.1f} ms to the result "
+                        f"on the host; device busy {busy_ms:.1f} ms (kernels "
+                        f"in the serial trace)")
+        phase("stream", f"{label}: serial loop (with .host()) "
+                        f"{serial_s:.4f} s/chunk, {vox / serial_s / 1e6:.3f} "
+                        f"Mvox/s; streamed adaptive {stream_s:.4f} s/chunk, "
+                        f"{vox / stream_s / 1e6:.3f} Mvox/s; static "
+                        f"{static_s:.4f} s/chunk, {vox / static_s / 1e6:.3f} "
+                        f"Mvox/s; peak memory {peak / 2**30:.2f} GiB")
+        phase("stream", f"{label}: device trace: {share:.1%} of upload and "
+                        f"download time overlaps kernels, {d2h_overlapping} "
+                        f"of {n_d2h} downloads overlap the next chunk's "
+                        f"kernels; compute idle share streamed {t_idle:.1%}, "
+                        f"serial {s_idle:.1%}")
+        del inf
+
+    # ---- 9. fold -------------------------------------------------------------
+    fold_kw = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                   num_output_channels=CHANNELS, batch_size=BATCH,
+                   blend="fold")
+    reset_counts()
+    on_card = Inferencer(framework="identity", **fold_kw)(chunk_u8)
+    require(sum(counts().values()) == 0, "fold launched a kernel")
+    on_cpu = Inferencer(framework="identity", device="cpu", **fold_kw)(
+        chunk_u8).host().array
+    require(np.array_equal(on_card.host().array, on_cpu),
+            "fold identity: the card differs from the CPU port")
+    del on_card, on_cpu
+    fold_unet = Inferencer(framework="pytorch", model_variant="parity",
+                           **fold_kw)
+    fold_unet(chunk_u8)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    fold_res = fold_unet(chunk_u8)
+    fold_s = time.perf_counter() - t
+    fold_out = fold_res.host().array
+    fold_peak = torch.cuda.max_memory_allocated()
+    require(fold_out.shape == (CHANNELS,) + CHUNK
+            and np.isfinite(fold_out).all(), "fold unet3d: bad output")
+    uniform = Chunk(np.random.default_rng(9).integers(
+        0, 256, UNIFORM, dtype=np.uint8))
+    scatter_unet = Inferencer(framework="pytorch", model_variant="parity",
+                              **dict(fold_kw, blend="scatter"))
+    a = fold_unet(uniform).host().array
+    b = scatter_unet(uniform).host().array
+    fold_gap = float(np.abs(a - b).max())
+    require(fold_gap <= 1e-5, f"fold vs scatter on {UNIFORM}: max abs "
+                              f"{fold_gap} > 1e-5")
+    phase("fold", f"identity on {CHUNK}: card == CPU port bitwise, no "
+                  f"kernel launched; parity float32 on {CHUNK} (padded to "
+                  f"{fold_unet._fold_geometry(CHUNK)[0]}): {fold_s:.4f} s "
+                  f"to the device result, {vox / fold_s / 1e6:.3f} Mvox/s, "
+                  f"peak "
+                  f"memory {fold_peak / 2**30:.2f} GiB; fold vs scatter on "
+                  f"the uniform {UNIFORM}: max abs {fold_gap:.3g} <= 1e-5")
+    del fold_unet, scatter_unet, a, b, fold_res, fold_out
+
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
@@ -718,6 +964,66 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _device_trace(torch, fn, downloads=0):
+    """The device events (kernels, memsets, copies) of one call of ``fn``,
+    as ``(name, start_us, end_us)``. A trace with no kernel or fewer than
+    ``downloads`` device-to-host copies was dropped by the profiler (see
+    ``Timer._trace``): ``fn`` runs again in a new session."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if (any(not n.startswith("Memcpy") for n, _, _ in events)
+                and sum("DtoH" in n for n, _, _ in events) >= downloads):
+            return events
+        time.sleep(1)
+    raise SmokeFailure(f"the profiler traced no kernels or fewer than "
+                       f"{downloads} downloads in {TRACE_TRIES} sessions")
+
+
+def _union(intervals):
+    merged = []
+    for start, end in sorted(intervals):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return merged
+
+
+def _overlap(start, end, union):
+    return sum(max(0.0, min(end, b) - max(start, a)) for a, b in union)
+
+
+def _idle_share(events):
+    """The share of the traced window (first device event to last) in
+    which no kernel ran: the compute stream's idle share (copies run on
+    their own streams)."""
+    busy = _union([(s, e) for n, s, e in events if not n.startswith("Memcpy")])
+    window = (max(e for _, _, e in events) - min(s for _, s, _ in events))
+    return 1.0 - sum(b - a for a, b in busy) / window
+
+
+def _copy_overlap(events):
+    """(share of upload + download time overlapping kernels, downloads
+    that overlap a kernel, downloads). A download starts after its chunk's
+    compute-done event, so a kernel beside it belongs to a later chunk."""
+    busy = _union([(s, e) for n, s, e in events if not n.startswith("Memcpy")])
+    copies = [(n, s, e) for n, s, e in events
+              if n.startswith("Memcpy") and ("HtoD" in n or "DtoH" in n)]
+    total = sum(e - s for _, s, e in copies)
+    overlapped = sum(_overlap(s, e, busy) for _, s, e in copies)
+    d2h = [(s, e) for n, s, e in copies if "DtoH" in n]
+    return (overlapped / total if total else 0.0,
+            sum(_overlap(s, e, busy) > 0 for s, e in d2h), len(d2h))
 
 
 def _raw(rng, dtype, shape):

@@ -162,23 +162,96 @@ class Chunk:
         )
 
     # ---- device movement -------------------------------------------------
-    def device(self, device="cuda") -> "Chunk":
+    # Asynchronous copies. A chunk staged to a CUDA device by device()
+    # holds its pinned host source and the event that marks the copy
+    # done (_upload); a device chunk whose download copy_to_host_async()
+    # started holds the pinned destination, the event that marks its
+    # compute done and the event that marks the copy done (_download).
+    # _all_zero is a flag computed on the host at staging time, so the
+    # blank-input check never reads the device.
+    _upload = None
+    _download = None
+    _all_zero = None
+
+    def device(self, device="cuda", stream=None) -> "Chunk":
         """Move the payload to ``device`` in its RAW dtype (a uint8 chunk
         rides host-to-device at 1/4 the bytes of float32; the inference
-        front converts on the device)."""
+        front converts on the device).
+
+        From the host to a CUDA device the copy is asynchronous: the
+        payload is copied into page-locked memory, then to the device on
+        ``stream`` (default: the current stream), and the result holds
+        the pinned source and the copy's event. Work on another stream
+        calls :meth:`await_upload` before it reads the payload."""
         arr = self.array
         if isinstance(arr, np.ndarray):
             arr = _as_tensor(arr)
-        return self._with_array(arr.to(device))
+        device = torch.device(device)
+        if device.type != "cuda" or arr.device.type != "cpu":
+            return self._with_array(arr.to(device))
+        pinned = arr.pin_memory()
+        stream = stream or torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
+            # allocated on the copy stream: await_upload() records every
+            # other stream that reads it, so the allocator never hands
+            # the memory on while they still do
+            payload = torch.empty(pinned.shape, dtype=pinned.dtype,
+                                  device=device)
+            payload.copy_(pinned, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        out = self._with_array(payload)
+        out._upload = (pinned, copied)
+        return out
+
+    def await_upload(self) -> None:
+        """Make the current CUDA stream wait for this chunk's asynchronous
+        upload (a no-op for any other chunk)."""
+        if self._upload is None:
+            return
+        stream = torch.cuda.current_stream(self.array.device)
+        stream.wait_event(self._upload[1])
+        self.array.record_stream(stream)
+
+    def copy_to_host_async(self, stream) -> "Chunk":
+        """Start the device payload's download without blocking: on the
+        current stream the payload is made contiguous and a compute-done
+        event recorded; ``stream`` waits on that event and copies into
+        page-locked host memory. :meth:`host` then waits on the copy's
+        event only (and may run in any thread)."""
+        arr = self.array.contiguous()
+        computed = torch.cuda.Event(blocking=True)
+        computed.record(torch.cuda.current_stream(arr.device))
+        stream.wait_event(computed)
+        with torch.cuda.stream(stream):
+            host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+            host.copy_(arr, non_blocking=True)
+            copied = torch.cuda.Event(blocking=True)
+            copied.record(stream)
+        # the download stream reads memory the current stream allocated
+        arr.record_stream(stream)
+        out = self._with_array(arr)
+        out._download = (host, computed, copied)
+        return out
+
+    def wait_computed(self) -> None:
+        """Block until the device work that produced a downloading payload
+        has finished (a no-op for any other chunk)."""
+        if self._download is not None:
+            self._download[1].synchronize()
 
     def host(self) -> "Chunk":
         """The payload on the host: a numpy array, or a CPU tensor for
-        dtypes numpy lacks (bfloat16)."""
+        dtypes numpy lacks (bfloat16). A chunk whose download was started
+        waits for that copy and wraps its pinned buffer."""
         arr = self.array
-        if isinstance(arr, torch.Tensor):
+        if self._download is not None:
+            arr, _, copied = self._download
+            copied.synchronize()
+        elif isinstance(arr, torch.Tensor):
             arr = arr.cpu()
-            if numpy_dtype(arr.dtype) is not None:
-                arr = arr.numpy()
+        if isinstance(arr, torch.Tensor) and numpy_dtype(arr.dtype) is not None:
+            arr = arr.numpy()
         return self._with_array(arr)
 
     @property
@@ -234,6 +307,8 @@ class Chunk:
 
     # ---- analytics -------------------------------------------------------
     def all_zero(self) -> bool:
+        if self._all_zero is not None:
+            return self._all_zero
         if isinstance(self.array, torch.Tensor):
             # reduce where the payload lives: only the flag crosses to
             # the host

@@ -2,15 +2,20 @@
 
 A subset of the JAX package's ``chunkflow`` CLI (``chunkflow_tpu/flow/
 cli.py``) with the same command and option names for what is ported:
-``create-chunk``, ``load-npy``, ``save-npy`` and ``inference``. Commands
-chain: each one maps the task dict (chunks by name) to the next.
-Built on ``argparse``.
+``generate-tasks``, ``create-bbox``, ``create-chunk``, ``load-npy``,
+``save-npy``, ``prefetch`` and ``inference``. Each command builds a stage
+over the task stream (``flow/runtime.py``); the chain runs from one seed
+task, which ``generate-tasks`` fans into a task grid. Built on
+``argparse``.
 
-Example::
+Example (four tasks, the inference of one overlapping the upload of the
+next and the download of the last)::
 
-    python -m chunkflow_tpu_torch create-chunk --size 64 512 512 \\
+    python -m chunkflow_tpu_torch generate-tasks -c 64 512 512 -g 1 1 4 \\
+        create-chunk --size 64 512 512 \\
         inference --framework identity --input-patch-size 20 256 256 \\
             --output-patch-overlap 4 64 64 --num-output-channels 3 \\
+            --async-depth 2 \\
         save-npy --file-name out.npy
 
 Inference runs on the card; ``--device cpu`` (before the first command)
@@ -19,17 +24,26 @@ runs the kernels' plain PyTorch versions on the CPU instead.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from chunkflow_tpu_torch.chunk.base import Chunk
+from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core.bbox import BoundingBox, BoundingBoxes
+from chunkflow_tpu_torch.flow.runtime import (
+    DEFAULT_CHUNK_NAME,
+    generator,
+    new_task,
+    operator,
+    prefetch_stage,
+    process_stream,
+    write_operator,
+)
 
-DEFAULT_CHUNK_NAME = "chunk"
-
-Stage = Callable[[dict], dict]
+Stage = Callable  # iterator of tasks -> iterator of tasks
 
 
 def _triple(parser, *names, default=None, required=False, help=""):
@@ -42,8 +56,134 @@ def _name(parser, default):
                         help="operator name key in the task log timer")
 
 
+class UsageError(Exception):
+    """A command line that cannot run. An Exception, so a streaming stage
+    flushes the tasks it already dispatched before it propagates (as
+    click's ``UsageError`` does in the JAX CLI); :func:`main` turns it
+    into an exit with the message."""
+
+
+def _not_ported(option: str):
+    raise NotImplementedError(f"{option} is not ported yet (ROADMAP, queue "
+                              f"1: volume IO and task queues)")
+
+
 # ---------------------------------------------------------------------------
-# commands: each adds its options and builds its stage
+# task sources
+# ---------------------------------------------------------------------------
+def _generate_tasks_options(p):
+    p.add_argument("--volume-path", "-v", default=None,
+                   help="roi bounds from a volume's metadata (not ported)")
+    p.add_argument("--mip", "-m", type=int, default=None)
+    _triple(p, "--chunk-size", "-c", required=True, help="task chunk size")
+    _triple(p, "--overlap", default=(0, 0, 0), help="chunk overlap")
+    _triple(p, "--roi-start", "-s", default=None)
+    _triple(p, "--roi-stop", "-r", default=None)
+    _triple(p, "--roi-size", "-z", default=None,
+            help="alternative to --roi-stop: start + size")
+    p.add_argument("--bounding-box", "-b", default=None,
+                   help="roi as a canonical zs-ze_ys-ye_xs-xe string")
+    _triple(p, "--grid-size", "-g", default=None)
+    _triple(p, "--aligned-block-size", "-a", default=None,
+            help="snap the roi to storage block multiples")
+    p.add_argument("--bounded", action=argparse.BooleanOptionalAction,
+                   default=False, help="shift trailing chunks back inside "
+                                       "the roi instead of spilling past it")
+    p.add_argument("--task-file", "--file-path", "-f", default=None,
+                   help="write tasks to a file (not ported)")
+    p.add_argument("--queue-name", "-q", default=None,
+                   help="push tasks to a queue (not ported)")
+    p.add_argument("--task-index-start", "-i", type=int, default=None)
+    p.add_argument("--task-index-stop", "-p", type=int, default=None)
+    p.add_argument("--disbatch", action=argparse.BooleanOptionalAction,
+                   default=False, help="select the single task at "
+                                       "$DISBATCH_REPEAT_INDEX")
+
+
+def _generate_tasks(args, state) -> Stage:
+    for option, value in (("--volume-path", args.volume_path),
+                          ("--task-file", args.task_file),
+                          ("--queue-name", args.queue_name)):
+        if value is not None:
+            _not_ported(f"generate-tasks {option}")
+    start, stop, size = args.roi_start, args.roi_stop, args.roi_size
+    if stop is not None and size is not None:
+        raise UsageError("give --roi-stop OR --roi-size, not both")
+    if args.bounding_box is not None:
+        if start is not None or stop is not None or size is not None:
+            raise UsageError("--bounding-box replaces --roi-start/"
+                             "--roi-stop/--roi-size")
+        box = BoundingBox.from_string(args.bounding_box)
+        start, stop = tuple(box.start), tuple(box.stop)
+    if start is None:
+        start = (0, 0, 0)
+
+    @generator
+    def stage(task):
+        boxes = list(BoundingBoxes.from_manual_setup(
+            chunk_size=args.chunk_size, overlap=args.overlap,
+            roi_start=start, roi_stop=stop, roi_size=size,
+            grid_size=args.grid_size,
+            aligned_block_size=args.aligned_block_size,
+            bounded=args.bounded,
+        ))
+        if args.task_index_start is not None \
+                or args.task_index_stop is not None:
+            boxes = boxes[args.task_index_start:args.task_index_stop]
+        elif args.disbatch:
+            if "DISBATCH_REPEAT_INDEX" not in os.environ:
+                raise UsageError("--disbatch needs $DISBATCH_REPEAT_INDEX in "
+                                 "the environment (set by the disBatch "
+                                 "launcher)")
+            idx = int(os.environ["DISBATCH_REPEAT_INDEX"])
+            if idx >= len(boxes):
+                raise UsageError(f"DISBATCH_REPEAT_INDEX={idx} exceeds the "
+                                 f"{len(boxes)}-task grid")
+            boxes = [boxes[idx]]
+        for bbox in boxes:
+            t = new_task()
+            t["bbox"] = bbox
+            yield t
+
+    return stage()
+
+
+def _create_bbox_options(p):
+    _name(p, "create-bbox")
+    _triple(p, "--start", "-s", required=True)
+    _triple(p, "--stop", "-e", default=None)
+    _triple(p, "--size", default=None)
+
+
+def _create_bbox(args, state) -> Stage:
+    @operator
+    def stage(task):
+        if args.stop and any(args.stop):
+            task["bbox"] = BoundingBox(args.start, args.stop)
+        elif args.size and any(args.size):
+            task["bbox"] = BoundingBox.from_delta(args.start, args.size)
+        else:
+            raise UsageError("create-bbox needs --stop or --size")
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _prefetch_options(p):
+    p.add_argument("--depth", "-d", type=int, default=2,
+                   help="how many tasks to stage ahead of the consumer")
+    p.add_argument("--to-device", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="also start the upload of staged chunks")
+
+
+def _prefetch(args, state) -> Stage:
+    return prefetch_stage(depth=args.depth, to_device=args.to_device,
+                          device=state["device"])
+
+
+# ---------------------------------------------------------------------------
+# chunk creation / IO
 # ---------------------------------------------------------------------------
 def _create_chunk_options(p):
     _name(p, "create-chunk")
@@ -57,6 +197,7 @@ def _create_chunk_options(p):
 
 
 def _create_chunk(args, state) -> Stage:
+    @operator
     def stage(task):
         task[args.output_chunk_name] = Chunk.create(
             size=args.size, dtype=np.dtype(args.dtype), pattern=args.pattern,
@@ -64,7 +205,7 @@ def _create_chunk(args, state) -> Stage:
         )
         return task
 
-    return stage
+    return stage(_name=args.op_name)
 
 
 def _load_npy_options(p):
@@ -77,6 +218,7 @@ def _load_npy_options(p):
 
 
 def _load_npy(args, state) -> Stage:
+    @operator
     def stage(task):
         chunk = Chunk.from_npy(args.file_name, voxel_offset=args.voxel_offset)
         if args.voxel_size is not None:
@@ -84,7 +226,7 @@ def _load_npy(args, state) -> Stage:
         task[args.output_chunk_name] = chunk
         return task
 
-    return stage
+    return stage(_name=args.op_name)
 
 
 def _save_npy_options(p):
@@ -94,13 +236,17 @@ def _save_npy_options(p):
 
 
 def _save_npy(args, state) -> Stage:
+    @write_operator
     def stage(task):
         task[args.input_chunk_name].to_npy(args.file_name)
         return task
 
-    return stage
+    return stage(_name=args.op_name)
 
 
+# ---------------------------------------------------------------------------
+# inference
+# ---------------------------------------------------------------------------
 def _inference_options(p):
     _name(p, "inference")
     _triple(p, "--input-patch-size", "-p", "-s", required=True)
@@ -139,19 +285,38 @@ def _inference_options(p):
                    default="parity")
     _triple(p, "--shape-bucket", default=None,
             help="pad chunk shapes up to multiples of this zyx quantum")
+    p.add_argument("--blend", choices=["auto", "scatter", "fold"],
+                   default="auto",
+                   help="overlap-add strategy: scatter (the kernels), fold "
+                        "(parity-class dense adds; pads the chunk to a "
+                        "uniform patch grid), auto (CHUNKFLOW_BLEND or "
+                        "scatter)")
+    p.add_argument("--async-depth", type=int, default=1,
+                   help="pipeline up to N tasks through the card: task i+1 "
+                        "uploads and task i-1 downloads while task i "
+                        "computes. 1 = synchronous. Under the adaptive "
+                        "scheduler (default; CHUNKFLOW_SCHED=static "
+                        "disables) the initial depth, widened up to the "
+                        "memory watermark (CHUNKFLOW_SCHED_MEM_GB)")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="adaptive scheduler with --async-depth > 1: initial "
+                        "number of upstream tasks pulled ahead in the "
+                        "scheduler's load thread")
     p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
     p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
 
 
 def _inference(args, state) -> Stage:
+    from chunkflow_tpu_torch.flow.scheduler import scheduler_mode
     from chunkflow_tpu_torch.inference.inferencer import Inferencer
 
     if args.bump != "wu":
-        raise SystemExit(f"bump '{args.bump}' is not implemented; only 'wu' "
+        raise UsageError(f"bump '{args.bump}' is not implemented; only 'wu' "
                          f"is (matching the reference)")
     dtype = "bfloat16" if args.dtype == "float16" else args.dtype
     explicit_crop = args.output_crop_margin
     out_patch = args.output_patch_size
+    # one Inferencer shared across the stream's tasks
     inferencer = Inferencer(
         input_patch_size=args.input_patch_size,
         output_patch_size=out_patch if out_patch and any(out_patch) else None,
@@ -170,30 +335,54 @@ def _inference(args, state) -> Stage:
         output_dtype=args.output_dtype,
         model_variant=args.model_variant,
         shape_bucket=args.shape_bucket,
+        blend=args.blend,
         dry_run=state["dry_run"],
         device=state["device"],
     )
     expected = tuple(args.patch_num) if args.patch_num is not None else None
 
-    def stage(task):
-        chunk = task[args.input_chunk_name]
+    def check_grid(chunk):
         if expected is not None:
             got = inferencer.patch_grid_shape(chunk.shape)
             if got != expected:
-                raise SystemExit(f"--patch-num {expected} but chunk "
+                raise UsageError(f"--patch-num {expected} but chunk "
                                  f"{chunk.shape} decomposes into {got} "
                                  f"patches")
-        out = inferencer(chunk)
-        if explicit_crop is not None:
-            out = out.crop_margin(explicit_crop)
-        task[args.output_chunk_name] = out
-        task["log"]["compute_device"] = inferencer.compute_device
-        return task
 
-    return stage
+    if args.async_depth <= 1:
+        @operator
+        def stage(task):
+            chunk = task[args.input_chunk_name]
+            check_grid(chunk)
+            out = inferencer(chunk)
+            if explicit_crop is not None:
+                out = out.crop_margin(explicit_crop)
+            task[args.output_chunk_name] = out
+            task["log"]["compute_device"] = inferencer.compute_device
+            return task
+
+        return stage(_name=args.op_name)
+
+    kwargs = dict(depth=args.async_depth, input_name=args.input_chunk_name,
+                  output_name=args.output_chunk_name, op_name=args.op_name,
+                  crop=explicit_crop, check=check_grid)
+    if scheduler_mode() == "static":
+        from chunkflow_tpu_torch.flow.pipeline import pipelined_inference_stage
+
+        return pipelined_inference_stage(inferencer, **kwargs)
+    from chunkflow_tpu_torch.flow.scheduler import scheduled_inference_stage
+
+    return scheduled_inference_stage(
+        inferencer, prefetch_depth=args.prefetch_depth, **kwargs)
 
 
 COMMANDS: Dict[str, tuple] = {
+    "generate-tasks": (_generate_tasks_options, _generate_tasks,
+                       "Fan the seed task into a grid of bbox tasks."),
+    "create-bbox": (_create_bbox_options, _create_bbox,
+                    "Set the task bbox explicitly."),
+    "prefetch": (_prefetch_options, _prefetch,
+                 "Run the upstream stages in a background thread."),
     "create-chunk": (_create_chunk_options, _create_chunk,
                      "Create a synthetic chunk (sin/random/zero pattern)."),
     "load-npy": (_load_npy_options, _load_npy, "Load a chunk from .npy."),
@@ -209,7 +398,11 @@ def _group_parser() -> argparse.ArgumentParser:
         prog="python -m chunkflow_tpu_torch",
         description="Compose chunk operators into a pipeline: "
                     "[options] COMMAND [args] [COMMAND [args] ...]. "
-                    f"Commands: {', '.join(COMMANDS)}.",
+                    f"Commands: {', '.join(COMMANDS)}. Environment: "
+                    "CHUNKFLOW_SCHED=static (the static executor), "
+                    "CHUNKFLOW_SCHED_MEM_GB, CHUNKFLOW_SCHED_INTERVAL, "
+                    "CHUNKFLOW_BLEND, CHUNKFLOW_BLEND_STACK_MAX_GB, "
+                    "CHUNKFLOW_PRECISION, CHUNKFLOW_TELEMETRY.",
     )
     p.add_argument("--dry-run", dest="dry_run", action="store_true",
                    default=False)
@@ -234,28 +427,32 @@ def _split(argv: List[str]):
     return head, segments
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
+def build_stages(argv: List[str]) -> Tuple[argparse.Namespace, List[Stage]]:
+    """Parse a command line into (group options, one stage per command)."""
     head, segments = _split(argv)
     group = _group_parser().parse_args(head)
-    if not segments:
-        _group_parser().print_help()
-        return 2
     state = {"dry_run": group.dry_run, "device": group.device}
     stages = []
     for command, tokens in segments:
         add_options, build, help_text = COMMANDS[command]
         parser = argparse.ArgumentParser(prog=command, description=help_text)
         add_options(parser)
-        args = parser.parse_args(tokens)
-        stages.append((args.op_name, build(args, state)))
-    task = {"log": {"timer": {}, "compute_device": ""}}
-    for name, stage in stages:
-        start = time.perf_counter()
-        task = stage(task)
-        task["log"]["timer"][name] = time.perf_counter() - start
+        stages.append(build(parser.parse_args(tokens), state))
+    return group, stages
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not _split(argv)[1]:
+        _group_parser().print_help()
+        return 2
+    # one CLI run = one telemetry run
+    telemetry.reset()
+    try:
+        group, stages = build_stages(argv)
+        count = process_stream(stages, verbose=group.verbose)
+    except UsageError as exc:
+        raise SystemExit(str(exc)) from exc
     if group.verbose:
-        timers = task["log"]["timer"]
-        print(f"task complete; time per op (s): {timers} "
-              f"total={sum(timers.values()):.3f}")
+        print(f"pipeline drained {count} task(s)")
     return 0

@@ -10,12 +10,24 @@ the same steps as a ``lax.scan`` inside one program.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Tuple
 
 import torch
 
 from chunkflow_tpu_torch.ops import accumulate as _accumulate
 from chunkflow_tpu_torch.ops import gather as _gather
+
+
+def stack_budget_bytes() -> int:
+    """Byte budget for patch stacks kept alive at once, the memory gate of
+    the fold path (``CHUNKFLOW_BLEND_STACK_MAX_GB``, default 4 GiB, as in
+    the JAX package, so one configuration takes the same path in both):
+    a 64x512x512 chunk's fold (~2.4 GiB with its accumulation buffers)
+    fits, a 108x2048x2048 task falls back to the per-batch scatter
+    path."""
+    return int(
+        float(os.environ.get("CHUNKFLOW_BLEND_STACK_MAX_GB", "4")) * 2**30)
 
 
 def make_accumulate(output_patch_size: Tuple[int, int, int],

@@ -156,3 +156,83 @@ def test_convnet_kernel_path_is_the_plain_path(cuda, monkeypatch, variant,
     ref = inferencer(chunk).host().array
     assert np.isfinite(got).all() and 0 <= got.min() and got.max() <= 1
     assert np.array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the streamed path and fold on the card
+# ---------------------------------------------------------------------------
+STREAM_KW = dict(input_patch_size=(4, 32, 32), output_patch_overlap=(2, 16, 16),
+                 num_output_channels=3, batch_size=2)
+
+
+def _stream_chunks(n=4, shape=(6, 48, 48)):
+    rng = np.random.default_rng(3)
+    return [Chunk(rng.integers(0, 256, shape, endpoint=False).astype(
+        np.uint8), voxel_offset=(i, 0, 0)) for i in range(n)]
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("framework, variant, dtype", [
+    ("identity", "parity", "float32"),
+    ("pytorch", "tpu_s2d4", "bfloat16"),
+])
+def test_stream_on_card_is_the_serial_path(cuda, monkeypatch, framework,
+                                           variant, dtype, adaptive):
+    """Uploads on one stream, downloads on another, compute between: the
+    streamed results are bitwise the serial ones, through the kernels."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    inferencer = Inferencer(framework=framework, model_variant=variant,
+                            dtype=dtype, **STREAM_KW)
+    chunks = _stream_chunks()
+    gather.launches = accumulate.launches = 0
+    serial = [inferencer(c).host().array for c in chunks]
+    counts = (gather.launches, accumulate.launches)
+    gather.launches = accumulate.launches = 0
+    out = list(inferencer.stream(iter(chunks), adaptive=adaptive))
+    assert counts[0] > 0 and (gather.launches, accumulate.launches) == counts
+    for ref, got in zip(serial, out):
+        assert not got.is_on_device
+        assert np.array_equal(got.array, ref)
+
+
+def test_dispatch_path_never_waits_for_the_card(cuda):
+    """stage + infer_async for several chunks under the sync debug mode,
+    which raises on any call that waits for the device (.item(), bool(),
+    .cpu(), a pageable copy)."""
+    inferencer = Inferencer(framework="identity", **STREAM_KW)
+    chunks = _stream_chunks(n=3)
+    serial = [inferencer(c).host().array for c in chunks]
+    inferencer.infer_async(inferencer.stage(chunks[0])).host()  # warm-up
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [inferencer.infer_async(inferencer.stage(c), consume=True)
+                for c in chunks]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for ref, out in zip(serial, outs):
+        assert np.array_equal(out.host().array, ref)
+
+
+@pytest.mark.parametrize("shape", [(6, 48, 48), (7, 53, 61)])
+def test_fold_on_card_is_the_cpu_port(cuda, shape):
+    chunk = Chunk.create(size=shape, dtype=np.uint8, pattern="random")
+    kwargs = dict(STREAM_KW, framework="identity", blend="fold")
+    on_cpu = Inferencer(device="cpu", **kwargs)(chunk).host().array
+    gather.launches = accumulate.launches = 0
+    on_card = Inferencer(**kwargs)(chunk)
+    assert gather.launches == accumulate.launches == 0  # fold: no kernels
+    assert np.array_equal(on_card.host().array, on_cpu)
+
+
+def test_caller_device_chunk_unchanged_after_stream(cuda):
+    chunks = _stream_chunks(n=2)
+    inferencer = Inferencer(framework="identity", **STREAM_KW)
+    serial = [inferencer(c).host().array for c in chunks]
+    on_card = [c.device() for c in chunks]
+    before = [c.array.clone() for c in on_card]
+    out = list(inferencer.stream(iter(on_card)))
+    torch.cuda.synchronize()
+    for dev, copy, ref, got in zip(on_card, before, serial, out):
+        assert torch.equal(dev.array, copy)
+        assert np.array_equal(got.array, ref)

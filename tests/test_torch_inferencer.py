@@ -213,7 +213,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    ({"blend": "fold"}, "fold"),
+    # fold is ported; with a mesh it still meets the multi-GPU raise
+    pytest.param({"blend": "fold", "mesh": "data=2"}, "multi-GPU",
+                 id="kwargs0-fold"),
     ({"mesh": "data=2"}, "multi-GPU"),
     ({"sharding": "patch"}, "multi-GPU"),
     ({"precision": "bf16"}, "precision"),
@@ -223,13 +225,6 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         Inferencer(device="cpu", **dict(IDENTITY, **kwargs))
-
-
-def test_streaming_is_not_ported():
-    inferencer = Inferencer(device="cpu", **IDENTITY)
-    for method in (inferencer.stream, inferencer.infer_async):
-        with pytest.raises(NotImplementedError, match="streaming"):
-            method([])
 
 
 def test_tensor_payload_and_chunk_roundtrip():
