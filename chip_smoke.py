@@ -24,10 +24,12 @@ non-zero exit and no result line:
              chunk (20x256x256 patches, 4x64x64 overlap, 3 channels,
              batch 2) and on a ragged uint16 chunk with an odd patch
              count: kernel path == plain path bitwise, identity oracle
-5. unet3d    the full-width parity UNet3D (28, 36, 48, 64), float32 with
-             TF32 off, on the same chunk: kernel path == plain path
-             bitwise, one 8x64x64 patch GPU vs CPU within 1e-4, wall
-             time, Mvox/s and peak memory
+5. unet3d    the full-width parity UNet3D (28, 36, 48, 64), float32 under
+             the engine's own flags (TF32 off, deterministic cuDNN; the
+             process keeps PyTorch's defaults), on the same chunk: kernel
+             path == plain path bitwise, one 8x64x64 patch GPU vs CPU
+             within 1e-4 (and the unscoped TF32 forward's gap, printed),
+             wall time, Mvox/s and peak memory
 6. cli       ``create-chunk ... inference -f identity ... save-npy``
              through the port's CLI, equal to phase 4's result
 7. models    every convnet family at full width (parity UNet3D, RSUNet
@@ -55,6 +57,21 @@ non-zero exit and no result line:
              parity UNet3D in float32, wall time, Mvox/s and peak memory;
              fold within 1e-5 of scatter on a uniform 68x640x640 chunk,
              where their patch grids coincide
+10. volume   the queue-fed worker on local disk: a seeded 128x1024x1024
+             uint8 volume written by the port, an output volume and a
+             file:// queue of 8 tasks of 56x384x384 (each read as
+             64x512x512); ``python -m chunkflow_tpu_torch
+             fetch-task-from-queue | load-precomputed | inference |
+             save-precomputed --async-write | delete-task-in-queue`` in
+             three worker processes (faults raised in the first, the
+             second SIGKILLed at its first commit, the third drains):
+             the output volume == an in-process reference bitwise, each
+             task acked once, the queue empty, the ledger full, 18 + 18
+             launches per computed task; then the parity UNet3D (float32)
+             and ``tpu_s2d4`` (bfloat16, into a uint8 volume) fault-free
+             in process: bitwise, s/task and Mvox/s from disk against
+             phase 8's in-memory stream, host ms to cut out, save and
+             ack, and the compute idle share from a profiler trace
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -112,6 +129,23 @@ STREAM_K = 6
 STREAM_FAMILIES = (("tpu_s2d4", "bfloat16"), ("parity", "float32"))
 # phase 9: a chunk on which the fold and scatter patch grids coincide
 UNIFORM = (68, 640, 640)
+# phase 10: the worker loop on local disk. The input volume, the output
+# volume's roi (start, size), the task, the margin (load-precomputed -e and
+# inference --output-crop-margin: each task's input is CHUNK), the output
+# blocks (anchored at the roi: every save is block-aligned); each family
+# with its compute dtype and its output volume's dtype
+VOLUME = (128, 1024, 1024)
+VOLUME_BLOCK = (64, 128, 128)
+VOXEL_NM = (40, 4, 4)
+ROI = ((4, 64, 64), (112, 768, 768))
+TASK = (56, 384, 384)
+MARGIN = (4, 64, 64)
+OUT_BLOCK = (8, 128, 128)
+VOLUME_FAMILIES = (("parity", "float32", "float32"),
+                   ("tpu_s2d4", "bfloat16", "uint8"))
+# the workers' visibility timeout (s): a SIGKILLed worker's claims come
+# back after it; the lease heartbeat keeps a live worker's claims
+VISIBILITY_S = 10
 # profiler sessions taken before a trace counts as lost; the busy-wait
 # (GPU clock cycles, ~1 ms on an H100) ahead of a CUDA-event timing
 TRACE_TRIES = 4
@@ -216,6 +250,17 @@ class Timer:
         phase("timer", f"the profiler did not trace {wanted} in "
                        f"{TRACE_TRIES} sessions: timed with CUDA events")
         return self._event_ms(fn, reps)
+
+
+def forward(model, x):
+    """One forward of ``model`` under the engine's own settings
+    (``engines.exact_float32``), as the Inferencer runs it."""
+    import torch
+
+    from chunkflow_tpu_torch.inference import engines
+
+    with torch.no_grad(), engines.exact_float32():
+        return model(x)
 
 
 def conv_flops(model, x) -> int:
@@ -594,10 +639,10 @@ def main() -> int:
                       f"plain bitwise, oracle max abs {r_oracle:.3g}")
 
     # ---- 5. UNet3D main path at full width -------------------------------
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    # the process keeps PyTorch's global flags (cuDNN TF32 on): the engine
+    # scopes its own (TF32 off, deterministic, no autotuning) around every
+    # forward, and so does ``forward`` below for the direct model calls
+    defaults = engines._flags()
     seeded = seeded_init(UNet3D(in_channels=1, out_channels=CHANNELS),
                          torch.Generator().manual_seed(0))
     flax_tree = _flax_layout(seeded.state_dict())
@@ -616,6 +661,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     result, wall, launched = run_paths(unet, chunk_u8, "unet3d")
     peak = torch.cuda.max_memory_allocated()
+    require(engines._flags() == defaults and torch.backends.cudnn.allow_tf32,
+            f"the engine left the global flags changed: {engines._flags()}")
     out = result.host().array
     require(out.shape == (CHANNELS,) + CHUNK and np.isfinite(out).all()
             and out.min() >= 0.0 and out.max() <= 1.0 + 1e-6,
@@ -624,8 +671,7 @@ def main() -> int:
         kernels[kname]["launches"] = n
     # where a chunk's time goes: the forward of one batch
     patches = gather.gather_patches(raw_dev, in_b, PIN)
-    with torch.no_grad():
-        fwd_ms = timer.call_ms(lambda: model(patches), reps=3)
+    fwd_ms = timer.call_ms(lambda: forward(model, patches), reps=3)
     flops = conv_flops(model, patches)
     n_batches = len(in_starts) // BATCH
     phase("unet3d", f"widths {model.feature_maps}, float32 (TF32 off): "
@@ -642,13 +688,21 @@ def main() -> int:
                     f"{sum(kernels[k]['ms'] * launched[k] for k in kernels):.2f}"
                     f" ms in {sum(launched.values())} launches")
     x = torch.from_numpy(rng.random((1, 1, 8, 64, 64), dtype=np.float32))
+    on_gpu = forward(model, x.to(dev)).cpu()
     with torch.no_grad():
-        on_gpu = model(x.to(dev)).cpu()
         on_cpu = copy.deepcopy(model).cpu()(x)
+        # the fault the engine's scope repairs: the same forward under the
+        # process's default flags, cuDNN in TF32
+        on_tf32 = model(x.to(dev)).cpu()
     gpu_cpu = float((on_gpu - on_cpu).abs().max())
     require(gpu_cpu <= 1e-4, f"unet3d GPU vs CPU max abs {gpu_cpu} > 1e-4")
+    tf32 = (on_tf32 - on_cpu).abs()
+    beyond = torch.nonzero(tf32 > 1e-4)
     phase("unet3d", f"one 8x64x64 patch, GPU vs CPU: max abs {gpu_cpu:.3g} "
-                    f"<= 1e-4")
+                    f"<= 1e-4 (the engine's scope); unscoped under the "
+                    f"default flags (cuDNN TF32 {defaults[0]}): max abs "
+                    f"{float(tf32.max()):.3g}, first index beyond 1e-4 "
+                    f"{tuple(beyond[0].tolist()) if len(beyond) else None}")
 
     # ---- 6. CLI -----------------------------------------------------------
     npy = OUT_DIR / "cli_identity.npy"
@@ -709,8 +763,7 @@ def main() -> int:
                     and float(out.max()) <= 1.0 + 1e-6,
                     f"{label}: output not finite sigmoid maps of the chunk's "
                     f"shape")
-            with torch.no_grad():
-                fwd_ms = timer.call_ms(lambda: model(patches), reps=3)
+            fwd_ms = timer.call_ms(lambda: forward(model, patches), reps=3)
             flops = conv_flops(model, patches)
             peak_ops = PEAK_BF16 if dtype == "bfloat16" else PEAK_F32
             phase("models", f"{label}: widths {_widths(model)}, "
@@ -726,9 +779,8 @@ def main() -> int:
                             f" of {peak_ops / 1e12:.0f} TFLOP/s; x "
                             f"{n_batches} batches = {fwd_ms * n_batches:.1f} "
                             f"ms")
-            with torch.no_grad():
-                on_gpu = model(x_patch.to(dev)).cpu()
-                on_crops = model(crops.to(dev)).cpu()
+            on_gpu = forward(model, x_patch.to(dev)).cpu()
+            on_crops = forward(model, crops.to(dev)).cpu()
             if dtype == "float32":
                 f32_out, f32_patch, f32_crops = out, on_gpu, on_crops
                 with torch.no_grad():
@@ -786,6 +838,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / STREAM_K
 
+    in_memory = {}  # family -> adaptive s/chunk, for phase 10
     for variant, dtype in STREAM_FAMILIES:
         label = f"{variant} {dtype}"
         kwargs = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
@@ -870,6 +923,7 @@ def main() -> int:
             require(n == 18 * STREAM_K,
                     f"stream {label}: {kname} launched {n} times, not "
                     f"{18 * STREAM_K} (18 per chunk)")
+        in_memory[label] = stream_s
         static_s = per_chunk_s(lambda: consume(inf.stream(
             iter(stream_chunks), adaptive=False)))
         # overlap and idle shares from the device trace
@@ -952,6 +1006,18 @@ def main() -> int:
                   f"the uniform {UNIFORM}: max abs {fold_gap:.3g} <= 1e-5")
     del fold_unet, scatter_unet, a, b, fold_res, fold_out
 
+    # ---- 10. volume: the worker loop on disk ------------------------------
+    torch.cuda.empty_cache()
+    volume_launches = volume_phase(
+        torch, dict(volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI,
+                    task=TASK, margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
+                    overlap=OVERLAP, batch=BATCH, families=VOLUME_FAMILIES,
+                    device="cuda"),
+        weights=state, reset_counts=reset_counts, counts=counts,
+        in_memory=in_memory)
+    for kname, n in volume_launches.items():
+        kernels[kname]["launches"] += n
+
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
@@ -964,6 +1030,316 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory):
+    """Phase 10: the queue-fed worker on local disk, as a fleet runs it.
+
+    Writes a seeded uint8 input volume with the port's writer, creates the
+    output volume and fills a ``file://`` queue with its task grid
+    (``create-info``, ``generate-tasks --volume-path --queue-name``), then
+    drives ``python -m chunkflow_tpu_torch fetch-task-from-queue ... |
+    load-precomputed | inference | save-precomputed --async-write |
+    delete-task-in-queue`` in subprocesses, for the first family: a worker
+    whose inference and ack raise once (``CHUNKFLOW_CHAOS``), one
+    SIGKILLed at its first commit, one that drains the rest. Each task of
+    the output volume must equal, bitwise, its cutout of the input
+    through ``Inferencer.__call__``, cropped (quantized as
+    ``save-precomputed`` does for a uint8 volume); each task must be acked
+    once (the workers' event files), the queue empty and the ledger full.
+    Then every family runs fault-free in this process through the CLI's
+    stages, counted, timed and traced. ``weights`` is the parity UNet3D's
+    state dict, written as a ``.pt`` file for the workers. Returns the
+    kernels' launches in the counted runs."""
+    import os
+    import signal
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import BoundingBox, Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.core.bbox import BoundingBoxes
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import process_stream
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel.lifecycle import FileLedger
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    on_card = cfg["device"] == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start, roi_size = cfg["roi"]
+    chunk_in = tuple(t + 2 * m for t, m in zip(cfg["task"], margin))
+    per_task = len(pad_to_batch(enumerate_patches(chunk_in, pin, pin,
+                                                  overlap), batch)[0]) // batch
+    boxes = list(BoundingBoxes.from_manual_setup(
+        chunk_size=cfg["task"], roi_start=roi_start, roi_size=roi_size))
+    vox_in = int(np.prod(chunk_in))
+    total = {"gather": 0, "accumulate": 0}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def triple_args(*pairs):
+        out = []
+        for flag, value in pairs:
+            out += [flag, *nums(value)]
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_volume_") as tmp:
+        tmp = Path(tmp)
+        weights_pt = str(tmp / "unet3d_seed0.pt")
+        torch.save(weights, weights_pt)
+        # 1. the input volume, written by the port's writer
+        image = np.random.default_rng(10).integers(0, 256, cfg["volume"],
+                                                   dtype=np.uint8)
+        vol_in = str(tmp / "image")
+        t = time.perf_counter()
+        PrecomputedVolume.create(vol_in, volume_size=cfg["volume"],
+                                 voxel_size=VOXEL_NM,
+                                 block_size=cfg["volume_block"])
+        PrecomputedVolume(vol_in).save(Chunk(image, voxel_size=VOXEL_NM))
+        phase("volume", f"input volume {cfg['volume']} uint8, "
+                        f"{image.nbytes / 1e6:.0f} MB in blocks of "
+                        f"{cfg['volume_block']}, written in "
+                        f"{time.perf_counter() - t:.3f} s; {len(boxes)} "
+                        f"tasks of {cfg['task']}, input {chunk_in} each "
+                        f"({per_task} batches of {batch} patches)")
+
+        def setup(family, name):
+            """An output volume and a queue holding its task grid."""
+            out = str(tmp / name)
+            queue = f"file://{tmp}/{name}-queue"
+            shutil.rmtree(tmp / f"{name}-queue", ignore_errors=True)
+            require(cli.main(dev_args + [
+                "create-info", "-v", out, "-c", "3", "--dtype", family[2],
+                *triple_args(("--volume-size", roi_size),
+                             ("--voxel-size", VOXEL_NM),
+                             ("--voxel-offset", roi_start),
+                             ("--block-size", cfg["out_block"]))]) == 0
+                    and cli.main(dev_args + [
+                        "generate-tasks", "--volume-path", out,
+                        "--chunk-size", *nums(cfg["task"]),
+                        "--queue-name", queue]) == 0,
+                    f"volume: setting up {name} failed")
+            require(len(open_queue(queue)) == len(boxes),
+                    f"volume: {name}: the queue holds "
+                    f"{len(open_queue(queue))} tasks, not {len(boxes)}")
+            return out, queue, str(tmp / f"{name}-ledger")
+
+        def worker_args(family, queue, ledger, out, polls, num=None):
+            variant, dtype, _ = family
+            fetch = ["fetch-task-from-queue", "-q", queue,
+                     "--max-retries", "3", "--ledger", ledger,
+                     "--visibility-timeout", str(VISIBILITY_S),
+                     "--lease-renew", "1", "-r", str(polls),
+                     "--poll-interval", "0.5", "--backoff-base", "0.5",
+                     "--backoff-cap", "1"]
+            if num is not None:
+                fetch += ["--num", str(num)]
+            return fetch + [
+                "load-precomputed", "-v", vol_in, "-e", *nums(margin),
+                "inference", "--framework", "pytorch", "--model-variant",
+                variant, "--dtype", dtype,
+                *(["--weight-path", weights_pt] if variant == "parity"
+                  else []),
+                *triple_args(("--input-patch-size", pin),
+                             ("--output-patch-overlap", overlap),
+                             ("--output-crop-margin", margin)),
+                "--num-output-channels", "3", "--batch-size", str(batch),
+                "--async-depth", "2",
+                "save-precomputed", "-v", out, "--async-write",
+                "delete-task-in-queue"]
+
+        metrics = str(tmp / "events")
+
+        def run_worker(args, chaos=None, killed=False):
+            """One worker, as a user starts it; its run counters."""
+            env = {k: v for k, v in os.environ.items()
+                   if k != "CHUNKFLOW_CHAOS"}
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+            if chaos:
+                env["CHUNKFLOW_CHAOS"] = chaos
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "chunkflow_tpu_torch", *dev_args,
+                 "-v", "--metrics-dir", metrics, *args],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            wall = time.perf_counter() - t
+            if killed:
+                require(proc.returncode == -signal.SIGKILL,
+                        f"volume: the worker was to die by SIGKILL, rc "
+                        f"{proc.returncode}: {proc.stderr[-3000:]}")
+                return None, wall
+            require(proc.returncode == 0, f"volume: a worker failed, rc "
+                                          f"{proc.returncode}: "
+                                          f"{proc.stderr[-3000:]}")
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("run counters: ")]
+            require(bool(line), "volume: a worker printed no counters")
+            return json.loads(line[-1][len("run counters: "):]), wall
+
+        def reference(family, inferencer, bbox):
+            """The task's output through Inferencer.__call__, cropped, as
+            the output volume stores it."""
+            src = bbox.adjust(margin)
+            got = inferencer(Chunk(image[src.slices], voxel_offset=src.start,
+                                   voxel_size=VOXEL_NM))
+            arr = got.crop_margin(margin).host().array
+            if family[2] == "uint8":
+                arr = (np.clip(arr, 0.0, 1.0) * 255.0).astype(np.uint8)
+            return arr
+
+        def check_volume(refs, out, what):
+            vol = PrecomputedVolume(out)
+            for bbox, ref in zip(boxes, refs):
+                got = vol.cutout(bbox).array
+                require(got.shape == ref.shape and np.array_equal(got, ref),
+                        f"volume: {what}: task {bbox.string} differs from "
+                        f"its in-process reference")
+
+        for family in cfg["families"]:
+            variant, dtype, out_dtype = family
+            label = f"{variant} {dtype}"
+            ref_inf = Inferencer(
+                input_patch_size=pin, output_patch_overlap=overlap,
+                num_output_channels=3, framework="pytorch",
+                model_variant=variant, dtype=dtype, batch_size=batch,
+                weight_path=weights_pt if variant == "parity" else None,
+                device=cfg["device"])
+            refs = [reference(family, ref_inf, bbox) for bbox in boxes]
+            del ref_inf
+            if family == cfg["families"][0]:
+                # the fleet: a raised fault, a SIGKILL, a resume
+                out, queue, ledger = setup(family, "chaos")
+                w1, t1 = run_worker(
+                    worker_args(family, queue, ledger, out, 30, num=3),
+                    chaos="once=op/inference,lifecycle/pre_ack")
+                _, t2 = run_worker(
+                    worker_args(family, queue, ledger, out, 30),
+                    chaos="once=lifecycle/pre_ledger:action=kill",
+                    killed=True)
+                w3, t3 = run_worker(worker_args(family, queue, ledger, out,
+                                                3 * VISIBILITY_S))
+                stats = open_queue(queue).stats()
+                require(stats["pending"] == stats["inflight"]
+                        == stats["dead"] == 0,
+                        f"volume: the queue did not drain: {stats}")
+                keys = FileLedger(ledger).keys()
+                require(sorted(keys) == sorted(b.string for b in boxes),
+                        f"volume: the ledger holds {len(keys)} keys")
+                acks = {b.string: 0 for b in boxes}
+                for name in os.listdir(metrics):
+                    with open(os.path.join(metrics, name)) as f:
+                        for ln in f:
+                            event = json.loads(ln)
+                            if event["name"] in ("lifecycle/committed",
+                                                 "lifecycle/ledger_skip"):
+                                acks[event["body"]] += 1
+                require(set(acks.values()) == {1},
+                        f"volume: acks per task {acks}, not one each")
+                require(w1.get("chaos/injected") == 2,
+                        f"volume: worker 1 injected "
+                        f"{w1.get('chaos/injected')} faults, not 2")
+                for w in (w1, w3):
+                    n = w.get("inference/chunks", 0)
+                    for kname in ("gather", "accumulate"):
+                        require(not on_card
+                                or w[f"kernels/{kname}"] == per_task * n,
+                                f"volume: a worker launched {kname} "
+                                f"{w[f'kernels/{kname}']} times for {n} "
+                                f"computed tasks, not {per_task} each")
+                check_volume(refs, out, "the fleet's volume")
+                phase("volume", f"{label}: worker 1 (inference and ack "
+                                f"raise once, --num 3) {t1:.1f} s: "
+                                f"{_brief(w1)}; worker 2 SIGKILLed at its "
+                                f"first commit after {t2:.1f} s; worker 3 "
+                                f"{t3:.1f} s: {_brief(w3)}")
+                phase("volume", f"{label}: output volume == in-process "
+                                f"reference bitwise on all {len(boxes)} "
+                                f"tasks; each task acked once; queue "
+                                f"{stats}; ledger {len(keys)} keys; "
+                                f"{per_task} launches of each kernel per "
+                                f"computed task")
+                shutil.rmtree(out)
+            # fault-free, in this process: counted and timed, then traced
+            out, queue, ledger = setup(family, f"{variant}-run")
+            _, stages = cli.build_stages(dev_args + worker_args(
+                family, queue, ledger, out, 0))
+            telemetry.reset()
+            reset_counts()
+            sync()
+            t = time.perf_counter()
+            n = process_stream(stages)
+            sync()
+            wall = time.perf_counter() - t
+            launched = counts()
+            snap = telemetry.snapshot()
+            require(n == len(boxes), f"volume: {label}: {n} tasks drained")
+            for kname, k in launched.items():
+                require(not on_card or k == per_task * len(boxes),
+                        f"volume: {label}: {kname} launched {k} times, not "
+                        f"{per_task * len(boxes)}")
+                total[kname] += k
+            check_volume(refs, out, f"{label} fault-free")
+            shutil.rmtree(out)
+
+            def mean_ms(name):
+                h = snap["hists"].get(name)
+                return h["mean"] * 1e3 if h else 0.0
+
+            idle = None
+            if on_card:
+                def traced():
+                    setup(family, f"{variant}-run")
+                    shutil.rmtree(ledger, ignore_errors=True)
+                    process_stream(stages)
+                idle = _idle_share(_device_trace(torch, traced))
+                shutil.rmtree(out)
+            memory = in_memory.get(label) if in_memory else None
+            phase("volume", f"{label}: {len(boxes)} tasks read from disk, "
+                            f"{wall / len(boxes):.4f} s/task, "
+                            f"{vox_in * len(boxes) / wall / 1e6:.3f} Mvox/s "
+                            f"of input; phase 8's in-memory stream "
+                            + (f"{memory:.4f} s/chunk, "
+                               f"{vox_in / memory / 1e6:.3f} Mvox/s"
+                               if memory else "not run")
+                            + f"; launches {launched}")
+            phase("volume", f"{label}: host ms per task: cutout "
+                            f"{mean_ms('op/load-precomputed'):.1f} (block "
+                            f"reads {mean_ms('storage/read'):.1f}), save "
+                            f"{mean_ms('op/save-precomputed'):.1f} (of which "
+                            f"copying and queueing the block writes "
+                            f"{mean_ms('storage/write'):.1f}), ack "
+                            f"{mean_ms('lifecycle/commit'):.1f} (the wait "
+                            f"for durable writes, the ledger, the delete); "
+                            f"compute idle "
+                            + (f"{idle:.1%}" if idle is not None
+                               else "not measured")
+                            + " (profiler trace of a fault-free run)")
+            del refs, stages
+    return total
+
+
+def _brief(counters):
+    keys = ("inference/chunks", "tasks/committed", "tasks/retried",
+            "tasks/surrendered", "ledger/skips", "pipeline/chain_rebuilds",
+            "chaos/injected", "kernels/gather", "kernels/accumulate")
+    return ", ".join(f"{k} {counters[k]:g}" for k in keys if k in counters)
 
 
 def _device_trace(torch, fn, downloads=0):
@@ -1065,7 +1441,7 @@ def _reference_rsunet(torch, out_dir, dev):
                                  **files).model
     x = torch.from_numpy(np.random.default_rng(1).random(
         (1, 1, 8, 64, 64), dtype=np.float32)).to(dev)
-    with torch.no_grad():
+    with torch.no_grad(), engines.exact_float32():
         diff = float((port.to(dev)(x) - ref.eval().to(dev)(x)).abs().max())
     require(diff <= 1e-4, f"rsunet: migrated model vs the reference model "
                           f"max abs {diff} > 1e-4")

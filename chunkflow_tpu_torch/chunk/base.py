@@ -29,6 +29,36 @@ class LayerType(str, Enum):
     UNKNOWN = "unknown"
 
 
+#: the ``type`` a precomputed volume's info records for each layer type
+LAYER_TO_PRECOMPUTED = {
+    LayerType.IMAGE: "image",
+    LayerType.AFFINITY_MAP: "image",
+    LayerType.PROBABILITY_MAP: "image",
+    LayerType.SEGMENTATION: "segmentation",
+    LayerType.UNKNOWN: "image",
+}
+
+
+def layer_type_from_precomputed(kind: str) -> LayerType:
+    """The layer type of a chunk read from a precomputed volume whose info
+    says ``"type": kind``."""
+    return LayerType.SEGMENTATION if kind == "segmentation" else LayerType.IMAGE
+
+
+def as_native_dtype(arr) -> np.ndarray:
+    """A payload as a host numpy array, dtypes that numpy and the file
+    formats lack (bfloat16) widened to float32."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu()
+        if numpy_dtype(arr.dtype) is None:
+            arr = arr.to(torch.float32)
+        return arr.numpy()
+    arr = np.asarray(arr)
+    if arr.dtype.kind not in "biufc":
+        return arr.astype(np.float32)
+    return arr
+
+
 def _as_tensor(array: np.ndarray) -> torch.Tensor:
     """A tensor sharing a host array's memory where torch allows it
     (contiguous and writable; otherwise one host copy)."""

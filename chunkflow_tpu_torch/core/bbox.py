@@ -2,10 +2,10 @@
 
 The counterpart of ``chunkflow_tpu/core/bbox.py``, cut to what the port
 uses: the ``BoundingBox`` surface of chunk geometry (cutout, margin crop,
-the canonical ``zs-ze_ys-ye_xs-xe`` string) and the task-grid factory
-``BoundingBoxes.from_manual_setup`` behind ``generate-tasks``. Task files
-and physical boxes stay in the JAX package until the volume IO and task
-queue slice ports them.
+the canonical ``zs-ze_ys-ye_xs-xe`` string), the block arithmetic of the
+storage plane (clamp, alignment, snapping, decomposition) and the task
+grid: ``BoundingBoxes.from_manual_setup`` behind ``generate-tasks`` and
+the ``.txt`` / ``.npy`` task files, in the JAX package's formats.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import itertools
 import re
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List
+
+import numpy as np
 
 from chunkflow_tpu_torch.core.cartesian import Cartesian, to_cartesian
 
@@ -85,6 +87,19 @@ class BoundingBox:
     def contains(self, other: "BoundingBox") -> bool:
         return self.start <= other.start and other.stop <= self.stop
 
+    def clamp(self, outer: "BoundingBox") -> "BoundingBox":
+        """Shift/shrink this box so it fits inside ``outer``."""
+        return BoundingBox(self.start.maximum(outer.start),
+                           self.stop.minimum(outer.stop))
+
+    def is_aligned_with(self, block_size, offset=None) -> bool:
+        """True if both corners land on the block grid anchored at
+        ``offset``: two aligned chunks never share a storage block."""
+        block_size = to_cartesian(block_size)
+        offset = to_cartesian(offset) or Cartesian.zeros()
+        return ((self.start - offset) % block_size == Cartesian.zeros()
+                and (self.stop - offset) % block_size == Cartesian.zeros())
+
     def snap_to_blocks(self, block_size, offset=None,
                        outward: bool = True) -> "BoundingBox":
         """Round the corners to the block grid anchored at ``offset``
@@ -100,6 +115,40 @@ class BoundingBox:
             start = rel_start.ceildiv(block_size) * block_size
             stop = rel_stop // block_size * block_size
         return BoundingBox(start + offset, stop + offset)
+
+    def decompose_to_unaligned_block_bounding_boxes(
+            self, block_size) -> List["BoundingBox"]:
+        """Blocks anchored at ``start``, the trailing ones clipped at
+        ``stop``."""
+        block_size = to_cartesian(block_size)
+        boxes = []
+        for z in range(self.start.z, self.stop.z, block_size.z):
+            for y in range(self.start.y, self.stop.y, block_size.y):
+                for x in range(self.start.x, self.stop.x, block_size.x):
+                    start = Cartesian(z, y, x)
+                    boxes.append(BoundingBox(
+                        start, (start + block_size).minimum(self.stop)))
+        return boxes
+
+    def decompose(self, block_size) -> List["BoundingBox"]:
+        """Tile this box exactly into non-overlapping blocks."""
+        block_size = to_cartesian(block_size)
+        if self.shape % block_size != Cartesian.zeros():
+            raise ValueError(f"shape {self.shape} is not a multiple of block "
+                             f"size {block_size}")
+        return [BoundingBox.from_delta(self.start + Cartesian(*idx)
+                                       * block_size, block_size)
+                for idx in itertools.product(
+                    *(range(g) for g in self.shape // block_size))]
+
+    def to_array(self) -> np.ndarray:
+        return np.array([tuple(self.start), tuple(self.stop)],
+                        dtype=np.int64)
+
+    @classmethod
+    def from_array(cls, arr) -> "BoundingBox":
+        arr = np.asarray(arr).reshape(2, 3)
+        return cls(Cartesian(*arr[0].tolist()), Cartesian(*arr[1].tolist()))
 
 
 class BoundingBoxes:
@@ -195,4 +244,34 @@ class BoundingBoxes:
         return iter(self.boxes)
 
     def __getitem__(self, idx):
-        return self.boxes[idx]
+        picked = self.boxes[idx]
+        if isinstance(idx, slice):
+            return BoundingBoxes(picked)
+        return picked
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, BoundingBoxes) and self.boxes == other.boxes
+
+    def to_file(self, path: str) -> None:
+        """A task file: ``.npy`` (an [N, 2, 3] int64 array of corners) or
+        ``.txt`` (one bbox string per line)."""
+        path = str(path)
+        if path.endswith(".npy"):
+            np.save(path, np.stack([b.to_array() for b in self.boxes]))
+        elif path.endswith(".txt"):
+            with open(path, "w") as f:
+                for b in self.boxes:
+                    f.write(b.string + "\n")
+        else:
+            raise ValueError(f"unsupported task-file format: {path}")
+
+    @classmethod
+    def from_file(cls, path: str) -> "BoundingBoxes":
+        path = str(path)
+        if path.endswith(".npy"):
+            return cls(BoundingBox.from_array(a) for a in np.load(path))
+        if path.endswith(".txt"):
+            with open(path) as f:
+                return cls(BoundingBox.from_string(line) for line in f
+                           if line.strip())
+        raise ValueError(f"unsupported task-file format: {path}")

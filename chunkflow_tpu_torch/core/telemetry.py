@@ -1,25 +1,33 @@
 """In-process telemetry: counters, gauges, span histograms and events.
 
 The counterpart of ``chunkflow_tpu/core/telemetry.py``, cut to what the
-streaming executors and their depth controller read and write
-(``flow/pipeline.py``, ``flow/scheduler.py``, ``flow/runtime.py``): the
-same names (``span`` with ``.duration``, ``inc``, ``gauge``, ``observe``,
-``event``, ``hist_totals``, ``enabled``, ``task_context``, ``snapshot``,
-``reset``), the same ``CHUNKFLOW_TELEMETRY`` kill switch, and one
+port's planes read and write: the same names (``span`` with
+``.duration``, ``inc``, ``gauge``, ``observe``, ``event``,
+``hist_totals``, ``enabled``, ``task_context``, ``snapshot``, ``reset``,
+``configure``), the same ``CHUNKFLOW_TELEMETRY`` kill switch, and one
 process-wide registry behind one lock, so executor threads and pool
-workers may report concurrently. There is no JSONL sink, exporter or
-fleet identity: events are kept in memory (the newest
-:data:`MAX_EVENTS`) and read back through :func:`snapshot`.
+workers may report concurrently. Events are kept in memory (the newest
+:data:`MAX_EVENTS`) and, after :func:`configure` (the CLI's
+``--metrics-dir``), appended to a JSONL file of the process, one line
+each as it happens, so a worker killed mid-run leaves what it did.
 
 Span names follow ``<layer>/<phase>``: ``pipeline/stage``,
 ``pipeline/dispatch``, ``pipeline/compute``, ``pipeline/drain``,
 ``scheduler/load``, ``scheduler/post``, ``scheduler/write``,
-``op/<operator>``. The depth controller sums the first six (and
-``scheduler/write``) through :func:`hist_totals`.
+``op/<operator>``, ``storage/read``, ``storage/write``,
+``lifecycle/claim``, ``lifecycle/commit``, ``lifecycle/release``. The
+depth controller sums the first six (and ``scheduler/write``) through
+:func:`hist_totals`. Counters of the worker loop: ``pipeline/tasks``,
+``pipeline/chain_rebuilds``, ``inference/chunks``, ``storage/*``
+(``volume/storage.py``), ``queue/sent``, ``queue/receives``,
+``tasks/committed``, ``tasks/retried``, ``tasks/dead_lettered``,
+``tasks/preempted``, ``tasks/surrendered``, ``lease/renewals``,
+``ledger/skips`` (``parallel/lifecycle.py``) and ``chaos/injected``.
 """
 from __future__ import annotations
 
 import contextvars
+import json
 import os
 import threading
 import time
@@ -28,7 +36,8 @@ from typing import Dict, Optional
 
 __all__ = [
     "enabled", "inc", "gauge", "observe", "event", "span", "hist_totals",
-    "task_context", "current_trace_id", "snapshot", "reset", "MAX_EVENTS",
+    "task_context", "current_trace_id", "snapshot", "reset", "configure",
+    "MAX_EVENTS",
 ]
 
 _OFF_VALUES = ("0", "off", "false", "no")
@@ -91,6 +100,7 @@ class _Registry:
         # name -> [count, total, min, max]
         self.hists: Dict[str, list] = {}
         self.events: deque = deque(maxlen=MAX_EVENTS)
+        self.sink = None  # the open JSONL file of :func:`configure`
 
     def add_hist(self, name: str, value: float) -> None:
         with self.lock:
@@ -142,6 +152,27 @@ def event(kind: str, name: str, **attrs) -> None:
         payload["trace_id"] = trace_id
     with _REG.lock:
         _REG.events.append(payload)
+        if _REG.sink is not None:
+            _REG.sink.write(json.dumps(payload, default=str) + "\n")
+
+
+def configure(metrics_dir: Optional[str]) -> Optional[str]:
+    """Append every later event to ``<metrics_dir>/telemetry-<pid>.jsonl``
+    (line-buffered: each line reaches the operating system as it is
+    written); None closes the file. Returns the path, or None when off
+    (nothing is created under ``CHUNKFLOW_TELEMETRY=0``)."""
+    with _REG.lock:
+        if _REG.sink is not None:
+            _REG.sink.close()
+        _REG.sink = None
+    if metrics_dir is None or not enabled():
+        return None
+    os.makedirs(metrics_dir, exist_ok=True)
+    path = os.path.join(metrics_dir, f"telemetry-{os.getpid()}.jsonl")
+    sink = open(path, "a", buffering=1)
+    with _REG.lock:
+        _REG.sink = sink
+    return path
 
 
 class _NullSpan:
@@ -213,7 +244,9 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clear every metric and event (tests; each CLI run starts here)."""
+    """Clear every metric and event and close the event file (tests; each
+    CLI run starts here)."""
+    configure(None)
     with _REG.lock:
         _REG.counters.clear()
         _REG.gauges.clear()

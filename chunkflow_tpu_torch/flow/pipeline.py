@@ -33,6 +33,8 @@ from collections import deque
 from typing import Callable, Iterable, Iterator, Optional
 
 from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.parallel.lifecycle import tag_culprit
+from chunkflow_tpu_torch.testing import chaos
 
 
 def _drain_host(out):
@@ -154,7 +156,9 @@ def pipelined_inference_stage(
     yield in input order; a ``None`` skip marker flushes all in-flight
     work first; a mid-stream exception flushes the already-dispatched
     tasks downstream, then re-raises. Per-op timers measure
-    stage-to-materialize wall time, which overlaps across tasks.
+    stage-to-materialize wall time, which overlaps across tasks. Each
+    dispatch is the chaos point ``op/<op_name>``, and a failure is
+    charged to its task.
     """
     depth = max(1, int(depth))
     ring = max(1, int(ring))
@@ -165,15 +169,25 @@ def pipelined_inference_stage(
 
         def finalize(entry):
             task, out, t0 = entry
-            task[output_name] = _drain_host(out)
+            try:
+                task[output_name] = _drain_host(out)
+            except BaseException as exc:
+                tag_culprit(exc, task)
+                raise
             task["log"]["timer"][op_name] = time.time() - t0
             task["log"]["compute_device"] = inferencer.compute_device
             return task
 
         def dispatch_one():
             task, slot, owned, t0 = staged.popleft()
-            with telemetry.span("pipeline/dispatch"):
-                out = inferencer.infer_async(slot, crop=crop, consume=owned)
+            try:
+                chaos.chaos_point(f"op/{op_name}")
+                with telemetry.span("pipeline/dispatch"):
+                    out = inferencer.infer_async(slot, crop=crop,
+                                                 consume=owned)
+            except BaseException as exc:
+                tag_culprit(exc, task)
+                raise
             pending.append((task, out, t0))
             telemetry.gauge("pipeline/inflight", len(pending))
 
@@ -188,10 +202,14 @@ def pipelined_inference_stage(
                     yield task
                     continue
                 chunk = task[input_name]
-                if check is not None:
-                    check(chunk)
-                with telemetry.span("pipeline/stage"):
-                    slot = inferencer.stage(chunk)
+                try:
+                    if check is not None:
+                        check(chunk)
+                    with telemetry.span("pipeline/stage"):
+                        slot = inferencer.stage(chunk)
+                except BaseException as exc:
+                    tag_culprit(exc, task)
+                    raise
                 staged.append((task, slot, slot is not chunk, time.time()))
                 telemetry.gauge("pipeline/ring_occupancy", len(staged))
                 if len(staged) >= ring:

@@ -31,11 +31,14 @@ scheduler off the path: ``Inferencer.stream`` and the CLI run the static
 executor (``flow/pipeline.py``). Results are bitwise the same either
 way; the threads change when work happens, never what is computed.
 
-The ``storage`` knob keeps the JAX package's arithmetic (8 concurrent
-block reads to start) so the controller makes the same decisions; the
-port has no storage plane yet to push it to. Tasks left in a queue when
-a stage closes are dropped: the port claims no queue tasks yet, so
-there is no lease to hand back.
+The ``storage`` knob is the storage plane's block-read parallelism
+(``volume/storage.py:set_read_concurrency``): it starts from what the
+plane reads per wave and a raise takes effect on the next cutout. Tasks
+left in a queue when a stage closes are surrendered
+(``lifecycle.surrender_task``): a claimed task hands its lease back
+instead of holding it until the visibility timeout. The stages carry the
+chaos points ``op/<name>`` and ``scheduler/dispatch`` (at dispatch) and
+``scheduler/post`` (in the post pool), and charge a failure to its task.
 """
 from __future__ import annotations
 
@@ -50,6 +53,9 @@ import torch
 
 from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.flow.pipeline import _drain_host
+from chunkflow_tpu_torch.parallel.lifecycle import surrender_task, tag_culprit
+from chunkflow_tpu_torch.testing import chaos
+from chunkflow_tpu_torch.volume import storage
 
 __all__ = [
     "scheduler_mode", "mem_watermark_bytes", "DepthController",
@@ -178,6 +184,13 @@ class DepthController:
             k: max(v, self.depths.get(k, 0))
             for k, v in dict(DEPTH_LIMITS, **(limits or {})).items()
         }
+        # the storage knob starts from the storage plane's live value, so
+        # a raise widens it rather than clamping it back
+        if not depths or "storage" not in depths:
+            self.depths["storage"] = max(self.depths.get("storage", 1),
+                                         storage.read_concurrency())
+        self.limits["storage"] = max(self.limits.get("storage", 1),
+                                     self.depths["storage"])
         self.initial = dict(self.depths)
         self.interval = interval if interval else _controller_interval()
         self.watermark_bytes = (watermark_bytes if watermark_bytes is not None
@@ -229,6 +242,8 @@ class DepthController:
             if old >= self.limits[knob] or not self._would_fit():
                 continue
             self.depths[knob] = old + 1
+            if knob == "storage":
+                storage.set_read_concurrency(old + 1)
             applied.append((knob, old, old + 1))
             self.changes.append((self._tasks, knob, old, old + 1))
             telemetry.event(
@@ -294,22 +309,35 @@ class _AdaptiveQueue:
             return item
 
     def close(self) -> None:
-        """Consumer side: retire the producer for good and drop what is
-        buffered."""
+        """Consumer side: retire the producer for good and surrender what
+        is buffered (a claimed task hands its lease back)."""
         with self._lock:
             self._closed = True
+            leftovers = list(self._items)
             self._items.clear()
             self._not_full.notify_all()
             self._not_empty.notify_all()
+        for item in leftovers:
+            if not _is_end(item):
+                _surrender(item)
+
+
+def _surrender(item) -> None:
+    """Surrender the task of a queue item: a task, or a tuple that starts
+    with one (the staged items of the executors)."""
+    surrender_task(item[0] if isinstance(item, tuple) and item else item)
 
 
 def _pump(source: Iterator, q: _AdaptiveQueue) -> None:
     """Producer body: pull upstream (where load IO runs) into the queue;
     end with an (_END, exc) sentinel on every path, so the consumer never
-    waits forever."""
+    waits forever. An item the closed queue refuses is surrendered: it may
+    be a task claimed after the failure handler settled the in-flight
+    set."""
     try:
         for item in source:
             if not q.put(item):
+                _surrender(item)
                 return  # consumer gone: stop pulling upstream
     except BaseException as exc:  # re-raised in the consumer thread
         q.put((_END, exc))
@@ -510,12 +538,16 @@ def scheduled_inference_stage(
                     yield None
                     continue
                 t0 = time.time()
-                chunk = task[input_name]
-                if check is not None:
-                    check(chunk)
-                ctl.note_slot_bytes(_chunk_nbytes(chunk))
-                with telemetry.span("pipeline/stage"):
-                    slot = inferencer.stage(chunk)
+                try:
+                    chunk = task[input_name]
+                    if check is not None:
+                        check(chunk)
+                    ctl.note_slot_bytes(_chunk_nbytes(chunk))
+                    with telemetry.span("pipeline/stage"):
+                        slot = inferencer.stage(chunk)
+                except BaseException as exc:
+                    tag_culprit(exc, task)
+                    raise
                 yield task, slot, slot is not chunk, t0
 
         q, thread = _start_pump(staged_tasks(), ctl.depths["prefetch"])
@@ -528,10 +560,15 @@ def scheduled_inference_stage(
             # runs in the pool; the trace context is rebound from the task
             # (context variables do not follow work into pool threads)
             with telemetry.task_context(task.get("trace_id")):
-                result = _drain_host(out)
-                if postprocess is not None:
-                    with telemetry.span("scheduler/post"):
-                        result = postprocess(result)
+                try:
+                    chaos.chaos_point("scheduler/post")
+                    result = _drain_host(out)
+                    if postprocess is not None:
+                        with telemetry.span("scheduler/post"):
+                            result = postprocess(result)
+                except BaseException as exc:
+                    tag_culprit(exc, task)
+                    raise
             task[output_name] = result
             task["log"]["timer"][op_name] = time.time() - t0
             task["log"]["compute_device"] = inferencer.compute_device
@@ -539,9 +576,16 @@ def scheduled_inference_stage(
 
         def dispatch_one():
             task, slot, owned, t0 = staged.popleft()
-            with telemetry.task_context(task.get("trace_id")), \
-                    telemetry.span("pipeline/dispatch"):
-                out = inferencer.infer_async(slot, crop=crop, consume=owned)
+            with telemetry.task_context(task.get("trace_id")):
+                try:
+                    chaos.chaos_point(f"op/{op_name}")
+                    chaos.chaos_point("scheduler/dispatch")
+                    with telemetry.span("pipeline/dispatch"):
+                        out = inferencer.infer_async(slot, crop=crop,
+                                                     consume=owned)
+                except BaseException as exc:
+                    tag_culprit(exc, task)
+                    raise
             pending.append((task, out, t0))
             telemetry.gauge("pipeline/inflight", len(pending))
 
@@ -610,8 +654,10 @@ def scheduled_inference_stage(
             while finishing:
                 yield complete()
         finally:
+            # a drain already running finishes, queued ones are dropped,
+            # before any claim is released; the buffered tasks surrender
             q.close()
-            pool.shutdown(wait=False)
+            pool.shutdown(wait=True, cancel_futures=True)
             thread.join(timeout=5.0)
 
     return stage_fn

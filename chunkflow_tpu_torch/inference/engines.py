@@ -9,9 +9,16 @@ convnet engine: the built-in model families or a user model file — the
 names are kept for CLI parity with the JAX package, whose flax engine
 serves them all), ``universal`` (a user engine file) and ``prebuilt``
 (an ``Engine`` passed in).
+
+A convnet forward runs under :func:`exact_float32`: cuDNN and matmul with
+TF32 off, deterministic algorithms and no autotuning, scoped to the call,
+so a float32 forward on the card computes the float32 function its
+weights define whatever the process's global flags say.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -24,6 +31,47 @@ from chunkflow_tpu_torch.models.unet3d import UNet3D, create_tpu_optimized_model
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MODEL_VARIANTS = ("parity", "rsunet", "tpu", "tpu_mxu", "tpu_s2d4")
+
+
+_FLAGS_LOCK = threading.Lock()
+_FLAGS_USERS = 0
+_FLAGS_SAVED: Optional[tuple] = None
+
+
+def _flags() -> tuple:
+    cudnn = torch.backends.cudnn
+    return (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _set_flags(flags: tuple) -> None:
+    cudnn = torch.backends.cudnn
+    (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Run a forward with TF32 off (cuDNN and matmul), deterministic cuDNN
+    algorithms and ``benchmark=False``, then put the process's flags back.
+    The flags are process-wide, so concurrent forwards (the executors'
+    threads) share one scope: the first to enter saves and sets them, the
+    last to leave restores them. bfloat16 convolutions do not read the
+    TF32 flags; their algorithm choice is pinned the same way."""
+    global _FLAGS_USERS, _FLAGS_SAVED
+    with _FLAGS_LOCK:
+        if _FLAGS_USERS == 0:
+            _FLAGS_SAVED = _flags()
+            _set_flags((False, True, False, False))
+        _FLAGS_USERS += 1
+    try:
+        yield
+    finally:
+        with _FLAGS_LOCK:
+            _FLAGS_USERS -= 1
+            if _FLAGS_USERS == 0:
+                _set_flags(_FLAGS_SAVED)
+                _FLAGS_SAVED = None
 
 
 class Engine(NamedTuple):
@@ -116,7 +164,8 @@ def create_convnet_engine(
     model.eval()
 
     def apply(batch):
-        return model(batch).float()
+        with exact_float32():
+            return model(batch).float()
 
     return Engine(apply=apply, num_input_channels=num_input_channels,
                   num_output_channels=num_output_channels, model=model)
@@ -146,7 +195,8 @@ def create_universal_engine(
     )
 
     def apply(batch):
-        return user_apply(params, batch)
+        with exact_float32():
+            return user_apply(params, batch)
 
     return Engine(apply=apply, num_input_channels=num_input_channels,
                   num_output_channels=num_output_channels,

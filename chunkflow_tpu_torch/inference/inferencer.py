@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from chunkflow_tpu_torch.chunk.base import Chunk, LayerType, _as_tensor
+from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.core.cartesian import Cartesian
 from chunkflow_tpu_torch.core.dtypes import numpy_dtype, signed_view
 from chunkflow_tpu_torch.inference import engines
@@ -544,4 +545,5 @@ class Inferencer:
                     _device_valid(valid, self.device),
                 )
                 result = normalize_blend(out, weight, self.output_dtype)
+        telemetry.inc("inference/chunks")
         return self._postprocess_result(result, chunk, orig_zyx, run_zyx)

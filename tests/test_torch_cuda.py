@@ -236,3 +236,39 @@ def test_caller_device_chunk_unchanged_after_stream(cuda):
     for dev, copy, ref, got in zip(on_card, before, serial, out):
         assert torch.equal(dev.array, copy)
         assert np.array_equal(got.array, ref)
+
+
+# ---------------------------------------------------------------------------
+# float32 stays float32 whatever the process's flags
+# ---------------------------------------------------------------------------
+def test_float32_forward_under_default_flags(cuda, monkeypatch, tmp_path):
+    """With PyTorch's default global flags (cuDNN TF32 on) the library
+    Inferencer and the CLI compute the float32 forward on one 8x64x64
+    patch: within 1e-4 of the CPU, bitwise the forward under the flags a
+    caller would set by hand (TF32 off, deterministic, no autotuning),
+    and the process's flags are as they were afterwards."""
+    from chunkflow_tpu_torch.flow import cli
+
+    cudnn = torch.backends.cudnn
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "deterministic", False)
+    monkeypatch.setattr(cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    kwargs = dict(input_patch_size=(8, 64, 64), num_output_channels=3,
+                  framework="pytorch", batch_size=1)
+    chunk = Chunk.create(size=(8, 64, 64), dtype=np.uint8, pattern="random")
+    on_card = Inferencer(**kwargs)(chunk).host().array
+    assert cudnn.allow_tf32 and not cudnn.deterministic
+    on_cpu = Inferencer(device="cpu", **kwargs)(chunk).host().array
+    assert np.abs(on_card - on_cpu).max() <= 1e-4
+    npy = tmp_path / "out.npy"
+    assert cli.main(["create-chunk", "--size", "8", "64", "64", "--pattern",
+                     "random", "inference", "--framework", "pytorch",
+                     "--input-patch-size", "8", "64", "64",
+                     "--num-output-channels", "3",
+                     "save-npy", "--file-name", str(npy)]) == 0
+    assert np.array_equal(np.load(npy), on_card)
+    monkeypatch.setattr(cudnn, "allow_tf32", False)
+    monkeypatch.setattr(cudnn, "deterministic", True)
+    by_hand = Inferencer(**kwargs)(chunk).host().array
+    assert np.array_equal(by_hand, on_card)

@@ -30,6 +30,11 @@ from tests.test_torch_models import (
     reference_model,
 )
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 PIN = (4, 16, 16)
 OVERLAP = (2, 8, 8)
 COMMON = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,

@@ -33,6 +33,11 @@ from chunkflow_tpu_torch.inference.inferencer import Inferencer
 from chunkflow_tpu_torch.ops import fold_blend
 from tests.test_torch_inferencer import _unet_engines
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 PIN = (4, 16, 16)
 OVERLAP = (2, 8, 8)
 FOLD = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,

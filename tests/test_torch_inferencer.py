@@ -27,6 +27,11 @@ from chunkflow_tpu_torch.models.convert import state_from_flax
 from chunkflow_tpu_torch.models.unet3d import UNet3D
 from chunkflow_tpu_torch.ops import accumulate, gather
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 PIN = (4, 16, 16)
 OVERLAP = (2, 8, 8)
 IDENTITY = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,

@@ -16,14 +16,20 @@ import tomllib
 from pathlib import Path
 
 import pytest
+import torch
 
 from chunkflow_tpu_torch import _build
 from chunkflow_tpu_torch.ops import accumulate, gather
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "chunkflow_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "chunkflow_tpu")
+             "chunkflow_tpu", "tensorstore", "click", "boto3")
 
 
 def _forbidden(module: str) -> bool:
@@ -62,8 +68,10 @@ def test_importing_every_module_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "chunkflow_tpu_torch.inference.inferencer" in report["imported"]
-    assert "chunkflow_tpu_torch.flow.cli" in report["imported"]
+    for name in ("inference.inferencer", "flow.cli", "flow.setup_env",
+                 "volume.storage", "volume.precomputed", "parallel.queues",
+                 "parallel.lifecycle", "testing.chaos"):
+        assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["loaded"] if _forbidden(m)]
     assert not leaked, leaked
 

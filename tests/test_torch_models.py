@@ -47,6 +47,11 @@ from chunkflow_tpu_torch.models.unet3d import (
     space_to_depth,
 )
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 FEATS = (4, 6, 8)
 DOWNS = ((1, 2, 2), (2, 2, 2))
 TOL = {"float32": 1e-5, "bfloat16": 0.02}

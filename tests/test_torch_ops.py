@@ -22,6 +22,11 @@ from chunkflow_tpu_torch.inference import bump, patching
 from chunkflow_tpu_torch.ops import accumulate, blend, gather
 from chunkflow_tpu_torch.ops import voting as torch_voting
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 PIN = (3, 12, 18)
 # no (sublane, 128) alignment anywhere: the TPU kernel's window logic
 # is exercised, the port has none to get wrong

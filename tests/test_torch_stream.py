@@ -47,6 +47,12 @@ from chunkflow_tpu_torch.flow.scheduler import (
     write_behind_stage,
 )
 from chunkflow_tpu_torch.inference.inferencer import Inferencer
+from chunkflow_tpu_torch.volume import storage
+
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
 
 IDENTITY = dict(input_patch_size=(4, 16, 16), output_patch_overlap=(2, 8, 8),
                 num_output_channels=3, framework="identity", batch_size=2,
@@ -63,8 +69,10 @@ def clean_registry(monkeypatch):
                 "CHUNKFLOW_BLEND", "CHUNKFLOW_PRECISION"):
         monkeypatch.delenv(var, raising=False)
     telemetry.reset()
+    storage.reset_read_concurrency()
     yield
     telemetry.reset()
+    storage.reset_read_concurrency()
 
 
 def _inferencer(**kwargs):
@@ -398,6 +406,16 @@ def test_depth_controller_matches_jax(monkeypatch, name):
         jax_storage._reset_read_concurrency()
 
 
+def test_depth_controller_widens_the_storage_plane():
+    """A load-dominant stall raises the storage knob, and the storage
+    plane's block reads per wave follow it, as in the JAX package."""
+    ctl = DepthController(interval=1, watermark_bytes=1 << 40)
+    assert ctl.depths["storage"] == storage.read_concurrency() == 8
+    _dominant("scheduler/load", 4)(telemetry, ctl)
+    assert ctl.depths["storage"] == storage.read_concurrency() == 12
+    assert DepthController().depths["storage"] == 12  # starts from the live value
+
+
 def test_depth_controller_static_without_telemetry(monkeypatch):
     monkeypatch.setenv("CHUNKFLOW_TELEMETRY", "0")
     ctl = DepthController(watermark_bytes=1 << 40)
@@ -668,12 +686,18 @@ def test_cli_generate_tasks_and_create_bbox(tmp_path, capsys):
             "save-npy", "-f", str(out)]
     assert cli.main(argv) == 0
     assert "pipeline drained 1 task(s)" in capsys.readouterr().out
-    for option in (["--volume-path", "gs://v"], ["--task-file", "t.txt"],
-                   ["--queue-name", "q"]):
-        with pytest.raises(NotImplementedError,
-                           match="volume IO and task queues"):
-            cli.main(["--device", "cpu", "generate-tasks", "-c", "8", "8",
-                      "8", "-g", "1", "1", "1", *option])
+    one_task = ["--device", "cpu", "generate-tasks", "-c", "8", "8", "8",
+                "-g", "1", "1", "1"]
+    with pytest.raises(NotImplementedError, match="cloud storage and SQS"):
+        cli.main(one_task + ["--volume-path", "gs://v"])
+    task_file = tmp_path / "t.txt"
+    assert cli.main(one_task + ["--task-file", str(task_file)]) == 0
+    assert task_file.read_text() == "0-8_0-8_0-8\n"
+    queue = f"file://{tmp_path / 'q'}"
+    assert cli.main(one_task + ["--queue-name", queue]) == 0
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+
+    assert len(open_queue(queue)) == 1
 
 
 @pytest.mark.parametrize("mode", ["adaptive", "static"])

@@ -17,6 +17,11 @@ from chunkflow_tpu_torch.inference import engines
 from chunkflow_tpu_torch.models.convert import state_from_flax
 from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
 
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
 FEATS = (4, 6, 8)
 DOWNS = ((1, 2, 2), (2, 2, 2))
 
