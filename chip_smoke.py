@@ -72,6 +72,20 @@ non-zero exit and no result line:
              in process: bitwise, s/task and Mvox/s from disk against
              phase 8's in-memory stream, host ms to cut out, save and
              ack, and the compute idle share from a profiler trace
+11. chain    the README's production worker chain in process, on phase
+             10's input volume: ``fetch-task-from-queue | load-precomputed
+             | prefetch | normalize-contrast | inference`` (``tpu`` at full
+             width in bfloat16, flax-layout weights) ``| crop-margin | mask
+             | save-precomputed --async-write | delete-task-in-queue``, 8
+             tasks of 56x384x384 (input 64x512x512), a 1x16x16-coarser mask
+             volume with a zeroed block and task starts off its grid: 18 +
+             18 launches per task, the volume bitwise the same chain
+             composed from the library calls, each task acked once;
+             s/task, Mvox/s, host ms of each operator span, compute idle;
+             every operator's card leg bitwise its CPU leg on a task's
+             full-size affinity map (and normalize-contrast on its input);
+             the identity engine through the chain on the card bitwise the
+             CPU port
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -143,6 +157,11 @@ MARGIN = (4, 64, 64)
 OUT_BLOCK = (8, 128, 128)
 VOLUME_FAMILIES = (("parity", "float32", "float32"),
                    ("tpu_s2d4", "bfloat16", "uint8"))
+# phase 11: the README's worker chain on phase 10's input volume; its
+# roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
+# mask volume's voxels are 1 x 16 x 16 of the image's
+CHAIN_ROI = ((4, 72, 68), (112, 768, 768))
+MASK_FACTOR = (1, 16, 16)
 # the workers' visibility timeout (s): a SIGKILLed worker's claims come
 # back after it; the lease heartbeat keeps a live worker's claims
 VISIBILITY_S = 10
@@ -360,7 +379,8 @@ def main() -> int:
     )
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     phase("card", f"{name}, {torch.cuda.device_count()} device(s); torch "
-                  f"{torch.__version__}, CUDA {torch.version.cuda}")
+                  f"{torch.__version__}, CUDA {torch.version.cuda}, numpy "
+                  f"{np.__version__}")
     # name and power limit exactly as nvidia-smi gives them
     print(smi.stdout.strip().splitlines()[0], flush=True)
     require(H100_SXM in name, f"{name} is not an {H100_SXM}: the bounds "
@@ -1008,15 +1028,26 @@ def main() -> int:
 
     # ---- 10. volume: the worker loop on disk ------------------------------
     torch.cuda.empty_cache()
-    volume_launches = volume_phase(
+    # ---- 11. chain: the README's worker chain, on phase 10's volume -------
+    def chain(vol_in, image, tmp):
+        torch.cuda.empty_cache()
+        return chain_phase(
+            torch, dict(volume=VOLUME, roi=CHAIN_ROI, task=TASK,
+                        margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
+                        overlap=OVERLAP, batch=BATCH,
+                        mask_factor=MASK_FACTOR, device="cuda"),
+            vol_in, image, tmp, reset_counts, counts)
+
+    volume_launches, chain_launches = volume_phase(
         torch, dict(volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI,
                     task=TASK, margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
                     overlap=OVERLAP, batch=BATCH, families=VOLUME_FAMILIES,
                     device="cuda"),
         weights=state, reset_counts=reset_counts, counts=counts,
-        in_memory=in_memory)
-    for kname, n in volume_launches.items():
-        kernels[kname]["launches"] += n
+        in_memory=in_memory, then=chain)
+    for launched in (volume_launches, chain_launches):
+        for kname, n in launched.items():
+            kernels[kname]["launches"] += n
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -1032,7 +1063,8 @@ def main() -> int:
     return 0
 
 
-def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory):
+def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
+                 then=None):
     """Phase 10: the queue-fed worker on local disk, as a fleet runs it.
 
     Writes a seeded uint8 input volume with the port's writer, creates the
@@ -1049,8 +1081,10 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory):
     once (the workers' event files), the queue empty and the ledger full.
     Then every family runs fault-free in this process through the CLI's
     stages, counted, timed and traced. ``weights`` is the parity UNet3D's
-    state dict, written as a ``.pt`` file for the workers. Returns the
-    kernels' launches in the counted runs."""
+    state dict, written as a ``.pt`` file for the workers. ``then(vol_in,
+    image, tmp)``, when given, runs last on the same input volume. Returns
+    the kernels' launches in the counted runs and what ``then``
+    returned."""
     import os
     import signal
     import shutil
@@ -1228,7 +1262,7 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory):
                 out, queue, ledger = setup(family, "chaos")
                 w1, t1 = run_worker(
                     worker_args(family, queue, ledger, out, 30, num=3),
-                    chaos="once=op/inference,lifecycle/pre_ack")
+                    chaos="once=scheduler/dispatch,lifecycle/pre_ack")
                 _, t2 = run_worker(
                     worker_args(family, queue, ledger, out, 30),
                     chaos="once=lifecycle/pre_ledger:action=kill",
@@ -1332,7 +1366,320 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory):
                                else "not measured")
                             + " (profiler trace of a fault-free run)")
             del refs, stages
-    return total
+        after = then(vol_in, image, tmp) if then is not None else None
+    return total, after
+
+
+def chain_phase(torch, cfg, vol_in, image, tmp, reset_counts, counts):
+    """Phase 11: the README's production worker chain through the port's
+    CLI, in process, on phase 10's input volume (then once more with
+    ``prefetch --to-device``)::
+
+        fetch-task-from-queue | load-precomputed -e 4 64 64 | prefetch |
+        normalize-contrast | inference -f flax --model-variant tpu
+        -d bfloat16 ... | crop-margin | mask -v MASK |
+        save-precomputed --async-write | delete-task-in-queue
+
+    ``tpu`` at full width in bfloat16, its seeded weights carried through
+    the flax layout by ``models/convert.py:state_from_flax``; MASK a seeded
+    uint8 volume at 40x64x64 nm (1x16x16 over the image) with a zeroed
+    block, and task starts off its grid. Holds: 18 + 18 launches per
+    task, the saved volume bitwise the same chain composed in process from
+    the library calls, each task acked once; on one task's full-size
+    affinity map, the card leg of every operator with one bitwise its CPU
+    leg; the identity engine through the whole chain on the card bitwise
+    the CPU port on one task. Prints s/task, Mvox/s, the host ms of each
+    new ``op/<name>`` span and the compute idle share. Returns the
+    kernels' launches in the counted run."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.chunk import AffinityMap, Image
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.core.bbox import BoundingBoxes
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import process_stream
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.models.convert import state_from_flax
+    from chunkflow_tpu_torch.ops import threshold
+    from chunkflow_tpu_torch.ops.mask import maskout
+    from chunkflow_tpu_torch.parallel.lifecycle import FileLedger
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    dev = cfg["device"]
+    on_card = dev == "cuda"
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start, roi_size = cfg["roi"]
+    chunk_in = tuple(t + 2 * m for t, m in zip(cfg["task"], margin))
+    per_task = len(pad_to_batch(enumerate_patches(chunk_in, pin, pin,
+                                                  overlap), batch)[0]) // batch
+    boxes = list(BoundingBoxes.from_manual_setup(
+        chunk_size=cfg["task"], roi_start=roi_start, roi_size=roi_size))
+    vox_in = int(np.prod(chunk_in))
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # the tpu model's seeded weights, through the flax layout and back
+    tpu_state = engines.create_engine("pytorch",
+                                      model_variant="tpu").model.state_dict()
+    weights = str(tmp / "tpu_seed0.pt")
+    torch.save(state_from_flax(_flax_layout(tpu_state)), weights)
+    del tpu_state
+
+    # the mask volume: 1 x 16 x 16 over the image, a zeroed block
+    factor = cfg["mask_factor"]
+    mask_nm = tuple(v * f for v, f in zip(VOXEL_NM, factor))
+    mask_arr = (np.random.default_rng(11).random(
+        tuple(s // f for s, f in zip(cfg["volume"], factor))) > 0.2).astype(
+        np.uint8)
+    zeroed = (slice(32, 64), slice(16, 32), slice(16, 32))
+    mask_arr[zeroed] = 0
+    vol_mask = str(tmp / "mask")
+    PrecomputedVolume.create(vol_mask, volume_size=mask_arr.shape,
+                             voxel_size=mask_nm, block_size=(32, 16, 16))
+    PrecomputedVolume(vol_mask).save(Chunk(mask_arr, voxel_size=mask_nm))
+    mask_chunk = Chunk(mask_arr, voxel_size=mask_nm)
+    off_grid = [b.string for b in boxes
+                if any(s % f for s, f in zip(b.start, factor))]
+    require(bool(off_grid), "chain: no task starts off the mask's grid")
+    blanked = sum(np.any(mask_arr[tuple(
+        slice(s // f, -(-e // f)) for s, e, f in zip(b.start, b.stop, factor))]
+        == 0) for b in boxes)
+
+    def setup(name, bbox=None):
+        """An output volume, and a fresh queue (and ledger) holding the
+        roi's tasks or ``bbox``'s."""
+        out = str(tmp / name)
+        queue = f"file://{tmp}/{name}-queue"
+        for stale in (f"{name}-queue", f"{name}-ledger"):
+            shutil.rmtree(tmp / stale, ignore_errors=True)
+        start, size = ((roi_start, roi_size) if bbox is None
+                       else (tuple(bbox.start), tuple(bbox.shape)))
+        require(cli.main([
+            "create-info", "-v", out, "-c", "3", "--dtype", "float32",
+            "--volume-size", *nums(roi_size), "--voxel-size",
+            *nums(VOXEL_NM), "--voxel-offset", *nums(roi_start),
+            "--block-size", *nums(cfg["out_block"])]) == 0
+                and cli.main([
+                    "generate-tasks", "--chunk-size", *nums(cfg["task"]),
+                    "--roi-start", *nums(start), "--roi-size", *nums(size),
+                    "--queue-name", queue]) == 0,
+                f"chain: setting up {name} failed")
+        return out, queue, str(tmp / f"{name}-ledger")
+
+    def chain(queue, ledger, out, engine, device=dev,
+              prefetch=("prefetch",)):
+        return ["--device", device, "fetch-task-from-queue", "-q", queue,
+                "--max-retries", "3", "--ledger", ledger, "-r", "0",
+                "load-precomputed", "-v", vol_in, "-e", *nums(margin),
+                *prefetch, "normalize-contrast",
+                "inference", *engine, "-p", *nums(pin), "-v", *nums(overlap),
+                "-c", "3", "-b", str(batch),
+                "crop-margin", "mask", "-v", vol_mask,
+                "save-precomputed", "-v", out, "--async-write",
+                "delete-task-in-queue"]
+
+    tpu = ["-f", "flax", "--model-variant", "tpu", "-d", "bfloat16", "-w",
+           weights]
+
+    def counted(name, **kwargs):
+        """One counted, timed run of the tpu chain into a fresh volume:
+        (its volume, wall s, launches, host ms per span)."""
+        metrics = str(tmp / f"{name}-events")
+        out, queue, ledger = setup(name)
+        _, stages = cli.build_stages(chain(queue, ledger, out, tpu,
+                                           **kwargs))
+        telemetry.reset()
+        telemetry.configure(metrics)
+        reset_counts()
+        sync()
+        t = time.perf_counter()
+        try:
+            n = process_stream(stages)
+        finally:
+            sync()
+            wall = time.perf_counter() - t
+            telemetry.configure(None)
+        launched = counts()
+        hists = telemetry.snapshot()["hists"]
+        require(n == len(boxes), f"chain: {n} tasks drained, not "
+                                 f"{len(boxes)}")
+        for kname, k in launched.items():
+            require(not on_card or k == per_task * len(boxes),
+                    f"chain: {kname} launched {k} times, not {per_task} "
+                    f"per task ({per_task * len(boxes)})")
+        stats = open_queue(queue).stats()
+        require(stats["pending"] == stats["inflight"] == stats["dead"] == 0,
+                f"chain: the queue did not drain: {stats}")
+        require(sorted(FileLedger(ledger).keys())
+                == sorted(b.string for b in boxes),
+                "chain: the ledger is short")
+        acks = {b.string: 0 for b in boxes}
+        for fname in os.listdir(metrics):
+            with open(os.path.join(metrics, fname)) as f:
+                for ln in f:
+                    event = json.loads(ln)
+                    if event.get("name") in ("lifecycle/committed",
+                                             "lifecycle/ledger_skip"):
+                        acks[event["body"]] += 1
+        require(set(acks.values()) == {1}, f"chain: acks per task {acks}")
+        spans = {key: h["mean"] * 1e3 for key, h in hists.items()}
+        return out, wall, launched, spans
+
+    out, wall, launched, spans = counted("chain")
+
+    # the same chain composed in process from the library calls
+    ref_inf = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                         num_output_channels=3, framework="flax",
+                         model_variant="tpu", dtype="bfloat16",
+                         batch_size=batch, weight_path=weights, device=dev)
+    refs = []
+    first_aff = first_in = None
+    for bbox in boxes:
+        src = bbox.adjust(margin)
+        img = Image(image[src.slices], voxel_offset=src.start,
+                    voxel_size=VOXEL_NM).normalize_contrast()
+        aff = ref_inf(img).cutout(bbox)
+        if first_aff is None:
+            first_aff, first_in = aff, image[src.slices]
+        refs.append(maskout(aff, mask_chunk, device=dev).host().array)
+    del ref_inf
+
+    def check(out, what):
+        vol = PrecomputedVolume(out)
+        for bbox, ref in zip(boxes, refs):
+            got = vol.cutout(bbox).array
+            require(got.shape == ref.shape and np.array_equal(got, ref),
+                    f"chain: {what}: task {bbox.string} differs from the "
+                    f"library composition")
+
+    def host_ms(spans):
+        return ", ".join(f"{name} {spans.get('op/' + name, 0.0):.1f}"
+                         for name in ("load-precomputed",
+                                      "normalize-contrast", "inference",
+                                      "crop-margin", "mask",
+                                      "save-precomputed")) \
+            + f", ack {spans.get('lifecycle/commit', 0.0):.1f}"
+
+    check(out, "the README chain")
+    phase("chain", f"tpu bfloat16 through the README chain: {len(boxes)} "
+                   f"tasks of {cfg['task']} (input {chunk_in}), "
+                   f"{wall / len(boxes):.4f} s/task, "
+                   f"{vox_in * len(boxes) / wall / 1e6:.3f} Mvox/s of input; "
+                   f"launches {launched} ({per_task} + {per_task} per task); "
+                   f"output == the library composition bitwise on every "
+                   f"task; each task acked once; {len(off_grid)} tasks start "
+                   f"off the mask's {factor} grid, {blanked} meet the "
+                   f"zeroed block")
+    phase("chain", f"host ms per task: {host_ms(spans)}")
+
+    def traced():
+        shutil.rmtree(out)
+        o, q, lg = setup("chain")
+        process_stream(cli.build_stages(chain(q, lg, o, tpu))[1])
+
+    if on_card:
+        idle = _idle_share(_device_trace(torch, traced))
+        phase("chain", f"compute idle {idle:.1%} (profiler trace of a "
+                       f"second run)")
+    shutil.rmtree(out)
+
+    # the same chain with the image staged to the card by prefetch: the
+    # normalization takes its card leg (bitwise the host leg)
+    out, wall_d, launched_d, spans_d = counted(
+        "chain-to-device", prefetch=("prefetch", "--to-device"))
+    check(out, "prefetch --to-device")
+    shutil.rmtree(out)
+    for kname, n in launched_d.items():
+        launched[kname] += n
+    del refs
+    phase("chain", f"the same chain with prefetch --to-device: "
+                   f"{wall_d / len(boxes):.4f} s/task, "
+                   f"{vox_in * len(boxes) / wall_d / 1e6:.3f} Mvox/s; output "
+                   f"== the library composition bitwise; host ms per task: "
+                   f"{host_ms(spans_d)}")
+
+    # every operator's card leg against its CPU leg, at full size
+    aff_card = first_aff
+    aff_host = aff_card.host()
+    checks = []
+
+    def held(name, card_fn, host_fn):
+        sync()
+        t0 = time.perf_counter()
+        card = card_fn()
+        sync()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = host_fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        got = card.host().array
+        want = np.asarray(host.array)
+        require(got.dtype == want.dtype and got.shape == want.shape
+                and np.array_equal(got, want),
+                f"chain: {name}: the card leg differs from the CPU leg")
+        checks.append(f"{name} {card_ms:.1f} vs {host_ms:.1f}")
+
+    held("maskout", lambda: maskout(aff_card, mask_chunk, device=dev),
+         lambda: maskout(aff_host, mask_chunk, device="cpu"))
+    held("channel_voting", lambda: aff_card.channel_voting(device=dev),
+         lambda: aff_host.channel_voting(device="cpu"))
+    held("threshold", lambda: threshold.threshold(aff_card, 0.5),
+         lambda: threshold.threshold(aff_host, 0.5))
+    for mode in ("xy", "z"):
+        held(f"quantize {mode}",
+             lambda: AffinityMap(aff_card).quantize(mode),
+             lambda: AffinityMap(aff_host).quantize(mode))
+    held("multiply", lambda: aff_card * aff_card,
+         lambda: aff_host * aff_host)
+    img_card = Image(torch.from_numpy(first_in.copy()).to(dev))
+    img_host = Image(first_in)
+    for per_section in (True, False):
+        label = "per section" if per_section else "whole"
+        held(f"normalize_contrast {label} (affinity map)",
+             lambda: Image(aff_card).normalize_contrast(
+                 per_section=per_section),
+             lambda: Image(aff_host).normalize_contrast(
+                 per_section=per_section))
+        held(f"normalize_contrast {label} ({chunk_in} uint8)",
+             lambda: img_card.normalize_contrast(per_section=per_section),
+             lambda: img_host.normalize_contrast(per_section=per_section))
+    phase("chain", f"card leg == CPU leg bitwise on a {tuple(aff_card.shape)} "
+                   f"affinity map and its {chunk_in} input; card vs CPU "
+                   f"ms: " + "; ".join(checks))
+    del aff_card, aff_host, img_card, img_host, first_aff
+
+    # the identity engine through the whole chain: card == CPU port
+    one = boxes[0]
+    vols = {}
+    for device in (dev, "cpu"):
+        o, q, lg = setup(f"identity-{device}", bbox=one)
+        require(cli.main(chain(q, lg, o, ["-f", "identity"], device)) == 0,
+                f"chain: the identity chain on {device} failed")
+        vols[device] = PrecomputedVolume(o).cutout(one).array.copy()
+        shutil.rmtree(o)
+    require(np.array_equal(vols[dev], vols["cpu"])
+            and vols["cpu"].std() > 0.01,
+            "chain: the identity chain on the card differs from the CPU "
+            "port")
+    phase("chain", f"identity engine through the chain on task "
+                   f"{one.string}: card == CPU port bitwise")
+    return launched
 
 
 def _brief(counters):

@@ -1,12 +1,20 @@
 """Chunk: an array (numpy or torch) + voxel offset/size + layer type.
 
-The counterpart of ``chunkflow_tpu/chunk/base.py``, cut to the surface the
-per-chunk inference path uses. The payload is a numpy array (host) or a
-``torch.Tensor`` (CPU or CUDA); a tensor payload is kept as it is, never
-run through ``np.asarray`` (which would copy a CPU tensor and fail on a
-CUDA one). ``device(device)`` / ``host()`` move it explicitly. Spatial
-geometry always refers to the trailing 3 (z, y, x) dims, so 3D (zyx) and
-4D (czyx) chunks flow through the same code paths.
+The counterpart of ``chunkflow_tpu/chunk/base.py``. The payload is a
+numpy array (host) or a ``torch.Tensor`` (CPU or CUDA); a tensor payload
+is kept as it is, never run through ``np.asarray`` (which would copy a
+CPU tensor and fail on a CUDA one). ``device(device)`` / ``host()`` move
+it explicitly. Spatial geometry always refers to the trailing 3 (z, y, x)
+dims, so 3D (zyx) and 4D (czyx) chunks flow through the same code paths.
+
+numpy interop as in the JAX package (an ``NDArrayOperatorsMixin``):
+``chunk * mask`` or ``chunk / 255`` keep the metadata. A host payload
+computes with numpy itself; a tensor payload computes in torch where it
+lies, under numpy's type rules and bitwise numpy's result
+(``core/ufuncs.py``). Each operator computes where its chunk lies; none
+moves a card payload to the host and back. The operators the JAX package
+computes on the host only (``validate``) read a card payload once, as
+its ``np.asarray`` does.
 """
 from __future__ import annotations
 
@@ -18,7 +26,12 @@ import torch
 
 from chunkflow_tpu_torch.core.bbox import BoundingBox
 from chunkflow_tpu_torch.core.cartesian import Cartesian, to_cartesian
-from chunkflow_tpu_torch.core.dtypes import numpy_dtype, signed_view
+from chunkflow_tpu_torch.core import ufuncs
+from chunkflow_tpu_torch.core.dtypes import (
+    numpy_dtype,
+    signed_view,
+    torch_dtype,
+)
 
 
 class LayerType(str, Enum):
@@ -67,7 +80,32 @@ def _as_tensor(array: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(array)
 
 
-class Chunk:
+def edge_pad(arr: torch.Tensor, zyx) -> torch.Tensor:
+    """Pad a tensor's trailing (z, y, x) dims at the high side up to
+    ``zyx`` by replicating the boundary plane (index clamping:
+    ``F.pad``'s replicate mode takes no integer tensors). Conversion
+    commutes with it, so a raw chunk pads exactly as a converted one
+    would."""
+    view = signed_view(arr)
+    lead = arr.ndim - 3
+    for axis, (run, size) in enumerate(zip(zyx, arr.shape[lead:]),
+                                       start=lead):
+        if run > size:
+            index = torch.arange(run, device=arr.device).clamp_(max=size - 1)
+            view = view.index_select(axis, index)
+    return view.view(arr.dtype)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP, queue "
+                              f"1: {item})")
+
+
+def _is_tensor(value) -> bool:
+    return isinstance(value, torch.Tensor)
+
+
+class Chunk(np.lib.mixins.NDArrayOperatorsMixin):
     """An ndarray located in a global voxel coordinate system."""
 
     def __init__(
@@ -77,6 +115,11 @@ class Chunk:
         voxel_size=None,
         layer_type: Union[str, LayerType, None] = None,
     ):
+        if isinstance(array, Chunk):
+            voxel_offset = voxel_offset or array.voxel_offset
+            voxel_size = voxel_size or array.voxel_size
+            layer_type = layer_type or array.layer_type
+            array = array.array
         if not isinstance(array, (np.ndarray, torch.Tensor)):
             array = np.asarray(array)
         if array.ndim not in (3, 4):
@@ -159,6 +202,16 @@ class Chunk:
         return cls(array, voxel_offset=bbox.start, voxel_size=voxel_size)
 
     @classmethod
+    def from_array(cls, array, bbox: BoundingBox, voxel_size=None) -> "Chunk":
+        """Wrap an array whose spatial extent is ``bbox``."""
+        if tuple(array.shape[-3:]) != tuple(bbox.shape):
+            raise ValueError(
+                f"array spatial shape {tuple(array.shape[-3:])} does not "
+                f"match bbox shape {tuple(bbox.shape)}"
+            )
+        return cls(array, voxel_offset=bbox.start, voxel_size=voxel_size)
+
+    @classmethod
     def from_npy(cls, path: str, voxel_offset=None, voxel_size=None) -> "Chunk":
         return cls(np.load(path), voxel_offset=voxel_offset,
                    voxel_size=voxel_size)
@@ -184,6 +237,79 @@ class Chunk:
     @property
     def ndim(self) -> int:
         return self.array.ndim
+
+    @property
+    def nchannels(self) -> int:
+        return self.array.shape[0] if self.ndim == 4 else 1
+
+    def __len__(self):
+        return len(self.array)
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.array
+        if _is_tensor(arr):
+            if arr.device.type != "cpu":
+                raise TypeError(
+                    "the payload lies on the card: call .host() to bring "
+                    "it to the host first")
+            arr = as_native_dtype(arr)
+        arr = np.asarray(arr)
+        return arr.astype(dtype) if dtype is not None else arr
+
+    _HANDLED = (np.ndarray, torch.Tensor, int, float, complex, np.number,
+                bool, list, tuple)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """numpy interop: ``chunk * mask``, ``chunk / 255`` keep metadata.
+        Host payloads run the numpy ufunc itself; when any operand holds a
+        tensor the ufunc runs in torch on that tensor's device, with
+        numpy's type rules (``core/ufuncs.py``)."""
+        out = kwargs.get("out", ())
+        for item in inputs + out:
+            if not isinstance(item, self._HANDLED + (Chunk,)):
+                return NotImplemented
+        unwrapped = tuple(i.array if isinstance(i, Chunk) else i
+                          for i in inputs)
+        outs = tuple(o.array if isinstance(o, Chunk) else o for o in out)
+        if any(_is_tensor(a) for a in unwrapped + outs):
+            if method != "__call__" or kwargs:  # no out=, where=, ...
+                return NotImplemented
+            return self._rewrap(ufuncs.apply(ufunc, *unwrapped))
+        if out:
+            kwargs["out"] = outs
+        result = getattr(ufunc, method)(*unwrapped, **kwargs)
+        if method == "at":
+            return None
+        if isinstance(result, tuple):
+            return tuple(self._rewrap(r) for r in result)
+        if out:
+            return self._rewrap(kwargs["out"][0])
+        return self._rewrap(result)
+
+    def _rewrap(self, result):
+        if (
+            hasattr(result, "ndim")
+            and result.ndim in (3, 4)
+            and tuple(result.shape[-3:]) == self.shape[-3:]
+        ):
+            return Chunk(
+                result,
+                voxel_offset=self.voxel_offset,
+                voxel_size=self.voxel_size,
+                layer_type=self.layer_type,
+            )
+        return result
+
+    def __getitem__(self, key):
+        return self.array[key]
+
+    def __setitem__(self, key, value):
+        if isinstance(value, Chunk):
+            value = value.array
+        if _is_tensor(self.array) and not _is_tensor(value):
+            value = ufuncs.as_tensor(value, self.array.dtype,
+                                     self.array.device)
+        self.array[key] = value
 
     def __repr__(self) -> str:
         return (
@@ -302,6 +428,34 @@ class Chunk:
         out.voxel_size = Cartesian.from_collection(voxel_size)
         return out
 
+    def astype(self, dtype) -> "Chunk":
+        arr = self.array
+        if _is_tensor(arr):
+            return self._with_array(arr.to(torch_dtype(dtype)))
+        return self._with_array(arr.astype(dtype))
+
+    def clone(self) -> "Chunk":
+        arr = self.array
+        return self._with_array(arr.clone() if _is_tensor(arr)
+                                else arr.copy())
+
+    # ---- layer predicates ------------------------------------------------
+    @property
+    def is_image(self) -> bool:
+        return self.layer_type is LayerType.IMAGE
+
+    @property
+    def is_segmentation(self) -> bool:
+        return self.layer_type is LayerType.SEGMENTATION
+
+    @property
+    def is_affinity_map(self) -> bool:
+        return self.layer_type is LayerType.AFFINITY_MAP
+
+    @property
+    def is_probability_map(self) -> bool:
+        return self.layer_type is LayerType.PROBABILITY_MAP
+
     # ---- geometry --------------------------------------------------------
     @property
     def voxel_stop(self) -> Cartesian:
@@ -335,6 +489,196 @@ class Chunk:
             return self
         return self.cutout(self.bbox.adjust(-margin))
 
+    @property
+    def bounding_box(self) -> BoundingBox:
+        return self.bbox
+
+    @property
+    def start(self) -> Cartesian:
+        return self.voxel_offset
+
+    @property
+    def stop(self) -> Cartesian:
+        return self.voxel_stop
+
+    @property
+    def size(self):
+        return self.array.numel() if _is_tensor(self.array) \
+            else self.array.size
+
+    @property
+    def ndoffset(self) -> tuple:
+        """Offset with the channel dim prepended for 4D chunks."""
+        if self.ndim == 4:
+            return (0,) + tuple(self.voxel_offset)
+        return tuple(self.voxel_offset)
+
+    @property
+    def slices(self) -> tuple:
+        """Global-coordinate slices of this chunk in the big volume."""
+        return tuple(
+            slice(o, o + s) for o, s in zip(self.ndoffset, self.shape)
+        )
+
+    @property
+    def properties(self) -> dict:
+        return {
+            "voxel_offset": self.voxel_offset,
+            "voxel_size": self.voxel_size,
+            "layer_type": self.layer_type,
+        }
+
+    @properties.setter
+    def properties(self, value: dict) -> None:
+        self.set_properties(value)
+
+    def set_properties(self, properties: dict) -> None:
+        # None values (JSON nulls) leave the attribute unchanged
+        if properties.get("voxel_offset") is not None:
+            self.voxel_offset = to_cartesian(properties["voxel_offset"])
+        if properties.get("voxel_size") is not None:
+            self.voxel_size = to_cartesian(properties["voxel_size"])
+        if properties.get("layer_type") is not None:
+            self.layer_type = LayerType(properties["layer_type"])
+
+    def fill(self, x) -> None:
+        if _is_tensor(self.array):
+            self.array.fill_(x)
+        else:
+            self.array.fill(x)
+
+    def where(self, mask) -> tuple:
+        """``np.where`` in GLOBAL coordinates: int64 index arrays on the
+        host (a tensor mask is reduced where it lies)."""
+        if isinstance(mask, Chunk):
+            mask = mask.array
+        if _is_tensor(mask):
+            shape = tuple(mask.shape)
+            index = tuple(i.cpu().numpy()
+                          for i in torch.nonzero(mask, as_tuple=True))
+        else:
+            mask = np.asarray(mask)
+            shape = mask.shape
+            index = np.where(mask)
+        if shape != self.shape:
+            raise ValueError(
+                f"mask shape {shape} != chunk shape {self.shape}"
+            )
+        return tuple(i + o for i, o in zip(index, self.ndoffset))
+
+    def ascontiguousarray(self) -> "Chunk":
+        if _is_tensor(self.array):
+            self.array = self.array.contiguous()
+        else:
+            self.array = np.ascontiguousarray(self.array)
+        return self
+
+    def _as_payload(self, value):
+        """``value`` (a patch's array) cast to this chunk's dtype, on this
+        chunk's side (the host or this tensor's device)."""
+        if _is_tensor(self.array):
+            return ufuncs.as_tensor(value, self.array.dtype,
+                                    self.array.device)
+        if _is_tensor(value):
+            value = as_native_dtype(value)
+        return value.astype(self.dtype)
+
+    def save(self, patch: "Chunk") -> None:
+        """Overwrite the region covered by ``patch`` (global coords)."""
+        inter = self.bbox.intersection(patch.bbox)
+        if not inter.is_valid():
+            return
+        value = self._as_payload(patch.cutout(inter).array)
+        self.array[self._rel_slices(inter)] = value
+
+    def blend(self, patch: "Chunk") -> None:
+        """Overlap-add ``patch`` into this chunk (global coords)."""
+        inter = self.bbox.intersection(patch.bbox)
+        if not inter.is_valid():
+            return
+        value = self._as_payload(patch.cutout(inter).array)
+        self.array[self._rel_slices(inter)] += value
+
+    def add_overlap(self, other: "Chunk") -> None:
+        """Sum the overlapping region of ``other`` into this chunk."""
+        self.blend(other)
+
+    def shrink(self, size) -> "Chunk":
+        """Trim voxels from the faces; ``size`` is 3 symmetric or 6
+        (-z,-y,-x,+z,+y,+x) amounts."""
+        size = tuple(int(s) for s in size)
+        if len(size) == 3:
+            size = size + size
+        if len(size) != 6:
+            raise ValueError(f"need 3 or 6 elements, got {len(size)}")
+        if any(s < 0 for s in size):
+            raise ValueError(f"shrink amounts must be non-negative: {size}")
+        z, y, x = self.shape[-3:]
+        if size[0] + size[3] >= z or size[1] + size[4] >= y or \
+                size[2] + size[5] >= x:
+            raise ValueError(
+                f"shrink {size} consumes the whole extent {(z, y, x)}"
+            )
+        arr = self.array[
+            ...,
+            size[0]:z - size[3],
+            size[1]:y - size[4],
+            size[2]:x - size[5],
+        ]
+        return type(self)(
+            arr,
+            voxel_offset=self.voxel_offset + Cartesian.from_collection(size[:3]),
+            voxel_size=self.voxel_size,
+            layer_type=self.layer_type,
+        )
+
+    def pad_to(self, shape, mode: str = "constant") -> "Chunk":
+        """Pad (at the stop side) so spatial dims reach ``shape``; a
+        tensor pads where it lies (``constant`` and ``edge``)."""
+        target = tuple(to_cartesian(shape))
+        current = self.shape[-3:]
+        pad = [(0, t - c) for t, c in zip(target, current)]
+        if all(p == (0, 0) for p in pad):
+            return self
+        if any(p[1] < 0 for p in pad):
+            raise ValueError(f"cannot pad {current} down to {target}")
+        arr = self.array
+        if not _is_tensor(arr):
+            if self.ndim == 4:
+                pad = [(0, 0)] + pad
+            return self._with_array(np.pad(arr, pad, mode=mode))
+        if mode == "constant":
+            out = arr.new_zeros(arr.shape[:-3] + target)
+            out[(..., *(slice(0, c) for c in current))] = arr
+        elif mode == "edge":
+            out = edge_pad(arr, target)
+        else:
+            raise ValueError(f"pad mode {mode!r} on a tensor payload: "
+                             f"constant or edge")
+        return self._with_array(out)
+
+    def transpose(self, only_spatial: bool = True) -> "Chunk":
+        """Reverse spatial axis order (zyx <-> xyz)."""
+        if self.ndim == 4:
+            axes = (0, 3, 2, 1) if only_spatial else (3, 2, 1, 0)
+        else:
+            axes = (2, 1, 0)
+        arr = self.array
+        arr = arr.permute(axes) if _is_tensor(arr) else arr.transpose(axes)
+        return type(self)(
+            arr,
+            voxel_offset=Cartesian(*reversed(self.voxel_offset)),
+            voxel_size=Cartesian(*reversed(self.voxel_size)),
+            layer_type=self.layer_type,
+        )
+
+    def squeeze_channel(self) -> "Chunk":
+        if self.ndim == 3:
+            return self
+        if self.shape[0] != 1:
+            raise ValueError(f"cannot squeeze {self.shape[0]} channels")
+        return self._with_array(self.array[0])
+
     # ---- analytics -------------------------------------------------------
     def all_zero(self) -> bool:
         if self._all_zero is not None:
@@ -345,7 +689,63 @@ class Chunk:
             return not bool(signed_view(self.array).any())
         return not bool(np.any(self.array))
 
+    def min(self):
+        return self.array.min()
+
+    def max(self):
+        return self.array.max()
+
+    def threshold(self, threshold: float) -> "Chunk":
+        from chunkflow_tpu_torch.ops import threshold as _threshold
+
+        return _threshold.threshold(self, threshold)
+
+    def connected_component(self, threshold: float = 0.5,
+                            connectivity: int = 26,
+                            device: bool = False) -> "Chunk":
+        _not_ported("Chunk.connected_component", "segmentation device legs")
+
+    def channel_voting(self, device="cuda") -> "Chunk":
+        """Argmax over channels + 1, in torch where the chunk lies (a
+        host chunk: on ``device``)."""
+        from chunkflow_tpu_torch.ops import voting
+
+        return voting.channel_voting(self, device=device)
+
     def mask_using_last_channel(self, threshold: float = 0.3) -> "Chunk":
         from chunkflow_tpu_torch.ops import voting
 
         return voting.mask_using_last_channel(self, threshold=threshold)
+
+    def maskout(self, mask: "Chunk", device="cuda") -> "Chunk":
+        """Multiply by a (possibly coarser) binary mask, in torch where
+        the chunk lies (a host chunk: on ``device``)."""
+        from chunkflow_tpu_torch.ops import mask as _mask
+
+        return _mask.maskout(self, mask, device=device)
+
+    def validate(self) -> bool:
+        """Detect black-box corruption by template matching (on the
+        host, as the JAX package)."""
+        from chunkflow_tpu_torch.chunk.validate import (
+            validate_by_template_matching,
+        )
+
+        return validate_by_template_matching(as_native_dtype(self.array))
+
+    def gaussian_filter_2d(self, sigma: float = 1.0) -> "Chunk":
+        _not_ported("Chunk.gaussian_filter_2d", "segmentation device legs")
+
+    def to_h5(self, path: str, *args, **kwargs) -> str:
+        _not_ported("Chunk.to_h5", "chunk file formats")
+
+    @classmethod
+    def from_h5(cls, path: str, *args, **kwargs) -> "Chunk":
+        _not_ported("Chunk.from_h5", "chunk file formats")
+
+    def to_tif(self, path: str, *args, **kwargs) -> str:
+        _not_ported("Chunk.to_tif", "chunk file formats")
+
+    @classmethod
+    def from_tif(cls, path: str, *args, **kwargs) -> "Chunk":
+        _not_ported("Chunk.from_tif", "chunk file formats")

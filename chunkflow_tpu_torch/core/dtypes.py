@@ -49,3 +49,13 @@ def signed_view(t: torch.Tensor) -> torch.Tensor:
     unsigned int, else ``t`` itself (see ``_SIGNED_VIEW``)."""
     signed = _SIGNED_VIEW.get(t.dtype)
     return t if signed is None else t.view(signed)
+
+
+_NUMPY_TO_TORCH = {v: k for k, v in _TORCH_TO_NUMPY.items()}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NUMPY_TO_TORCH[np.dtype(dtype)]

@@ -23,10 +23,14 @@ volumes are its only shared state)::
 Inference runs on the card; ``--device cpu`` (before the first command)
 runs the kernels' plain PyTorch versions on the CPU instead. Volumes are
 local neuroglancer precomputed directories in the raw encoding; queues
-are ``file://`` directories or ``memory://`` names. Cloud URLs
-(``gs://``, ``s3://``, ``sqs://``), other encodings, ``--validate-mip``,
-``--create-thumbnail``, ``fleet-run`` and ``fleet-status`` raise
-``NotImplementedError`` naming their ROADMAP item.
+are ``file://`` directories or ``memory://`` names. Every command name of
+the JAX CLI is registered: those not ported yet (``NOT_PORTED``), cloud
+URLs (``gs://``, ``s3://``, ``sqs://``), other encodings,
+``--validate-mip`` and ``--create-thumbnail`` raise
+``NotImplementedError`` naming their ROADMAP item. Chunk operators
+compute where their chunk lies; ``mask`` and ``channel-voting`` compute a
+host chunk on ``--device``, as the JAX package computes them with
+``jnp`` on its default device.
 """
 from __future__ import annotations
 
@@ -445,10 +449,6 @@ def _dead_letter(args, state) -> Stage:
     return stage()
 
 
-def _fleet(args, state) -> Stage:
-    _not_ported("fleet-run and fleet-status", "fleet supervisor")
-
-
 def _create_bbox_options(p):
     _name(p, "create-bbox")
     _triple(p, "--start", "-s", required=True)
@@ -781,6 +781,543 @@ def _mark_complete(args, state) -> Stage:
 
 
 # ---------------------------------------------------------------------------
+# flow control and task variables
+# ---------------------------------------------------------------------------
+def _touch_marker(prefix, bbox, suffix, state):
+    """Touch <prefix><bbox><suffix> as a skip/resume marker (never under
+    --dry-run: a dry preview must not fabricate resume state)."""
+    if state["dry_run"]:
+        return
+    fname = f"{prefix}{bbox.string}{suffix}"
+    if not os.path.exists(fname):
+        open(fname, "a").close()
+
+
+def _names(text: Optional[str]) -> List[str]:
+    return [n.strip() for n in (text or "").split(",") if n.strip()]
+
+
+def _cleanup_options(p):
+    _name(p, "cleanup")
+    p.add_argument("--dir", "-d", dest="directory", required=True)
+    p.add_argument("--mode", "-m", choices=["exist", "empty", "not-empty"],
+                   default="exist",
+                   help="remove only files meeting this condition")
+    p.add_argument("--suffix", default=".h5")
+
+
+def _cleanup(args, state) -> Stage:
+    def removable(path):
+        if not os.path.exists(path):
+            return False
+        if args.mode == "empty":
+            return os.path.getsize(path) == 0
+        if args.mode == "not-empty":
+            return os.path.getsize(path) > 0
+        return True
+
+    @operator
+    def stage(task):
+        if task.get("bbox") is not None:
+            paths = [os.path.join(args.directory,
+                                  f"{task['bbox'].string}{args.suffix}")]
+        else:
+            # a bare seed task sweeps the whole directory
+            paths = [
+                os.path.join(args.directory, f)
+                for f in os.listdir(args.directory)
+                if (not args.suffix or f.endswith(args.suffix))
+                and os.path.isfile(os.path.join(args.directory, f))
+            ]
+        for path in paths:
+            if removable(path) and not state["dry_run"]:
+                os.remove(path)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _skip_all_zero_options(p):
+    _name(p, "skip-all-zero")
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+    p.add_argument("--prefix", "-p", default=None,
+                   help="touch <prefix><bbox><suffix> as a completion "
+                        "marker when skipping")
+    p.add_argument("--suffix", "-s", default="")
+    p.add_argument("--adjust-size", "-a", type=int, default=None,
+                   help="grow/shrink the marker bbox to match result "
+                        "filenames")
+    _on_off(p, "--chunk-bbox", "--task-bbox", default=True,
+            help="name the marker after the chunk bbox or the task bbox")
+
+
+def _skip_all_zero(args, state) -> Stage:
+    @operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if not chunk.all_zero():
+            return task
+        if args.prefix is not None:
+            bbox = chunk.bbox if args.chunk_bbox else task.get("bbox")
+            if bbox is not None:
+                if args.adjust_size is not None:
+                    bbox = bbox.adjust(args.adjust_size)
+                _touch_marker(args.prefix, bbox, args.suffix, state)
+        return None
+
+    return stage(_name=args.op_name)
+
+
+def _skip_none_options(p):
+    _name(p, "skip-none")
+    p.add_argument("--input-chunk-name", "--input-name", "-i",
+                   default=DEFAULT_CHUNK_NAME)
+    p.add_argument("--prefix", "-p", default=None,
+                   help="touch <prefix><bbox><suffix> as a marker when "
+                        "skipping")
+    p.add_argument("--suffix", "-s", default="")
+
+
+def _skip_none(args, state) -> Stage:
+    @operator
+    def stage(task):
+        if task.get(args.input_chunk_name) is None:
+            if args.prefix is not None and task.get("bbox") is not None:
+                _touch_marker(args.prefix, task["bbox"], args.suffix, state)
+            return None
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _skip_task_by_file_options(p):
+    _name(p, "skip-task-by-file")
+    p.add_argument("--prefix", "-p", required=True, help="marker path prefix")
+    p.add_argument("--suffix", "-s", default=".h5")
+    p.add_argument("--mode", "-m", choices=["missing", "empty", "exist"],
+                   default="exist",
+                   help="skip when the file is missing / missing-or-empty / "
+                        "exists")
+    p.add_argument("--adjust-size", "-a", type=int, default=None,
+                   help="grow/shrink the bbox used in the file name")
+
+
+def _skip_task_by_file(args, state) -> Stage:
+    @operator
+    def stage(task):
+        bbox = task["bbox"]
+        if args.adjust_size is not None:
+            bbox = bbox.adjust(args.adjust_size)
+        path = f"{args.prefix}{bbox.string}{args.suffix}"
+        if args.mode == "exist":
+            skip = os.path.exists(path)
+        elif args.mode == "missing":
+            skip = not os.path.exists(path)
+        else:  # empty
+            skip = not os.path.exists(path) or os.path.getsize(path) == 0
+        return None if skip else task
+
+    return stage(_name=args.op_name)
+
+
+def _adjust_bbox_options(p):
+    _name(p, "adjust-bbox")
+    _triple(p, "--corner-offset", required=True,
+            help="grow(+)/shrink(-) both corners")
+
+
+def _adjust_bbox(args, state) -> Stage:
+    @operator
+    def stage(task):
+        task["bbox"] = task["bbox"].adjust(args.corner_offset)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _delete_var_options(p):
+    _name(p, "delete-var")
+    p.add_argument("--var-names", "-v", required=True,
+                   help="comma-separated task keys")
+
+
+def _delete_var(args, state) -> Stage:
+    @operator
+    def stage(task):
+        for name in args.var_names.split(","):
+            task.pop(name.strip(), None)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _copy_var_options(p):
+    _name(p, "copy-var")
+    p.add_argument("--from-name", "-f", required=True)
+    p.add_argument("--to-name", "-t", required=True)
+
+
+def _copy_var(args, state) -> Stage:
+    @operator
+    def stage(task):
+        task[args.to_name] = task[args.from_name]
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _load_json_options(p):
+    _name(p, "load-json")
+    p.add_argument("--file-name", "--file-path", "-f", required=True)
+    p.add_argument("--output-name", "-o", default="json")
+
+
+def _load_json(args, state) -> Stage:
+    @operator
+    def stage(task):
+        with open(args.file_name) as f:
+            task[args.output_name] = json.load(f)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _debug_options(p):
+    _name(p, "debug")
+
+
+def _debug(args, state) -> Stage:
+    @operator
+    def stage(task):
+        breakpoint()  # noqa: T100 - the command's purpose
+        return task
+
+    return stage(_name=args.op_name)
+
+
+# ---------------------------------------------------------------------------
+# chunk operators
+# ---------------------------------------------------------------------------
+def _in_out(p, in_names=("--input-chunk-name", "-i"),
+            out_names=("--output-chunk-name", "-o"),
+            out_default=DEFAULT_CHUNK_NAME):
+    p.add_argument(*in_names, dest="input_chunk_name",
+                   default=DEFAULT_CHUNK_NAME)
+    p.add_argument(*out_names, dest="output_chunk_name", default=out_default)
+
+
+def _crop_margin_options(p):
+    _name(p, "crop-margin")
+    _triple(p, "--margin-size", "-m", default=None)
+    _in_out(p)
+
+
+def _crop_margin(args, state) -> Stage:
+    @operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.margin_size and any(args.margin_size):
+            cropped = chunk.crop_margin(args.margin_size)
+        elif task.get("bbox") is not None:
+            cropped = chunk.cutout(task["bbox"])
+        else:
+            raise UsageError("need --margin-size or a task bbox")
+        task[args.output_chunk_name] = cropped
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _threshold_options(p):
+    _name(p, "threshold")
+    p.add_argument("--threshold", "-t", type=float, default=0.5)
+    _in_out(p)
+
+
+def _threshold(args, state) -> Stage:
+    @operator
+    def stage(task):
+        task[args.output_chunk_name] = task[args.input_chunk_name].threshold(
+            args.threshold)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _channel_voting_options(p):
+    _name(p, "channel-voting")
+    _in_out(p)
+
+
+def _channel_voting(args, state) -> Stage:
+    @operator
+    def stage(task):
+        task[args.output_chunk_name] = \
+            task[args.input_chunk_name].channel_voting(
+                device=state["device"])
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _normalize_contrast_options(p):
+    _name(p, "normalize-contrast")
+    p.add_argument("--lower-clip-fraction", "-l", type=float, default=0.01)
+    p.add_argument("--upper-clip-fraction", "-u", type=float, default=0.01)
+    p.add_argument("--minval", type=int, default=1,
+                   help="minimum intensity of the transformed chunk")
+    p.add_argument("--maxval", type=int, default=255,
+                   help="maximum intensity of the transformed chunk")
+    _on_off(p, "--per-section", "--whole", default=True,
+            help="normalize each z-section independently or the whole "
+                 "chunk")
+    _in_out(p)
+
+
+def _normalize_contrast(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk import Image
+
+    @operator
+    def stage(task):
+        img = task[args.input_chunk_name]
+        if not isinstance(img, Image):
+            img = Image(img.array, voxel_offset=img.voxel_offset,
+                        voxel_size=img.voxel_size)
+        task[args.output_chunk_name] = img.normalize_contrast(
+            lower_clip_fraction=args.lower_clip_fraction,
+            upper_clip_fraction=args.upper_clip_fraction,
+            minval=args.minval,
+            maxval=args.maxval,
+            per_section=args.per_section,
+        )
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _normalize_intensity_options(p):
+    _name(p, "normalize-intensity")
+    _in_out(p)
+
+
+def _normalize_intensity(args, state) -> Stage:
+    """uint8 grey image -> float32 in (-1, 1): x/127.5 - 1."""
+    @operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if numpy_dtype(chunk.dtype) != np.uint8:
+            raise UsageError("normalize-intensity expects a uint8 image "
+                             "chunk")
+        out = chunk.astype(np.float32)
+        task[args.output_chunk_name] = out / 127.5 - 1.0
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _click_bool(text: str) -> bool:
+    """click's BOOL parameter type."""
+    value = text.strip().lower()
+    if value in ("1", "true", "t", "yes", "y", "on"):
+        return True
+    if value in ("0", "false", "f", "no", "n", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"{text!r} is not a valid boolean")
+
+
+def _normalize_section_shang_options(p):
+    _name(p, "normalize-section-shang")
+    p.add_argument("--nominalmin", type=float, default=None,
+                   help="targeted minimum of the transformed chunk")
+    p.add_argument("--nominalmax", type=float, default=None,
+                   help="targeted maximum of the transformed chunk")
+    p.add_argument("--clipvalues", type=_click_bool, default=False,
+                   help="clip transformed values to the target range")
+    _in_out(p)
+
+
+def _normalize_section_shang(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk import Image
+
+    @operator
+    def stage(task):
+        img = task[args.input_chunk_name]
+        if not isinstance(img, Image):
+            img = Image.from_chunk(img)
+        task[args.output_chunk_name] = img.normalize_shang(
+            nominalmin=args.nominalmin, nominalmax=args.nominalmax,
+            clipvalues=args.clipvalues)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _mask_options(p):
+    _name(p, "mask")
+    p.add_argument("--volume-path", "-v", required=True,
+                   help="mask volume (its voxel size may be any integer "
+                        "multiple of the chunk's)")
+    p.add_argument("--mip", type=int, default=0,
+                   help="scale index within the mask volume")
+    _on_off(p, "--inverse", "--no-inverse", default=False)
+    _on_off(p, "--fill-missing", "--no-fill-missing", default=True)
+    _in_out(p, in_names=("--input-chunk-name", "--input-names", "-i"),
+            out_names=("--output-chunk-name", "--output-names", "-o"),
+            out_default=None)
+
+
+def _mask(args, state) -> Stage:
+    import math
+
+    from chunkflow_tpu_torch.core.cartesian import Cartesian
+    from chunkflow_tpu_torch.ops.mask import maskout
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    vol = PrecomputedVolume(args.volume_path)
+    in_names = _names(args.input_chunk_name)
+    out_names = _names(args.output_chunk_name) or in_names
+    if len(in_names) != len(out_names):
+        raise UsageError("input/output name counts must match")
+
+    @operator
+    def stage(task):
+        first = task[in_names[0]]
+        factor = vol.voxel_size(args.mip) / first.voxel_size
+        start = Cartesian(*(int(math.floor(s / f))
+                            for s, f in zip(first.bbox.start, factor)))
+        stop = Cartesian(*(int(math.ceil(e / f))
+                           for e, f in zip(first.bbox.stop, factor)))
+        mask_chunk = vol.cutout(BoundingBox(start, stop), mip=args.mip,
+                                fill_missing=args.fill_missing)
+        # one mask cutout masks every listed chunk
+        for in_name, out_name in zip(in_names, out_names):
+            task[out_name] = maskout(task[in_name], mask_chunk,
+                                     inverse=args.inverse,
+                                     device=state["device"])
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _multiply_options(p):
+    _name(p, "multiply")
+    p.add_argument("--input-names", "-i", default=DEFAULT_CHUNK_NAME,
+                   help="comma-separated chunk names")
+    p.add_argument("--multiplier-name", "-m", default=None,
+                   help="multiply every input by this chunk; without it, "
+                        "exactly two input names multiply together")
+    p.add_argument("--output-names", "--output-chunk-name", "-o",
+                   default=None, help="defaults to the input names")
+
+
+def _multiply(args, state) -> Stage:
+    in_names = _names(args.input_names)
+    outs = _names(args.output_names) or None
+    # fail at pipeline assembly, before any task has done real work
+    if args.multiplier_name is not None:
+        outs = outs if outs is not None else in_names
+        if len(outs) != len(in_names):
+            raise UsageError("input/output name counts must match")
+    else:
+        if len(in_names) != 2:
+            raise UsageError("without --multiplier-name, give exactly two "
+                             "--input-names to multiply together")
+        outs = outs if outs is not None else [DEFAULT_CHUNK_NAME]
+        if len(outs) != 1:
+            raise UsageError("two-input multiply writes one output name")
+
+    @operator
+    def stage(task):
+        if args.multiplier_name is not None:
+            for in_name, out_name in zip(in_names, outs):
+                task[out_name] = task[in_name] * task[args.multiplier_name]
+        else:
+            task[outs[0]] = task[in_names[0]] * task[in_names[1]]
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _mask_out_objects_options(p):
+    _name(p, "mask-out-objects")
+    p.add_argument("--dust-size-threshold", "-d", type=int, default=0)
+    p.add_argument("--selected-obj-ids", "-s", default=None,
+                   help="comma-separated keep list")
+    _in_out(p)
+
+
+def _mask_out_objects(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk import Segmentation
+
+    @operator
+    def stage(task):
+        seg = task[args.input_chunk_name]
+        if not isinstance(seg, Segmentation):
+            seg = Segmentation.from_chunk(seg)
+        if args.dust_size_threshold:
+            seg = seg.mask_fragments(args.dust_size_threshold)
+        if args.selected_obj_ids:
+            seg = seg.mask_except(
+                [int(x) for x in args.selected_obj_ids.split(",")])
+        task[args.output_chunk_name] = seg
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _quantize_options(p):
+    _name(p, "quantize")
+    p.add_argument("--mode", choices=["xy", "z"], default="xy")
+    _in_out(p)
+
+
+def _quantize(args, state) -> Stage:
+    """Compress an affinity map into a uint8 thumbnail image."""
+    from chunkflow_tpu_torch.chunk import AffinityMap
+
+    @operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        aff = AffinityMap(chunk.array, voxel_offset=chunk.voxel_offset,
+                          voxel_size=chunk.voxel_size)
+        task[args.output_chunk_name] = aff.quantize(mode=args.mode)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _evaluate_segmentation_options(p):
+    _name(p, "evaluate-segmentation")
+    p.add_argument("--segmentation-chunk-name", "-s",
+                   default=DEFAULT_CHUNK_NAME)
+    p.add_argument("--groundtruth-chunk-name", "-g", required=True)
+    p.add_argument("--output", "-o", default=None,
+                   help="append per-task scores to this JSON-lines file")
+
+
+def _evaluate_segmentation(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk import Segmentation
+
+    @operator
+    def stage(task):
+        seg = task[args.segmentation_chunk_name]
+        if not isinstance(seg, Segmentation):
+            seg = Segmentation.from_chunk(seg)
+        scores = seg.evaluate(task[args.groundtruth_chunk_name])
+        print("segmentation evaluation:", scores)
+        task["evaluation"] = scores
+        if args.output:
+            record = dict(scores)
+            if task.get("bbox") is not None:
+                record["bbox"] = task["bbox"].string
+            with open(args.output, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        return task
+
+    return stage(_name=args.op_name)
+
+
+# ---------------------------------------------------------------------------
 # inference
 # ---------------------------------------------------------------------------
 def _inference_options(p):
@@ -819,6 +1356,13 @@ def _inference_options(p):
     p.add_argument("--model-variant",
                    choices=["parity", "rsunet", "tpu", "tpu_mxu", "tpu_s2d4"],
                    default="parity")
+    p.add_argument("--sharding",
+                   choices=["none", "patch", "spatial", "spatial2d"],
+                   default="none", help="multi-device layouts (not ported: "
+                                        "raises)")
+    p.add_argument("--mesh", default=None,
+                   help="multi-device mesh spec; 1 runs single-device, "
+                        "others raise (not ported)")
     _triple(p, "--shape-bucket", default=None,
             help="pad chunk shapes up to multiples of this zyx quantum")
     p.add_argument("--blend", choices=["auto", "scatter", "fold"],
@@ -871,6 +1415,8 @@ def _inference(args, state) -> Stage:
         output_dtype=args.output_dtype,
         model_variant=args.model_variant,
         shape_bucket=args.shape_bucket,
+        sharding=args.sharding,
+        mesh=args.mesh,
         blend=args.blend,
         dry_run=state["dry_run"],
         device=state["device"],
@@ -931,8 +1477,6 @@ COMMANDS: Dict[str, tuple] = {
                              "Ack the task after its writes are durable."),
     "dead-letter": (_dead_letter_options, _dead_letter,
                     "List or requeue a queue's dead-letter tasks."),
-    "fleet-run": (None, _fleet, "Not ported."),
-    "fleet-status": (None, _fleet, "Not ported."),
     "create-bbox": (_create_bbox_options, _create_bbox,
                     "Set the task bbox explicitly."),
     "prefetch": (_prefetch_options, _prefetch,
@@ -956,7 +1500,84 @@ COMMANDS: Dict[str, tuple] = {
     "inference": (_inference_options, _inference,
                   "Patch-wise convnet inference with bump-weighted overlap "
                   "blending."),
+    "crop-margin": (_crop_margin_options, _crop_margin,
+                    "Crop the chunk by a margin, or to the task bbox."),
+    "threshold": (_threshold_options, _threshold,
+                  "Binarize the chunk at a threshold (uint8)."),
+    "channel-voting": (_channel_voting_options, _channel_voting,
+                       "Argmax over channels + 1 (uint8 labels)."),
+    "normalize-contrast": (_normalize_contrast_options, _normalize_contrast,
+                           "Percentile contrast stretch, per section or "
+                           "whole."),
+    "normalize-intensity": (_normalize_intensity_options,
+                            _normalize_intensity,
+                            "uint8 image to float32 in (-1, 1)."),
+    "normalize-section-shang": (_normalize_section_shang_options,
+                                _normalize_section_shang,
+                                "Slice-wise min/max normalization, Shang's "
+                                "method."),
+    "mask": (_mask_options, _mask,
+             "Multiply the chunk(s) by a (coarser) mask volume."),
+    "multiply": (_multiply_options, _multiply,
+                 "Multiply chunks elementwise."),
+    "mask-out-objects": (_mask_out_objects_options, _mask_out_objects,
+                         "Remove small or unlisted segmentation objects."),
+    "quantize": (_quantize_options, _quantize,
+                 "Affinity map to a uint8 thumbnail image."),
+    "skip-all-zero": (_skip_all_zero_options, _skip_all_zero,
+                      "Drop the task if its chunk is all zero."),
+    "skip-none": (_skip_none_options, _skip_none,
+                  "Drop the task if a chunk is missing."),
+    "skip-task-by-file": (_skip_task_by_file_options, _skip_task_by_file,
+                          "Skip a task by the state of its marker file."),
+    "adjust-bbox": (_adjust_bbox_options, _adjust_bbox,
+                    "Grow or shrink the task bbox."),
+    "delete-var": (_delete_var_options, _delete_var,
+                   "Drop task variables to bound memory."),
+    "copy-var": (_copy_var_options, _copy_var, "Copy a task variable."),
+    "cleanup": (_cleanup_options, _cleanup,
+                "Remove the task's intermediate files."),
+    "load-json": (_load_json_options, _load_json,
+                  "Load a JSON file into the task."),
+    "evaluate-segmentation": (_evaluate_segmentation_options,
+                              _evaluate_segmentation,
+                              "Rand/VOI scores against a ground truth."),
+    "debug": (_debug_options, _debug,
+              "Drop into a debugger with the task bound to ``task``."),
 }
+
+#: the JAX CLI's commands that are not ported yet, by the ROADMAP item
+#: (queue 1) that ports them: each raises ``NotImplementedError`` naming
+#: it, whatever its arguments
+NOT_PORTED = {
+    "chunk file formats": ("load-h5", "save-h5", "load-tif", "save-tif",
+                           "load-zarr", "save-zarr", "load-png",
+                           "save-pngs", "save-nrrd"),
+    "serving packer": ("serve",),
+    "fleet supervisor": ("fleet-run", "fleet-status", "log-summary"),
+    "annotations and plugins": ("load-synapses", "save-synapses",
+                                "save-points", "load-skeleton", "save-swc",
+                                "aggregate-skeleton-fragments", "plugin",
+                                "view", "neuroglancer", "napari"),
+    "segmentation device legs": ("connected-components", "downsample",
+                                 "downsample-upload", "gaussian-filter"),
+    "segmentation plane": ("mesh", "mesh-manifest", "download-mesh",
+                           "label-chunk", "merge-seg", "relabel",
+                           "segment-volume"),
+}
+
+
+def _raising(command: str, item: str):
+    def build(tokens, state):
+        _not_ported(f"the {command} command", item)
+
+    return build
+
+
+for _item, _commands in NOT_PORTED.items():
+    for _command in _commands:
+        COMMANDS[_command] = (None, _raising(_command, _item),
+                              f"Not ported ({_item}).")
 
 
 def _group_parser() -> argparse.ArgumentParser:
@@ -988,17 +1609,35 @@ def _group_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _value_counts(parser: argparse.ArgumentParser) -> Dict[str, int]:
+    """How many values follow each option string of ``parser``."""
+    counts = {}
+    for action in parser._actions:
+        n = action.nargs
+        count = n if isinstance(n, int) else (0 if n == 0 else 1)
+        for option in action.option_strings:
+            counts[option] = count
+    return counts
+
+
 def _split(argv: List[str]):
     """(group args, [(command, its args), ...]): a token naming a command
-    starts a new segment."""
+    starts a new segment, unless it is the value of the option before it
+    (``mask -v mask``, ``multiply -m mask``), as click's parser reads
+    it."""
     head, segments = [], []
+    expect, pending = _value_counts(_group_parser()), 0
     for token in argv:
-        if token in COMMANDS:
+        if token in COMMANDS and not pending:
             segments.append((token, []))
-        elif segments:
-            segments[-1][1].append(token)
-        else:
-            head.append(token)
+            parser = argparse.ArgumentParser(add_help=False)
+            add_options = COMMANDS[token][0]
+            if add_options is not None:
+                add_options(parser)
+            expect = _value_counts(parser)
+            continue
+        (segments[-1][1] if segments else head).append(token)
+        pending = pending - 1 if pending else expect.get(token, 0)
     return head, segments
 
 

@@ -34,7 +34,6 @@ from typing import Callable, Iterable, Iterator, Optional
 
 from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.parallel.lifecycle import tag_culprit
-from chunkflow_tpu_torch.testing import chaos
 
 
 def _drain_host(out):
@@ -156,9 +155,9 @@ def pipelined_inference_stage(
     yield in input order; a ``None`` skip marker flushes all in-flight
     work first; a mid-stream exception flushes the already-dispatched
     tasks downstream, then re-raises. Per-op timers measure
-    stage-to-materialize wall time, which overlaps across tasks. Each
-    dispatch is the chaos point ``op/<op_name>``, and a failure is
-    charged to its task.
+    stage-to-materialize wall time, which overlaps across tasks. A
+    failure is charged to its task; the stage is no chaos point, as in
+    the JAX package (``op/<name>`` fires in runtime operators only).
     """
     depth = max(1, int(depth))
     ring = max(1, int(ring))
@@ -181,7 +180,6 @@ def pipelined_inference_stage(
         def dispatch_one():
             task, slot, owned, t0 = staged.popleft()
             try:
-                chaos.chaos_point(f"op/{op_name}")
                 with telemetry.span("pipeline/dispatch"):
                     out = inferencer.infer_async(slot, crop=crop,
                                                  consume=owned)

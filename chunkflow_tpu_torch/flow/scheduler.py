@@ -37,8 +37,9 @@ plane reads per wave and a raise takes effect on the next cutout. Tasks
 left in a queue when a stage closes are surrendered
 (``lifecycle.surrender_task``): a claimed task hands its lease back
 instead of holding it until the visibility timeout. The stages carry the
-chaos points ``op/<name>`` and ``scheduler/dispatch`` (at dispatch) and
-``scheduler/post`` (in the post pool), and charge a failure to its task.
+chaos points ``scheduler/dispatch`` (at dispatch) and ``scheduler/post``
+(in the post pool), as in the JAX package, and charge a failure to its
+task.
 """
 from __future__ import annotations
 
@@ -578,7 +579,6 @@ def scheduled_inference_stage(
             task, slot, owned, t0 = staged.popleft()
             with telemetry.task_context(task.get("trace_id")):
                 try:
-                    chaos.chaos_point(f"op/{op_name}")
                     chaos.chaos_point("scheduler/dispatch")
                     with telemetry.span("pipeline/dispatch"):
                         out = inferencer.infer_async(slot, crop=crop,

@@ -37,10 +37,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from chunkflow_tpu_torch.chunk.base import Chunk, LayerType, _as_tensor
+from chunkflow_tpu_torch.chunk.base import (
+    Chunk,
+    LayerType,
+    _as_tensor,
+    edge_pad,
+)
 from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.core.cartesian import Cartesian
-from chunkflow_tpu_torch.core.dtypes import numpy_dtype, signed_view
+from chunkflow_tpu_torch.core.device import resolve_device
+from chunkflow_tpu_torch.core.dtypes import numpy_dtype
 from chunkflow_tpu_torch.inference import engines
 from chunkflow_tpu_torch.inference.bump import bump_map
 from chunkflow_tpu_torch.inference.patching import enumerate_patches, pad_to_batch
@@ -56,38 +62,16 @@ from chunkflow_tpu_torch.ops.fold_blend import (
     fold_grid,
     fold_pad_shape,
 )
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist — the
-    port never carries on on the CPU unless asked to."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels on the CPU"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on cuda or cpu, not {device}")
-    return device
+from chunkflow_tpu_torch.parallel.mesh import (
+    mesh_env_spec,
+    parse_mesh_spec,
+    require_single_device,
+)
 
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP, queue "
                               f"1: {item})")
-
-
-def _edge_pad(arr: torch.Tensor, run_zyx) -> torch.Tensor:
-    """Pad ``[c, z, y, x]`` at the high side up to ``run_zyx`` by
-    replicating the boundary plane (index clamping: ``F.pad``'s replicate
-    mode takes no integer tensors). Conversion commutes with it, so the
-    raw chunk pads exactly as a converted one would."""
-    view = signed_view(arr)
-    for axis, (run, size) in enumerate(zip(run_zyx, arr.shape[1:]), start=1):
-        if run > size:
-            index = torch.arange(run, device=arr.device).clamp_(max=size - 1)
-            view = view.index_select(axis, index)
-    return view.view(arr.dtype)
 
 
 def _host_payload(chunk: Chunk):
@@ -197,7 +181,8 @@ class Inferencer:
                 f"(got sharding={sharding!r}); use blend='scatter' or "
                 f"sharding='none'"
             )
-        if sharding != "none" or mesh is not None:
+        if sharding != "none" or (
+                mesh is not None and parse_mesh_spec(mesh).kind != "single"):
             _not_ported("multi-device execution (sharding / mesh)",
                         "multi-GPU engine")
         self.precision = resolve_precision(precision)
@@ -250,6 +235,7 @@ class Inferencer:
             batch_size,
             self._bump,
         )
+        self._fold_mesh_noted = False
         # the streamed path's copy streams (compute stays on the caller's
         # current stream)
         self._h2d_stream = self._d2h_stream = None
@@ -332,7 +318,7 @@ class Inferencer:
         zyx = tuple(arr.shape[-3:])
         padded, _ = self._fold_geometry(zyx)
         if padded != zyx:
-            arr = _edge_pad(arr, padded)
+            arr = edge_pad(arr, padded)
         program = build_fold_program(
             self._forward,
             self.num_input_channels,
@@ -517,6 +503,18 @@ class Inferencer:
                 f"scatter fallback",
                 file=sys.stderr,
             )
+        if use_fold:
+            if not self._fold_mesh_noted:
+                self._fold_mesh_noted = True
+                if mesh_env_spec().kind != "single":
+                    print("fold blend is a single-device program; the "
+                          "configured mesh spec is ignored for fold "
+                          "traffic (use blend='scatter' to shard)",
+                          file=sys.stderr)
+        else:
+            # CHUNKFLOW_MESH, read per chunk as the JAX package reads it
+            require_single_device(torch.cuda.device_count()
+                                  if self.device.type == "cuda" else 1)
         with torch.no_grad():
             arr = self._upload(chunk)
             if use_fold:
@@ -526,7 +524,7 @@ class Inferencer:
             if run_zyx != orig_zyx:
                 # shape-bucket padding replicates the boundary plane so
                 # the net sees plausible context instead of a zero wall
-                arr = _edge_pad(arr, run_zyx)
+                arr = edge_pad(arr, run_zyx)
             if use_fold:
                 result = self._run_fold(arr)
             else:

@@ -454,13 +454,10 @@ class LifecycleSupervisor:
             telemetry.event("task", "lifecycle/claimed", body=body,
                             receives=receives)
             # after registration: a fault injected here is released (a
-            # fast retry), not leaked to the visibility timeout, and it is
-            # charged to this claim alone
-            try:
-                chaos.chaos_point("lifecycle/claim")
-            except BaseException as exc:
-                tag_culprit(exc, lc)
-                raise
+            # fast retry), not leaked to the visibility timeout. Untagged,
+            # as in the JAX package: handle_failure charges every task in
+            # flight
+            chaos.chaos_point("lifecycle/claim")
             return lc
 
     def tasks(self, num: int = -1) -> Iterator[TaskLifecycle]:

@@ -19,9 +19,10 @@ separated by ``:``, lists by ``,``, ``fnmatch`` patterns in point names::
         SIGKILL the process on the spot instead of raising: nothing
         unwinds, no nack, no flush, as when a machine is preempted
 
-Points: ``lifecycle/claim`` (claimed, before compute), ``op/<operator>``
-(every runtime operator body, and the streamed inference stages at
-dispatch), ``scheduler/dispatch`` / ``scheduler/post`` (the adaptive
+Points: ``lifecycle/claim`` (claimed, before compute; raised untagged,
+so every task in flight is charged), ``op/<operator>`` (every runtime
+operator body: ``inference --async-depth`` N > 1 is a streamed stage,
+not one), ``scheduler/dispatch`` / ``scheduler/post`` (the adaptive
 scheduler), ``lifecycle/pre_ledger`` (writes durable, ledger not yet
 marked), ``lifecycle/pre_ack`` (ledger marked, queue not yet acked).
 :class:`ChaosError` is transient to the lifecycle supervisor: the task

@@ -272,3 +272,123 @@ def test_float32_forward_under_default_flags(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(cudnn, "deterministic", True)
     by_hand = Inferencer(**kwargs)(chunk).host().array
     assert np.array_equal(by_hand, on_card)
+
+
+# ---------------------------------------------------------------------------
+# chunk operators: each card leg bitwise its CPU leg (the JAX package's
+# host arithmetic, or the port's torch leg on the CPU for the operators the
+# JAX package runs in jnp)
+# ---------------------------------------------------------------------------
+def _card_and_host(arr, cuda, cls=Chunk, **meta):
+    meta = dict(dict(voxel_offset=(3, 17, 9), voxel_size=(40, 4, 4)), **meta)
+    return (cls(torch.from_numpy(arr.copy()).to(cuda), **meta),
+            cls(arr.copy(), **meta))
+
+
+def _assert_card_is_host(card, host):
+    assert card.array.device.type == "cuda"
+    got = card.host().array
+    want = np.asarray(host.array)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want, equal_nan=True)
+    if want.dtype.kind == "f":
+        assert np.array_equal(np.signbit(got), np.signbit(want))
+    assert tuple(card.voxel_offset) == tuple(host.voxel_offset)
+    assert card.layer_type == host.layer_type
+
+
+def _aff(seed=0, shape=(3, 8, 96, 80)):
+    return (np.random.default_rng(seed).random(shape) * 1.2 - 0.1).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("factor", [(1, 1, 1), (1, 4, 4), (1, 16, 16),
+                                    (2, 8, 4)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_maskout_card_is_its_cpu_leg(cuda, factor, inverse):
+    from chunkflow_tpu_torch.ops.mask import maskout
+
+    card, host = _card_and_host(_aff(1), cuda)
+    mvsize = tuple(v * f for v, f in zip(host.voxel_size, factor))
+    mshape = tuple((o + s) // f + 2 for o, s, f in
+                   zip(host.voxel_offset, host.shape[-3:], factor))
+    mask = Chunk((np.random.default_rng(2).random(mshape) > 0.3).astype(
+        np.uint8), voxel_size=mvsize)
+    _assert_card_is_host(maskout(card, mask, inverse=inverse),
+                         maskout(host, mask, inverse=inverse, device="cpu"))
+    # a host chunk on the card: the result comes back to the host
+    got = maskout(host, mask, inverse=inverse, device="cuda")
+    assert isinstance(got.array, np.ndarray)
+    assert np.array_equal(got.array, maskout(host, mask, inverse=inverse,
+                                             device="cpu").array)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_channel_voting_card_is_its_cpu_leg(cuda, dtype):
+    arr = _aff(3, (5, 8, 64, 64))
+    if dtype == "uint8":
+        arr = (arr.clip(0, 1) * 4).astype(np.uint8)
+    card, host = _card_and_host(arr, cuda)
+    _assert_card_is_host(card.channel_voting(),
+                         host.channel_voting(device="cpu"))
+
+
+@pytest.mark.parametrize("value", [0.5, 0.3, 0.7000001])
+def test_threshold_card_is_its_cpu_leg(cuda, value):
+    card, host = _card_and_host(_aff(4), cuda)
+    _assert_card_is_host(card.threshold(value), host.threshold(value))
+
+
+@pytest.mark.parametrize("mode", ["xy", "z"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_quantize_card_is_its_cpu_leg(cuda, mode, dtype):
+    from chunkflow_tpu_torch.chunk import AffinityMap
+
+    arr = _aff(5)
+    if dtype == "uint8":
+        arr = (arr.clip(0, 1) * 255).astype(np.uint8)
+    card, host = _card_and_host(arr, cuda, cls=AffinityMap)
+    _assert_card_is_host(card.quantize(mode), host.quantize(mode))
+
+
+@pytest.mark.parametrize("op", ["chunk*chunk", "u8*f32", "f32/float",
+                                "float-f32", "u8*float", "f32>float"])
+def test_operators_card_are_their_cpu_leg(cuda, op):
+    a, b = _aff(6), _aff(7)
+    u8 = (b.clip(0, 1) * 255).astype(np.uint8)
+    ca, ha = _card_and_host(a, cuda)
+    cb, hb = _card_and_host(b, cuda)
+    cu, hu = _card_and_host(u8, cuda)
+    fn = {"chunk*chunk": lambda x, y, u: x * y,
+          "u8*f32": lambda x, y, u: u * x,
+          "f32/float": lambda x, y, u: x / 127.5,
+          "float-f32": lambda x, y, u: 1.0 - x,
+          "u8*float": lambda x, y, u: u * 2.5,
+          "f32>float": lambda x, y, u: x > 0.3}[op]
+    _assert_card_is_host(fn(ca, cb, cu), fn(ha, hb, hu))
+
+
+@pytest.mark.parametrize("per_section", [True, False])
+@pytest.mark.parametrize("shape", [(8, 96, 80), (2, 8, 64, 64)])
+def test_normalize_contrast_card_is_its_cpu_leg(cuda, per_section, shape):
+    from chunkflow_tpu_torch.chunk import Image
+
+    arr = np.random.default_rng(8).integers(0, 256, shape).astype(np.uint8)
+    card, host = _card_and_host(arr, cuda, cls=Image)
+    for kwargs in ({}, {"lower_clip_fraction": 0.1,
+                        "upper_clip_fraction": 0.3, "minval": 0}):
+        _assert_card_is_host(
+            card.normalize_contrast(per_section=per_section, **kwargs),
+            host.normalize_contrast(per_section=per_section, **kwargs))
+
+
+def test_chunk_methods_card_are_their_cpu_leg(cuda):
+    card, host = _card_and_host(_aff(9), cuda)
+    for fn in (lambda c: c.astype(np.uint8), lambda c: c.clone(),
+               lambda c: c.shrink((1, 2, 3, 0, 4, 5)),
+               lambda c: c.pad_to((9, 100, 81)),
+               lambda c: c.pad_to((9, 100, 81), mode="edge"),
+               lambda c: c.transpose(), lambda c: c.crop_margin((1, 8, 8))):
+        _assert_card_is_host(fn(card), fn(host))
+    assert card.where(card.array > 0.9)[1].tolist() == \
+        host.where(host.array > 0.9)[1].tolist()

@@ -232,6 +232,51 @@ def test_unported_options_raise(kwargs, match):
         Inferencer(device="cpu", **dict(IDENTITY, **kwargs))
 
 
+MESH_FIXTURE = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                    num_output_channels=2, framework="identity",
+                    batch_size=2)
+
+
+@pytest.mark.parametrize("spec", ["bogus", "pipeline=2", "data=2"])
+def test_chunkflow_mesh_raises_as_in_the_jax_package(monkeypatch, spec):
+    """``CHUNKFLOW_MESH`` is read per chunk in both packages: a malformed
+    spec and one needing more devices than the run has raise the same
+    ``ValueError`` with the same message. The JAX package sees one CPU
+    device here, as on a one-card machine (the suite's conftest gives it
+    eight virtual ones)."""
+    monkeypatch.setattr(jax, "local_devices",
+                        lambda *a, **k: jax.devices()[:1])
+    monkeypatch.setenv("CHUNKFLOW_MESH", spec)
+    arr = np.random.default_rng(0).integers(0, 256, (8, 32, 32),
+                                            dtype=np.uint8)
+    with pytest.raises(Exception) as ref:
+        JaxInferencer(**MESH_FIXTURE)(JaxChunk(arr))
+    with pytest.raises(Exception) as got:
+        Inferencer(device="cpu", **MESH_FIXTURE)(Chunk(arr))
+    assert type(got.value) is type(ref.value) is ValueError
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("spec", ["1", "off", "auto", "data=1"])
+def test_single_device_mesh_specs_run(monkeypatch, spec):
+    monkeypatch.setenv("CHUNKFLOW_MESH", spec)
+    arr = _chunk((8, 32, 32), "uint8")
+    ref = JaxInferencer(**MESH_FIXTURE)(JaxChunk(arr))
+    got = Inferencer(device="cpu", **MESH_FIXTURE)(Chunk(arr))
+    _assert_bitwise(ref, got.host())
+
+
+def test_a_mesh_the_devices_could_hold_names_the_multi_gpu_engine(
+        monkeypatch):
+    from chunkflow_tpu_torch.parallel.mesh import require_single_device
+
+    monkeypatch.setenv("CHUNKFLOW_MESH", "y=2,x=2")
+    with pytest.raises(NotImplementedError, match="multi-GPU engine"):
+        require_single_device(4)
+    with pytest.raises(ValueError, match="needs 4 devices, only 2"):
+        require_single_device(2)
+
+
 def test_tensor_payload_and_chunk_roundtrip():
     """A CPU-tensor payload is used as it is (not copied through numpy),
     the input is never written, and host() gives numpy back."""

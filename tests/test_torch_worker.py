@@ -57,8 +57,12 @@ TASK = (8, 32, 32)
 MARGIN = ("2", "8", "8")
 PIN, OVERLAP = ("4", "16", "16"), ("2", "8", "8")
 OUT = BoundingBox(ROI[0], tuple(a + b for a, b in zip(*ROI)))
-EVERY_BOUNDARY = ("lifecycle/claim", "op/inference", "op/save-precomputed",
-                  "lifecycle/pre_ledger", "lifecycle/pre_ack")
+# the boundaries of this worker: ``inference --async-depth 2`` is a
+# streamed stage, not a runtime operator, so ``op/inference`` is not one
+# (in either package)
+EVERY_BOUNDARY = ("lifecycle/claim", "op/load-precomputed",
+                  "op/save-precomputed", "lifecycle/pre_ledger",
+                  "lifecycle/pre_ack")
 
 
 @pytest.fixture(autouse=True)
@@ -115,7 +119,8 @@ def jax_tree(params):
     return np.asarray(params)
 
 
-def _commands(tmp, tag, image, engine, extra=()):
+def _commands(tmp, tag, image, engine, extra=(), before=(), after=(),
+              retries="3"):
     out, queue = str(tmp / f"out-{tag}"), f"file://{tmp / f'q-{tag}'}"
     ledger = str(tmp / f"ledger-{tag}")
     setup = [
@@ -125,13 +130,13 @@ def _commands(tmp, tag, image, engine, extra=()):
         ["generate-tasks", "--volume-path", out, "-c", *map(str, TASK),
          "--queue-name", queue]]
     worker = [
-        "fetch-task-from-queue", "-q", queue, "--max-retries", "3",
+        "fetch-task-from-queue", "-q", queue, "--max-retries", retries,
         "--ledger", ledger, "-r", "100", "--poll-interval", "0.02",
         "--backoff-base", "0.5", "--backoff-cap", "1",
-        "load-precomputed", "-v", image, "-e", *MARGIN,
+        "load-precomputed", "-v", image, "-e", *MARGIN, *before,
         "inference", *engine, "-p", *PIN, "-v", *OVERLAP, "-c", "3",
         "-b", "2", "--output-crop-margin", *MARGIN, "--async-depth", "2",
-        "save-precomputed", "-v", out, "--async-write",
+        *after, "save-precomputed", "-v", out, "--async-write",
         "delete-task-in-queue", *extra]
     return setup, worker, out, queue, ledger
 
@@ -145,8 +150,9 @@ def _jax(args):
     assert result.exit_code == 0, result.output
 
 
-def _run(tmp, tag, image, engine, runner, metrics=None):
-    setup, worker, out, queue, ledger = _commands(tmp, tag, image, engine)
+def _run(tmp, tag, image, engine, runner, metrics=None, **stages):
+    setup, worker, out, queue, ledger = _commands(tmp, tag, image, engine,
+                                                  **stages)
     for args in setup:
         runner(args)
     if metrics is not None:
@@ -233,6 +239,110 @@ def test_chaos_at_every_boundary_converges_bitwise(tmp_path, monkeypatch,
     counters = telemetry.snapshot()["counters"]
     assert counters.get("ledger/skips", 0) == 1  # the pre_ack kill
     assert counters["pipeline/chain_rebuilds"] >= 3
+
+
+def _events(metrics):
+    """(per-body claim receive counts, per-body acks, dead-lettered bodies)
+    from a worker's telemetry event files."""
+    claims, acks, dead = {}, {}, []
+    for name in os.listdir(metrics):
+        if not name.endswith(".jsonl"):
+            continue
+        with open(os.path.join(metrics, name)) as f:
+            for line in f:
+                event = json.loads(line)
+                body = event.get("body")
+                if event.get("name") == "lifecycle/claimed":
+                    claims.setdefault(body, []).append(event["receives"])
+                elif event.get("name") in ("lifecycle/committed",
+                                       "lifecycle/ledger_skip"):
+                    acks[body] = acks.get(body, 0) + 1
+                elif event.get("name") == "lifecycle/dead_letter":
+                    dead.append(body)
+    return claims, acks, sorted(dead)
+
+
+@pytest.mark.parametrize("plan", [
+    "once=lifecycle/claim,op/inference",
+    # the third claim fails (seeded draws 0.96, 0.95, 0.06)
+    "once=op/inference:seed=4:rate=0.3:points=lifecycle/claim:max=1",
+], ids=["first-claim", "third-claim"])
+def test_chaos_plan_settles_as_in_the_jax_package(tmp_path, monkeypatch,
+                                                  image, plan):
+    """One CHUNKFLOW_CHAOS plan through both CLIs under ``--async-depth 2
+    --max-retries 2``: the same faults fire (``op/inference`` is no chaos
+    point of a streamed stage in either package), the same receive
+    counts per task (which task a file queue hands out first differs, so
+    they are compared as a multiset), no dead letters, each task acked
+    once, and the same output volume. A fault at ``lifecycle/claim`` is
+    raised untagged in both, so every task in flight is charged: here
+    only the claimed one, since the executor first finishes the tasks it
+    dispatched."""
+    from chunkflow_tpu.testing import chaos as jax_chaos
+    from chunkflow_tpu.parallel import lifecycle as jax_lifecycle
+    from chunkflow_tpu_torch.parallel import lifecycle
+
+    def fixed(attempt, base, cap, rng=None):
+        return min(cap, base * 2 ** (attempt - 1))
+
+    monkeypatch.setattr(lifecycle, "backoff_delay", fixed)
+    monkeypatch.setattr(jax_lifecycle, "backoff_delay", fixed)
+    runs = {}
+    for tag, runner, module in (("port", _port, chaos),
+                                ("jax", _jax, jax_chaos)):
+        module.configure(plan)
+        metrics = str(tmp_path / f"events-{tag}")
+        try:
+            out, _, _ = _run(tmp_path, tag, image, ["-f", "identity"],
+                             runner, metrics=metrics, retries="2")
+            injected = module.injections()
+        finally:
+            module.reset()
+        runs[tag] = (injected, _events(metrics), out)
+    (p_inj, (p_claims, p_acks, p_dead), p_out) = runs["port"]
+    (j_inj, (j_claims, j_acks, j_dead), j_out) = runs["jax"]
+    assert p_inj == j_inj == {"lifecycle/claim": 1}
+    assert sorted(p_claims.values()) == sorted(j_claims.values())
+    assert sorted(p_claims.values()).count([1, 2]) == 1
+    assert p_dead == j_dead == []
+    assert set(p_acks.values()) == set(j_acks.values()) == {1}
+    assert len(p_acks) == len(j_acks) == 8
+    assert _blocks(p_out) == _blocks(j_out)
+
+
+def _mask_volume(tmp):
+    """A seeded uint8 mask at 40x64x64 nm (a 1x16x16 factor over the
+    image's 40x4x4 nm) with zeroed blocks; the tasks start at y, x = 8
+    and 40, off the coarse grid."""
+    path = str(tmp / "mask")
+    shape = (IN_SIZE[0], IN_SIZE[1] // 16, IN_SIZE[2] // 16)
+    mask = (np.random.default_rng(6).random(shape) > 0.3).astype(np.uint8)
+    mask[:6, :2, :] = 0
+    PrecomputedVolume.create(path, volume_size=shape, voxel_size=(40, 64, 64),
+                             block_size=(8, 4, 4))
+    PrecomputedVolume(path).save(Chunk(mask, voxel_size=(40, 64, 64)))
+    return path
+
+
+@pytest.mark.parametrize("sched", ["adaptive", "static"])
+def test_the_worker_with_normalize_and_mask_stages(tmp_path, monkeypatch,
+                                                   image, sched):
+    """The README's worker chain: a ``normalize-contrast`` stage before
+    inference and a ``mask`` stage after it (a coarser mask volume, task
+    starts off its grid), identity engine: the port's output volume is
+    the JAX CLI's, byte for byte."""
+    monkeypatch.setenv("CHUNKFLOW_SCHED", sched)
+    mask = _mask_volume(tmp_path)
+    stages = dict(before=("normalize-contrast",), after=("mask", "-v", mask))
+    port_out, port_q, _ = _run(tmp_path, "port", image, ["-f", "identity"],
+                               _port, **stages)
+    jax_out, _, _ = _run(tmp_path, "jax", image, ["-f", "identity"], _jax,
+                         **stages)
+    assert open_queue(port_q).stats() == {"pending": 0, "inflight": 0,
+                                          "dead": 0, "receives": 0}
+    assert _blocks(port_out) == _blocks(jax_out)
+    got = PrecomputedVolume(port_out).cutout(OUT).array
+    assert (got == 0).mean() > 0.2 and got.std() > 0.01
 
 
 def _task_corners():
