@@ -86,6 +86,20 @@ non-zero exit and no result line:
              full-size affinity map (and normalize-contrast on its input);
              the identity engine through the chain on the card bitwise the
              CPU port
+12. segment  file formats and segmentation legs through the CLI, on the
+             card: the README's quick start (``load-h5 | inference``
+             ``tpu`` bfloat16 batch 4 ``| save-h5``; without h5py through
+             ``load-npy``/``save-npy``) on the 64x512x512 chunk, the file
+             bitwise ``Inferencer.__call__``, 9 + 9 launches; its channel 0
+             through ``connected-components -t T --device`` and
+             ``--host`` and ``downsample`` (the card labels the device
+             leg's fixpoint bitwise, the host labels isomorphic, the mode
+             pool's card leg its CPU leg), sweeps, ms per leg and the host
+             build time; ``gaussian-filter``, ``downsample-upload``,
+             ``load-precomputed --validate-mip 2`` and ``save-precomputed
+             --create-thumbnail`` on phase 10's volume, every mip bitwise
+             the library composition; h5, tif, png, nrrd, mrc and zarr
+             round trips at task size from card and host chunks, MB/s
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -162,6 +176,8 @@ VOLUME_FAMILIES = (("parity", "float32", "float32"),
 # mask volume's voxels are 1 x 16 x 16 of the image's
 CHAIN_ROI = ((4, 72, 68), (112, 768, 768))
 MASK_FACTOR = (1, 16, 16)
+# phase 12: the README's quick start runs batch 4
+QUICK_BATCH = 4
 # the workers' visibility timeout (s): a SIGKILLed worker's claims come
 # back after it; the lease heartbeat keeps a live worker's claims
 VISIBILITY_S = 10
@@ -383,6 +399,10 @@ def main() -> int:
                   f"{np.__version__}")
     # name and power limit exactly as nvidia-smi gives them
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    phase("card", "file formats and host build: " + ", ".join(
+        f"{label} {_version(module)}" for label, module in (
+            ("h5py", "h5py"), ("Pillow", "PIL"), ("scipy", "scipy")))
+        + f", g++ {_gxx_version()}")
     require(H100_SXM in name, f"{name} is not an {H100_SXM}: the bounds "
                               f"use that card's peaks")
     phase("card", f"bounds use the H100 SXM peaks: {PEAK_BW / 1e12} TB/s, "
@@ -505,10 +525,31 @@ def main() -> int:
         base_out.clone(), base_w.clone(), preds, valid_b, bump, out_b)
     note_err("accumulate", got[0], ref[0])
     note_err("accumulate", got[1], ref[1])
+    # both kernels at the quick start's batch (phase 12), the same patch:
+    # a uint8 chunk in, (QUICK_BATCH, 3, 20, 256, 256) predictions out
+    q_rng = np.random.default_rng(12)
+    q_in, q_out, q_valid = (
+        torch.from_numpy(a[:QUICK_BATCH])
+        for a in pad_to_batch(grid, QUICK_BATCH))
+    raw_q = torch.from_numpy(_raw(q_rng, "uint8", (1,) + CHUNK)).to(dev)
+    note_err("gather", gather.gather_patches(raw_q, q_in, PIN),
+             gather.gather_patches_plain(raw_q, q_in, PIN))
+    preds_q = torch.from_numpy(q_rng.random(
+        (QUICK_BATCH, CHANNELS) + PIN, dtype=np.float32)).to(dev)
+    got = accumulate.fused_accumulate_patches(
+        base_out.clone(), base_w.clone(), preds_q, q_valid.to(dev), bump,
+        q_out)
+    ref = accumulate.fused_accumulate_patches_plain(
+        base_out.clone(), base_w.clone(), preds_q, q_valid.to(dev), bump,
+        q_out)
+    note_err("accumulate", got[0], ref[0])
+    note_err("accumulate", got[1], ref[1])
+    del raw_q, preds_q, got, ref
     torch.cuda.synchronize()
     phase("kernels", f"kernel == plain bitwise, gather alignment sweep "
                      f"{sweep} cases, rows wider than a tile in "
-                     f"{len(GATHER_DTYPES)} dtypes; launches in this phase: "
+                     f"{len(GATHER_DTYPES)} dtypes, batches {BATCH} and "
+                     f"{QUICK_BATCH} at {PIN}; launches in this phase: "
                      f"{counts()}")
     per_sm, sms = gather.occupancy(torch.uint8)
     ptxas = _build.library_path("gather").with_suffix(".log").read_text()
@@ -1029,14 +1070,23 @@ def main() -> int:
     # ---- 10. volume: the worker loop on disk ------------------------------
     torch.cuda.empty_cache()
     # ---- 11. chain: the README's worker chain, on phase 10's volume -------
+    # ---- 12. segment: file formats and segmentation legs, on its volume --
     def chain(vol_in, image, tmp):
         torch.cuda.empty_cache()
-        return chain_phase(
+        launched = chain_phase(
             torch, dict(volume=VOLUME, roi=CHAIN_ROI, task=TASK,
                         margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
                         overlap=OVERLAP, batch=BATCH,
                         mask_factor=MASK_FACTOR, device="cuda"),
             vol_in, image, tmp, reset_counts, counts)
+        torch.cuda.empty_cache()
+        for kname, n in segment_phase(
+                torch, dict(chunk=CHUNK, task=TASK, pin=PIN, overlap=OVERLAP,
+                            quick_batch=QUICK_BATCH, device="cuda"),
+                vol_in, image, tmp, reset_counts, counts,
+                plain_functions).items():
+            launched[kname] += n
+        return launched
 
     volume_launches, chain_launches = volume_phase(
         torch, dict(volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI,
@@ -1682,6 +1732,428 @@ def chain_phase(torch, cfg, vol_in, image, tmp, reset_counts, counts):
     return launched
 
 
+def segment_phase(torch, cfg, vol_in, image, tmp, reset_counts, counts,
+                  plain_functions):
+    """Phase 12: the chunk file formats and the segmentation legs, through
+    the port's CLI, in process, on the card.
+
+    a. The README's quick start as it types it (plus flax-layout weights,
+       as phase 11): ``load-h5 -f image.h5 | inference --framework flax
+       --model-variant tpu --dtype bfloat16 --input-patch-size 20 256 256
+       --output-patch-overlap 4 64 64 --batch-size 4 | save-h5 -f
+       affinity.h5`` on the seeded 64x512x512 ``sin`` chunk: 9 + 9
+       launches; the file == ``Inferencer.__call__`` on the same card
+       input bitwise, and == the same call under ``plain_functions``
+       (every kernel replaced by its plain version, 0 launches) bitwise.
+       Without h5py the same chain runs through ``load-npy``/``save-npy``,
+       and says so.
+    b. ``load-h5 -f affinity.h5 --channels 0 | connected-components -t T
+       | downsample -f 1 2 2 | save-h5`` with ``--device`` (label
+       propagation on the card) and ``--host`` (the native union-find),
+       T the channel's 70th percentile: the card labels == the CPU device
+       leg (the unique fixpoint: each component's smallest linear index +
+       1, read off the host labels; and the CPU leg itself on a slab), the
+       host labels isomorphic, the card's mode pool == its CPU leg.
+    c. On phase 10's volume: ``gaussian-filter -s 1`` of a 64x512x512
+       cutout staged to the card (card leg == CPU leg), ``downsample-upload``
+       into a 4-mip volume, ``load-precomputed --validate-mip 2`` on it, and
+       ``save-precomputed --create-thumbnail`` into another: every mip's
+       blocks == the library composition on the CPU.
+    d. h5, tif, png, nrrd, mrc and zarr (zlib) round trips of a 56x384x384
+       uint8 image and a 3x56x384x384 float32 map (its channel 0 through
+       the single-channel formats), written from a card chunk and from a
+       host chunk: bitwise, with the offset and voxel size each format
+       keeps. MB/s each way.
+
+    Returns the kernels' launches in the counted run (a)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import BoundingBox, Chunk, _build, native
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import new_task, process_stream
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.models.convert import state_from_flax
+    from chunkflow_tpu_torch.ops import connected_components as cc
+    from chunkflow_tpu_torch.ops.downsample import downsample, pyramid
+    from chunkflow_tpu_torch.ops.filters import gaussian_filter_2d
+    from chunkflow_tpu_torch.segment.merge_table import labels_isomorphic
+    from chunkflow_tpu_torch.volume import io_mrc, io_nrrd, io_png
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+    from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    dev = cfg["device"]
+    on_card = dev == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    chunk_shape = cfg["chunk"]
+    has_h5 = importlib.util.find_spec("h5py") is not None
+    has_pil = importlib.util.find_spec("PIL") is not None
+    d = tmp / "formats"
+    d.mkdir(exist_ok=True)
+    pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["quick_batch"]
+    per_chunk = len(pad_to_batch(enumerate_patches(chunk_shape, pin, pin,
+                                                   overlap), batch)[0]) // batch
+    vox = int(np.prod(chunk_shape))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def run(argv, what):
+        """One counted, timed CLI run: (wall s, launches, host ms per
+        op span)."""
+        _, stages = cli.build_stages([*dev_args, *argv])
+        telemetry.reset()
+        telemetry.configure(str(d / "events"))
+        reset_counts()
+        sync()
+        t = time.perf_counter()
+        try:
+            n = process_stream(stages)
+        finally:
+            sync()
+            wall = time.perf_counter() - t
+            telemetry.configure(None)
+        require(n == 1, f"segment: {what} ran {n} tasks, not 1")
+        hists = telemetry.snapshot()["hists"]
+        return wall, counts(), {k[3:]: h["mean"] * 1e3
+                                for k, h in hists.items()
+                                if k.startswith("op/")}
+
+    def spans_text(spans, names):
+        return ", ".join(f"{n} {spans.get(n, 0.0):.1f}" for n in names)
+
+    # ---- a. the quick start ---------------------------------------------
+    weights = tmp / "tpu_seed0.pt"
+    if not weights.exists():
+        tpu_state = engines.create_engine(
+            "pytorch", model_variant="tpu").model.state_dict()
+        torch.save(state_from_flax(_flax_layout(tpu_state)), weights)
+    sin = Chunk.create(size=chunk_shape, dtype=np.uint8, pattern="sin",
+                       voxel_size=VOXEL_NM)
+    if has_h5:
+        load, save, ext = "load-h5", "save-h5", "h5"
+        sin.to_h5(str(d / "image.h5"))
+    else:
+        load, save, ext = "load-npy", "save-npy", "npy"
+        sin.to_npy(str(d / "image.npy"))
+    quick = [load, "-f", str(d / f"image.{ext}"),
+             "inference", "--framework", "flax", "--model-variant", "tpu",
+             "--dtype", "bfloat16", "--input-patch-size", *nums(pin),
+             "--output-patch-overlap", *nums(overlap),
+             "--batch-size", str(batch), "-w", str(weights),
+             save, "-f", str(d / f"affinity.{ext}")]
+    # warm-up: the engine's first forward
+    process_stream(cli.build_stages([*dev_args, *quick])[1])
+    wall, launched, spans = run(quick, "the quick start")
+    for kname, n in launched.items():
+        require(not on_card or n == per_chunk,
+                f"quick start: {kname} launched {n} times, not {per_chunk}")
+    read = (Chunk.from_h5 if has_h5 else Chunk.from_npy)
+    got = read(str(d / f"affinity.{ext}"))
+    ref_inf = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                         num_output_channels=3, framework="flax",
+                         model_variant="tpu", dtype="bfloat16",
+                         batch_size=batch, weight_path=str(weights),
+                         device=dev)
+    source = read(str(d / f"image.{ext}"))
+    ref_inf(source)  # warm-up
+    sync()
+    t = time.perf_counter()
+    ref = ref_inf(source).host()
+    infer_s = time.perf_counter() - t
+    # the same card input through the plain versions: the kernels held
+    # at the quick start's batch and shapes, not only against themselves
+    reset_counts()
+    with plain_functions():
+        plain = ref_inf(source).host()
+    plain_launched = counts()
+    del ref_inf
+    require(not any(plain_launched.values()),
+            f"quick start: the plain path launched {plain_launched}")
+    require(got.array.shape == (3,) + chunk_shape
+            and np.isfinite(got.array).all()
+            and np.array_equal(got.array, ref.array),
+            "quick start: the file differs from Inferencer.__call__")
+    require(np.array_equal(got.array, plain.array),
+            "quick start: the file differs from the plain path, max abs "
+            f"{float(np.abs(got.array - plain.array).max())}")
+    phase("segment", f"quick start ({'' if has_h5 else 'h5py missing: '}"
+                     f"{load} | inference tpu bfloat16 batch {batch} | "
+                     f"{save}) on {chunk_shape} uint8: {wall:.4f} s per chunk, "
+                     f"{vox / wall / 1e6:.3f} Mvox/s (Inferencer.__call__ "
+                     f"warm, with its download, {infer_s:.4f} s); launches "
+                     f"{launched} ({per_chunk} + {per_chunk}); the file == "
+                     f"Inferencer.__call__ bitwise, == the plain path (0 "
+                     f"launches) bitwise; host ms: "
+                     + spans_text(spans, (load, "inference", save)))
+
+    # ---- b. segmentation of that output ---------------------------------
+    t = time.perf_counter()
+    built = not _build.library_path(_build.HOST_LIBRARY).exists()
+    native.load()
+    build_s = time.perf_counter() - t
+    affinity = np.ascontiguousarray(got.array[0])
+    thr = float(np.quantile(affinity, 0.7))
+    fg = affinity > np.float32(thr)
+    if has_h5:
+        seg_in = [load, "-f", str(d / f"affinity.{ext}"), "--channels", "0"]
+    else:  # load-npy has no --channels: the channel as its own file
+        np.save(d / "affinity0.npy", affinity)
+        seg_in = [load, "-f", str(d / "affinity0.npy"), "--voxel-size",
+                  *nums(VOXEL_NM)]
+    legs = {}
+    for leg in ("--device", "--host"):
+        tag = leg.lstrip("-")
+        argv = [*seg_in, "connected-components", "-t", repr(thr), leg,
+                "-o", "seg", save, "-i", "seg", "-f",
+                str(d / f"labels-{tag}.{ext}"),
+                "downsample", "-f", "1", "2", "2", "-i", "seg", "-o", "down",
+                save, "-i", "down", "-f", str(d / f"down-{tag}.{ext}")]
+        cc.sweeps = 0
+        wall, _, spans = run(argv, f"segmentation {leg}")
+        legs[tag] = dict(wall=wall, spans=spans, sweeps=cc.sweeps,
+                         labels=np.asarray(read(
+                             str(d / f"labels-{tag}.{ext}")).array),
+                         down=np.asarray(read(
+                             str(d / f"down-{tag}.{ext}")).array))
+    card, host = legs["device"]["labels"], legs["host"]["labels"]
+    n_comp = int(host.max())
+    # the device leg's unique fixpoint: each component's smallest linear
+    # index + 1, read off the host labels
+    first = np.full(n_comp + 1, np.iinfo(np.int64).max, dtype=np.int64)
+    flat = host.ravel()
+    np.minimum.at(first, flat, np.arange(flat.size, dtype=np.int64))
+    oracle = np.where(flat > 0, first[flat] + 1, 0).astype(
+        np.uint32).reshape(host.shape)
+    require(card.dtype == np.uint32 and np.array_equal(card, oracle),
+            "segment: the card labels differ from the device leg's "
+            "fixpoint")
+    require(labels_isomorphic(card, host) and np.array_equal(host > 0, fg),
+            "segment: the host labels are not isomorphic to the card's")
+    # the CPU device leg itself, on a slab, against the card leg
+    slab = torch.from_numpy(np.ascontiguousarray(fg[:8, :256, :256]))
+    cc.sweeps = 0
+    slab_card = cc.label_binary_device(slab.to(dev)).cpu()
+    slab_sweeps = cc.sweeps
+    require(torch.equal(slab_card, cc.label_binary_device(slab)),
+            "segment: the card leg differs from the CPU leg on a slab")
+    down_cpu = downsample(Chunk(torch.from_numpy(card),
+                                layer_type="segmentation"), (1, 2, 2))
+    require(np.array_equal(legs["device"]["down"], down_cpu.array.numpy())
+            and np.array_equal(legs["host"]["down"], downsample(
+                Chunk(host, layer_type="segmentation"), (1, 2, 2)).array),
+            "segment: the mode pool's card leg differs from its CPU leg")
+    phase("segment", f"connected-components of channel 0 at T {thr:.6g} "
+                     f"(foreground {fg.mean():.1%}): {n_comp} components; "
+                     f"--device {legs['device']['spans']['connected-components']:.1f} "
+                     f"ms in {legs['device']['sweeps']} sweeps, --host "
+                     f"{legs['host']['spans']['connected-components']:.1f} ms "
+                     f"(native build {build_s:.2f} s, "
+                     f"{'built' if built else 'cached'}); card labels == "
+                     f"the device leg's fixpoint bitwise, == the CPU leg on "
+                     f"a {tuple(slab.shape)} slab ({slab_sweeps} sweeps), host "
+                     f"labels isomorphic; downsample (mode pool) card == "
+                     f"CPU leg bitwise; host ms per leg: "
+                     + "; ".join(f"{tag} " + spans_text(
+                         leg["spans"], (load, "connected-components", save,
+                                        "downsample"))
+                         for tag, leg in legs.items()))
+
+    # ---- c. the pyramid on phase 10's volume ----------------------------
+    box = BoundingBox((0, 0, 0), chunk_shape)
+    pyr, thumb = str(d / "pyramid"), str(d / "thumbnail")
+    for path in (pyr, thumb):
+        require(cli.main([
+            "create-info", "-v", path, "--volume-size", *nums(chunk_shape),
+            "--voxel-size", *nums(VOXEL_NM), "--block-size", "16", "64",
+            "64", "--max-mip", "3", "--factor", "1", "2", "2"]) == 0,
+            f"segment: create-info {path}")
+    cut = ["load-precomputed", "-v", vol_in, "--chunk-start", "0", "0", "0",
+           "--chunk-size", *nums(chunk_shape), "prefetch", "--to-device",
+           "gaussian-filter", "-s", "1"]
+    wall_p, _, spans_p = run([*cut, "save-precomputed", "-v", pyr,
+                              "--no-upload-log", "downsample-upload", "-v",
+                              pyr], "downsample-upload")
+    wall_v, _, spans_v = run(["load-precomputed", "-v", pyr, "--chunk-start",
+                              "0", "0", "0", "--chunk-size",
+                              *nums(chunk_shape),
+                              "--validate-mip", "2"], "--validate-mip")
+    wall_t, _, spans_t = run([*cut, "save-precomputed", "-v", thumb,
+                              "--no-upload-log", "--create-thumbnail"],
+                             "--create-thumbnail")
+    raw = image[box.slices]
+    blur_card = gaussian_filter_2d(Chunk(torch.from_numpy(raw).to(dev)), 1.0)
+    sync()
+    t = time.perf_counter()
+    blur_card = gaussian_filter_2d(Chunk(torch.from_numpy(raw).to(dev)), 1.0)
+    sync()
+    card_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    blur_cpu = gaussian_filter_2d(Chunk(torch.from_numpy(raw)), 1.0)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    gaussian_filter_2d(Chunk(raw), 1.0)  # the host leg: scipy
+    scipy_ms = (time.perf_counter() - t) * 1e3
+    require(torch.equal(blur_card.array.cpu(), blur_cpu.array),
+            "segment: the gaussian's card leg differs from its CPU leg")
+    levels = [Chunk(blur_cpu.array.numpy(), voxel_size=VOXEL_NM)]
+    levels += pyramid(levels[0], num_mips=3)
+    for path in (pyr, thumb):
+        vol = PrecomputedVolume(path)
+        for mip, level in enumerate(levels):
+            stored = vol.cutout(level.bbox, mip=mip).array
+            require(np.array_equal(stored, level.array),
+                    f"segment: {path} mip {mip} differs from the library "
+                    f"composition")
+    phase("segment", f"pyramid of a {chunk_shape} cutout of phase 10's volume, "
+                     f"blurred on the card (gaussian card == CPU leg "
+                     f"bitwise; {card_ms:.1f} ms card, {cpu_ms:.1f} ms CPU "
+                     f"torch, {scipy_ms:.1f} ms scipy): downsample-upload "
+                     f"{wall_p:.3f} s, --validate-mip 2 passed {wall_v:.3f} "
+                     f"s, --create-thumbnail {wall_t:.3f} s; 4 mips of both "
+                     f"volumes == the library composition bitwise; host ms: "
+                     + spans_text({**spans_p, **{
+                         "validate " + k: v for k, v in spans_v.items()},
+                         **{"thumbnail " + k: v for k, v in spans_t.items()}},
+                         ("gaussian-filter", "downsample-upload",
+                          "validate load-precomputed",
+                          "thumbnail save-precomputed")))
+
+    # ---- d. every format round trip at task size ------------------------
+    t0 = (4, 64, 64)
+    task = tuple(min(a, b) for a, b in zip(cfg["task"], chunk_shape))
+    sel = tuple(slice(o, o + n) for o, n in zip(t0, task))
+    img = Chunk(np.ascontiguousarray(image[sel]), voxel_offset=t0,
+                voxel_size=VOXEL_NM)
+    amap = Chunk(np.ascontiguousarray(got.array[(slice(None),) + sel]),
+                 voxel_offset=t0, voxel_size=VOXEL_NM)
+    ch0 = Chunk(np.ascontiguousarray(amap.array[0]), voxel_offset=t0,
+                voxel_size=VOXEL_NM)
+    rates, missing = [], []
+
+    def trip(name, chunk, write, read_back, keeps):
+        """Write from the card and from the host, read back, hold the
+        array (bitwise; mrc widens uint8 to float32) and what the format
+        ``keeps`` of the offset and the voxel size."""
+        mb = chunk.array.nbytes / 1e6
+        for side in ("card", "host"):
+            src = chunk.device(dev) if side == "card" else chunk
+            sync()
+            t = time.perf_counter()
+            write(src)
+            w = time.perf_counter() - t
+            t = time.perf_counter()
+            back = read_back()
+            r = time.perf_counter() - t
+            arr = np.asarray(back.array)
+            require(arr.shape == chunk.array.shape
+                    and (arr.dtype == chunk.array.dtype or name.startswith("mrc"))
+                    and np.array_equal(arr, chunk.array),
+                    f"formats: {name} round trip from the {side} differs")
+            if "offset" in keeps:
+                require(tuple(back.voxel_offset) == t0,
+                        f"formats: {name} lost the voxel offset")
+            if "size" in keeps:
+                require(tuple(back.voxel_size) == VOXEL_NM,
+                        f"formats: {name} lost the voxel size")
+        rates.append(f"{name} {chunk.array.dtype} {mb / w:.0f}/{mb / r:.0f}")
+
+    def nrrd(path):
+        def write(c):
+            io_nrrd.save_nrrd(path, c.array, voxel_size=tuple(c.voxel_size),
+                              voxel_offset=tuple(c.voxel_offset))
+
+        def read_back():
+            arr, header = io_nrrd.load_nrrd(path)
+            if arr.ndim == 4:  # NRRD's spacings and offset are per axis
+                return Chunk(arr)
+            return Chunk(arr, voxel_offset=[int(o) for o in header[
+                "chunkflow voxel offset"].split()],
+                voxel_size=[float(v) for v in reversed(
+                    header["spacings"].split())])
+        return write, read_back
+
+    def mrc(path):
+        def write(c):
+            io_mrc.save_mrc(path, c.array, voxel_size_nm=tuple(c.voxel_size),
+                            voxel_offset=tuple(c.voxel_offset))
+
+        def read_back():
+            arr, header = io_mrc.load_mrc(path)
+            return Chunk(arr, voxel_offset=header["voxel_offset"],
+                         voxel_size=header["voxel_size_nm"])
+        return write, read_back
+
+    def zarr(path):
+        def write(c):
+            shutil.rmtree(path, ignore_errors=True)
+            stage = cli.build_stages([*dev_args, "save-zarr", "-p",
+                                      path])[1][0]
+            seed = new_task()
+            seed["chunk"] = c
+            list(stage(iter([seed])))
+
+        def read_back():
+            box = BoundingBox(t0, tuple(o + n for o, n in zip(t0, task)))
+            return Chunk(ZarrArray(path).read(box.slices), voxel_offset=t0)
+        return write, read_back
+
+    def pngs(path):
+        def write(c):
+            shutil.rmtree(path, ignore_errors=True)
+            io_png.save_pngs(c, path)
+
+        def read_back():
+            return io_png.load_pngs(path, voxel_offset=t0)
+        return write, read_back
+
+    for label, chunk in (("image", img), ("map", amap), ("map[0]", ch0)):
+        stem = str(d / label.replace("[", "").replace("]", ""))
+        if has_h5:
+            trip(f"h5 {label}", chunk,
+                 lambda c, p=f"{stem}.h5": c.to_h5(p),
+                 lambda p=f"{stem}.h5": Chunk.from_h5(p), ("offset", "size"))
+        trip(f"nrrd {label}", chunk, *nrrd(f"{stem}.nrrd"),
+             ("offset", "size") if chunk.ndim == 3 else ())
+        if chunk.ndim == 4:
+            continue  # the formats below hold one channel, in both packages
+        trip(f"mrc {label}", chunk, *mrc(f"{stem}.mrc"), ("offset", "size"))
+        trip(f"zarr {label}", chunk, *zarr(f"{stem}.zarr"), ())
+        if has_pil:
+            trip(f"tif {label}", chunk,
+                 lambda c, p=f"{stem}.tif": c.to_tif(p),
+                 lambda p=f"{stem}.tif": Chunk.from_tif(p), ())
+            if label == "image":  # PNG holds no float map
+                trip(f"png {label}", chunk, *pngs(f"{stem}-png"), ())
+    if not has_h5:
+        missing.append("h5 (no h5py)")
+    if not has_pil:
+        missing.append("tif and png (no Pillow)")
+    phase("segment", f"format round trips of a {img.shape} uint8 image and "
+                     f"a {amap.shape} float32 map (channel 0 through the "
+                     f"single-channel formats), each written from a card "
+                     f"chunk and from a host chunk: bitwise (mrc writes "
+                     f"uint8 as float32), offsets and voxel sizes kept "
+                     f"where the format holds them (h5, nrrd, mrc); MB/s "
+                     f"write/read: " + ", ".join(rates)
+                     + (f"; not run: {', '.join(missing)}" if missing
+                        else ""))
+    shutil.rmtree(d)
+    return launched
+
+
 def _brief(counters):
     keys = ("inference/chunks", "tasks/committed", "tasks/retried",
             "tasks/surrendered", "ledger/skips", "pipeline/chain_rebuilds",
@@ -1759,6 +2231,25 @@ def _raw(rng, dtype, shape):
     info = np.iinfo(dtype)
     return rng.integers(info.min, info.max, shape,
                         endpoint=True).astype(dtype)
+
+
+def _version(module: str) -> str:
+    """An installed package's version, or "missing"."""
+    import importlib
+
+    try:
+        return importlib.import_module(module).__version__
+    except ImportError:
+        return "missing"
+
+
+def _gxx_version() -> str:
+    try:
+        out = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except OSError:
+        return "missing"
+    return out.splitlines()[0].split()[-1] if out else "missing"
 
 
 def _widths(model):

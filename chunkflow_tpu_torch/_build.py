@@ -10,6 +10,11 @@ keeps it at seconds per file. ``-fmad=false`` keeps the compiler from
 contracting a multiply and an add into one FMA: the kernels' sums must
 round exactly as their plain PyTorch versions' do.
 
+The host C++ of the segmentation legs (``csrc/host/``: connected
+components and id remapping, the port's copies of the JAX package's
+``native/src/``) is one more library, ``HOST_LIBRARY``: the same build
+compiles it with ``g++``, keyed by the hash of all its sources.
+
 Nothing here runs at import: the CPU test box has no ``nvcc``.
 """
 from __future__ import annotations
@@ -26,6 +31,10 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 KERNELS = ("gather", "accumulate")
+HOST = CSRC / "host"
+HOST_LIBRARY = "chunkflow_host"
+HOST_SOURCES = ("cc3d.cpp", "remap.cpp")
+HOST_HEADERS = ("zslab.h",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +42,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,20 +66,33 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    if name == HOST_LIBRARY:
+        for source in HOST_SOURCES + HOST_HEADERS:
+            digest.update(source.encode())
+            digest.update((HOST / source).read_bytes())
+    else:
+        digest.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
     return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
+def gxx_command(out: Path) -> List[str]:
+    return [gxx(), *GXX_FLAGS, *(str(HOST / s) for s in HOST_SOURCES),
+            "-o", str(out)]
+
+
 def build_all(names=KERNELS) -> Dict[str, Path]:
-    """Compile every named kernel that is not built yet, all ``nvcc``
-    processes started together; returns name -> library path. Each
-    library lands under a temporary name and is renamed into place, so a
-    cut build never leaves a loadable half-written file. The compiler's
-    resource report (``-Xptxas -v``) is kept beside it as ``.log``."""
+    """Compile every named library that is not built yet (a kernel with
+    ``nvcc``, ``HOST_LIBRARY`` with ``g++``), all compilers started
+    together; returns name -> library path. Each library lands under a
+    temporary name and is renamed into place, so a cut build never leaves
+    a loadable half-written file. The compiler's report (for a kernel,
+    ``-Xptxas -v``'s resources) is kept beside it as ``.log``. A failed
+    build raises: nothing falls back to another leg."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     running = []
@@ -76,27 +100,31 @@ def build_all(names=KERNELS) -> Dict[str, Path]:
         if path.exists():
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        host = name == HOST_LIBRARY
         proc = subprocess.Popen(
-            nvcc_command(name, tmp),
+            gxx_command(tmp) if host else nvcc_command(name, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running.append((name, path, tmp, proc))
+        running.append((name, "host C++" if host else "CUDA kernel", path,
+                        tmp, proc))
     failures = []
-    for name, path, tmp, proc in running:
+    for name, what, path, tmp, proc in running:
         log, _ = proc.communicate()
-        path.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failures.append(f"{what} build failed: {name} (exit "
+                            f"{proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)
     if failures:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
+        raise RuntimeError("\n".join(failures))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+    """The loaded library ``name`` (a kernel or ``HOST_LIBRARY``), built
+    first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -115,3 +143,11 @@ def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:
             f"{prefix} kernel launch failed: CUDA error {code} "
             f"({message.decode() if message else 'unknown'})"
         )
+
+
+def gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found on PATH: the host C++ of the "
+                           "segmentation legs cannot be built")
+    return found

@@ -96,11 +96,6 @@ def edge_pad(arr: torch.Tensor, zyx) -> torch.Tensor:
     return view.view(arr.dtype)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP, queue "
-                              f"1: {item})")
-
-
 def _is_tensor(value) -> bool:
     return isinstance(value, torch.Tensor)
 
@@ -702,8 +697,16 @@ class Chunk(np.lib.mixins.NDArrayOperatorsMixin):
 
     def connected_component(self, threshold: float = 0.5,
                             connectivity: int = 26,
-                            device: bool = False) -> "Chunk":
-        _not_ported("Chunk.connected_component", "segmentation device legs")
+                            device=False) -> "Chunk":
+        """Label (a float chunk thresholded first) into a segmentation:
+        on the host by default; with ``device`` by label propagation where
+        a tensor payload lies, a host payload on ``device`` (``True``: the
+        card), the labels left there (``ops/connected_components.py``)."""
+        from chunkflow_tpu_torch.ops import connected_components as _cc
+
+        return _cc.connected_components(self, threshold=threshold,
+                                        connectivity=connectivity,
+                                        device=device)
 
     def channel_voting(self, device="cuda") -> "Chunk":
         """Argmax over channels + 1, in torch where the chunk lies (a
@@ -734,18 +737,94 @@ class Chunk(np.lib.mixins.NDArrayOperatorsMixin):
         return validate_by_template_matching(as_native_dtype(self.array))
 
     def gaussian_filter_2d(self, sigma: float = 1.0) -> "Chunk":
-        _not_ported("Chunk.gaussian_filter_2d", "segmentation device legs")
+        """Per-section gaussian blur, where the payload lies
+        (``ops/filters.py``)."""
+        from chunkflow_tpu_torch.ops import filters
 
-    def to_h5(self, path: str, *args, **kwargs) -> str:
-        _not_ported("Chunk.to_h5", "chunk file formats")
+        return filters.gaussian_filter_2d(self, sigma=sigma)
+
+    # ---- file formats ----------------------------------------------------
+    def to_h5(self, path: str, compression: str = "gzip",
+              with_unique: bool = False, chunk_size=None,
+              with_offset: bool = True) -> str:
+        """Write the ``main``, ``voxel_offset`` and ``voxel_size``
+        datasets and the ``layer_type`` attribute (with ``with_unique``, a
+        segmentation's ``unique_nonzeros`` too); a path not ending in
+        ``.h5`` is a directory, named ``<bbox>.h5`` in it. HDF5 has no
+        bfloat16: it is stored as float32. A card payload is downloaded
+        once."""
+        import os
+
+        import h5py
+
+        if not path.endswith(".h5"):
+            path = os.path.join(path, f"{self.bbox.string}.h5")
+        arr = as_native_dtype(self.array)
+        chunks = None
+        if chunk_size is not None:
+            chunks = tuple(chunk_size)
+            if arr.ndim == 4 and len(chunks) == 3:
+                chunks = (arr.shape[0],) + chunks
+            chunks = tuple(min(c, s) for c, s in zip(chunks, arr.shape))
+        with h5py.File(path, "w") as f:
+            f.create_dataset("main", data=arr, compression=compression,
+                             chunks=chunks)
+            if with_offset:
+                f.create_dataset("voxel_offset", data=self.voxel_offset.vec)
+            f.create_dataset("voxel_size", data=self.voxel_size.vec)
+            f.attrs["layer_type"] = self.layer_type.value
+            if with_unique and self.is_segmentation:
+                f.create_dataset("unique_nonzeros",
+                                 data=np.unique(arr[arr > 0]))
+        return path
 
     @classmethod
-    def from_h5(cls, path: str, *args, **kwargs) -> "Chunk":
-        _not_ported("Chunk.from_h5", "chunk file formats")
+    def from_h5(cls, path: str, dataset_path: str = "main",
+                voxel_offset=None, voxel_size=None,
+                bbox: Optional[BoundingBox] = None, dtype=None,
+                channels=None) -> "Chunk":
+        """A chunk read from an HDF5 file, on the host: ``bbox`` cuts it
+        out (global coordinates, relative to the stored offset),
+        ``channels`` ("0,2" or a list) keeps those of a 4D dataset,
+        ``dtype`` converts."""
+        import h5py
 
-    def to_tif(self, path: str, *args, **kwargs) -> str:
-        _not_ported("Chunk.to_tif", "chunk file formats")
+        with h5py.File(path, "r") as f:
+            if voxel_offset is None and "voxel_offset" in f:
+                voxel_offset = Cartesian(*f["voxel_offset"][()].tolist())
+            if voxel_size is None and "voxel_size" in f:
+                voxel_size = Cartesian(*f["voxel_size"][()].tolist())
+            layer_type = f.attrs.get("layer_type", None)
+            dset = f[dataset_path]
+            if bbox is not None:
+                offset = to_cartesian(voxel_offset) or Cartesian.zeros()
+                sl = bbox.translate(-offset).slices
+                if dset.ndim == 4:
+                    sl = (slice(None),) + sl
+                arr = dset[sl]
+                voxel_offset = bbox.start
+            else:
+                arr = dset[()]
+        if channels is not None and arr.ndim == 4:
+            if isinstance(channels, str):
+                idx = [int(c) for c in channels.split(",") if c.strip()]
+            else:
+                idx = [int(c) for c in channels]
+            arr = arr[idx]
+        if dtype is not None:
+            arr = arr.astype(dtype)
+        return cls(arr, voxel_offset=voxel_offset, voxel_size=voxel_size,
+                   layer_type=layer_type)
+
+    def to_tif(self, path: str, compression: str = "zlib") -> str:
+        from chunkflow_tpu_torch.volume import io_tif
+
+        return io_tif.write_tif(self, path, compression=compression)
 
     @classmethod
-    def from_tif(cls, path: str, *args, **kwargs) -> "Chunk":
-        _not_ported("Chunk.from_tif", "chunk file formats")
+    def from_tif(cls, path: str, voxel_offset=None, voxel_size=None,
+                 dtype=None) -> "Chunk":
+        from chunkflow_tpu_torch.volume import io_tif
+
+        return io_tif.read_tif(path, voxel_offset=voxel_offset,
+                               voxel_size=voxel_size, dtype=dtype)

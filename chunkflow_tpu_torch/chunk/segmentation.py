@@ -4,7 +4,8 @@ Computed on the host, as the JAX package computes it (a card payload is
 read once, as its ``np.asarray`` does). Evaluation metrics (Rand index,
 adjusted Rand, variation of information, Fowlkes-Mallows) come from a
 sparse contingency table (scipy.sparse), accumulating pair counts in
-float64 on purpose; remap/renumber use the numpy leg of ``ops/remap.py``.
+float64 on purpose; remap/renumber go through ``ops/remap.py`` (the
+native leg for large uint32/uint64 arrays, numpy otherwise).
 """
 from __future__ import annotations
 

@@ -23,14 +23,23 @@ volumes are its only shared state)::
 Inference runs on the card; ``--device cpu`` (before the first command)
 runs the kernels' plain PyTorch versions on the CPU instead. Volumes are
 local neuroglancer precomputed directories in the raw encoding; queues
-are ``file://`` directories or ``memory://`` names. Every command name of
-the JAX CLI is registered: those not ported yet (``NOT_PORTED``), cloud
-URLs (``gs://``, ``s3://``, ``sqs://``), other encodings,
-``--validate-mip`` and ``--create-thumbnail`` raise
-``NotImplementedError`` naming their ROADMAP item. Chunk operators
-compute where their chunk lies; ``mask`` and ``channel-voting`` compute a
-host chunk on ``--device``, as the JAX package computes them with
-``jnp`` on its default device.
+are ``file://`` directories or ``memory://`` names; chunk files are
+HDF5, TIFF, PNG sections, NRRD, zarr v2, and (to read) zarr v3 and N5.
+Every command name of the JAX CLI is registered:
+those not ported yet (``NOT_PORTED``), cloud URLs (``gs://``, ``s3://``,
+``sqs://``) and other encodings raise ``NotImplementedError`` naming
+their ROADMAP item. Chunk operators compute where their chunk lies;
+``mask``, ``channel-voting`` and ``connected-components --device``
+compute a host chunk on ``--device``, as the JAX package computes them
+with ``jnp`` on its default device.
+
+The README's quick start on the card::
+
+    python -m chunkflow_tpu_torch load-h5 -f image.h5 \\
+        inference --framework flax --model-variant tpu --dtype bfloat16 \\
+            --input-patch-size 20 256 256 --output-patch-overlap 4 64 64 \\
+            --batch-size 4 \\
+        save-h5 -f affinity.h5
 """
 from __future__ import annotations
 
@@ -546,6 +555,339 @@ def _save_npy(args, state) -> Stage:
 
 
 # ---------------------------------------------------------------------------
+# chunk files: HDF5, TIFF, PNG sections, NRRD, zarr
+# ---------------------------------------------------------------------------
+def _h5_task_path(prefix: str, bbox) -> str:
+    """A non-.h5 file name is a prefix, completed as <prefix><bbox>.h5."""
+    return f"{prefix}{bbox.string}.h5"
+
+
+def _load_h5_options(p):
+    _name(p, "load-h5")
+    p.add_argument("--file-name", "-f", required=True,
+                   help=".h5 path, or a prefix completed as "
+                        "<prefix><bbox>.h5")
+    p.add_argument("--dataset-path", "-d", default="main")
+    p.add_argument("--dtype", "-e", default=None)
+    p.add_argument("--layer-type", "-l", choices=["image", "segmentation"],
+                   default=None)
+    _triple(p, "--voxel-offset", "-v", default=None)
+    _triple(p, "--voxel-size", "-x", default=None)
+    p.add_argument("--channels", "-c", default=None,
+                   help="comma-separated channel indices to keep")
+    _triple(p, "--cutout-start", "-t", default=None)
+    _triple(p, "--cutout-stop", "-p", default=None)
+    _triple(p, "--cutout-size", "-s", default=None)
+    _on_off(p, "--set-bbox", "--no-set-bbox", default=False,
+            help="publish the loaded chunk's bbox as the task bbox")
+    _on_off(p, "--remove-empty", "--do-not-remove", default=False,
+            help="delete the file when the loaded chunk is all zero")
+    p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
+
+
+def _load_h5(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk.base import LayerType
+
+    cutout = None
+    if args.cutout_start is not None:
+        if args.cutout_stop is not None:
+            cutout = BoundingBox(args.cutout_start, args.cutout_stop)
+        elif args.cutout_size is not None:
+            cutout = BoundingBox.from_delta(args.cutout_start,
+                                            args.cutout_size)
+        else:
+            raise UsageError("--cutout-start needs --cutout-stop or "
+                             "--cutout-size")
+
+    @operator
+    def stage(task):
+        # an explicit cutout beats the task bbox
+        bbox = cutout if cutout is not None else task.get("bbox")
+        path = args.file_name
+        if not path.endswith(".h5") and bbox is not None:
+            path = _h5_task_path(path, bbox)
+        chunk = Chunk.from_h5(
+            path, dataset_path=args.dataset_path,
+            voxel_offset=args.voxel_offset, voxel_size=args.voxel_size,
+            bbox=bbox, dtype=np.dtype(args.dtype) if args.dtype else None,
+            channels=args.channels)
+        if args.layer_type is not None:
+            chunk.layer_type = LayerType(args.layer_type)
+        if args.remove_empty and not state["dry_run"] and chunk.all_zero():
+            print(f"remove empty {path}")
+            os.remove(path)
+        task[args.output_chunk_name] = chunk
+        if args.set_bbox:
+            task["bbox"] = chunk.bbox
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_h5_options(p):
+    _name(p, "save-h5")
+    p.add_argument("--file-name", "-f", default=None,
+                   help=".h5 path, or a prefix completed as "
+                        "<prefix><bbox>.h5")
+    p.add_argument("--file-name-prefix", default=None,
+                   help="write one file per task: <prefix><bbox>.h5")
+    _triple(p, "--chunk-size", "-s", default=None,
+            help="HDF5 dataset chunking (compression block shape)")
+    p.add_argument("--compression", "-c", choices=["gzip", "lzf", "szip"],
+                   default="gzip")
+    _on_off(p, "--with-offset", "--without-offset", default=True,
+            help="write the voxel_offset dataset")
+    _triple(p, "--voxel-size", "-v", default=None,
+            help="override the chunk's voxel size on write")
+    p.add_argument("--dtype", "-d", default=None,
+                   help="convert before writing")
+    p.add_argument("--input-chunk-name", "--input-name", "-i",
+                   default=DEFAULT_CHUNK_NAME)
+
+
+def _save_h5(args, state) -> Stage:
+    if (args.file_name is None) == (args.file_name_prefix is None):
+        raise UsageError("save-h5 needs exactly one of --file-name / "
+                         "--file-name-prefix")
+
+    @write_operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.dtype is not None:
+            chunk = chunk.astype(np.dtype(args.dtype))
+        if args.voxel_size is not None:
+            chunk = chunk.with_voxel_size(args.voxel_size)
+        if args.file_name_prefix is not None:
+            path = _h5_task_path(args.file_name_prefix,
+                                 task.get("bbox") or chunk.bbox)
+        elif not args.file_name.endswith(".h5"):
+            path = _h5_task_path(args.file_name,
+                                 task.get("bbox") or chunk.bbox)
+        else:
+            path = args.file_name
+        chunk.to_h5(path, compression=args.compression,
+                    chunk_size=args.chunk_size, with_offset=args.with_offset)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _load_tif_options(p):
+    _name(p, "load-tif")
+    p.add_argument("--file-name", "-f", required=True)
+    p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
+    _triple(p, "--voxel-offset", "-v", default=(0, 0, 0))
+    _triple(p, "--voxel-size", "-s", default=None)
+    p.add_argument("--layer-type", "-l", choices=["image", "segmentation"],
+                   default=None)
+    p.add_argument("--dtype", "-d", default=None)
+
+
+def _load_tif(args, state) -> Stage:
+    from chunkflow_tpu_torch.chunk.base import LayerType
+
+    @operator
+    def stage(task):
+        chunk = Chunk.from_tif(
+            args.file_name, voxel_offset=args.voxel_offset,
+            voxel_size=args.voxel_size,
+            dtype=np.dtype(args.dtype) if args.dtype else None)
+        if args.layer_type is not None:
+            chunk.layer_type = LayerType(args.layer_type)
+        task[args.output_chunk_name] = chunk
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_tif_options(p):
+    _name(p, "save-tif")
+    p.add_argument("--file-name", "-f", required=True)
+    p.add_argument("--dtype", "-d", default=None,
+                   help="convert before writing")
+    p.add_argument("--compression", default="zlib",
+                   help="raw/none, zlib/deflate, lzw or packbits")
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+
+
+def _save_tif(args, state) -> Stage:
+    @write_operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.dtype is not None:
+            chunk = chunk.astype(np.dtype(args.dtype))
+        chunk.to_tif(args.file_name, compression=args.compression)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_pngs_options(p):
+    _name(p, "save-pngs")
+    p.add_argument("--output-path", "-o", required=True)
+    p.add_argument("--dtype", default=None, help="convert before export")
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+
+
+def _save_pngs(args, state) -> Stage:
+    from chunkflow_tpu_torch.volume.io_png import save_pngs
+
+    @write_operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.dtype is not None:
+            chunk = chunk.astype(np.dtype(args.dtype))
+        save_pngs(chunk, args.output_path)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _load_png_options(p):
+    _name(p, "load-png")
+    p.add_argument("--path", "-p", required=True,
+                   help="directory of z-section pngs")
+    _triple(p, "--voxel-offset", "-t", default=(0, 0, 0))
+    _triple(p, "--voxel-size", "-x", default=None)
+    _triple(p, "--cutout-offset", "-c", default=(0, 0, 0),
+            help="with --chunk-size: the cutout window's start")
+    _triple(p, "--chunk-size", "-s", default=None,
+            help="the cutout window's size (beats the task bbox)")
+    p.add_argument("--digit-num", "-d", type=int, default=None,
+                   help="accepted for compatibility (section numbers are "
+                        "parsed from the file names)")
+    p.add_argument("--dtype", default=None)
+    p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
+
+
+def _load_png(args, state) -> Stage:
+    from chunkflow_tpu_torch.volume.io_png import load_pngs
+
+    @operator
+    def stage(task):
+        if args.chunk_size is not None:
+            bbox = BoundingBox.from_delta(args.cutout_offset, args.chunk_size)
+        else:
+            bbox = task.get("bbox")
+        chunk = load_pngs(args.path, bbox=bbox,
+                          voxel_offset=args.voxel_offset,
+                          dtype=np.dtype(args.dtype) if args.dtype else None)
+        if args.voxel_size is not None:
+            chunk = chunk.with_voxel_size(args.voxel_size)
+        task[args.output_chunk_name] = chunk
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_nrrd_options(p):
+    _name(p, "save-nrrd")
+    p.add_argument("--file-name", "-f", required=True)
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+
+
+def _save_nrrd(args, state) -> Stage:
+    from chunkflow_tpu_torch.volume.io_nrrd import save_nrrd
+
+    @write_operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        save_nrrd(args.file_name, chunk.array,
+                  voxel_size=tuple(chunk.voxel_size),
+                  voxel_offset=tuple(chunk.voxel_offset))
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _load_zarr_options(p):
+    _name(p, "load-zarr")
+    p.add_argument("--store-path", "--store", "--path", "-p", required=True)
+    p.add_argument("--driver", choices=["zarr", "zarr3", "n5"],
+                   default="zarr", help="store format: zarr v2, zarr v3 "
+                                        "or N5")
+    p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
+    _triple(p, "--voxel-offset", default=(0, 0, 0))
+    _triple(p, "--voxel-size", default=None)
+    _triple(p, "--chunk-start", default=None,
+            help="explicit cutout start (beats the task bbox)")
+    _triple(p, "--chunk-size", default=None)
+
+
+def _load_zarr(args, state) -> Stage:
+    from chunkflow_tpu_torch.volume.zarr import open_array
+
+    if (args.chunk_start is None) != (args.chunk_size is None):
+        raise UsageError("--chunk-start and --chunk-size must be given "
+                         "together")
+
+    @operator
+    def stage(task):
+        store = open_array(args.store_path, args.driver)
+        explicit = (BoundingBox.from_delta(args.chunk_start, args.chunk_size)
+                    if args.chunk_start is not None else None)
+        if explicit is not None or task.get("bbox") is not None:
+            bbox = explicit if explicit is not None else task["bbox"]
+            chunk = Chunk(store.read(bbox.slices), voxel_offset=bbox.start)
+        else:
+            chunk = Chunk(store.read(), voxel_offset=args.voxel_offset)
+        if args.voxel_size is not None:
+            chunk = chunk.with_voxel_size(args.voxel_size)
+        task[args.output_chunk_name] = chunk
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_zarr_options(p):
+    _name(p, "save-zarr")
+    p.add_argument("--store-path", "--store", "-p", required=True)
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+    _triple(p, "--volume-size", "--shape", default=None,
+            help="create the store at this size first")
+    _triple(p, "--chunk-size", default=None,
+            help="the store's chunk shape on create")
+    p.add_argument("--dtype", default=None, help="convert before writing")
+    _triple(p, "--resolution", default=None,
+            help="voxel size recorded on the chunk before writing")
+    p.add_argument("--mip", type=int, default=None,
+                   help="accepted for compatibility")
+    p.add_argument("--order", default=None,
+                   help="accepted for compatibility (always zyx, C order)")
+
+
+def _save_zarr(args, state) -> Stage:
+    """Write the chunk into a zyx zarr v2 array at its voxel offset,
+    creating it (zlib, the chunk's dtype; bfloat16 as float32) when the
+    store does not exist."""
+    from chunkflow_tpu_torch.chunk.base import as_native_dtype
+    from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    @write_operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.dtype is not None:
+            chunk = chunk.astype(np.dtype(args.dtype))
+        if args.resolution is not None:
+            chunk = chunk.with_voxel_size(args.resolution)
+        arr = as_native_dtype(chunk.array)
+        try:
+            store = ZarrArray(args.store_path)
+        except FileNotFoundError:
+            # the store must cover the chunk's GLOBAL bbox: it is written
+            # at its bbox slices
+            size = (tuple(args.volume_size)
+                    if args.volume_size and any(args.volume_size)
+                    else tuple(int(s) for s in chunk.bbox.stop))
+            store = ZarrArray.create(args.store_path, size, arr.dtype,
+                                     chunks=args.chunk_size)
+        store.write(chunk.bbox.slices, arr)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+# ---------------------------------------------------------------------------
 # precomputed volumes
 # ---------------------------------------------------------------------------
 def _create_info_options(p):
@@ -622,7 +964,8 @@ def _load_precomputed_options(p):
                    help="zero the z-sections listed in the volume's "
                         "blackout_section_ids.json")
     p.add_argument("--validate-mip", type=int, default=None,
-                   help="cross-check against a coarser mip (not ported)")
+                   help="cross-check the cutout, mean-pooled, against this "
+                        "coarser mip of the volume")
     p.add_argument("--validate-tolerance", type=float, default=0.01)
     p.add_argument("--output-chunk-name", "-o", default=DEFAULT_CHUNK_NAME)
 
@@ -630,9 +973,6 @@ def _load_precomputed_options(p):
 def _load_precomputed(args, state) -> Stage:
     from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
 
-    if args.validate_mip is not None:
-        _not_ported("load-precomputed --validate-mip",
-                    "segmentation device legs")
     vol = PrecomputedVolume(args.volume_path)
     explicit = args.chunk_start is not None or args.chunk_size is not None
 
@@ -661,6 +1001,10 @@ def _load_precomputed(args, state) -> Stage:
         if any(args.expand_margin_size):
             bbox = bbox.adjust(args.expand_margin_size)
         chunk = vol.cutout(bbox, mip=mip, fill_missing=args.fill_missing)
+        # validate the raw cutout: blackout zeroes data on purpose
+        if args.validate_mip is not None and not state["dry_run"]:
+            _validate_cutout(vol, chunk, mip, args.validate_mip,
+                             args.validate_tolerance)
         if args.blackout_sections:
             sidecar = vol.read_json("blackout_section_ids.json") or {}
             z0, nz = int(chunk.voxel_offset.z), chunk.shape[-3]
@@ -673,6 +1017,51 @@ def _load_precomputed(args, state) -> Stage:
     return stage(_name=args.op_name)
 
 
+def _validate_cutout(vol, chunk, mip, validate_mip, tolerance=0.01):
+    """Mean-pool the cutout to ``validate_mip`` and compare it with a
+    direct read of the same window at that mip; raise on a mismatch.
+
+    The reference asserts exact equality after pooling
+    (load_precomputed.py:115-182); the JAX package's small default
+    tolerance absorbs pyramid rounding and still catches the corrupted or
+    partly black cutouts the check exists for, and so does the port's."""
+    import logging
+
+    from chunkflow_tpu_torch.chunk.base import as_native_dtype
+    from chunkflow_tpu_torch.ops.downsample import downsample_average
+
+    if not (mip < validate_mip < vol.num_mips):
+        raise ValueError(
+            f"--validate-mip {validate_mip} must be coarser than the load "
+            f"mip {mip} and exist in the volume ({vol.num_mips} mips)")
+    factor = tuple(int(c // f) for c, f in zip(vol.voxel_size(validate_mip),
+                                              vol.voxel_size(mip)))
+    # a window whose offset AND extent are factor-aligned, so the pooled
+    # grid coincides with the coarse mip's voxel grid
+    offset = tuple(int(o) for o in chunk.voxel_offset)
+    skip = tuple((-o) % f for o, f in zip(offset, factor))
+    aligned = tuple((s - k) - (s - k) % f
+                    for s, k, f in zip(chunk.shape[-3:], skip, factor))
+    if any(a < f for a, f in zip(aligned, factor)):
+        return  # window too small to compare
+    sub = chunk.cutout(BoundingBox(
+        tuple(o + k for o, k in zip(offset, skip)),
+        tuple(o + k + a for o, k, a in zip(offset, skip, aligned))))
+    pooled = downsample_average(sub, factor=factor)
+    ref = vol.cutout(pooled.bbox, mip=validate_mip, fill_missing=True)
+    a = as_native_dtype(pooled.array).astype(np.float64)
+    b = as_native_dtype(ref.array).astype(np.float64)
+    err = float(np.abs(a - b).mean())
+    scale = max(float(np.abs(b).mean()), 1e-6)
+    if err / scale > tolerance:
+        msg = (f"cross-mip validation mismatch (mip {mip} vs "
+               f"{validate_mip}): mean|diff|={err:.4f} vs "
+               f"mean|ref|={scale:.4f} (relative {err / scale:.4f} > "
+               f"tolerance {tolerance})")
+        logging.warning(msg)
+        raise ValueError(msg)
+
+
 def _save_precomputed_options(p):
     _name(p, "save-precomputed")
     p.add_argument("--volume-path", "-v", required=True)
@@ -682,7 +1071,8 @@ def _save_precomputed_options(p):
                                       "<volume>/log/<bbox>.json")
     p.add_argument("--create-thumbnail",
                    action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported")
+                   help="also write the chunk's pyramid into the volume's "
+                        "coarser mips")
     p.add_argument("--intensity-threshold", type=float, default=None,
                    help="skip the write when the chunk's max is below this")
     p.add_argument("--parallel", type=int, default=1,
@@ -701,9 +1091,6 @@ def _save_precomputed(args, state) -> Stage:
         _local_root,
     )
 
-    if args.create_thumbnail:
-        _not_ported("save-precomputed --create-thumbnail",
-                    "segmentation device legs")
     vol = PrecomputedVolume(args.volume_path)
 
     @write_operator
@@ -726,6 +1113,8 @@ def _save_precomputed(args, state) -> Stage:
                           wait=not args.async_write)
         if future is not None:
             task.setdefault("pending_writes", []).append(future)
+        if args.create_thumbnail:
+            _write_thumbnails(vol, chunk)
         if args.upload_log:
             log_dir = os.path.join(_local_root(args.volume_path), "log")
             os.makedirs(log_dir, exist_ok=True)
@@ -738,6 +1127,21 @@ def _save_precomputed(args, state) -> Stage:
         return task
 
     return stage(_name=args.op_name)
+
+
+def _write_thumbnails(vol, chunk) -> None:
+    """The chunk's pyramid into the volume's mips 1..n-1; a 4D chunk is
+    first quantized to a uint8 image, as an affinity map."""
+    from chunkflow_tpu_torch.chunk import AffinityMap
+    from chunkflow_tpu_torch.ops.downsample import pyramid
+
+    thumb = chunk
+    if thumb.ndim == 4:
+        thumb = AffinityMap(thumb.array, voxel_offset=thumb.voxel_offset,
+                            voxel_size=thumb.voxel_size).quantize()
+    for level, down in enumerate(pyramid(thumb, num_mips=vol.num_mips - 1),
+                                 start=1):
+        vol.save(down, mip=level)
 
 
 def _skip_task_by_blocks_options(p):
@@ -1286,6 +1690,106 @@ def _quantize(args, state) -> Stage:
     return stage(_name=args.op_name)
 
 
+def _connected_components_options(p):
+    _name(p, "connected-components")
+    p.add_argument("--threshold", "-t", type=float, default=0.5)
+    p.add_argument("--connectivity", "-c", choices=["6", "18", "26"],
+                   default="26")
+    _on_off(p, "--device", "--host", default=False,
+            help="label by iterative propagation where the chunk lies (a "
+                 "host chunk: on the group --device) instead of the host "
+                 "union-find; device labels are non-consecutive uint32 "
+                 "(linear-index seeds), the host's consecutive")
+    _in_out(p)
+
+
+def _connected_components(args, state) -> Stage:
+    device = state["device"] if args.device else False
+
+    @operator
+    def stage(task):
+        task[args.output_chunk_name] = \
+            task[args.input_chunk_name].connected_component(
+                threshold=args.threshold,
+                connectivity=int(args.connectivity), device=device)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _downsample_options(p):
+    _name(p, "downsample")
+    _triple(p, "--factor", "-f", default=(1, 2, 2))
+    _in_out(p)
+
+
+def _downsample(args, state) -> Stage:
+    from chunkflow_tpu_torch.ops.downsample import downsample
+
+    @operator
+    def stage(task):
+        task[args.output_chunk_name] = downsample(task[args.input_chunk_name],
+                                                  args.factor)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _downsample_upload_options(p):
+    _name(p, "downsample-upload")
+    p.add_argument("--volume-path", "-v", required=True)
+    _triple(p, "--factor", "-f", default=(1, 2, 2))
+    p.add_argument("--chunk-mip", type=int, default=None,
+                   help="mip of the incoming chunk (default: the group "
+                        "--mip); pyramid levels count from here")
+    p.add_argument("--start-mip", type=int, default=None,
+                   help="first level written (default: chunk mip + 1)")
+    p.add_argument("--stop-mip", type=int, default=None,
+                   help="exclusive; default: the volume's mip count")
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+
+
+def _downsample_upload(args, state) -> Stage:
+    """Build a mip pyramid of the chunk and write every level."""
+    from chunkflow_tpu_torch.ops.downsample import downsample
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    vol = PrecomputedVolume(args.volume_path)
+
+    @operator
+    def stage(task):
+        base = args.chunk_mip if args.chunk_mip is not None else state["mip"]
+        first = args.start_mip if args.start_mip is not None else base + 1
+        if first <= base:
+            raise UsageError(f"--start-mip ({first}) must be above the chunk "
+                             f"mip ({base})")
+        stop = args.stop_mip if args.stop_mip is not None else vol.num_mips
+        current = task[args.input_chunk_name]
+        for level in range(base + 1, stop):
+            current = downsample(current, args.factor)
+            if level >= first and not state["dry_run"]:
+                vol.save(current, mip=level)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _gaussian_filter_options(p):
+    _name(p, "gaussian-filter")
+    p.add_argument("--sigma", "-s", type=float, default=1.0)
+    _in_out(p)
+
+
+def _gaussian_filter(args, state) -> Stage:
+    @operator
+    def stage(task):
+        task[args.output_chunk_name] = \
+            task[args.input_chunk_name].gaussian_filter_2d(args.sigma)
+        return task
+
+    return stage(_name=args.op_name)
+
+
 def _evaluate_segmentation_options(p):
     _name(p, "evaluate-segmentation")
     p.add_argument("--segmentation-chunk-name", "-s",
@@ -1485,6 +1989,26 @@ COMMANDS: Dict[str, tuple] = {
                      "Create a synthetic chunk (sin/random/zero pattern)."),
     "load-npy": (_load_npy_options, _load_npy, "Load a chunk from .npy."),
     "save-npy": (_save_npy_options, _save_npy, "Save a chunk to .npy."),
+    "load-h5": (_load_h5_options, _load_h5,
+                "Read an HDF5 chunk (a cutout, channels, a dtype)."),
+    "save-h5": (_save_h5_options, _save_h5,
+                "Write the chunk to an HDF5 file with its offset, voxel "
+                "size and layer type."),
+    "load-tif": (_load_tif_options, _load_tif,
+                 "Read a multi-page TIFF, one page per z-section."),
+    "save-tif": (_save_tif_options, _save_tif,
+                 "Write the chunk as a multi-page TIFF."),
+    "save-pngs": (_save_pngs_options, _save_pngs,
+                  "Write one PNG per z-section."),
+    "load-png": (_load_png_options, _load_png,
+                 "Read a directory of z-section PNGs."),
+    "save-nrrd": (_save_nrrd_options, _save_nrrd,
+                  "Write the chunk as an NRRD file."),
+    "load-zarr": (_load_zarr_options, _load_zarr,
+                  "Read a zyx zarr v2, zarr v3 or N5 array (the task bbox "
+                  "or an explicit box)."),
+    "save-zarr": (_save_zarr_options, _save_zarr,
+                  "Write the chunk into a zyx zarr v2 array at its offset."),
     "create-info": (_create_info_options, _create_info,
                     "Create a precomputed volume's info file."),
     "load-precomputed": (_load_precomputed_options, _load_precomputed,
@@ -1539,6 +2063,18 @@ COMMANDS: Dict[str, tuple] = {
                 "Remove the task's intermediate files."),
     "load-json": (_load_json_options, _load_json,
                   "Load a JSON file into the task."),
+    "connected-components": (_connected_components_options,
+                             _connected_components,
+                             "Label connected components (a float chunk "
+                             "thresholded first), on the host or where "
+                             "the chunk lies."),
+    "downsample": (_downsample_options, _downsample,
+                   "Average-pool an image, mode-pool a segmentation."),
+    "downsample-upload": (_downsample_upload_options, _downsample_upload,
+                          "Write the chunk's mip pyramid into a "
+                          "precomputed volume."),
+    "gaussian-filter": (_gaussian_filter_options, _gaussian_filter,
+                        "Per-section 2D gaussian blur."),
     "evaluate-segmentation": (_evaluate_segmentation_options,
                               _evaluate_segmentation,
                               "Rand/VOI scores against a ground truth."),
@@ -1550,17 +2086,12 @@ COMMANDS: Dict[str, tuple] = {
 #: (queue 1) that ports them: each raises ``NotImplementedError`` naming
 #: it, whatever its arguments
 NOT_PORTED = {
-    "chunk file formats": ("load-h5", "save-h5", "load-tif", "save-tif",
-                           "load-zarr", "save-zarr", "load-png",
-                           "save-pngs", "save-nrrd"),
     "serving packer": ("serve",),
     "fleet supervisor": ("fleet-run", "fleet-status", "log-summary"),
     "annotations and plugins": ("load-synapses", "save-synapses",
                                 "save-points", "load-skeleton", "save-swc",
                                 "aggregate-skeleton-fragments", "plugin",
                                 "view", "neuroglancer", "napari"),
-    "segmentation device legs": ("connected-components", "downsample",
-                                 "downsample-upload", "gaussian-filter"),
     "segmentation plane": ("mesh", "mesh-manifest", "download-mesh",
                            "label-chunk", "merge-seg", "relabel",
                            "segment-volume"),

@@ -1,10 +1,9 @@
-"""Segmentation id remapping: the numpy leg of ``chunkflow_tpu/ops/remap.py``.
+"""Segmentation id remapping: the counterpart of ``chunkflow_tpu/ops/remap.py``.
 
-The JAX package takes a native single-pass hash-table leg
-(``native/src/remap.cpp``) for large uint32/uint64 arrays and says it is
-bitwise this numpy leg (np.unique/searchsorted); the port's native leg
-comes with the segmentation device legs (ROADMAP, queue 1), so every
-size runs here. Parity: fastremap.renumber / remap.
+Large uint32/uint64 arrays take the native single-pass hash-table leg
+(``csrc/host/remap.cpp``, the port's copy of the JAX package's); every
+other array takes the numpy leg (np.unique/searchsorted), which the
+native leg equals bitwise. Parity: fastremap.renumber / remap.
 """
 from __future__ import annotations
 
@@ -12,11 +11,24 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+# below this the ctypes round trip costs more than numpy's sort
+_NATIVE_MIN_SIZE = 1 << 20
+
+
+def _takes_native(arr: np.ndarray) -> bool:
+    return arr.size >= _NATIVE_MIN_SIZE and arr.dtype in (np.uint32,
+                                                          np.uint64)
+
+
 def renumber(arr: np.ndarray, start_id: int = 1) -> Tuple[np.ndarray, Dict[int, int]]:
     """Relabel ids to a compact range [start_id, ...); 0 stays 0.
 
     Returns the relabeled array and the old->new mapping.
     """
+    if _takes_native(arr):
+        from chunkflow_tpu_torch import native
+
+        return native.renumber(arr, start_id=start_id)
     # new ids follow FIRST APPEARANCE order (fastremap.renumber semantics)
     ids, first_idx = np.unique(arr, return_index=True)
     keep = ids != 0
@@ -34,6 +46,10 @@ def remap(arr: np.ndarray, mapping: Dict[int, int], preserve_missing: bool = Tru
     """Apply an explicit old->new id mapping."""
     if not mapping:
         return arr.copy()
+    if _takes_native(arr):
+        from chunkflow_tpu_torch import native
+
+        return native.remap(arr, mapping, preserve_missing=preserve_missing)
     keys = np.array(sorted(mapping.keys()), dtype=arr.dtype)
     vals = np.array([mapping[int(k)] for k in keys], dtype=arr.dtype)
     idx = np.searchsorted(keys, arr)

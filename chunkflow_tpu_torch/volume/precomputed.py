@@ -274,12 +274,13 @@ class PrecomputedVolume:
 
 def load_chunk_or_volume(path: str, mip: int = 0,
                          bbox: Optional[BoundingBox] = None):
-    """A ``.npy`` file as a Chunk; a directory as a PrecomputedVolume, or
-    its cutout over ``bbox`` when one is given."""
-    if path.endswith((".h5", ".tif", ".tiff")):
-        raise NotImplementedError(f"{path}: h5 and tif chunk files are not "
-                                  f"ported yet (ROADMAP, queue 1: chunk file "
-                                  f"formats)")
+    """An ``.h5`` file (cut out over ``bbox`` when one is given), a
+    ``.tif`` or a ``.npy`` file as a Chunk; a directory as a
+    PrecomputedVolume, or its cutout over ``bbox`` when one is given."""
+    if path.endswith(".h5"):
+        return Chunk.from_h5(path, bbox=bbox)
+    if path.endswith((".tif", ".tiff")):
+        return Chunk.from_tif(path)
     if path.endswith(".npy"):
         return Chunk.from_npy(path)
     vol = PrecomputedVolume(path)

@@ -392,3 +392,82 @@ def test_chunk_methods_card_are_their_cpu_leg(cuda):
         _assert_card_is_host(fn(card), fn(host))
     assert card.where(card.array > 0.9)[1].tolist() == \
         host.where(host.array > 0.9)[1].tolist()
+
+
+# ---------------------------------------------------------------------------
+# the segmentation legs and the file formats of a card chunk
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("connectivity", [6, 18, 26])
+@pytest.mark.parametrize("p", [0.3, 0.55])
+def test_device_labels_card_are_their_cpu_leg(cuda, connectivity, p):
+    from chunkflow_tpu_torch.ops import connected_components as cc
+
+    binary = torch.from_numpy(
+        np.random.default_rng(7).random((24, 96, 80)) > p)
+    got = cc.label_binary_device(binary.to(cuda), connectivity)
+    assert got.device.type == "cuda" and got.dtype == torch.uint32
+    assert torch.equal(got.cpu(), cc.label_binary_device(binary,
+                                                         connectivity))
+
+
+@pytest.mark.parametrize("factor", [(1, 2, 2), (2, 2, 2), (1, 3, 3)])
+@pytest.mark.parametrize("dtype", ["uint8", "uint32", "uint64", "float32"])
+def test_pools_card_are_their_cpu_leg(cuda, factor, dtype):
+    from chunkflow_tpu_torch.ops.downsample import downsample
+
+    rng = np.random.default_rng(8)
+    shape = (2, 10, 70, 66)
+    if dtype == "float32":
+        arr, layer = rng.random(shape).astype(np.float32), "image"
+    else:
+        arr, layer = rng.integers(0, 3, shape).astype(dtype), "segmentation"
+    host = torch.from_numpy(arr)
+    got = downsample(Chunk(host.to(cuda), layer_type=layer), factor)
+    ref = downsample(Chunk(host, layer_type=layer), factor)
+    assert got.array.device.type == "cuda"
+    assert torch.equal(got.array.cpu(), ref.array)
+
+
+@pytest.mark.parametrize("sigma", [1.0, 3.0])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_gaussian_card_is_its_cpu_leg(cuda, sigma, dtype):
+    from chunkflow_tpu_torch.ops.filters import gaussian_filter_2d
+
+    arr = _raw(dtype, np.random.default_rng(9), (6, 90, 70))
+    if dtype == "float32":
+        arr = np.abs(arr)
+    host = torch.from_numpy(arr)
+    got = gaussian_filter_2d(Chunk(host.to(cuda)), sigma)
+    ref = gaussian_filter_2d(Chunk(host), sigma)
+    assert torch.equal(got.array.cpu(), ref.array)
+
+
+@pytest.mark.parametrize("fmt", ["h5", "zarr"])
+def test_file_round_trip_of_a_card_chunk(cuda, tmp_path, fmt):
+    """A card chunk's file, written through the CLI's stage (one
+    download), reads back bitwise with its offset and voxel size."""
+    if fmt == "h5":
+        pytest.importorskip("h5py")
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import new_task
+
+    arr = np.random.default_rng(10).random((3, 6, 40, 36)).astype(np.float32)
+    if fmt == "zarr":  # a zyx store
+        arr = arr[0]
+    task = new_task()
+    task["chunk"] = Chunk(torch.from_numpy(arr).to(cuda),
+                          voxel_offset=(2, 3, 4), voxel_size=(40, 4, 4))
+    if fmt == "h5":
+        save = ["save-h5", "-f", str(tmp_path / "c.h5")]
+        load = ["load-h5", "-f", str(tmp_path / "c.h5")]
+    else:
+        save = ["save-zarr", "-p", str(tmp_path / "z")]
+        load = ["load-zarr", "-p", str(tmp_path / "z"), "--chunk-start", "2",
+                "3", "4", "--chunk-size", "6", "40", "36", "--voxel-size",
+                "40", "4", "4"]
+    list(cli.build_stages(save)[1][0](iter([task])))
+    got = list(cli.build_stages(load)[1][0](iter([new_task()])))[0]["chunk"]
+    assert isinstance(got.array, np.ndarray) and np.array_equal(got.array,
+                                                                arr)
+    assert tuple(got.voxel_offset) == (2, 3, 4)
+    assert tuple(got.voxel_size) == (40, 4, 4)

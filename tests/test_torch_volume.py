@@ -24,6 +24,7 @@ from chunkflow_tpu.core.bbox import BoundingBox as JaxBox
 from chunkflow_tpu.core.bbox import BoundingBoxes as JaxBoxes
 from chunkflow_tpu.volume import storage as jax_storage
 from chunkflow_tpu.volume.precomputed import PrecomputedVolume as JaxVolume
+from chunkflow_tpu.volume.precomputed import load_chunk_or_volume as jax_load
 from chunkflow_tpu_torch import BoundingBox, Chunk
 from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.core.bbox import BoundingBoxes
@@ -333,8 +334,19 @@ def test_unported_storage_raises(tmp_path):
         with pytest.raises(NotImplementedError,
                            match="precomputed encodings"):
             _port_read(tmp_path / name, FULL)
+    # a zarr store whose codec the port lacks (tensorstore's default,
+    # blosc) raises naming its item
+    from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    (tmp_path / "z").mkdir()
+    (tmp_path / "z" / ".zarray").write_text(json.dumps({
+        "zarr_format": 2, "shape": [4, 4, 4], "chunks": [4, 4, 4],
+        "dtype": "|u1", "order": "C", "filters": None, "fill_value": None,
+        "dimension_separator": ".",
+        "compressor": {"id": "blosc", "cname": "lz4", "clevel": 5,
+                       "shuffle": -1, "blocksize": 0}}))
     with pytest.raises(NotImplementedError, match="chunk file formats"):
-        load_chunk_or_volume(str(tmp_path / "x.h5"))
+        ZarrArray(str(tmp_path / "z"))
 
 
 def test_load_chunk_or_volume(tmp_path):
@@ -351,6 +363,15 @@ def test_load_chunk_or_volume(tmp_path):
     assert np.array_equal(load_chunk_or_volume(str(tmp_path / "c.npy")).array,
                           data)
     assert vol.info["type"] == "image"
+    # h5 (cut out over a bbox) and tif files, as the JAX package loads them
+    JaxChunk(data, voxel_offset=OFFSET).to_h5(str(tmp_path / "c.h5"))
+    JaxChunk(data).to_tif(str(tmp_path / "c.tif"))
+    box = BoundingBox((4, 9, 9), (8, 29, 29))
+    got = load_chunk_or_volume(str(tmp_path / "c.h5"), bbox=box)
+    ref = jax_load(str(tmp_path / "c.h5"), bbox=JaxBox((4, 9, 9), (8, 29, 29)))
+    assert np.array_equal(got.array, ref.array) and got.bbox == box
+    assert np.array_equal(load_chunk_or_volume(str(tmp_path / "c.tif")).array,
+                          data)
 
 
 # ---------------------------------------------------------------------------
@@ -370,12 +391,16 @@ def test_load_precomputed_options(tmp_path):
     want = data[1:5, 4:24, 2:22].copy()
     want[1:3] = 0  # sections 5 and 6
     assert np.array_equal(np.load(out), want)
-    with pytest.raises(NotImplementedError, match="segmentation device legs"):
+    # --validate-mip and --create-thumbnail run (their parity with the JAX
+    # CLI: tests/test_torch_segment_ops.py): a volume of one mip has no
+    # coarser mip to validate against, and no pyramid to write
+    with pytest.raises(ValueError, match="must be coarser"):
         cli.main(["--device", "cpu", "load-precomputed", "-v",
-                  str(tmp_path / "v"), "--validate-mip", "1"])
-    with pytest.raises(NotImplementedError, match="segmentation device legs"):
-        cli.main(["--device", "cpu", "create-chunk", "save-precomputed",
-                  "-v", str(tmp_path / "v"), "--create-thumbnail"])
+                  str(tmp_path / "v"), "--chunk-start", "4", "9", "9",
+                  "--chunk-size", "4", "20", "20", "--validate-mip", "1"])
+    assert cli.main(["--device", "cpu", "create-chunk", "--size", "4", "20",
+                     "20", "-t", *map(str, OFFSET), "save-precomputed", "-v",
+                     str(tmp_path / "v"), "--create-thumbnail"]) == 0
 
 
 def test_save_precomputed_threshold_log_and_skip(tmp_path):
