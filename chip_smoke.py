@@ -34,8 +34,8 @@ non-zero exit and no result line:
              through the port's CLI, equal to phase 4's result
 7. models    every convnet family at full width (parity UNet3D, RSUNet
              through a reference ``model.py`` and a BatchNorm ``.pt``
-             checkpoint, the ``tpu`` and ``tpu_s2d4`` flagships; ``tpu_mxu``
-             is ``tpu``'s module), float32 (TF32 off) and bfloat16, on the
+             checkpoint, the ``tpu`` and ``tpu_s2d4`` flagships; ``tpu_mxu``,
+             ``tpu``'s weights with the mxu layers, runs in phase 13), float32 (TF32 off) and bfloat16, on the
              same chunk: kernel path == plain path bitwise, sigmoid maps,
              float32 one 8x64x64 patch GPU vs CPU within 1e-4, bfloat16 vs
              float32 on that patch within 0.02 max-abs and 0.005 mean-abs,
@@ -100,6 +100,30 @@ non-zero exit and no result line:
              --create-thumbnail`` on phase 10's volume, every mip bitwise
              the library composition; h5, tif, png, nrrd, mrc and zarr
              round trips at task size from card and host chunks, MB/s
+13. precision the precision ladder at full width on the 64x512x512 chunk:
+             every family (parity, rsunet, tpu, tpu_mxu, tpu_s2d4) on a
+             float32 engine at float32, bfloat16 and int8 ``fake``,
+             ``fakeint`` and ``real`` (``CHUNKFLOW_INT8``), and ``tpu`` on a
+             bfloat16 engine at int8 ``real``: s/chunk, Mvox/s, forward
+             device ms per batch, the int8 kernel's and the quantize
+             pass's share of the real forward, max-abs and mean-abs
+             against the family's float32 (bf16: mean held <= 0.005);
+             int8 ``fake`` (max 1e-4) and ``real`` (mean 0.01) against
+             the CPU port at the same leg on a crop of the chunk;
+             ``real`` bitwise ``fakeint`` where the largest |sum|
+             (printed) stays below 2^24; one batch per family, the real
+             forward through the kernel bitwise the same forward through
+             the plain version (float64 on the card); the kernel bitwise
+             its plain version on every shape class; int8 launches > 0
+             under ``real``, 0 under ``fake``; the kernel's time, bound,
+             plain time and cuDNN's float32 time on the integer grid at
+             the parity enc0 shape and ``tpu_s2d4``'s widest
+14. packer    the PatchPacker: 12 requests of mixed sizes (one 20x256x256
+             patch to 64x512x512) from 4 submitter threads, ``tpu`` bf16
+             at batch 4, at float32 and at int8 ``real``: every result
+             bitwise its own ``Inferencer.__call__``, pre-weighted
+             accumulate launches > 0, occupancy, batches and filler
+             slots, requests/s and Mvox/s packed and one by one
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -181,6 +205,49 @@ QUICK_BATCH = 4
 # the workers' visibility timeout (s): a SIGKILLed worker's claims come
 # back after it; the lease heartbeat keeps a live worker's claims
 VISIBILITY_S = 10
+# phase 13: the precision ladder's runs, each (precision, CHUNKFLOW_INT8
+# leg) on a float32 engine; the JAX package's max-abs / mean-abs gates
+# (tests/inference/test_precision.py), held for bf16 against float32 on
+# the chunk (mean) and for int8 real between the card and the CPU port
+# on a crop of it (mean; at full width the JAX package's own int8 gap to
+# float32 exceeds them: tests/test_torch_precision.py); the int8 tensor-core
+# peak (TOP/s, the H100 SXM data sheet); the largest |sum| float32 adds
+# exactly
+PRECISION_FAMILIES = ("parity", "rsunet", "tpu", "tpu_mxu", "tpu_s2d4")
+PRECISION_LEGS = (("float32", None), ("bfloat16", None), ("int8", "fake"),
+                  ("int8", "fakeint"), ("int8", "real"))
+PRECISION_GATES = {"bfloat16": (0.02, 0.005), "int8": (0.05, 0.01)}
+# the fake leg's card vs the CPU port: a float forward's tolerance (phase
+# 7's GPU vs CPU)
+FAKE_CARD_CPU = 1e-4
+PEAK_INT8 = 1979e12
+EXACT_F32_SUM = 2 ** 24
+# the int8 kernel's shape classes: (x [B, C, D, H, W], w [N, C, k...],
+# stride, padding, dilation), from the five families' layers
+INT8_CLASSES = (
+    ((2, 28, 20, 64, 64), (28, 28, 3, 3, 3), 1, 1, 1),
+    ((2, 36, 10, 32, 32), (36, 36, 1, 3, 3), 1, (0, 1, 1), 1),
+    ((2, 1, 20, 256, 256), (28, 1, 1, 5, 5), 1, (0, 2, 2), 1),
+    ((2, 4, 20, 128, 128), (56, 4, 1, 5, 5), 1, (0, 2, 2), 1),
+    ((2, 16, 20, 64, 64), (112, 16, 1, 5, 5), 1, (0, 2, 2), 1),
+    ((2, 28, 20, 64, 64), (3, 28, 1, 1, 1), 1, 0, 1),
+    ((2, 256, 5, 8, 8), (256, 256, 3, 3, 3), 1, 1, 1),
+    ((40, 56, 1, 128, 128), (56, 56, 1, 3, 3), 1, (0, 1, 1), 1),
+    ((2, 128, 5, 16, 16), (768, 128, 1, 1, 1), 1, 0, 1),
+    ((2, 3, 7, 11, 13), (5, 3, 3, 3, 3), 2, 1, 2),
+)
+# the kernel timed at the parity enc0 shape (the main path's) and at
+# tpu_s2d4's widest layer (its bridge)
+INT8_TIMED = (("parity enc0", (2, 28, 20, 256, 256), (28, 28, 3, 3, 3)),
+              ("tpu_s2d4 bridge", (2, 256, 5, 8, 8), (256, 256, 3, 3, 3)))
+# phase 14: the packer's requests (one patch to the main path's chunk),
+# its batch and submitter threads
+PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
+               (20, 448, 448), (64, 512, 512), (28, 320, 320),
+               (20, 256, 256), (40, 448, 320), (36, 384, 384),
+               (64, 512, 512), (24, 300, 260), (48, 512, 448))
+PACK_BATCH = 4
+PACK_THREADS = 4
 # profiler sessions taken before a trace counts as lost; the busy-wait
 # (GPU clock cycles, ~1 ms on an H100) ahead of a CUDA-event timing
 TRACE_TRIES = 4
@@ -348,7 +415,7 @@ def main() -> int:
     )
     from chunkflow_tpu_torch.models.convert import state_from_flax
     from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
-    from chunkflow_tpu_torch.ops import accumulate, gather
+    from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     kernels = {
@@ -361,14 +428,28 @@ def main() -> int:
                        "entry": "fused_accumulate_patches",
                        "source": "chunkflow_tpu_torch/csrc/accumulate.cu",
                        "replaces": "chunkflow_tpu/ops/pallas_blend.py:172"},
+        # the XLA op of the JAX package's int8 real leg (no Pallas kernel)
+        "conv3d_int8": {"module": int8_conv,
+                        "plain": int8_conv.conv3d_int8_plain,
+                        "entry": "conv3d_int8",
+                        "source": "chunkflow_tpu_torch/csrc/conv3d_int8.cu",
+                        "replaces": "chunkflow_tpu/inference/precision.py:294"},
     }
     err = {name: 0.0 for name in kernels}
+    for k in kernels.values():
+        k["launches"] = 0
+    # the blend kernels every inference path launches (the float forwards
+    # launch no int8 convolution)
+    blend = ("gather", "accumulate")
 
     def reset_counts():
         for k in kernels.values():
             k["module"].launches = 0
 
     def counts():
+        return {name: kernels[name]["module"].launches for name in blend}
+
+    def counts_all():
         return {name: k["module"].launches for name, k in kernels.items()}
 
     def plain_functions():
@@ -746,7 +827,7 @@ def main() -> int:
                     f"{flops / fwd_ms / 1e9 / (PEAK_F32 / 1e12):.1%} of the "
                     f"float32 peak) x {n_batches} = "
                     f"{fwd_ms * n_batches:.1f} ms; kernels "
-                    f"{sum(kernels[k]['ms'] * launched[k] for k in kernels):.2f}"
+                    f"{sum(kernels[k]['ms'] * launched[k] for k in launched):.2f}"
                     f" ms in {sum(launched.values())} launches")
     x = torch.from_numpy(rng.random((1, 1, 8, 64, 64), dtype=np.float32))
     on_gpu = forward(model, x.to(dev)).cpu()
@@ -787,13 +868,12 @@ def main() -> int:
     rsunet_files = _reference_rsunet(torch, OUT_DIR, dev)
     tpu = engines.create_engine("pytorch", model_variant="tpu").model
     mxu = engines.create_engine("pytorch", model_variant="tpu_mxu").model
-    require(type(tpu) is type(mxu) and all(
+    require(type(tpu) is type(mxu) and mxu.conv_impl == "mxu" and all(
         k == j and torch.equal(a, b) for (k, a), (j, b) in zip(
             tpu.state_dict().items(), mxu.state_dict().items())),
-        "models: tpu_mxu does not build tpu's module and weights")
-    phase("models", "tpu_mxu builds the tpu module with the same seeded "
-                    "weights (one module: the variants differ only in the "
-                    "JAX package's XLA lowering); not timed twice")
+        "models: tpu_mxu does not build tpu's weights with mxu layers")
+    phase("models", "tpu_mxu builds the tpu weights with the MxuConv / "
+                    "MxuConvTranspose layers; run in phase 13")
     del tpu, mxu
     gaps = {}
     x_patch = torch.from_numpy(rng.random((1, 1, 8, 64, 64),
@@ -1098,6 +1178,17 @@ def main() -> int:
     for launched in (volume_launches, chain_launches):
         for kname, n in launched.items():
             kernels[kname]["launches"] += n
+
+    # ---- 13. precision: the ladder at full width --------------------------
+    torch.cuda.empty_cache()
+    for kname, n in precision_phase(torch, chunk_u8, timer, kernels,
+                                    note_err, reset_counts,
+                                    counts_all).items():
+        kernels[kname]["launches"] += n
+    # ---- 14. packer: cross-request batches --------------------------------
+    torch.cuda.empty_cache()
+    for kname, n in packer_phase(torch, reset_counts, counts_all).items():
+        kernels[kname]["launches"] += n
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -2152,6 +2243,406 @@ def segment_phase(torch, cfg, vol_in, image, tmp, reset_counts, counts,
                         else ""))
     shutil.rmtree(d)
     return launched
+
+
+def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
+                    counts_all):
+    """Phase 13: the precision ladder at full width (module docstring).
+    Fills the int8 kernel's numbers in ``kernels``; returns the launches
+    of the counted runs (each real-leg chunk)."""
+    import os
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from chunkflow_tpu_torch.inference import engines, precision
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.ops import gather, int8_conv
+
+    dev = torch.device("cuda")
+    vox = int(np.prod(CHUNK))
+    gen = torch.Generator().manual_seed(13)
+
+    def randint8(shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    # a) the kernel against its plain version on every shape class
+    for xs, ws, stride, padding, dilation in INT8_CLASSES:
+        x = randint8(xs).to(memory_format=torch.channels_last_3d)
+        w = randint8(ws)
+        note_err("conv3d_int8",
+                 int8_conv.conv3d_int8(x, w, stride, padding, dilation),
+                 int8_conv.conv3d_int8_plain(x, w, stride, padding,
+                                             dilation))
+    a = randint8((3000, 72))
+    b = randint8((72, 224))
+    note_err("conv3d_int8", int8_conv.matmul_int8(a, b),
+             (a.double() @ b.double()).to(torch.int32))
+    torch.cuda.synchronize()
+    phase("precision", f"conv3d_int8 == plain bitwise on "
+                       f"{len(INT8_CLASSES)} shape classes and the GEMM "
+                       f"upsample's product")
+
+    # b) the kernel's time, bound, plain time and cuDNN's on the integer
+    # grid (float32, exact below 2^24; under the engine's scope)
+    for label, xs, ws in INT8_TIMED:
+        x = randint8(xs).to(memory_format=torch.channels_last_3d)
+        w = randint8(ws)
+        out_el = xs[0] * ws[0] * int(np.prod(xs[2:]))
+        macs = out_el * int(np.prod(ws[1:]))
+        nbytes = x.numel() + w.numel() + 4 * out_el
+        t_ops = 2 * macs / PEAK_INT8 * 1e3
+        t_bytes = nbytes / PEAK_BW * 1e3
+        ms = timer.kernel_ms(lambda: int8_conv.conv3d_int8(x, w, 1, 1),
+                             "conv3d_int8_kernel")
+        plain_ms = timer.call_ms(
+            lambda: int8_conv.conv3d_int8_plain(x, w, 1, 1), reps=3)
+        xf, wf = x.float(), w.float()
+
+        def library():
+            with engines.exact_float32():
+                F.conv3d(xf, wf, None, 1, 1)
+
+        library_ms = timer.call_ms(library, reps=5)
+        del xf, wf
+        bound = max(t_ops, t_bytes)
+        phase("precision", f"conv3d_int8 at {label} {xs} x {ws}: "
+                           f"{ms:.4f} ms/launch (median device time, L2 "
+                           f"flushed), bound {bound:.4f} ms ({macs / 1e9:.2f} "
+                           f"G MACs = {t_ops:.4f} ms at the int8 peak, "
+                           f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms), "
+                           f"{bound / ms:.1%} of bound, "
+                           f"{2 * macs / ms / 1e9:.1f} TOP/s; plain (float64 "
+                           f"cuDNN) {plain_ms:.3f} ms; cuDNN float32 on the "
+                           f"integer grid {library_ms:.4f} ms")
+        if label == INT8_TIMED[0][0]:
+            k = kernels["conv3d_int8"]
+            k.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     library_ms=library_ms)
+        del x, w
+
+    # c) every family at every leg, on the main path's chunk
+    grid = enumerate_patches(CHUNK, PIN, PIN, OVERLAP)
+    in_starts, _, _ = pad_to_batch(grid, BATCH)
+    n_batches = len(in_starts) // BATCH
+    raw = torch.from_numpy(np.asarray(chunk.array)[None].copy()).to(dev)
+    patches = gather.gather_patches(raw, torch.from_numpy(in_starts[:BATCH]),
+                                    PIN)
+    del raw
+    kw = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+              num_output_channels=CHANNELS, framework="pytorch",
+              batch_size=BATCH)
+    launched_total = {name: 0 for name in kernels}
+    saved_leg = os.environ.get("CHUNKFLOW_INT8")
+
+    def build(variant, prec, leg, dtype="float32"):
+        if leg is None:
+            os.environ.pop("CHUNKFLOW_INT8", None)
+        else:
+            os.environ["CHUNKFLOW_INT8"] = leg
+        inf = Inferencer(model_variant=variant, precision=prec, dtype=dtype,
+                         **kw)
+        with torch.no_grad():
+            inf._forward(patches)  # warm-up: the forward's first launches
+        torch.cuda.synchronize()
+        return inf
+
+    def fwd(inf):
+        with torch.no_grad():
+            return inf._forward(patches)
+
+    def run(inf, label, leg, ref):
+        """One counted chunk; its numbers; returns the device result."""
+        reset_counts()
+        t = time.perf_counter()
+        out = inf(chunk).array
+        wall = time.perf_counter() - t
+        launched = counts_all()
+        require(tuple(out.shape) == (CHANNELS,) + CHUNK
+                and bool(torch.isfinite(out).all()),
+                f"precision {label}: output not finite maps of the chunk")
+        n8 = launched["conv3d_int8"]
+        if leg == "real":
+            require(n8 > 0, f"precision {label}: conv3d_int8 never launched")
+            for name, n in launched.items():
+                launched_total[name] += n
+        else:
+            require(n8 == 0, f"precision {label}: {n8} int8 launches")
+        fwd_ms = timer.call_ms(lambda: fwd(inf), reps=2)
+        line = (f"{label}: {wall:.4f} s/chunk, {vox / wall / 1e6:.3f} "
+                f"Mvox/s, forward {fwd_ms:.2f} ms/batch (device), launches "
+                f"{launched}")
+        if ref is not None:
+            diff = (out - ref).abs()
+            mx, mean = float(diff.max()), float(diff.mean())
+            line += f"; vs float32 max abs {mx:.4g}, mean abs {mean:.4g}"
+            if leg is None:
+                gate = PRECISION_GATES["bfloat16"][1]
+                require(mean <= gate, f"precision {label}: mean abs {mean} "
+                                      f"vs float32 > {gate}")
+                line += f" (mean held <= {gate})"
+        phase("precision", line)
+        return out, fwd_ms
+
+    # a crop of the chunk, for the card against the CPU port
+    crop = torch.from_numpy(np.asarray(chunk.array)[tuple(
+        slice(s, s + n) for s, n in zip(BF16_CROPS[1], CROP))][None, None]
+        .astype(np.float32) * np.float32(1 / 255))
+
+    def against_cpu(inf, cpu_engine, prec, label, f32_crop, leg):
+        """The card's forward on the crop against the CPU port's at the
+        same leg, and its gap to float32. ``fake`` quantizes only the
+        inputs and parameters, identically on both: held as a float
+        forward (FAKE_CARD_CPU). ``real`` quantizes every activation,
+        where the last bit of a float op upstream can move an integer
+        level (up to ~0.05 at a voxel): held to the JAX mean gate."""
+        with torch.no_grad():
+            on_card = inf._apply(crop.to(dev)).cpu()
+            on_cpu = precision.wrap_apply(cpu_engine.apply, prec,
+                                          cpu_engine.params,
+                                          cpu_engine.call)(crop)
+        gap = (on_card - on_cpu).abs()
+        mx, mean = float(gap.max()), float(gap.mean())
+        if leg == "fake":
+            held = f"max held <= {FAKE_CARD_CPU}"
+            require(mx <= FAKE_CARD_CPU, f"precision {label}: card vs CPU "
+                                         f"on a crop, max abs {mx}")
+        else:
+            gate = PRECISION_GATES["int8"][1]
+            held = f"mean held <= {gate}"
+            require(mean <= gate, f"precision {label}: card vs CPU on a "
+                                  f"crop, mean abs {mean}")
+        to32 = (on_card - f32_crop).abs()
+        phase("precision", f"{label}: one 8x64x64 crop, card vs the CPU "
+                           f"port max abs {mx:.4g}, mean abs {mean:.4g} "
+                           f"({held}); vs float32 max abs "
+                           f"{float(to32.max()):.4g}, mean abs "
+                           f"{float(to32.mean()):.4g}")
+
+    for variant in PRECISION_FAMILIES:
+        outs = {}
+        cpu_engine = engines.create_engine("pytorch", model_variant=variant)
+        for prec, leg in PRECISION_LEGS:
+            inf = build(variant, prec, leg)
+            label = f"{variant} {leg or prec}"
+            outs[leg or prec], fwd_ms = run(inf, label, leg,
+                                            outs.get("float32"))
+            if leg is None and prec == "float32":
+                require(all(torch.equal(a.cpu(), b) for a, b in zip(
+                    inf.engine.model.state_dict().values(),
+                    cpu_engine.model.state_dict().values())),
+                    f"precision {variant}: the CPU engine's weights differ")
+                with torch.no_grad():
+                    f32_crop = inf._apply(crop.to(dev)).cpu()
+            if leg in ("fake", "real"):
+                against_cpu(inf, cpu_engine, prec, label, f32_crop, leg)
+            if leg != "real":
+                del inf
+                continue
+            model = inf.engine.model
+            # the largest |sum| of the full-width run, then real == fakeint
+            top = []
+            kernel = int8_conv.conv3d_int8
+
+            def tracked(*args):
+                acc = kernel(*args)
+                top.append(acc.abs().max())
+                return acc
+
+            with mock.patch.object(int8_conv, "conv3d_int8", tracked):
+                again = inf(chunk).array
+            largest = int(torch.stack(top).max())
+            require(torch.equal(again, outs["real"]),
+                    f"precision {label}: two real runs differ")
+            if largest < EXACT_F32_SUM:
+                require(torch.equal(outs["real"], outs["fakeint"]),
+                        f"precision {variant}: real differs from fakeint "
+                        f"with sums below 2^24 (largest {largest})")
+            # one batch through the kernel and through the plain version
+            with torch.no_grad():
+                got = inf._apply(patches)
+                with mock.patch.object(int8_conv, "conv3d_int8",
+                                       int8_conv.conv3d_int8_plain):
+                    ref = inf._apply(patches)
+            note_err("conv3d_int8", got, ref)
+            # the kernel's and the quantize pass's share of the forward,
+            # replayed at the shapes one real forward gives the kernel
+            shapes = []
+
+            def record(x, w, *args):
+                shapes.append((tuple(x.shape), tuple(w.shape), args))
+                return kernel(x, w, *args)
+
+            with mock.patch.object(int8_conv, "conv3d_int8", record):
+                fwd(inf)
+            xs = {s: randint8(s).to(memory_format=torch.channels_last_3d)
+                  for s, _, _ in shapes}
+            ws = {s: randint8(s) for _, s, _ in shapes}
+            fs = {s: torch.rand(s, device=dev) for s in xs}
+            kernel_ms = timer.call_ms(lambda: [
+                int8_conv.conv3d_int8(xs[x], ws[w], *args)
+                for x, w, args in shapes], reps=3)
+
+            def quantize():
+                for x, _, _ in shapes:
+                    q, _ = precision._quant_rows_axis(fs[x], 0)
+                    precision._int8(q)
+
+            quant_ms = timer.call_ms(quantize, reps=3)
+            del xs, ws, fs
+            ops = conv_flops(model, patches)
+            phase("precision", f"{label}: largest |sum| {largest} "
+                               f"({'<' if largest < EXACT_F32_SUM else '>='} "
+                               f"2^24: real == fakeint "
+                               f"{'held bitwise' if largest < EXACT_F32_SUM else 'not held'}); "
+                               f"one batch through the kernel == through "
+                               f"the plain version (float64), bitwise; "
+                               f"{len(shapes)} int8 launches/batch = "
+                               f"{len(shapes) * n_batches}/chunk; kernel "
+                               f"{kernel_ms:.2f} ms/batch "
+                               f"({kernel_ms / fwd_ms:.1%} of the forward), "
+                               f"quantize pass {quant_ms:.2f} ms/batch "
+                               f"({quant_ms / fwd_ms:.1%}); "
+                               f"{ops / fwd_ms / 1e9:.1f} TOP/s, "
+                               f"{ops / fwd_ms / 1e9 / (PEAK_INT8 / 1e12):.1%}"
+                               f" of the int8 peak")
+            del inf, model, got, ref, again
+        del outs, cpu_engine
+        torch.cuda.empty_cache()
+
+    # d) tpu on a bfloat16 engine at int8 real (the README chain's -d
+    # bfloat16 with CHUNKFLOW_PRECISION=int8 CHUNKFLOW_INT8=real)
+    base = build("tpu", "float32", None, "bfloat16")
+    reference, _ = run(base, "tpu bf16 engine float32", None, None)
+    with torch.no_grad():
+        f32_crop = base._apply(crop.to(dev)).cpu()
+    del base
+    real = build("tpu", "int8", "real", "bfloat16")
+    run(real, "tpu bf16 engine real", "real", reference)
+    against_cpu(real, engines.create_engine(
+        "pytorch", model_variant="tpu", dtype="bfloat16"), "int8",
+        "tpu bf16 engine real", f32_crop, "real")
+    del real, reference, patches
+    if saved_leg is None:
+        os.environ.pop("CHUNKFLOW_INT8", None)
+    else:
+        os.environ["CHUNKFLOW_INT8"] = saved_leg
+    return launched_total
+
+
+def packer_phase(torch, reset_counts, counts_all):
+    """Phase 14: the PatchPacker (module docstring); returns the launches
+    of the packed runs."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.serve import packer as packer_mod
+
+    rng = np.random.default_rng(14)
+    chunks = [Chunk(rng.integers(0, 256, s, dtype=np.uint8),
+                    voxel_offset=(100 * i, 0, 0))
+              for i, s in enumerate(PACK_SHAPES)]
+    vox = sum(int(np.prod(s)) for s in PACK_SHAPES)
+    saved_leg = os.environ.get("CHUNKFLOW_INT8")
+    launched_total = None
+    for prec, leg in (("float32", None), ("int8", "real")):
+        if leg is None:
+            os.environ.pop("CHUNKFLOW_INT8", None)
+        else:
+            os.environ["CHUNKFLOW_INT8"] = leg
+        label = f"tpu bf16 batch {PACK_BATCH} {leg or prec}"
+        inf = Inferencer(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                         num_output_channels=CHANNELS, framework="pytorch",
+                         model_variant="tpu", dtype="bfloat16",
+                         precision=prec, batch_size=PACK_BATCH)
+        inf(chunks[0]).host()  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        refs = [inf(c).host().array for c in chunks]
+        one_by_one = time.perf_counter() - t
+        packer = packer_mod.PatchPacker(inf, max_wait_ms=5.0)
+        packer.infer(chunks[0], timeout=300).host()  # the dispatcher's start
+        telemetry.reset()
+        flavours = []
+        plain = packer_mod.accumulate.fused_accumulate_patches
+
+        def counted(*args, pre_weighted=False):
+            flavours.append(pre_weighted)
+            return plain(*args, pre_weighted=pre_weighted)
+
+        results = [None] * len(chunks)
+
+        def submitter(k):
+            handles = [(i, packer.submit(chunks[i]))
+                       for i in range(k, len(chunks), PACK_THREADS)]
+            for i, handle in handles:
+                results[i] = handle.result(timeout=600).host().array
+
+        with mock.patch.object(packer_mod.accumulate,
+                               "fused_accumulate_patches", counted):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            threads = [threading.Thread(target=submitter, args=(k,))
+                       for k in range(PACK_THREADS)]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join()
+            packed = time.perf_counter() - t
+            launched = counts_all()
+        packer.close()
+        require(all(r is not None for r in results),
+                f"packer {label}: a request got no result")
+        require(all(np.array_equal(r, ref) for r, ref in zip(results, refs)),
+                f"packer {label}: a packed result differs from its "
+                f"Inferencer.__call__")
+        require(flavours and all(flavours) and launched["accumulate"] > 0,
+                f"packer {label}: no pre-weighted accumulate launched")
+        require((launched["conv3d_int8"] > 0) == (leg == "real"),
+                f"packer {label}: conv3d_int8 launches {launched}")
+        counters = telemetry.snapshot()["counters"]
+        batches = int(counters.get("serving/batches", 0))
+        patches = int(counters.get("serving/packed_patches", 0))
+        filler = int(counters.get("serving/filler_slots", 0))
+        per_chunk = sum(-(-int(np.prod(inf.patch_grid_shape(s)))
+                          // PACK_BATCH) for s in PACK_SHAPES)
+        phase("packer", f"{label}: {len(chunks)} requests from "
+                        f"{PACK_THREADS} threads, every result == its "
+                        f"Inferencer.__call__ bitwise; {batches} batches "
+                        f"(one by one: {per_chunk}), {patches} patches, "
+                        f"{filler} filler slots, occupancy "
+                        f"{patches / max(1, batches * PACK_BATCH):.1%}; "
+                        f"pre-weighted accumulate in {len(flavours)} calls; "
+                        f"launches {launched}")
+        phase("packer", f"{label}: packed {packed:.4f} s = "
+                        f"{len(chunks) / packed:.2f} requests/s, "
+                        f"{vox / packed / 1e6:.3f} Mvox/s; one by one "
+                        f"{one_by_one:.4f} s = {len(chunks) / one_by_one:.2f}"
+                        f" requests/s, {vox / one_by_one / 1e6:.3f} Mvox/s")
+        if launched_total is None:
+            launched_total = launched
+        else:
+            launched_total = {k: launched_total[k] + n
+                              for k, n in launched.items()}
+        del inf, packer, refs, results
+        torch.cuda.empty_cache()
+    if saved_leg is None:
+        os.environ.pop("CHUNKFLOW_INT8", None)
+    else:
+        os.environ["CHUNKFLOW_INT8"] = saved_leg
+    return launched_total
 
 
 def _brief(counters):

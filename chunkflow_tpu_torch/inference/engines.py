@@ -79,6 +79,11 @@ class Engine(NamedTuple):
     num_input_channels: int
     num_output_channels: int
     model: Optional[nn.Module] = None
+    # the forward on given parameters, ``call(params, batch) ==
+    # apply(batch)``: the precision wrapper runs it on rounded or
+    # quantized copies of ``params`` (an nn.Module or a tree of tensors)
+    params: object = None
+    call: Optional[Callable] = None
 
 
 def create_identity_engine(
@@ -108,9 +113,10 @@ def build_model(model_variant: str = "parity", num_input_channels: int = 1,
                 dtype: str = "float32") -> nn.Module:
     """The built-in model of a family at its full widths: ``parity`` the
     reference-class UNet3D, ``rsunet`` the production RSUNet mirror,
-    ``tpu`` / ``tpu_mxu`` the (1, 2, 2) space-to-depth flagship (one
-    module: they differ only in the JAX package's XLA lowering) and
-    ``tpu_s2d4`` its (1, 4, 4) stem."""
+    ``tpu`` the (1, 2, 2) space-to-depth flagship, ``tpu_mxu`` the same
+    with z-decomposed 2D convolutions and a GEMM upsampling (the JAX
+    package's ``conv_impl="mxu"``: the same parameters) and ``tpu_s2d4``
+    its (1, 4, 4) stem."""
     if dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute dtype must be one of "
                          f"{sorted(COMPUTE_DTYPES)}, got {dtype!r}")
@@ -120,7 +126,9 @@ def build_model(model_variant: str = "parity", num_input_channels: int = 1,
     if model_variant in ("tpu", "tpu_mxu", "tpu_s2d4"):
         return create_tpu_optimized_model(
             s2d_factor=(1, 4, 4) if model_variant == "tpu_s2d4"
-            else (1, 2, 2), **kwargs)
+            else (1, 2, 2),
+            conv_impl="mxu" if model_variant == "tpu_mxu" else "native",
+            **kwargs)
     if model_variant == "rsunet":
         return RSUNet(**kwargs)
     if model_variant == "parity":
@@ -163,12 +171,16 @@ def create_convnet_engine(
         init_or_load_weights(model, weight_path)
     model.eval()
 
-    def apply(batch):
+    def call(module, batch):
         with exact_float32():
-            return model(batch).float()
+            return module(batch).float()
+
+    def apply(batch):
+        return call(model, batch)
 
     return Engine(apply=apply, num_input_channels=num_input_channels,
-                  num_output_channels=num_output_channels, model=model)
+                  num_output_channels=num_output_channels, model=model,
+                  params=model, call=call)
 
 
 def create_universal_engine(
@@ -194,13 +206,17 @@ def create_universal_engine(
         num_output_channels,
     )
 
-    def apply(batch):
+    def call(user_params, batch):
         with exact_float32():
-            return user_apply(params, batch)
+            return user_apply(user_params, batch)
+
+    def apply(batch):
+        return call(params, batch)
 
     return Engine(apply=apply, num_input_channels=num_input_channels,
                   num_output_channels=num_output_channels,
-                  model=params if isinstance(params, nn.Module) else None)
+                  model=params if isinstance(params, nn.Module) else None,
+                  params=params, call=call)
 
 
 def create_engine(framework: str, **kwargs) -> Engine:

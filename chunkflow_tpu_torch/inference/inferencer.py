@@ -21,6 +21,11 @@ the device: the blank-input flag is computed on the host at staging
 time, the validity column is built on the device, and the result's
 download is started, not awaited.
 
+The forward runs at the precision ``precision=`` or
+``CHUNKFLOW_PRECISION`` names (with ``CHUNKFLOW_INT8``), wrapped once at
+the ``_forward`` seam (``inference/precision.py``), so every route runs
+it; the blend stays float32.
+
 The entry points run on the card (``device="cuda"``, the default) and
 raise when there is none, unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain PyTorch versions run. Options of the JAX
@@ -50,7 +55,10 @@ from chunkflow_tpu_torch.core.dtypes import numpy_dtype
 from chunkflow_tpu_torch.inference import engines
 from chunkflow_tpu_torch.inference.bump import bump_map
 from chunkflow_tpu_torch.inference.patching import enumerate_patches, pad_to_batch
-from chunkflow_tpu_torch.inference.precision import resolve_precision
+from chunkflow_tpu_torch.inference.precision import (
+    resolve_precision,
+    wrap_apply,
+)
 from chunkflow_tpu_torch.ops import gather
 from chunkflow_tpu_torch.ops.blend import (
     build_local_blend,
@@ -186,10 +194,6 @@ class Inferencer:
             _not_ported("multi-device execution (sharding / mesh)",
                         "multi-GPU engine")
         self.precision = resolve_precision(precision)
-        if self.precision != "float32":
-            # never float32 where the JAX package would quantize
-            _not_ported(f"the {self.precision} forward (precision= / "
-                        f"CHUNKFLOW_PRECISION)", "precision ladder")
         self.shape_bucket = (
             Cartesian.from_collection(shape_bucket)
             if shape_bucket is not None and any(shape_bucket)
@@ -224,6 +228,10 @@ class Inferencer:
         )
         if self.engine.model is not None:
             self.engine.model.to(self.device)
+        # the forward at the chosen precision, resolved once (with
+        # CHUNKFLOW_INT8): float32 is the engine's apply itself
+        self._apply = wrap_apply(self.engine.apply, self.precision,
+                                 self.engine.params, self.engine.call)
         pout = tuple(self.output_patch_size)
         self._bump = torch.tensor(bump_map(pout), device=self.device)
         self._local_blend = build_local_blend(
@@ -339,7 +347,7 @@ class Inferencer:
         the product of {yx-transpose, y-flip, x-flip}; each variant's
         output is transformed back and the eight are summed in the JAX
         package's order, then divided by 8."""
-        apply = self.engine.apply
+        apply = self._apply
         if not self.augment:
             return apply(patches)
         acc = None

@@ -26,15 +26,18 @@ from chunkflow_tpu_torch.models.unet3d import (
     PARITY_FEATURE_MAPS,
     ConvTranspose3d,
     Triple,
+    _Computes,
     same_conv,
+    set_compute_dtype,
 )
 
 
-class Affine(nn.Module):
+class Affine(_Computes, nn.Module):
     """Per-channel scale, then bias: an inference-time BatchNorm3d with
     its running statistics folded in. ``weight`` and ``bias`` are flax's
-    ``scale`` and ``bias``; both are cast to the input's dtype, and the
-    two operations round in it one after the other, as in flax."""
+    ``scale`` and ``bias``; both are cast to the compute dtype and
+    combined with the input by type promotion, the two operations
+    rounding one after the other, as in flax."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -43,8 +46,9 @@ class Affine(nn.Module):
 
     def forward(self, x):
         shape = (-1,) + (1,) * (x.dim() - 2)
-        return (x * self.weight.to(x.dtype).view(shape)
-                + self.bias.to(x.dtype).view(shape))
+        dt = self._dtype(x)
+        return (x * self.weight.to(dt).view(shape)
+                + self.bias.to(dt).view(shape))
 
 
 class RSBlock(nn.Module):
@@ -106,6 +110,7 @@ class RSUNet(nn.Module):
                 self.width[i + 1], self.width[i], f, stride=f))
             self.add_module(f"dec{i}", RSBlock(self.width[i], self.width[i]))
         self.out = same_conv(self.width[0], out_channels, (1, 1, 1))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         orig_dtype = x.dtype

@@ -18,11 +18,26 @@ the flax layers:
   the kernel spatially flipped (done by the converter).
 
 Compute dtype, as flax's ``dtype`` with float32 ``param_dtype``: the
-parameters stay float32 and are cast to the activations' dtype where
-they are used; the model casts its input to ``dtype``; instance norm
-takes its statistics and normalizes in float32 and returns ``dtype``
-(flax's ``GroupNorm`` does the same); the output head is cast to float32
-BEFORE the sigmoid. In float32 every cast is a no-op.
+parameters stay float32 and each layer casts them, and its input, to the
+model's compute dtype where they are used (``compute_dtype``, set on
+every layer by the model); instance norm takes its statistics and
+normalizes in float32 and returns the compute dtype (flax's
+``GroupNorm`` does the same); the output head is cast to float32 BEFORE
+the sigmoid. In float32 every cast is a no-op, and so is every cast in
+a bfloat16 model on its own bfloat16 activations. The casts matter under
+the int8 ``real`` leg (``inference/precision.py``), whose quantized
+convolutions return float32: each layer then rounds what it reads and
+what it returns as flax does (a bf16 bias added to a float32 product
+promotes to float32; the norm returns bf16; the next convolution
+quantizes its bf16-rounded input).
+
+``conv_impl="mxu"`` (the ``tpu_mxu`` variant) is the JAX package's
+``MxuConv`` / ``MxuConvTranspose`` lowering as modules of their own:
+the same parameters and the same function in float32, but other
+roundings in bfloat16 (each z slice summed in float32, rounded once
+after the bias) and other quantization sites under int8 ``real``
+(one activation scale per ``(b, z)`` row of each 2D slice, one weight
+scale per slice; the upsample is a matrix product).
 """
 from __future__ import annotations
 
@@ -40,35 +55,98 @@ PARITY_DOWN_FACTORS = ((1, 2, 2), (2, 2, 2), (2, 2, 2))
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The bias added to the rounded convolution in the compute dtype, as
-    flax adds it (cuDNN's convolution adds it the same way, after)."""
+    """The bias (already in the compute dtype) added to the rounded
+    convolution, as flax adds it: in place, in ``y``'s dtype."""
     return y.add_(bias.to(y.dtype).view((-1,) + (1,) * (y.dim() - 2)))
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` whose parameters are cast to the input's dtype at
-    use."""
+class _Computes:
+    """A layer's compute dtype: ``None`` (its input's dtype) until its
+    model sets it."""
 
-    def forward(self, x):
-        y = F.conv3d(x, self.weight.to(x.dtype), None, self.stride,
-                     self.padding, self.dilation, self.groups)
-        return _add_bias(y, self.bias)
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.compute_dtype or x.dtype
 
 
-class ConvTranspose3d(nn.ConvTranspose3d):
-    """``nn.ConvTranspose3d`` whose parameters are cast to the input's
+class Conv3d(_Computes, nn.Conv3d):
+    """``nn.Conv3d`` that casts its input and parameters to the compute
     dtype at use."""
 
     def forward(self, x):
-        y = F.conv_transpose3d(x, self.weight.to(x.dtype), None, self.stride,
-                               self.padding, self.output_padding, self.groups,
+        dt = self._dtype(x)
+        y = F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride,
+                     self.padding, self.dilation, self.groups)
+        return _add_bias(y, self.bias.to(dt))
+
+
+class ConvTranspose3d(_Computes, nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` that casts its input and parameters to the
+    compute dtype at use."""
+
+    def forward(self, x):
+        dt = self._dtype(x)
+        y = F.conv_transpose3d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding,
+                               self.output_padding, self.groups,
                                self.dilation)
-        return _add_bias(y, self.bias)
+        return _add_bias(y, self.bias.to(dt))
 
 
-class InstanceNorm3d(nn.InstanceNorm3d):
+class MxuConv(Conv3d):
+    """The JAX package's ``MxuConv``: a SAME ``(kz, ky, kx)`` convolution
+    as the sum of kz z-shifted 2D convolutions over ``b * d`` rows, each
+    summed in float32 (flax's ``preferred_element_type``), the float32
+    bias added, rounded to the compute dtype once. Conv3d's parameters and
+    names, so checkpoints interchange."""
+
+    def forward(self, x):
+        dt = self._dtype(x)
+        x = x.to(dt)
+        w = self.weight.to(dt)
+        b, cin, d, h, wd = x.shape
+        kz, ky, kx = self.kernel_size
+        if kz > 1:
+            # flax SAME padding: lo = (k - 1) // 2, hi = k // 2
+            x = F.pad(x, (0, 0, 0, 0, (kz - 1) // 2, kz // 2))
+        # [b, cin, z, h, w] -> rows of 2D images [b * d, cin, h, w]
+        x = x.transpose(1, 2)
+        acc = None
+        for dz in range(kz):
+            xs = x[:, dz:dz + d].reshape(b * d, cin, h, wd)
+            y = F.conv2d(xs.float(), w[:, :, dz].float(), None, 1,
+                         ((ky - 1) // 2, (kx - 1) // 2))
+            acc = y if acc is None else acc + y
+        acc = acc.reshape(b, d, -1, h, wd).transpose(1, 2)
+        return (acc + self.bias.float().view(-1, 1, 1, 1)).to(dt)
+
+
+class MxuConvTranspose(ConvTranspose3d):
+    """The JAX package's ``MxuConvTranspose`` (kernel == stride): one
+    channel matrix product ``x @ k2`` to ``prod(factor) * F`` channels,
+    then depth-to-space, then the bias in the compute dtype.
+    ConvTranspose3d's parameters and names (the converter's flipped
+    layout)."""
+
+    def forward(self, x):
+        dt = self._dtype(x)
+        x = x.to(dt)
+        b, cin, d, h, w = x.shape
+        fz, fy, fx = self.kernel_size
+        cout = self.out_channels
+        # [cin, F, fz, fy, fx] -> [cin, (fz, fy, fx, F)]
+        k2 = self.weight.to(dt).permute(0, 2, 3, 4, 1).reshape(cin, -1)
+        y = torch.matmul(x.permute(0, 2, 3, 4, 1), k2)
+        y = y.reshape(b, d, h, w, fz, fy, fx, cout)
+        y = y.permute(0, 7, 1, 4, 2, 5, 3, 6)
+        y = y.reshape(b, cout, d * fz, h * fy, w * fx)
+        return y + self.bias.to(dt).view(-1, 1, 1, 1)
+
+
+class InstanceNorm3d(_Computes, nn.InstanceNorm3d):
     """Instance norm in float32 whatever the input's dtype, returned in
-    the input's dtype."""
+    the compute dtype."""
 
     def forward(self, x):
         y = x.float()
@@ -78,11 +156,21 @@ class InstanceNorm3d(nn.InstanceNorm3d):
             # one voxel per channel, which F.instance_norm refuses: x -
             # mean is 0, so flax's GroupNorm gives the offset
             y = (y - y) + self.bias.view((-1,) + (1,) * (y.dim() - 2))
-        return y.to(x.dtype)
+        return y.to(self._dtype(x))
 
 
-def same_conv(cin: int, cout: int, kernel: Triple) -> Conv3d:
-    return Conv3d(cin, cout, kernel, padding=tuple(k // 2 for k in kernel))
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
+    """Give every layer of ``model`` that casts (``Conv3d``, the mxu
+    layers, ``InstanceNorm3d``, RSUNet's ``Affine``) the compute dtype."""
+    for module in model.modules():
+        if isinstance(module, _Computes):
+            module.compute_dtype = dtype
+
+
+def same_conv(cin: int, cout: int, kernel: Triple,
+              conv_impl: str = "native") -> Conv3d:
+    cls = MxuConv if conv_impl == "mxu" else Conv3d
+    return cls(cin, cout, kernel, padding=tuple(k // 2 for k in kernel))
 
 
 def space_to_depth(x: torch.Tensor, factor: Triple) -> torch.Tensor:
@@ -139,11 +227,12 @@ class ConvBlock(nn.Module):
     """Two 3x3x3 convs with instance norm + elu, residual add when the
     width is unchanged."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 conv_impl: str = "native"):
         super().__init__()
-        self.conv1 = same_conv(in_features, features, (3, 3, 3))
+        self.conv1 = same_conv(in_features, features, (3, 3, 3), conv_impl)
         self.norm1 = InstanceNorm3d(features, eps=1e-5, affine=True)
-        self.conv2 = same_conv(features, features, (3, 3, 3))
+        self.conv2 = same_conv(features, features, (3, 3, 3), conv_impl)
         self.norm2 = InstanceNorm3d(features, eps=1e-5, affine=True)
         self.residual = in_features == features
 
@@ -170,6 +259,10 @@ class UNet3D(nn.Module):
     losslessly :func:`space_to_depth`'d before ``conv_in``, and
     ``conv_out`` emits ``out_channels * prod(s2d_factor)`` channels that
     :func:`depth_to_space` puts back at full resolution.
+
+    ``conv_impl="mxu"`` builds every convolution as :class:`MxuConv` and
+    every upsampling as :class:`MxuConvTranspose` (the JAX package's
+    ``conv_impl``), with the same parameter names and shapes.
     """
 
     def __init__(
@@ -181,6 +274,7 @@ class UNet3D(nn.Module):
         final_activation: str = "sigmoid",
         dtype: torch.dtype = torch.float32,
         s2d_factor: Optional[Triple] = None,
+        conv_impl: str = "native",
     ):
         super().__init__()
         if len(down_factors) != len(feature_maps) - 1:
@@ -188,6 +282,10 @@ class UNet3D(nn.Module):
                              "feature maps")
         if final_activation not in ("sigmoid", "none"):
             raise ValueError(final_activation)
+        if conv_impl not in ("native", "mxu"):
+            raise ValueError(f"conv_impl must be native or mxu, got "
+                             f"{conv_impl!r}")
+        self.conv_impl = conv_impl
         self.feature_maps = tuple(feature_maps)
         self.down_factors = tuple(tuple(f) for f in down_factors)
         self.final_activation = final_activation
@@ -196,17 +294,19 @@ class UNet3D(nn.Module):
         s2d = int(np.prod(self.s2d_factor)) if self.s2d_factor else 1
         fm = self.feature_maps
         depth = len(fm)
-        self.conv_in = same_conv(in_channels * s2d, fm[0], (1, 5, 5))
+        impl = conv_impl
+        up = MxuConvTranspose if impl == "mxu" else ConvTranspose3d
+        self.conv_in = same_conv(in_channels * s2d, fm[0], (1, 5, 5), impl)
         for i in range(depth - 1):
             self.add_module(f"enc{i}", ConvBlock(fm[i - 1] if i else fm[0],
-                                                 fm[i]))
-        self.bridge = ConvBlock(fm[-2], fm[-1])
+                                                 fm[i], impl))
+        self.bridge = ConvBlock(fm[-2], fm[-1], impl)
         for i in reversed(range(depth - 1)):
             f = self.down_factors[i]
-            self.add_module(f"up{i}",
-                            ConvTranspose3d(fm[i + 1], fm[i], f, stride=f))
-            self.add_module(f"dec{i}", ConvBlock(fm[i], fm[i]))
-        self.conv_out = same_conv(fm[0], out_channels * s2d, (1, 5, 5))
+            self.add_module(f"up{i}", up(fm[i + 1], fm[i], f, stride=f))
+            self.add_module(f"dec{i}", ConvBlock(fm[i], fm[i], impl))
+        self.conv_out = same_conv(fm[0], out_channels * s2d, (1, 5, 5), impl)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         orig_dtype = x.dtype
@@ -239,16 +339,16 @@ def create_tpu_optimized_model(
     out_channels: int = 3,
     dtype: torch.dtype = torch.float32,
     s2d_factor: Triple = (1, 2, 2),
+    conv_impl: str = "native",
 ) -> UNet3D:
     """The JAX package's flagship model (variants ``tpu``, ``tpu_mxu`` and
     ``tpu_s2d4``): the space-to-depth stem with the reference-class widths
     (28, 36, 48, 64) scaled by sqrt(prod(s2d_factor)): 56-128 channels at
     (1, 2, 2), 112-256 at (1, 4, 4).
 
-    ``tpu_mxu`` is ``tpu`` with every convolution lowered differently by
-    XLA (z-decomposed 2D convs and GEMM upsampling, ``MxuConv`` /
-    ``MxuConvTranspose``): the same parameters and the same function, so
-    here it is this same module.
+    ``tpu_mxu`` is ``tpu`` with ``conv_impl="mxu"``: z-decomposed 2D
+    convolutions and a GEMM upsampling (:class:`MxuConv`,
+    :class:`MxuConvTranspose`), the same parameters.
     """
     scale = int(round(float(np.prod(s2d_factor)) ** 0.5))
     return UNet3D(
@@ -258,4 +358,5 @@ def create_tpu_optimized_model(
         down_factors=PARITY_DOWN_FACTORS,
         dtype=dtype,
         s2d_factor=s2d_factor,
+        conv_impl=conv_impl,
     )

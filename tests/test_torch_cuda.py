@@ -471,3 +471,115 @@ def test_file_round_trip_of_a_card_chunk(cuda, tmp_path, fmt):
                                                                 arr)
     assert tuple(got.voxel_offset) == (2, 3, 4)
     assert tuple(got.voxel_size) == (40, 4, 4)
+
+
+# ---------------------------------------------------------------------------
+# the int8 convolution kernel and the precision ladder on the card
+# ---------------------------------------------------------------------------
+# (x [B, C, D, H, W], w [N, C, kz, ky, kx], stride, padding, dilation):
+# every shape class the real leg gives the kernel, and the edges of its
+# tiling (narrow N, C not a multiple of 4, M not a multiple of the tile)
+INT8_CONV_CASES = {
+    "3x3x3_28": ((2, 28, 5, 20, 18), (28, 28, 3, 3, 3), 1, 1, 1),
+    "1x3x3_rsunet": ((2, 36, 4, 12, 12), (36, 36, 1, 3, 3), 1, (0, 1, 1), 1),
+    "1x5x5_conv_in": ((2, 1, 4, 32, 32), (28, 1, 1, 5, 5), 1, (0, 2, 2), 1),
+    "1x5x5_s2d_stem": ((2, 4, 4, 16, 16), (56, 4, 1, 5, 5), 1, (0, 2, 2), 1),
+    "1x5x5_s2d4_stem": ((2, 16, 4, 8, 8), (112, 16, 1, 5, 5), 1, (0, 2, 2),
+                        1),
+    "1x1x1_head": ((2, 28, 4, 16, 16), (3, 28, 1, 1, 1), 1, 0, 1),
+    "3x3x3_256": ((1, 256, 3, 6, 6), (256, 256, 3, 3, 3), 1, 1, 1),
+    "mxu_slice": ((10, 56, 1, 16, 16), (56, 56, 1, 3, 3), 1, (0, 1, 1), 1),
+    "transpose_as_1x1x1": ((2, 72, 2, 8, 8), (224, 72, 1, 1, 1), 1, 0, 1),
+    "c3_strided_dilated": ((2, 3, 7, 11, 13), (5, 3, 3, 3, 3), 2, 1, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(INT8_CONV_CASES))
+def test_int8_conv_kernel_is_its_plain_version(cuda, name):
+    from chunkflow_tpu_torch.ops import int8_conv
+
+    xs, ws, stride, padding, dilation = INT8_CONV_CASES[name]
+    g = torch.Generator().manual_seed(len(name))
+    x = torch.randint(-127, 128, xs, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, ws, generator=g, dtype=torch.int8)
+    before = int8_conv.launches
+    got = int8_conv.conv3d_int8(x.to(cuda), w.to(cuda), stride, padding,
+                                dilation)
+    assert int8_conv.launches == before + 1
+    ref = int8_conv.conv3d_int8_plain(x, w, stride, padding, dilation)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
+
+
+def test_int8_matmul_kernel_is_its_plain_version(cuda):
+    from chunkflow_tpu_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (1000, 72), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (72, 224), generator=g, dtype=torch.int8)
+    got = int8_conv.matmul_int8(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), int8_conv.matmul_int8(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["parity", "rsunet", "tpu", "tpu_mxu",
+                                     "tpu_s2d4"])
+def test_real_int8_forward_kernel_is_the_plain_path(cuda, monkeypatch,
+                                                    variant, dtype):
+    """The real int8 forward of every family at full width: through the
+    kernel, bitwise the same forward through the plain version (float64
+    on the card); ``fake`` launches no integer convolution."""
+    from chunkflow_tpu_torch.inference import engines, precision
+    from chunkflow_tpu_torch.ops import int8_conv
+
+    engine = engines.create_engine("pytorch", model_variant=variant,
+                                   dtype=dtype)
+    engine.model.to(cuda)
+    g = torch.Generator().manual_seed(1)
+    batch = torch.rand((2, 1, 4, 32, 32), generator=g).to(cuda)
+
+    def run(leg):
+        monkeypatch.setenv("CHUNKFLOW_INT8", leg)
+        with torch.no_grad():
+            return precision.wrap_apply(engine.apply, "int8", engine.params,
+                                        engine.call)(batch)
+
+    int8_conv.launches = 0
+    got = run("real")
+    assert int8_conv.launches > 0
+    monkeypatch.setattr(int8_conv, "conv3d_int8", int8_conv.conv3d_int8_plain)
+    ref = run("real")
+    monkeypatch.undo()
+    int8_conv.launches = 0
+    run("fake")
+    assert int8_conv.launches == 0
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("precision_, leg", [
+    ("float32", "fake"), ("bfloat16", "fake"), ("int8", "fake"),
+    ("int8", "real")])
+def test_packer_on_card_is_per_chunk(cuda, monkeypatch, precision_, leg):
+    """Mixed requests packed into shared batches on the card: each result
+    bitwise its own ``Inferencer.__call__``, through the gather and the
+    pre-weighted accumulate kernels."""
+    from chunkflow_tpu_torch.serve.packer import PatchPacker
+
+    monkeypatch.setenv("CHUNKFLOW_INT8", leg)
+    inferencer = Inferencer(framework="pytorch", model_variant="tpu",
+                            dtype="bfloat16", precision=precision_,
+                            **dict(STREAM_KW, batch_size=4))
+    rng = np.random.default_rng(4)
+    chunks = [Chunk(rng.integers(0, 256, s).astype(np.uint8),
+                    voxel_offset=(8 * i, 0, 0))
+              for i, s in enumerate([(4, 32, 32), (6, 48, 48), (5, 40, 61)])]
+    refs = [inferencer(c).host().array for c in chunks]
+    gather.launches = accumulate.launches = 0
+    packer = PatchPacker(inferencer, max_wait_ms=200.0)
+    try:
+        outs = [h.result(timeout=120).host().array
+                for h in [packer.submit(c) for c in chunks]]
+    finally:
+        packer.close()
+    assert gather.launches > 0 and accumulate.launches > 0
+    for ref, out in zip(refs, outs):
+        assert np.array_equal(out, ref)

@@ -199,11 +199,14 @@ def test_every_variant_runs_in_the_inferencer(variant, dtype):
 
 
 def test_tpu_mxu_is_the_tpu_module():
-    """``tpu_mxu`` differs from ``tpu`` only in the JAX package's XLA
-    lowering: the port builds one module, with the same seeded weights."""
+    """``tpu_mxu`` is the ``tpu`` UNet3D with ``conv_impl="mxu"`` (the JAX
+    package's ``MxuConv`` / ``MxuConvTranspose`` layers): the same
+    parameter names and the same seeded weights, so checkpoints
+    interchange."""
     tpu = engines.create_engine("pytorch", model_variant="tpu").model
     mxu = engines.create_engine("pytorch", model_variant="tpu_mxu").model
     assert type(tpu) is type(mxu) and tpu.s2d_factor == mxu.s2d_factor
+    assert (tpu.conv_impl, mxu.conv_impl) == ("native", "mxu")
     for (k, a), (j, b) in zip(tpu.state_dict().items(),
                               mxu.state_dict().items()):
         assert k == j and torch.equal(a, b)

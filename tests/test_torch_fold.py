@@ -256,13 +256,17 @@ def test_blend_errors_match_jax(monkeypatch, kwargs, env, error, match):
 
 @pytest.mark.parametrize("value", ["bf16", "bfloat16", "int8", "I8"])
 def test_precision_env_raises_where_jax_quantizes(monkeypatch, value):
-    """CHUNKFLOW_PRECISION naming a quantized forward must not run
-    float32 silently: the port raises until the precision ladder is
-    ported."""
+    """CHUNKFLOW_PRECISION naming a quantized forward selects the JAX
+    package's precision (the name is kept from when the port raised
+    here), and the fold result under it is the JAX fold's: bitwise the
+    JAX package op by op, within FMA_ULP of the compiled fold."""
     monkeypatch.setenv("CHUNKFLOW_PRECISION", value)
-    assert JaxInferencer(**FOLD).precision != "float32"
-    with pytest.raises(NotImplementedError, match="precision ladder"):
-        Inferencer(device="cpu", **FOLD)
+    port = Inferencer(device="cpu", **FOLD)
+    assert port.precision == JaxInferencer(**FOLD).precision != "float32"
+    arr = _chunk((9, 35, 33), seed=5)
+    got = _host(port(Chunk(arr)))
+    assert np.array_equal(got, _jax(arr, eager=True, **FOLD))
+    _assert_within_ulp(got, _jax(arr, **FOLD), FMA_ULP)
 
 
 def test_precision_env_float32_and_typo(monkeypatch, capfd):

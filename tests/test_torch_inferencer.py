@@ -223,8 +223,12 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
                  id="kwargs0-fold"),
     ({"mesh": "data=2"}, "multi-GPU"),
     ({"sharding": "patch"}, "multi-GPU"),
-    ({"precision": "bf16"}, "precision"),
-    ({"precision": "int8"}, "precision"),
+    # the precision ladder is ported: a precision with an unported
+    # option still meets that option's raise
+    pytest.param({"precision": "bf16", "sharding": "spatial"}, "multi-GPU",
+                 id="kwargs3-precision"),
+    pytest.param({"precision": "int8", "mesh": "data=2"}, "multi-GPU",
+                 id="kwargs4-precision"),
     ({"mesh": "y=2"}, "multi-GPU"),
 ])
 def test_unported_options_raise(kwargs, match):

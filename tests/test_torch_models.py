@@ -11,11 +11,13 @@ rounds at other places); the gates are max-abs <= 1e-5 in float32 and
 
 Measured max-abs on the fixtures of ``test_family_matches_flax``,
 float32 / bfloat16: parity 8.3e-7 / 3e-8, rsunet 6e-8 / 0.0039,
-rsunet_mxu 1.2e-7 / 0.0078, tpu 7.2e-7 / 3e-5, tpu_mxu 8.9e-7 / 0.013,
-tpu_s2d4 1.1e-6 / 6e-8, s2d (2,1,4) 6.6e-7 / 6e-8. The mxu rows are the
-largest in bfloat16 because JAX's ``MxuConv`` sums in float32 and rounds
-once after its bias, where flax's native convolution, and the port's,
-round before the bias add.
+rsunet_mxu 1.2e-7 / 0.0078, tpu 7.2e-7 / 3e-5, tpu_mxu 7.7e-7 / 6e-8,
+tpu_s2d4 1.1e-6 / 6e-8, s2d (2,1,4) 6.6e-7 / 6e-8. ``tpu_mxu`` runs the
+port's ``conv_impl="mxu"`` modules, which sum each z slice in float32
+and round once after the bias as JAX's ``MxuConv`` does; the port's
+RSUNet has no mxu lowering, so ``rsunet_mxu`` holds JAX's mxu RSUNet
+against the port's native one and is the largest in bfloat16 (flax's
+native convolution, and the port's, round before the bias add).
 """
 import numpy as np
 import pytest
@@ -107,7 +109,7 @@ def _pair(family, dtype, cin=1, cout=3):
                                down_factors=DOWNS, dtype=jdt,
                                s2d_factor=s2d, conv_impl=impl),
             UNet3D(cin, cout, feature_maps=FEATS, down_factors=DOWNS,
-                   dtype=tdt, s2d_factor=s2d),
+                   dtype=tdt, s2d_factor=s2d, conv_impl=impl),
             pin)
 
 
