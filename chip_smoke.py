@@ -114,10 +114,15 @@ non-zero exit and no result line:
              (printed) stays below 2^24; one batch per family, the real
              forward through the kernel bitwise the same forward through
              the plain version (float64 on the card); the kernel bitwise
-             its plain version on every shape class; int8 launches > 0
-             under ``real``, 0 under ``fake``; the kernel's time, bound,
-             plain time and cuDNN's float32 time on the integer grid at
-             the parity enc0 shape and ``tpu_s2d4``'s widest
+             its plain version on every shape class (and its weight
+             pack its plain version); int8 launches > 0 under ``real``,
+             0 under ``fake``, by path (Hopper, generic); the Hopper
+             kernel's time against the generic kernel in turns, the
+             op's time, the bound, the plain time and cuDNN's float32
+             time on the integer grid at the parity enc0 shape and
+             ``tpu_s2d4``'s widest, and the same table (but the plain
+             time) at every layer shape of the parity and ``tpu_s2d4``
+             real forwards
 14. packer    the PatchPacker: 12 requests of mixed sizes (one 20x256x256
              patch to 64x512x512) from 4 submitter threads, ``tpu`` bf16
              at batch 4, at float32 and at int8 ``real``: every result
@@ -135,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -237,9 +243,11 @@ INT8_CLASSES = (
     ((2, 3, 7, 11, 13), (5, 3, 3, 3, 3), 2, 1, 2),
 )
 # the kernel timed at the parity enc0 shape (the main path's) and at
-# tpu_s2d4's widest layer (its bridge)
+# tpu_s2d4's widest layer (its bridge); the families whose every layer
+# shape is timed against the generic kernel
 INT8_TIMED = (("parity enc0", (2, 28, 20, 256, 256), (28, 28, 3, 3, 3)),
               ("tpu_s2d4 bridge", (2, 256, 5, 8, 8), (256, 256, 3, 3, 3)))
+INT8_AB_FAMILIES = ("parity", "tpu_s2d4")
 # phase 14: the packer's requests (one patch to the main path's chunk),
 # its batch and submitter threads
 PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
@@ -312,7 +320,7 @@ class Timer:
             time.sleep(1)
         return None
 
-    def _event_ms(self, fn, reps):
+    def event_ms(self, fn, reps):
         """Median device time of one call of ``fn`` between two CUDA
         events, L2 flushed. A busy-wait kernel ahead of the first event
         keeps the card busy while the host queues the call, so the host's
@@ -351,7 +359,7 @@ class Timer:
     def _fallback(self, fn, reps, wanted):
         phase("timer", f"the profiler did not trace {wanted} in "
                        f"{TRACE_TRIES} sessions: timed with CUDA events")
-        return self._event_ms(fn, reps)
+        return self.event_ms(fn, reps)
 
 
 def forward(model, x):
@@ -445,12 +453,19 @@ def main() -> int:
     def reset_counts():
         for k in kernels.values():
             k["module"].launches = 0
+        for path in int8_conv.path_launches:
+            int8_conv.path_launches[path] = 0
 
     def counts():
         return {name: kernels[name]["module"].launches for name in blend}
 
     def counts_all():
-        return {name: k["module"].launches for name, k in kernels.items()}
+        """Every wrapper's count, and the int8 convolution's per path
+        (``conv3d_int8 hopper``, ``conv3d_int8 generic``)."""
+        out = {name: k["module"].launches for name, k in kernels.items()}
+        out.update({f"conv3d_int8 {path}": n
+                    for path, n in int8_conv.path_launches.items()})
+        return out
 
     def plain_functions():
         """Patch every kernel wrapper with its plain version: the same
@@ -1181,21 +1196,30 @@ def main() -> int:
 
     # ---- 13. precision: the ladder at full width --------------------------
     torch.cuda.empty_cache()
-    for kname, n in precision_phase(torch, chunk_u8, timer, kernels,
-                                    note_err, reset_counts,
-                                    counts_all).items():
-        kernels[kname]["launches"] += n
-    # ---- 14. packer: cross-request batches --------------------------------
-    torch.cuda.empty_cache()
-    for kname, n in packer_phase(torch, reset_counts, counts_all).items():
-        kernels[kname]["launches"] += n
+    int8_paths = {path: 0 for path in int8_conv.path_launches}
+    for run_phase in (
+            lambda: precision_phase(torch, chunk_u8, timer, kernels,
+                                    note_err, reset_counts, counts_all),
+            # ---- 14. packer: cross-request batches ------------------------
+            lambda: packer_phase(torch, reset_counts, counts_all)):
+        for kname, n in run_phase().items():
+            if kname in kernels:
+                kernels[kname]["launches"] += n
+            else:
+                int8_paths[kname.split()[1]] += n
+        torch.cuda.empty_cache()
+    kernels["conv3d_int8"]["launches_by_path"] = int8_paths
+    phase("precision", f"conv3d_int8 launches by path over phases 13-14: "
+                       f"{int8_paths}")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": err[kname], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]}
+         "library_ms": k["library_ms"],
+         **({"launches_by_path": k["launches_by_path"]}
+            if "launches_by_path" in k else {})}
         for kname, k in kernels.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2271,60 +2295,52 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
         return torch.randint(-127, 128, shape, generator=gen,
                              dtype=torch.int8).to(dev)
 
-    # a) the kernel against its plain version on every shape class
+    # a) the kernel against its plain version on every shape class, the
+    # input as the quantize pass lays it out and as a plain NCDHW tensor;
+    # the Hopper path's weight pack against its plain version
+    paths = {}
     for xs, ws, stride, padding, dilation in INT8_CLASSES:
-        x = randint8(xs).to(memory_format=torch.channels_last_3d)
+        x = randint8(xs)
         w = randint8(ws)
-        note_err("conv3d_int8",
-                 int8_conv.conv3d_int8(x, w, stride, padding, dilation),
-                 int8_conv.conv3d_int8_plain(x, w, stride, padding,
-                                             dilation))
+        want = int8_conv.conv3d_int8_plain(x, w, stride, padding, dilation)
+        for given in (int8_conv.channels_last_padded(x), x):
+            note_err("conv3d_int8", int8_conv.conv3d_int8(
+                given, w, stride, padding, dilation), want)
+        p = int8_conv.plan(xs, ws, stride, padding, dilation)
+        paths[p.path] = paths.get(p.path, 0) + 1
+        if p.path == "hopper":
+            note_err("conv3d_int8", int8_conv.pack_weights(w, p),
+                     int8_conv.pack_weights_plain(w.cpu(), p).to(dev))
     a = randint8((3000, 72))
     b = randint8((72, 224))
     note_err("conv3d_int8", int8_conv.matmul_int8(a, b),
              (a.double() @ b.double()).to(torch.int32))
     torch.cuda.synchronize()
     phase("precision", f"conv3d_int8 == plain bitwise on "
-                       f"{len(INT8_CLASSES)} shape classes and the GEMM "
+                       f"{len(INT8_CLASSES)} shape classes (paths "
+                       f"{paths}; the real leg's padded channels-last "
+                       f"input and a plain NCDHW one), the Hopper weight "
+                       f"pack == its plain version, and the GEMM "
                        f"upsample's product")
 
     # b) the kernel's time, bound, plain time and cuDNN's on the integer
-    # grid (float32, exact below 2^24; under the engine's scope)
+    # grid (float32, exact below 2^24; under the engine's scope) at the
+    # two timed shapes, the Hopper kernel against the generic one in
+    # turns (generic, hopper, hopper, generic)
     for label, xs, ws in INT8_TIMED:
-        x = randint8(xs).to(memory_format=torch.channels_last_3d)
-        w = randint8(ws)
-        out_el = xs[0] * ws[0] * int(np.prod(xs[2:]))
-        macs = out_el * int(np.prod(ws[1:]))
-        nbytes = x.numel() + w.numel() + 4 * out_el
-        t_ops = 2 * macs / PEAK_INT8 * 1e3
-        t_bytes = nbytes / PEAK_BW * 1e3
-        ms = timer.kernel_ms(lambda: int8_conv.conv3d_int8(x, w, 1, 1),
-                             "conv3d_int8_kernel")
-        plain_ms = timer.call_ms(
-            lambda: int8_conv.conv3d_int8_plain(x, w, 1, 1), reps=3)
-        xf, wf = x.float(), w.float()
-
-        def library():
-            with engines.exact_float32():
-                F.conv3d(xf, wf, None, 1, 1)
-
-        library_ms = timer.call_ms(library, reps=5)
-        del xf, wf
-        bound = max(t_ops, t_bytes)
+        # the operands as the real leg lays them out
+        x = int8_conv.channels_last_padded(randint8(xs))
+        w = randint8(ws).contiguous(memory_format=torch.channels_last_3d)
+        ab = int8_ab(timer, x, w, (1, 1), turns=True)
+        plain_ms = timer.event_ms(
+            lambda: int8_conv.conv3d_int8_plain(x, w, 1, 1), 3)
         phase("precision", f"conv3d_int8 at {label} {xs} x {ws}: "
-                           f"{ms:.4f} ms/launch (median device time, L2 "
-                           f"flushed), bound {bound:.4f} ms ({macs / 1e9:.2f} "
-                           f"G MACs = {t_ops:.4f} ms at the int8 peak, "
-                           f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms), "
-                           f"{bound / ms:.1%} of bound, "
-                           f"{2 * macs / ms / 1e9:.1f} TOP/s; plain (float64 "
-                           f"cuDNN) {plain_ms:.3f} ms; cuDNN float32 on the "
-                           f"integer grid {library_ms:.4f} ms")
+                           f"{ab['line']}; plain (float64 cuDNN) "
+                           f"{plain_ms:.3f} ms")
         if label == INT8_TIMED[0][0]:
-            k = kernels["conv3d_int8"]
-            k.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     library_ms=library_ms)
+            kernels["conv3d_int8"].update(
+                ms=ab["op_ms"], plain_ms=plain_ms, bound_ms=ab["bound_ms"],
+                bound_by=ab["bound_by"], library_ms=ab["library_ms"])
         del x, w
 
     # c) every family at every leg, on the main path's chunk
@@ -2338,7 +2354,7 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
     kw = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
               num_output_channels=CHANNELS, framework="pytorch",
               batch_size=BATCH)
-    launched_total = {name: 0 for name in kernels}
+    launched_total = {}
     saved_leg = os.environ.get("CHUNKFLOW_INT8")
 
     def build(variant, prec, leg, dtype="float32"):
@@ -2371,7 +2387,7 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
         if leg == "real":
             require(n8 > 0, f"precision {label}: conv3d_int8 never launched")
             for name, n in launched.items():
-                launched_total[name] += n
+                launched_total[name] = launched_total.get(name, 0) + n
         else:
             require(n8 == 0, f"precision {label}: {n8} int8 launches")
         fwd_ms = timer.call_ms(lambda: fwd(inf), reps=2)
@@ -2481,20 +2497,43 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
 
             with mock.patch.object(int8_conv, "conv3d_int8", record):
                 fwd(inf)
-            xs = {s: randint8(s).to(memory_format=torch.channels_last_3d)
+            xs = {s: int8_conv.channels_last_padded(randint8(s))
                   for s, _, _ in shapes}
-            ws = {s: randint8(s) for _, s, _ in shapes}
+            ws = {s: randint8(s).contiguous(
+                memory_format=torch.channels_last_3d) for _, s, _ in shapes}
             fs = {s: torch.rand(s, device=dev) for s in xs}
             kernel_ms = timer.call_ms(lambda: [
                 int8_conv.conv3d_int8(xs[x], ws[w], *args)
                 for x, w, args in shapes], reps=3)
 
-            def quantize():
+            def quantize(unpadded=False):
                 for x, _, _ in shapes:
                     q, _ = precision._quant_rows_axis(fs[x], 0)
-                    precision._int8(q)
+                    if unpadded:  # the copy without the pitch
+                        q.to(torch.int8,
+                             memory_format=torch.channels_last_3d)
+                    else:
+                        precision._int8(q)
 
             quant_ms = timer.call_ms(quantize, reps=3)
+            quant_unpadded_ms = timer.call_ms(lambda: quantize(True), reps=3)
+            if variant in INT8_AB_FAMILIES:
+                # every distinct layer shape: the Hopper kernel against
+                # the generic one, its bound and cuDNN float32 on the grid
+                faster = [0, 0]  # the kernel, the op, against generic
+                distinct = list(dict.fromkeys(shapes))
+                for x, w, args in distinct:
+                    ab = int8_ab(timer, xs[x], ws[w], args)
+                    faster[0] += ab["ms"] < ab["generic_ms"]
+                    faster[1] += ab["op_ms"] < ab["generic_ms"]
+                    phase("precision", f"{variant} layer {x} x {w} "
+                                       f"{args}: {ab['line']}")
+                phase("precision", f"{variant}: faster than the generic "
+                                   f"kernel "
+                                   f"at {faster[0]} of {len(distinct)} "
+                                   f"layer shapes (the Hopper kernel), "
+                                   f"{faster[1]} (its op: weight pack and "
+                                   f"kernel)")
             del xs, ws, fs
             ops = conv_flops(model, patches)
             phase("precision", f"{label}: largest |sum| {largest} "
@@ -2508,7 +2547,8 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
                                f"{kernel_ms:.2f} ms/batch "
                                f"({kernel_ms / fwd_ms:.1%} of the forward), "
                                f"quantize pass {quant_ms:.2f} ms/batch "
-                               f"({quant_ms / fwd_ms:.1%}); "
+                               f"({quant_ms / fwd_ms:.1%}; with an "
+                               f"unpadded int8 copy {quant_unpadded_ms:.2f}); "
                                f"{ops / fwd_ms / 1e9:.1f} TOP/s, "
                                f"{ops / fwd_ms / 1e9 / (PEAK_INT8 / 1e12):.1%}"
                                f" of the int8 peak")
@@ -2534,6 +2574,76 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
     else:
         os.environ["CHUNKFLOW_INT8"] = saved_leg
     return launched_total
+
+
+def int8_ab(timer, x, w, args, turns=False):
+    """One int8 layer shape on the card, each time between CUDA events
+    with the L2 flushed (in this script's full runs the profiler traced
+    none of these calls in phase 13): the Hopper kernel alone (weights
+    packed, output zeroed beforehand), the whole op (weight pack, split-K
+    zeroing and kernel), the generic kernel alone on the same operands,
+    the bound ``max(2 MACs / int8 peak, bytes / bandwidth)`` and cuDNN
+    float32 on the integer grid, each operand NCDHW or channels-last,
+    whichever is fastest (the yardstick; the port never calls it).
+    ``turns``: generic, hopper, hopper, generic."""
+    import torch
+    import torch.nn.functional as F
+
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.ops import int8_conv
+
+    p = int8_conv.plan(x.shape, w.shape, *args)
+    shape = int8_conv.output_shape(x.shape, w.shape, *args)
+    out_el = math.prod(shape)
+    macs = out_el * math.prod(w.shape[1:])
+    nbytes = x.numel() + w.numel() + 4 * out_el
+    t_ops = 2 * macs / PEAK_INT8 * 1e3
+    t_bytes = nbytes / PEAK_BW * 1e3
+    wpack = int8_conv.pack_weights(w, p)
+    wc = int8_conv.generic_weights(w)
+    out = torch.zeros(shape, dtype=torch.int32, device=x.device)
+    reps = 15 if turns else 5
+
+    def hopper():
+        int8_conv.hopper_kernel(x, wpack, p, out)
+
+    def generic():
+        int8_conv.generic_kernel(x, wc, out, *args)
+
+    g = [timer.event_ms(generic, 3)]
+    h = [timer.event_ms(hopper, reps)]
+    if turns:
+        h.append(timer.event_ms(hopper, reps))
+        g.append(timer.event_ms(generic, 3))
+    op_ms = timer.event_ms(lambda: int8_conv.conv3d_int8(x, w, *args), reps)
+    library_ms = math.inf
+    formats = (torch.contiguous_format, torch.channels_last_3d)
+    for x_fmt, w_fmt in ((a, b) for a in formats for b in formats):
+        xf = x.float().contiguous(memory_format=x_fmt)
+        wf = w.float().contiguous(memory_format=w_fmt)
+
+        def library():
+            with engines.exact_float32():
+                F.conv3d(xf, wf, None, *args)
+
+        library_ms = min(library_ms, timer.event_ms(library, 3))
+        del xf, wf
+    bound = max(t_ops, t_bytes)
+    ms = statistics.median(h)
+    line = (f"Hopper kernel {', '.join(f'{v:.4f}' for v in h)} ms "
+            f"({bound / ms:.1%} of bound; bn {p.bn} x {p.n_tiles}, tile "
+            f"{p.bt}x{p.dt}x{p.ht}x{p.wt}, {p.m_tiles} M tiles, split-K "
+            f"{p.splits}, {p.gx * p.n_tiles * p.splits} blocks, weights "
+            f"{'resident' if p.resident else 'streamed'}, {p.smem} B "
+            f"shared), op {op_ms:.4f} ms; the generic kernel "
+            f"{', '.join(f'{v:.4f}' for v in g)} ms; bound {bound:.4f} ms "
+            f"({macs / 1e9:.3f} G MACs = {t_ops:.4f} ms, "
+            f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms); cuDNN float32 "
+            f"{library_ms:.4f} ms")
+    return {"ms": ms, "op_ms": op_ms, "generic_ms": statistics.median(g),
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "line": line}
 
 
 def packer_phase(torch, reset_counts, counts_all):

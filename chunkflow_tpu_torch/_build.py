@@ -30,7 +30,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("gather", "accumulate", "conv3d_int8")
+KERNELS = ("gather", "accumulate", "conv3d_int8", "conv3d_int8_generic")
 HOST = CSRC / "host"
 HOST_LIBRARY = "chunkflow_host"
 HOST_SOURCES = ("cc3d.cpp", "remap.cpp")

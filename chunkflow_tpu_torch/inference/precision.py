@@ -220,10 +220,12 @@ def _scale_to_out(scale: torch.Tensor, out_ndim: int,
 
 
 def _int8(q: torch.Tensor) -> torch.Tensor:
-    """The int8 copy of a grid; a 5-D image is written channels-last,
-    the layout the kernel reads."""
+    """The int8 copy of a grid: an activation image ``[b, c, d, h, w]``
+    is written channels-last, each position padded to the Hopper
+    kernel's 16-channel pitch (``int8_conv.channels_last_padded``: the
+    one copy the kernel reads as it lies); anything else as it is."""
     if q.dim() == 5:
-        return q.to(torch.int8, memory_format=torch.channels_last_3d)
+        return int8_conv.channels_last_padded(q)
     return q.to(torch.int8)
 
 
@@ -280,7 +282,8 @@ def _int8_conv(lhs: torch.Tensor, rhs: torch.Tensor, lhs_tainted: bool,
     w5 = qr.reshape(qr.shape[:2] + lift + qr.shape[2:])
     args = (lift + stride, (0,) * (3 - nd) + sym, lift + dilation)
     if integer:
-        xq, wq = _int8(x5), _int8(w5)
+        xq = _int8(x5)
+        wq = w5.to(torch.int8, memory_format=torch.channels_last_3d)
         cin, cout = xq.shape[1] // groups, wq.shape[0] // groups
         parts = [int8_conv.conv3d_int8(xq[:, g * cin:(g + 1) * cin],
                                        wq[g * cout:(g + 1) * cout], *args)

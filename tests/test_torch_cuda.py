@@ -510,6 +510,52 @@ def test_int8_conv_kernel_is_its_plain_version(cuda, name):
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
 
 
+# the Hopper kernel's edges: halos cut by all six faces (same and valid
+# padding, ragged in every dimension), M not a multiple of the 128-row
+# tile, each width class of output channels, streamed weights, stores
+# with and without split-K
+INT8_HOPPER_CASES = {
+    "faces_3x3x3": ((2, 20, 7, 13, 37), (24, 20, 3, 3, 3), 1),
+    "faces_1x5x5": ((1, 16, 3, 9, 35), (8, 16, 1, 5, 5), (0, 2, 2)),
+    "valid_3x3x3": ((2, 32, 6, 10, 40), (32, 32, 3, 3, 3), 0),
+    "wide_pad_3x3x3": ((1, 28, 4, 6, 9), (28, 28, 3, 3, 3), 2),
+    "ragged_m": ((3, 28, 5, 7, 9), (28, 28, 3, 3, 3), 1),
+    "n3": ((2, 32, 3, 8, 16), (3, 32, 3, 3, 3), 1),
+    "n28": ((2, 32, 3, 8, 16), (28, 32, 3, 3, 3), 1),
+    "n36": ((2, 32, 3, 8, 16), (36, 32, 3, 3, 3), 1),
+    "n56": ((2, 32, 3, 8, 16), (56, 32, 3, 3, 3), 1),
+    "n112": ((2, 32, 3, 8, 16), (112, 32, 3, 3, 3), 1),
+    "n224": ((2, 32, 3, 8, 16), (224, 32, 1, 1, 1), 0),
+    "n256": ((2, 32, 3, 8, 16), (256, 32, 3, 3, 3), 1),
+    "n768": ((2, 64, 3, 8, 16), (768, 64, 1, 1, 1), 0),
+    "no_split_store": ((2, 28, 8, 32, 64), (28, 28, 3, 3, 3), 1),
+    "no_split_ragged_w": ((2, 28, 8, 33, 70), (28, 28, 3, 3, 3), 1),
+    "streamed_weights": ((2, 72, 8, 32, 64), (72, 72, 3, 3, 3), 1),
+    "split_k_bridge": ((2, 256, 5, 8, 8), (256, 256, 3, 3, 3), 1),
+    "split_k_odd_substeps": ((2, 144, 2, 4, 4), (192, 144, 3, 3, 3), 1),
+}
+
+
+@pytest.mark.parametrize("name", list(INT8_HOPPER_CASES))
+def test_int8_conv_hopper_kernel_edges(cuda, name):
+    """Each edge case through the Hopper kernel: one launch, bitwise the
+    plain version and the generic kernel."""
+    from chunkflow_tpu_torch.ops import int8_conv
+
+    xs, ws, padding = INT8_HOPPER_CASES[name]
+    assert int8_conv.plan(xs, ws, 1, padding).path == "hopper"
+    g = torch.Generator().manual_seed(len(name))
+    x = torch.randint(-127, 128, xs, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, ws, generator=g, dtype=torch.int8)
+    xc = int8_conv.channels_last_padded(x.to(cuda))
+    before = int8_conv.path_launches["hopper"]
+    got = int8_conv.conv3d_int8(xc, w.to(cuda), 1, padding)
+    assert int8_conv.path_launches["hopper"] == before + 1
+    ref = int8_conv.conv3d_int8_plain(x, w, 1, padding)
+    generic = int8_conv.conv3d_int8_generic(xc, w.to(cuda), 1, padding)
+    assert torch.equal(got.cpu(), ref) and torch.equal(generic.cpu(), ref)
+
+
 def test_int8_matmul_kernel_is_its_plain_version(cuda):
     from chunkflow_tpu_torch.ops import int8_conv
 

@@ -80,7 +80,9 @@ def test_every_kernel_has_a_source_and_a_launcher():
     for name, module, launcher in (
             ("gather", gather, "gather_patches_launch"),
             ("accumulate", accumulate, "accumulate_patches_launch"),
-            ("conv3d_int8", int8_conv, "conv3d_int8_launch")):
+            ("conv3d_int8", int8_conv, "conv3d_int8_launch"),
+            ("conv3d_int8_generic", int8_conv,
+             "conv3d_int8_generic_launch")):
         assert name in _build.KERNELS
         source = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {launcher}(' in source
