@@ -129,6 +129,29 @@ non-zero exit and no result line:
              bitwise its own ``Inferencer.__call__``, pre-weighted
              accumulate launches > 0, occupancy, batches and filler
              slots, requests/s and Mvox/s packed and one by one
+15. serve    the serving front end on a real HTTP listener in process
+             (``ServingService`` + ``LocalBackend`` + ``start_serving``):
+             the full-width parity UNet3D (flax-layout seeded weights,
+             ``-f flax``, batch 4) on a float32 engine, at float32 and
+             at ``CHUNKFLOW_PRECISION=int8 CHUNKFLOW_INT8=real``; phase
+             14's 12 requests, uint8 on the wire, from 4 threads of a
+             client process (a remote user's: its JSON and base64 work
+             do not share the server's interpreter): every decoded
+             response bitwise its ``Inferencer.__call__`` (SHA-256),
+             gather and pre-weighted accumulate launches > 0 in both legs,
+             ``conv3d_int8`` > 0 only under ``real``; a burst past the
+             in-flight bound gets 429 ``inflight``, a 0.001 s deadline a
+             504; ``/metrics`` parses and carries ``serving/latency``,
+             ``/healthz``, ``/serving`` and ``/alerts`` (an SLO config)
+             answer; ``POST /profile?seconds=1`` under load writes a trace
+             naming both kernels; requests/s and Mvox/s over HTTP against
+             the in-process packer and one by one, client and
+             ``serving/latency`` p50/p99, host ms per request to decode,
+             encode and compute, batches, filler slots, occupancy. Then
+             ``python -m chunkflow_tpu_torch -v serve --port 0 ...`` as a
+             subprocess: its bound port, one request answered bitwise, a
+             drain on SIGTERM with its ``serve drained:`` line and run
+             counters
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -141,6 +164,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -256,6 +280,20 @@ PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
                (64, 512, 512), (24, 300, 260), (48, 512, 448))
 PACK_BATCH = 4
 PACK_THREADS = 4
+# phase 15: the serving front end over HTTP on phase 14's requests: the
+# in-process lifecycle workers (one per client thread), the admission
+# bound and the burst sent past a bound of two, the profile window (s),
+# and the serve subprocess's runtime cap (s; it is stopped by SIGTERM
+# once it has answered)
+SERVE_SEED = 15
+SERVE_WORKERS = PACK_THREADS
+SERVE_MAX_INFLIGHT = 8
+SERVE_BURST = 8
+SERVE_PROFILE_S = 1.0
+SERVE_RUNTIME_S = 240
+# the SLO config phase 15 serves under (the JAX package's defaults but the
+# storage objective, which a server reading no volume never feeds)
+SERVE_SLO_TOML = "[objective.storage_hit]\nenabled = false\n"
 # profiler sessions taken before a trace counts as lost; the busy-wait
 # (GPU clock cycles, ~1 ms on an H100) ahead of a CUDA-event timing
 TRACE_TRIES = 4
@@ -426,6 +464,10 @@ def main() -> int:
     from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    # no automatic profiler captures (a sustained stall, a page alert):
+    # one would hold the process's one profiler session while this
+    # script's own traces and phase 15's POST /profile take theirs
+    os.environ["CHUNKFLOW_PROFILE_ON_ANOMALY"] = "0"
     kernels = {
         "gather": {"module": gather, "plain": gather.gather_patches_plain,
                    "entry": "gather_patches",
@@ -1208,8 +1250,16 @@ def main() -> int:
             else:
                 int8_paths[kname.split()[1]] += n
         torch.cuda.empty_cache()
+    # ---- 15. serve: the HTTP front end and the serve command ------------
+    for kname, n in serve_phase(torch, weights, reset_counts,
+                                counts_all).items():
+        if kname in kernels:
+            kernels[kname]["launches"] += n
+        else:
+            int8_paths[kname.split()[1]] += n
+    torch.cuda.empty_cache()
     kernels["conv3d_int8"]["launches_by_path"] = int8_paths
-    phase("precision", f"conv3d_int8 launches by path over phases 13-14: "
+    phase("precision", f"conv3d_int8 launches by path over phases 13-15: "
                        f"{int8_paths}")
 
     print(json.dumps({"kernels": [
@@ -1446,8 +1496,9 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                     with open(os.path.join(metrics, name)) as f:
                         for ln in f:
                             event = json.loads(ln)
-                            if event["name"] in ("lifecycle/committed",
-                                                 "lifecycle/ledger_skip"):
+                            if event.get("name") in (
+                                    "lifecycle/committed",
+                                    "lifecycle/ledger_skip"):
                                 acks[event["body"]] += 1
                 require(set(acks.values()) == {1},
                         f"volume: acks per task {acks}, not one each")
@@ -2753,6 +2804,533 @@ def packer_phase(torch, reset_counts, counts_all):
     else:
         os.environ["CHUNKFLOW_INT8"] = saved_leg
     return launched_total
+
+
+# phase 15's client process: it makes phase 15's requests from the same
+# seed, posts them from PACK_THREADS threads, and reports each answer's
+# SHA-256 and its host times (a remote user's process, so its JSON and
+# base64 work do not share the server's interpreter)
+SERVE_CLIENT = r"""
+import base64, hashlib, json, sys, threading, time
+import urllib.error, urllib.request
+import numpy as np
+
+args = json.loads(sys.argv[1])
+rng = np.random.default_rng(args["seed"])
+raws = [rng.integers(0, 256, s, dtype=np.uint8) for s in args["shapes"]]
+out = [None] * len(raws)
+
+
+def call(i):
+    t = time.perf_counter()
+    body = json.dumps({
+        "shape": list(raws[i].shape), "dtype": "uint8",
+        "data_b64": base64.b64encode(raws[i].tobytes()).decode(),
+        "voxel_offset": args["offsets"][i], "deadline_s": 600.0}).encode()
+    encode = time.perf_counter() - t
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/infer" % args["port"], data=body, method="POST")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    send = time.perf_counter() - t
+    t = time.perf_counter()
+    payload = json.loads(raw)
+    data = (base64.b64decode(payload["data_b64"]) if status == 200
+            else b"")
+    decode = time.perf_counter() - t
+    out[i] = {"status": status, "error": payload.get("error"),
+              "shape": payload.get("shape"), "dtype": payload.get("dtype"),
+              "sha256": hashlib.sha256(data).hexdigest(),
+              "encode_s": encode, "send_s": send, "decode_s": decode}
+
+
+def caller(k):
+    for i in range(k, len(raws), args["threads"]):
+        call(i)
+
+
+t = time.perf_counter()
+threads = [threading.Thread(target=caller, args=(k,))
+           for k in range(args["threads"])]
+for thread in threads:
+    thread.start()
+for thread in threads:
+    thread.join()
+print(json.dumps({"wall_s": time.perf_counter() - t, "requests": out,
+                  "inputs": [hashlib.sha256(r.tobytes()).hexdigest()
+                             for r in raws]}))
+"""
+
+
+def http_clients(port):
+    """Phase 15's requests from a client process; its report."""
+    args = json.dumps({"port": port, "seed": SERVE_SEED,
+                       "shapes": [list(s) for s in PACK_SHAPES],
+                       "offsets": [[100 * i, 0, 0]
+                                   for i in range(len(PACK_SHAPES))],
+                       "threads": PACK_THREADS})
+    proc = subprocess.run([sys.executable, "-c", SERVE_CLIENT, args],
+                          capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, f"serve: the client process failed: "
+                                  f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def serve_phase(torch, weights, reset_counts, counts_all):
+    """Phase 15: the serving front end (module docstring); returns the
+    launches of the HTTP runs."""
+    import base64
+    import hashlib
+    import os
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import slo, telemetry
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.parallel.restapi import (
+        bound_port,
+        parse_prometheus,
+        serving_stats,
+        shutdown_server,
+    )
+    from chunkflow_tpu_torch.serve import packer as packer_mod
+    from chunkflow_tpu_torch.serve.frontend import (
+        AdmissionController,
+        LocalBackend,
+        ServingService,
+        start_serving,
+    )
+
+    rng = np.random.default_rng(SERVE_SEED)
+    raws = [rng.integers(0, 256, s, dtype=np.uint8) for s in PACK_SHAPES]
+    offsets = [(100 * i, 0, 0) for i in range(len(raws))]
+    vox = sum(int(np.prod(s)) for s in PACK_SHAPES)
+    saved = {k: os.environ.get(k)
+             for k in ("CHUNKFLOW_PRECISION", "CHUNKFLOW_INT8")}
+    tmp = Path(tempfile.mkdtemp(prefix="serve-", dir=OUT_DIR))
+    slo_path = tmp / "slo.toml"
+    slo_path.write_text(SERVE_SLO_TOML)
+
+    def body(i, deadline_s=600.0):
+        return json.dumps({
+            "shape": list(raws[i].shape), "dtype": "uint8",
+            "data_b64": base64.b64encode(raws[i].tobytes()).decode(),
+            "voxel_offset": list(offsets[i]), "deadline_s": deadline_s,
+        }).encode()
+
+    def post(port, data):
+        """(status, JSON payload) of one ``POST /infer``."""
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/infer",
+                                     data=data, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    def decode(payload):
+        return np.frombuffer(base64.b64decode(payload["data_b64"]),
+                             dtype=payload["dtype"]).reshape(
+            payload["shape"])
+
+    def get(port, route):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=60) as resp:
+            require(resp.status == 200, f"serve: GET {route} {resp.status}")
+            return resp.read()
+
+    def pct(values, q):
+        return float(np.percentile(np.asarray(values), q))
+
+    def span_s(before, after, name):
+        """Seconds in the span ``name`` between two snapshots."""
+        return sum(sign * snap["hists"].get(name, {"total": 0.0})["total"]
+                   for sign, snap in ((1, after), (-1, before)))
+
+    launched_total = cli_ref = None
+    try:
+        for prec, leg in (("float32", None), ("int8", "real")):
+            os.environ["CHUNKFLOW_PRECISION"] = prec
+            if leg is None:
+                os.environ.pop("CHUNKFLOW_INT8", None)
+            else:
+                os.environ["CHUNKFLOW_INT8"] = leg
+            label = f"parity f32 engine batch {PACK_BATCH} {leg or prec}"
+            # what `serve -f flax -w W -p 20 256 256 --output-patch-overlap
+            # 4 64 64 -c 3 -b 4` builds
+            inf = Inferencer(input_patch_size=PIN,
+                             output_patch_overlap=OVERLAP,
+                             num_output_channels=CHANNELS, framework="flax",
+                             weight_path=str(weights), batch_size=PACK_BATCH)
+            require(inf.precision == prec,
+                    f"serve {label}: precision {inf.precision}")
+            chunks = [Chunk(r, voxel_offset=o) for r, o in zip(raws, offsets)]
+            inf(chunks[0]).host()  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            refs = [inf(c).host().array for c in chunks]
+            one_by_one = time.perf_counter() - t
+
+            # the in-process packer on the same model and requests
+            packer = packer_mod.PatchPacker(inf, max_wait_ms=2.0)
+            packer.infer(chunks[0], timeout=600).host()
+            results = [None] * len(chunks)
+
+            def submitter(k):
+                handles = [(i, packer.submit(chunks[i]))
+                           for i in range(k, len(chunks), PACK_THREADS)]
+                for i, handle in handles:
+                    results[i] = handle.result(timeout=600).host().array
+
+            t = time.perf_counter()
+            threads = [threading.Thread(target=submitter, args=(k,))
+                       for k in range(PACK_THREADS)]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join()
+            in_process = time.perf_counter() - t
+            packer.close()
+            require(all(np.array_equal(r, ref)
+                        for r, ref in zip(results, refs)),
+                    f"serve {label}: an in-process packed result differs")
+
+            # the front end on a real listener, under the SLO plane
+            telemetry.reset()
+            telemetry.configure(str(tmp / f"metrics-{leg or prec}"))
+            evaluator = slo.start_slo(str(slo_path),
+                                      pyproject=str(tmp / "none.toml"))
+            require(evaluator is not None, "serve: no SLO evaluator")
+            backend = LocalBackend(inf, workers=SERVE_WORKERS,
+                                   max_wait_ms=2.0)
+            service = ServingService(
+                backend,
+                admission=AdmissionController(SERVE_MAX_INFLIGHT),
+                default_deadline_s=600.0)
+            server = start_serving(service, host="127.0.0.1", port=0)
+            port = bound_port(server)
+            flavours = []
+            plain = packer_mod.accumulate.fused_accumulate_patches
+
+            def counted(*args, pre_weighted=False):
+                flavours.append(pre_weighted)
+                return plain(*args, pre_weighted=pre_weighted)
+
+            try:
+                status, _ = post(port, body(0))  # the dispatcher's start
+                require(status == 200, f"serve {label}: warm-up {status}")
+                bodies = [body(0)]
+                with mock.patch.object(packer_mod.accumulate,
+                                       "fused_accumulate_patches", counted):
+                    before = telemetry.snapshot()
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    report = http_clients(port)
+                    launched = counts_all()
+                    after = telemetry.snapshot()
+                over_http = report["wall_s"]
+                require(report["inputs"] == [
+                    hashlib.sha256(r.tobytes()).hexdigest() for r in raws],
+                    f"serve {label}: the client made other requests")
+                for i, got in enumerate(report["requests"]):
+                    require(got["status"] == 200,
+                            f"serve {label}: request {i} answered "
+                            f"{got['status']}: {got['error']}")
+                    require(got["shape"] == list(refs[i].shape)
+                            and got["dtype"] == refs[i].dtype.name
+                            and got["sha256"] == hashlib.sha256(
+                                refs[i].tobytes()).hexdigest(),
+                            f"serve {label}: response {i} differs from its "
+                            f"Inferencer.__call__")
+                client = {k: [r[k] for r in report["requests"]]
+                          for k in ("send_s", "encode_s", "decode_s")}
+                require(flavours and all(flavours)
+                        and launched["gather"] > 0
+                        and launched["accumulate"] > 0,
+                        f"serve {label}: launches {launched}, "
+                        f"{len(flavours)} accumulate calls "
+                        f"({flavours.count(False)} not pre-weighted)")
+                require((launched["conv3d_int8"] > 0) == (leg == "real"),
+                        f"serve {label}: conv3d_int8 launches {launched}")
+                counters = {k: after["counters"].get(k, 0)
+                            - before["counters"].get(k, 0)
+                            for k in after["counters"]}
+                require(counters.get("serving/fallbacks", 0) == 0
+                        and counters.get("serving/completed") == len(raws),
+                        f"serve {label}: counters {counters}")
+
+                # what the host spent per request, apart from the compute
+                n = len(raws)
+                ms = {name: span_s(before, after, f"serving/{name}") * 1e3 / n
+                      for name in ("decode", "encode", "request", "forward",
+                                   "scatter")}
+                batches = int(counters.get("serving/batches", 0))
+                patches = int(counters.get("serving/packed_patches", 0))
+                filler = int(counters.get("serving/filler_slots", 0))
+                latency = after["qhists"]["serving/latency"]
+                p50 = telemetry.quantile_from_buckets(latency, 0.5)
+                p99 = telemetry.quantile_from_buckets(latency, 0.99)
+                phase("serve", f"{label}: {n} requests over HTTP from "
+                               f"{PACK_THREADS} threads of a client "
+                               f"process, {SERVE_WORKERS} lifecycle "
+                               f"workers: every response == its "
+                               f"Inferencer.__call__ bitwise (SHA-256 of "
+                               f"its bytes); launches {launched}; "
+                               f"pre-weighted accumulate in "
+                               f"{len(flavours)} calls; {batches} batches, "
+                               f"{patches} patches, {filler} filler slots, "
+                               f"occupancy "
+                               f"{patches / max(1, batches * PACK_BATCH):.1%}")
+                phase("serve", f"{label}: over HTTP {over_http:.4f} s = "
+                               f"{n / over_http:.2f} requests/s, "
+                               f"{vox / over_http / 1e6:.3f} Mvox/s; "
+                               f"in-process packer {in_process:.4f} s = "
+                               f"{n / in_process:.2f} requests/s, "
+                               f"{vox / in_process / 1e6:.3f} Mvox/s; one "
+                               f"by one {one_by_one:.4f} s = "
+                               f"{n / one_by_one:.2f} requests/s, "
+                               f"{vox / one_by_one / 1e6:.3f} Mvox/s")
+                phase("serve", f"{label}: latency client p50 "
+                               f"{pct(client['send_s'], 50):.4f} s, p99 "
+                               f"{pct(client['send_s'], 99):.4f} s; "
+                               f"serving/latency p50 {p50:.4f} s, p99 "
+                               f"{p99:.4f} s (bucket estimates)")
+                phase("serve", f"{label}: host ms per request: server "
+                               f"decode {ms['decode']:.1f}, encode (download"
+                               f", base64, JSON) {ms['encode']:.1f}, "
+                               f"request span {ms['request']:.1f} of which "
+                               f"the packer's forward {ms['forward']:.1f} "
+                               f"and scatter {ms['scatter']:.1f} (summed "
+                               f"over its batches); client encode "
+                               f"{1e3 * sum(client['encode_s']) / n:.1f}, "
+                               f"decode (JSON, base64) "
+                               f"{1e3 * sum(client['decode_s']) / n:.1f}")
+
+                # the door: a burst past a bound of two, and a deadline
+                service.admission.max_inflight = 2
+                gate = threading.Barrier(SERVE_BURST)
+                burst = []
+
+                def burster():
+                    gate.wait()
+                    status, payload = post(port, bodies[0])
+                    arr = decode(payload) if status == 200 else None
+                    burst.append((status, payload.get("reason"), arr))
+
+                threads = [threading.Thread(target=burster)
+                           for _ in range(SERVE_BURST)]
+                for thread in threads:
+                    thread.start()
+                for thread in threads:
+                    thread.join()
+                service.admission.max_inflight = SERVE_MAX_INFLIGHT
+                shed = [r for s_, r, _ in burst if s_ == 429]
+                require(shed and all(r == "inflight" for r in shed),
+                        f"serve {label}: burst statuses "
+                        f"{[(s_, r) for s_, r, _ in burst]}")
+                require(all(np.array_equal(a, refs[0])
+                            for s_, _, a in burst if s_ == 200),
+                        f"serve {label}: a burst response differs")
+                status, _ = post(port, body(0, deadline_s=0.001))
+                require(status == 504, f"serve {label}: a 0.001 s deadline "
+                                       f"answered {status}")
+                phase("serve", f"{label}: a burst of {SERVE_BURST} past an "
+                               f"in-flight bound of 2: {len(shed)} x 429 "
+                               f"inflight, {SERVE_BURST - len(shed)} x 200 "
+                               f"bitwise; deadline 0.001 s: 504")
+
+                # the observability routes on the same listener
+                text = get(port, "/metrics").decode()
+                flat = parse_prometheus(text)
+                stats = serving_stats(text)
+                require("chunkflow_serving_latency_count" in flat
+                        and stats is not None
+                        and stats["p99_s"] is not None,
+                        f"serve {label}: /metrics carries no serving/latency")
+                health = json.loads(get(port, "/healthz"))
+                serving = json.loads(get(port, "/serving"))
+                evaluator.tick()
+                alerts = json.loads(get(port, "/alerts"))
+                require(health["status"] == "ok"
+                        and serving["deadline_missed"] >= 1
+                        and alerts["enabled"]
+                        and len(alerts["objectives"]) == 4,
+                        f"serve {label}: /healthz {health}, /serving "
+                        f"{serving}, /alerts {alerts}")
+                phase("serve", f"{label}: /metrics {len(flat)} samples "
+                               f"(serving p50 {stats['p50_s']:.4f} s, p99 "
+                               f"{stats['p99_s']:.4f} s, rejects "
+                               f"{stats['rejects']:g}); /healthz ok; "
+                               f"/serving {serving['completed']:g} "
+                               f"completed, {serving['deadline_missed']:g} "
+                               f"deadline miss(es); /alerts "
+                               f"{len(alerts['objectives'])} objectives, "
+                               f"firing {alerts['firing']}")
+                if leg is None:
+                    profile_route(torch, port, post, bodies)
+            finally:
+                shutdown_server(server)
+                backend.close()
+                slo.stop_slo()
+                telemetry.reset()
+            if leg is None:
+                cli_ref = refs[-1]
+            if launched_total is None:
+                launched_total = launched
+            else:
+                launched_total = {k: launched_total[k] + v
+                                  for k, v in launched.items()}
+            del inf, refs, results, bodies
+            torch.cuda.empty_cache()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    serve_command(weights, tmp, raws[-1], offsets[-1], cli_ref)
+    return launched_total
+
+
+def profile_route(torch, port, post, bodies):
+    """``POST /profile?seconds=N`` while client threads keep requests in
+    flight: the trace names the gather and accumulate kernels that the
+    lifecycle and dispatcher threads launched. A session whose device
+    events were dropped is taken again."""
+    import threading
+    import urllib.request
+
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            post(port, bodies[0])
+
+    threads = [threading.Thread(target=load) for _ in range(2)]
+    for thread in threads:
+        thread.start()
+    try:
+        for attempt in range(1, TRACE_TRIES + 1):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/profile?seconds={SERVE_PROFILE_S}",
+                data=b"", method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                require(resp.status == 200, f"serve: /profile {resp.status}")
+                payload = json.loads(resp.read())
+            trace = Path(payload["trace_dir"]) / "trace.json"
+            events = json.loads(trace.read_text()).get("traceEvents", [])
+            kernels = [e.get("name", "") for e in events
+                       if e.get("cat") == "kernel"]
+            found = {k: sum(k in name for name in kernels)
+                     for k in ("gather_kernel", "accumulate_kernel")}
+            if all(found.values()):
+                break
+            phase("timer", f"serve: /profile session {attempt} traced "
+                           f"{len(kernels)} kernels ({found}); taken again")
+        else:
+            raise SmokeFailure(f"serve: no /profile session in "
+                               f"{TRACE_TRIES} traced both kernels")
+    finally:
+        stop.set()
+        for thread in threads:
+            thread.join()
+    phase("serve", f"POST /profile?seconds={SERVE_PROFILE_S:g} under load: "
+                   f"{trace} holds {len(kernels)} kernels, gather_kernel x "
+                   f"{found['gather_kernel']}, accumulate_kernel x "
+                   f"{found['accumulate_kernel']}")
+
+
+def serve_command(weights, tmp, raw, offset, ref):
+    """``python -m chunkflow_tpu_torch -v serve --port 0 ...`` as a user
+    starts it: its bound port, the request ``raw`` answered bitwise its
+    float32 ``Inferencer.__call__`` ``ref``, then a drain on SIGTERM."""
+    import base64
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CHUNKFLOW_PRECISION", "CHUNKFLOW_INT8",
+                        "CHUNKFLOW_CHAOS")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "chunkflow_tpu_torch", "-v",
+           "--metrics-dir", str(tmp / "metrics-cli"), "serve", "--port", "0",
+           "--host", "127.0.0.1", "-f", "flax", "-w", str(weights),
+           "-p", *map(str, PIN), "--output-patch-overlap", *map(str, OVERLAP),
+           "-c", str(CHANNELS), "-b", str(PACK_BATCH),
+           "--max-runtime", str(SERVE_RUNTIME_S)]
+    log = tmp / "serve-cli.err"
+    t = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    lines = []
+    try:
+        timer = threading.Timer(SERVE_RUNTIME_S, proc.kill)
+        timer.start()
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("serving: http://"):
+                    break
+        finally:
+            timer.cancel()
+        require(lines and lines[-1].startswith("serving: http://"),
+                f"serve command: no serving line: {lines} "
+                f"{log.read_text()[-3000:]}")
+        port = int(lines[-1].split("/infer")[0].rsplit(":", 1)[1])
+        started = time.perf_counter() - t
+        data = json.dumps({
+            "shape": list(raw.shape), "dtype": "uint8",
+            "data_b64": base64.b64encode(raw.tobytes()).decode(),
+            "voxel_offset": list(offset), "deadline_s": 300.0}).encode()
+        t = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/infer",
+                                     data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            payload = json.loads(resp.read())
+        answered = time.perf_counter() - t
+        got = np.frombuffer(base64.b64decode(payload["data_b64"]),
+                            dtype=payload["dtype"]).reshape(payload["shape"])
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines += out.splitlines()
+    require(proc.returncode == 0, f"serve command: rc {proc.returncode}: "
+                                  f"{log.read_text()[-3000:]}")
+    require(np.array_equal(got, ref), "serve command: the response differs "
+                                      "from Inferencer.__call__")
+    drained = [ln for ln in lines if ln.startswith("serve drained: ")]
+    counters = [ln for ln in lines if ln.startswith("run counters: ")]
+    require("serve: draining on preemption signal" in lines and drained
+            and counters, f"serve command: no drain lines: {lines[-12:]}")
+    run = json.loads(counters[-1][len("run counters: "):])
+    require(run["kernels/gather"] > 0 and run["kernels/accumulate"] > 0
+            and run["kernels/conv3d_int8"] == 0,
+            f"serve command: run counters {run}")
+    phase("serve", f"python -m chunkflow_tpu_torch -v serve --port 0 -f "
+                   f"flax: bound port {port} after {started:.1f} s; one "
+                   f"{raw.shape} request answered in {answered:.2f} s "
+                   f"== Inferencer.__call__ bitwise; SIGTERM: "
+                   f"{drained[-1]}; kernels/gather "
+                   f"{run['kernels/gather']}, kernels/accumulate "
+                   f"{run['kernels/accumulate']}")
 
 
 def _brief(counters):

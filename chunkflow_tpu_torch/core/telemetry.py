@@ -1,49 +1,85 @@
-"""In-process telemetry: counters, gauges, span histograms and events.
+"""In-process telemetry: counters, gauges, histograms, spans and events.
 
-The counterpart of ``chunkflow_tpu/core/telemetry.py``, cut to what the
-port's planes read and write: the same names (``span`` with
-``.duration``, ``inc``, ``gauge``, ``observe``, ``event``,
-``hist_totals``, ``enabled``, ``task_context``, ``snapshot``, ``reset``,
-``configure``), the same ``CHUNKFLOW_TELEMETRY`` kill switch, and one
-process-wide registry behind one lock, so executor threads and pool
-workers may report concurrently. Events are kept in memory (the newest
-:data:`MAX_EVENTS`) and, after :func:`configure` (the CLI's
-``--metrics-dir``), appended to a JSONL file of the process, one line
-each as it happens, so a worker killed mid-run leaves what it did.
+The counterpart of ``chunkflow_tpu/core/telemetry.py``: the same names
+(``span`` with ``.duration``, ``inc``, ``gauge``, ``chip_gauge``,
+``observe``, ``observe_quantile``, ``quantile``, ``event``,
+``hist_totals``, ``enabled``, ``worker_id``, ``task_context``,
+``snapshot``, ``flush``, ``reset``, ``configure``, ``configured_path``,
+``summary_table``), the same ``CHUNKFLOW_TELEMETRY`` kill switch, and
+one process-wide registry behind one lock, so executor threads, pool
+workers and HTTP handler threads may report concurrently. Events are
+kept in memory (the newest :data:`MAX_EVENTS`) and, after
+:func:`configure` (the CLI's ``--metrics-dir``), appended to
+``telemetry-<worker>.jsonl``, one line each as it happens, so a worker
+killed mid-run leaves what it did. Every event carries the
+:func:`worker_id` and, inside a :func:`task_context`, the task's
+``trace_id``.
+
+Quantile histograms (:func:`observe_quantile`) count samples into the
+fixed :data:`QUANTILE_BOUNDS` buckets, so bucket counts add up across
+workers and render as a Prometheus histogram (``parallel/restapi.py``);
+``serving/latency`` is one. The time-series sampler
+(:func:`start_timeseries`, every ``CHUNKFLOW_TS_INTERVAL`` seconds into
+rings of ``CHUNKFLOW_TS_POINTS``) derives counter rates, copies gauges
+and estimates p50/p99, writes one ``timeseries`` event, then runs the
+tick hooks (the SLO evaluator, ``core/slo.py``). Flush and reset hooks
+let other planes (``core/profiling.py``, ``core/slo.py``) ride the
+run's lifecycle without this module importing them.
 
 Span names follow ``<layer>/<phase>``: ``pipeline/stage``,
 ``pipeline/dispatch``, ``pipeline/compute``, ``pipeline/drain``,
 ``scheduler/load``, ``scheduler/post``, ``scheduler/write``,
 ``op/<operator>``, ``storage/read``, ``storage/write``,
-``lifecycle/claim``, ``lifecycle/commit``, ``lifecycle/release``. The
+``lifecycle/claim``, ``lifecycle/commit``, ``lifecycle/release``,
+``serving/request``, ``serving/forward``, ``serving/scatter``. The
 depth controller sums the first six (and ``scheduler/write``) through
 :func:`hist_totals`. Counters of the worker loop: ``pipeline/tasks``,
 ``pipeline/chain_rebuilds``, ``inference/chunks``, ``storage/*``
 (``volume/storage.py``), ``queue/sent``, ``queue/receives``,
 ``tasks/committed``, ``tasks/retried``, ``tasks/dead_lettered``,
 ``tasks/preempted``, ``tasks/surrendered``, ``lease/renewals``,
-``ledger/skips`` (``parallel/lifecycle.py``) and ``chaos/injected``.
+``ledger/skips`` (``parallel/lifecycle.py``), ``chaos/injected`` and
+the ``serving/*`` counters of ``serve/frontend.py``.
 """
 from __future__ import annotations
 
 import contextvars
 import json
 import os
+import re
+import socket
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
-    "enabled", "inc", "gauge", "observe", "event", "span", "hist_totals",
-    "task_context", "current_trace_id", "snapshot", "reset", "configure",
-    "MAX_EVENTS",
+    "enabled", "inc", "gauge", "chip_gauge", "observe", "observe_quantile",
+    "quantile", "quantile_from_buckets", "QUANTILE_BOUNDS", "event", "span",
+    "hist_totals", "worker_id", "task_context", "current_trace_id",
+    "snapshot", "flush", "reset", "configure", "configured_path",
+    "summary_table", "add_flush_hook", "add_reset_hook", "timeseries",
+    "start_timeseries", "stop_timeseries", "timeseries_running",
+    "add_tick_hook", "remove_tick_hook", "ts_interval", "ts_points",
+    "CHIP_METRIC_RE", "MAX_EVENTS",
 ]
+
+#: per-chip metric names, ``<plane>/chip/<i>/<metric>``: the ``/metrics``
+#: renderer folds the chip index into a ``chip`` label
+CHIP_METRIC_RE = re.compile(
+    r"^(?P<plane>[^/]+(?:/[^/]+)*)/chip/(?P<chip>\d+)/(?P<metric>.+)$")
 
 _OFF_VALUES = ("0", "off", "false", "no")
 
 #: events kept in memory (oldest dropped first)
 MAX_EVENTS = 1024
+
+#: upper bucket bounds (seconds) of the quantile histograms, 1 ms to
+#: 2 min, with an implicit +inf overflow bucket
+QUANTILE_BOUNDS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+)
 
 
 def enabled() -> bool:
@@ -51,6 +87,29 @@ def enabled() -> bool:
     can flip it at run time."""
     return os.environ.get("CHUNKFLOW_TELEMETRY", "1").lower() \
         not in _OFF_VALUES
+
+
+_WORKER_ID: Optional[str] = None
+_WORKER_ID_LOCK = threading.Lock()
+
+
+def worker_id() -> str:
+    """This process's identity: ``CHUNKFLOW_WORKER_ID``, else
+    ``<hostname>-<pid>``; cached until :func:`reset`."""
+    global _WORKER_ID
+    wid = _WORKER_ID
+    if wid is None:
+        with _WORKER_ID_LOCK:
+            if _WORKER_ID is None:
+                _WORKER_ID = (os.environ.get("CHUNKFLOW_WORKER_ID")
+                              or f"{socket.gethostname()}-{os.getpid()}")
+            wid = _WORKER_ID
+    return wid
+
+
+def _safe(name: str) -> str:
+    return "".join(ch if ch.isalnum() or ch in "._-" else "_"
+                   for ch in name)
 
 
 _TASK_CTX: contextvars.ContextVar = contextvars.ContextVar(
@@ -90,6 +149,30 @@ def task_context(trace_id: Optional[str]):
     return _TaskContext(trace_id)
 
 
+def quantile_from_buckets(qhist: dict, q: float) -> Optional[float]:
+    """The ``q``-quantile (0..1) of a snapshot-form quantile histogram
+    ``{"count": n, "buckets": [...per bound..., overflow]}``, interpolated
+    linearly inside the covering bucket; None when empty, the largest
+    bound when the rank falls in the overflow bucket."""
+    count = qhist.get("count", 0)
+    buckets = qhist.get("buckets") or []
+    if not count or not buckets:
+        return None
+    rank = q * count
+    seen = 0.0
+    lower = 0.0
+    for i, n in enumerate(buckets):
+        upper = (QUANTILE_BOUNDS[i] if i < len(QUANTILE_BOUNDS)
+                 else QUANTILE_BOUNDS[-1])
+        if n and seen + n >= rank:
+            if i >= len(QUANTILE_BOUNDS):
+                return QUANTILE_BOUNDS[-1]
+            return lower + (rank - seen) / n * (upper - lower)
+        seen += n
+        lower = upper
+    return QUANTILE_BOUNDS[-1]
+
+
 class _Registry:
     """Process-wide metric state; all mutation under one lock."""
 
@@ -99,8 +182,11 @@ class _Registry:
         self.gauges: Dict[str, float] = {}
         # name -> [count, total, min, max]
         self.hists: Dict[str, list] = {}
+        # name -> [count, total, min, max, [bucket counts..., overflow]]
+        self.qhists: Dict[str, list] = {}
         self.events: deque = deque(maxlen=MAX_EVENTS)
         self.sink = None  # the open JSONL file of :func:`configure`
+        self.sink_path: Optional[str] = None
 
     def add_hist(self, name: str, value: float) -> None:
         with self.lock:
@@ -112,6 +198,33 @@ class _Registry:
                 h[1] += value
                 h[2] = min(h[2], value)
                 h[3] = max(h[3], value)
+
+    def add_qhist(self, name: str, value: float) -> None:
+        with self.lock:
+            h = self.qhists.get(name)
+            if h is None:
+                h = self.qhists[name] = [
+                    0, 0.0, value, value, [0] * (len(QUANTILE_BOUNDS) + 1)]
+            h[0] += 1
+            h[1] += value
+            h[2] = min(h[2], value)
+            h[3] = max(h[3], value)
+            for i, bound in enumerate(QUANTILE_BOUNDS):
+                if value <= bound:
+                    h[4][i] += 1
+                    break
+            else:
+                h[4][-1] += 1
+
+    def write(self, payload: dict) -> None:
+        """Append to the sink (caller holds the lock); a full disk or a
+        closed file drops the sink, never the pipeline."""
+        if self.sink is None:
+            return
+        try:
+            self.sink.write(json.dumps(payload, default=str) + "\n")
+        except (OSError, ValueError):
+            self.sink = None
 
 
 _REG = _Registry()
@@ -135,6 +248,12 @@ def gauge(name: str, value: float) -> None:
     _REG.add_hist(name, value)
 
 
+def chip_gauge(plane: str, chip: int, metric: str, value: float) -> None:
+    """A per-chip gauge named ``<plane>/chip/<i>/<metric>``
+    (:data:`CHIP_METRIC_RE`)."""
+    gauge(f"{plane}/chip/{int(chip)}/{metric}", value)
+
+
 def observe(name: str, value: float) -> None:
     """Fold a sample into a histogram."""
     if not enabled():
@@ -142,37 +261,65 @@ def observe(name: str, value: float) -> None:
     _REG.add_hist(name, value)
 
 
-def event(kind: str, name: str, **attrs) -> None:
-    """Record a free-form event (a depth change, say) in memory."""
+def observe_quantile(name: str, value: float) -> None:
+    """Fold a sample (seconds) into the fixed-bound quantile histogram
+    ``name``."""
     if not enabled():
         return
-    payload = {"kind": kind, "name": name, "t": time.time(), **attrs}
+    _REG.add_qhist(name, value)
+
+
+def quantile(name: str, q: float) -> Optional[float]:
+    """The live ``q``-quantile of a quantile histogram; None when it has
+    no samples (or telemetry is off)."""
+    if not enabled():
+        return None
+    with _REG.lock:
+        h = _REG.qhists.get(name)
+        if h is None:
+            return None
+        snap = {"count": h[0], "buckets": list(h[4])}
+    return quantile_from_buckets(snap, q)
+
+
+def event(kind: str, name: str, **attrs) -> None:
+    """Record a free-form event (a depth change, an alert) in memory and,
+    once configured, in the JSONL file."""
+    if not enabled():
+        return
+    payload = {"kind": kind, "name": name, "t": time.time(), **attrs,
+               "worker": worker_id()}
     trace_id = _TASK_CTX.get()
     if trace_id is not None:
         payload["trace_id"] = trace_id
     with _REG.lock:
         _REG.events.append(payload)
-        if _REG.sink is not None:
-            _REG.sink.write(json.dumps(payload, default=str) + "\n")
+        _REG.write(payload)
 
 
 def configure(metrics_dir: Optional[str]) -> Optional[str]:
-    """Append every later event to ``<metrics_dir>/telemetry-<pid>.jsonl``
-    (line-buffered: each line reaches the operating system as it is
-    written); None closes the file. Returns the path, or None when off
-    (nothing is created under ``CHUNKFLOW_TELEMETRY=0``)."""
+    """Append every later event to
+    ``<metrics_dir>/telemetry-<worker>.jsonl`` (line-buffered: each line
+    reaches the operating system as it is written); None closes the file.
+    Returns the path, or None when off (nothing is created under
+    ``CHUNKFLOW_TELEMETRY=0``)."""
     with _REG.lock:
         if _REG.sink is not None:
             _REG.sink.close()
-        _REG.sink = None
+        _REG.sink, _REG.sink_path = None, None
     if metrics_dir is None or not enabled():
         return None
     os.makedirs(metrics_dir, exist_ok=True)
-    path = os.path.join(metrics_dir, f"telemetry-{os.getpid()}.jsonl")
+    path = os.path.join(metrics_dir, f"telemetry-{_safe(worker_id())}.jsonl")
     sink = open(path, "a", buffering=1)
     with _REG.lock:
-        _REG.sink = sink
+        _REG.sink, _REG.sink_path = sink, path
     return path
+
+
+def configured_path() -> Optional[str]:
+    """The JSONL file of :func:`configure`, or None."""
+    return _REG.sink_path
 
 
 class _NullSpan:
@@ -227,28 +374,291 @@ def hist_totals(names) -> Dict[str, float]:
                 for name in names}
 
 
+def _metrics_locked() -> dict:
+    snap = {
+        "counters": dict(_REG.counters),
+        "gauges": dict(_REG.gauges),
+        "hists": {
+            name: {"count": h[0], "total": h[1], "min": h[2], "max": h[3],
+                   "mean": h[1] / h[0] if h[0] else 0.0}
+            for name, h in _REG.hists.items()
+        },
+    }
+    if _REG.qhists:
+        snap["qhists"] = {
+            name: {"count": h[0], "total": h[1], "min": h[2], "max": h[3],
+                   "buckets": list(h[4])}
+            for name, h in _REG.qhists.items()
+        }
+    return snap
+
+
 def snapshot() -> dict:
     """A copy of everything recorded: ``{"counters", "gauges", "hists":
-    {name: {count, total, min, max, mean}}, "events": [...]}``."""
+    {name: {count, total, min, max, mean}}, "events": [...]}``, and
+    ``"qhists": {name: {count, total, min, max, buckets}}`` once a
+    quantile histogram has samples."""
     with _REG.lock:
-        return {
-            "counters": dict(_REG.counters),
-            "gauges": dict(_REG.gauges),
-            "hists": {
-                name: {"count": h[0], "total": h[1], "min": h[2],
-                       "max": h[3], "mean": h[1] / h[0] if h[0] else 0.0}
-                for name, h in _REG.hists.items()
-            },
-            "events": list(_REG.events),
-        }
+        snap = _metrics_locked()
+        snap["events"] = list(_REG.events)
+        return snap
+
+
+# ---------------------------------------------------------------------------
+# the time-series sampler
+# ---------------------------------------------------------------------------
+def _env_number(name: str, default, cast):
+    raw = os.environ.get(name, "")
+    try:
+        return cast(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def ts_interval() -> float:
+    """Seconds between samples (``CHUNKFLOW_TS_INTERVAL``, default 10;
+    <= 0 disables the sampler)."""
+    return _env_number("CHUNKFLOW_TS_INTERVAL", 10.0, float)
+
+
+def ts_points() -> int:
+    """Ring capacity per metric (``CHUNKFLOW_TS_POINTS``, default 360)."""
+    return max(2, _env_number("CHUNKFLOW_TS_POINTS", 360, int))
+
+
+_TICK_HOOKS: list = []
+_FLUSH_HOOKS: list = []
+_RESET_HOOKS: list = []
+
+
+def add_tick_hook(fn) -> None:
+    """Run ``fn(now)`` after every time-series sample (idempotent); a
+    raising hook is skipped for that tick."""
+    if fn not in _TICK_HOOKS:
+        _TICK_HOOKS.append(fn)
+
+
+def remove_tick_hook(fn) -> None:
+    if fn in _TICK_HOOKS:
+        _TICK_HOOKS.remove(fn)
+
+
+def add_flush_hook(fn) -> None:
+    """Run ``fn(metrics_dir or None)`` at every :func:`flush`."""
+    if fn not in _FLUSH_HOOKS:
+        _FLUSH_HOOKS.append(fn)
+
+
+def add_reset_hook(fn) -> None:
+    """Run ``fn()`` at every :func:`reset`."""
+    if fn not in _RESET_HOOKS:
+        _RESET_HOOKS.append(fn)
+
+
+def _run_hooks(hooks, *args) -> None:
+    for hook in list(hooks):
+        try:
+            hook(*args)
+        except Exception:
+            pass  # an observability plane never takes the pipeline down
+
+
+class _TimeSeriesSampler:
+    """Bounded ``(t, value)`` rings over the registry, fed by one daemon
+    thread: ``rate:<counter>`` against the previous tick,
+    ``gauge:<name>``, and ``p50:``/``p99:<qhist>``."""
+
+    def __init__(self, interval: float, points: int):
+        self.interval = max(0.01, float(interval))
+        self.points = int(points)
+        self._lock = threading.Lock()
+        self._rings: Dict[str, deque] = {}
+        self._prev: Optional[Tuple[float, dict]] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        # the baseline the first rates are taken against
+        self.sample()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chunkflow-timeseries")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            if enabled():
+                try:
+                    self.sample()
+                except Exception:
+                    pass
+
+    def sample(self, now: Optional[float] = None) -> Dict[str, float]:
+        """One tick (the thread's body; :func:`flush` and tests call it):
+        returns the sampled ``{name: value}``."""
+        if now is None:
+            now = time.time()
+        with _REG.lock:
+            snap = _metrics_locked()
+        qhists = snap.get("qhists") or {}
+        values: Dict[str, float] = {}
+        with self._lock:
+            prev = self._prev
+            if prev is not None and now > prev[0]:
+                dt = now - prev[0]
+                for name, value in snap["counters"].items():
+                    values[f"rate:{name}"] = round(
+                        (value - prev[1].get(name, 0.0)) / dt, 6)
+            self._prev = (now, dict(snap["counters"]))
+            for name, value in snap["gauges"].items():
+                values[f"gauge:{name}"] = value
+            for name, h in qhists.items():
+                p50 = quantile_from_buckets(h, 0.5)
+                if p50 is not None:
+                    values[f"p50:{name}"] = p50
+                    values[f"p99:{name}"] = quantile_from_buckets(h, 0.99)
+            for name, value in values.items():
+                ring = self._rings.get(name)
+                if ring is None:
+                    ring = self._rings[name] = deque(maxlen=self.points)
+                ring.append((now, value))
+        if values or qhists:
+            event("timeseries", "timeseries/sample",
+                  interval_s=self.interval, values=values,
+                  qhists={name: {"count": h["count"],
+                                 "buckets": h["buckets"]}
+                          for name, h in qhists.items()})
+        _run_hooks(_TICK_HOOKS, now)
+        return values
+
+    def series(self) -> Dict[str, List[Tuple[float, float]]]:
+        with self._lock:
+            return {name: list(ring) for name, ring in self._rings.items()}
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout=timeout)
+
+
+_SAMPLER_LOCK = threading.Lock()
+_SAMPLER: Optional[_TimeSeriesSampler] = None
+
+
+def start_timeseries(interval: Optional[float] = None,
+                     points: Optional[int] = None):
+    """Start the sampler thread (idempotent: a running sampler is
+    returned as it is). None, and no thread, when telemetry is off or the
+    interval is <= 0."""
+    global _SAMPLER
+    if not enabled():
+        return None
+    if interval is None:
+        interval = ts_interval()
+    if interval <= 0:
+        return None
+    with _SAMPLER_LOCK:
+        if _SAMPLER is not None:
+            return _SAMPLER
+        sampler = _SAMPLER = _TimeSeriesSampler(
+            interval, ts_points() if points is None else points)
+    sampler.start()
+    return sampler
+
+
+def stop_timeseries() -> None:
+    """Stop and join the sampler thread."""
+    global _SAMPLER
+    with _SAMPLER_LOCK:
+        sampler, _SAMPLER = _SAMPLER, None
+    if sampler is not None:
+        sampler.stop()
+
+
+def timeseries_running() -> bool:
+    return _SAMPLER is not None
+
+
+def timeseries() -> Dict[str, List[Tuple[float, float]]]:
+    """Copies of the per-metric ``[(t, value), ...]`` rings, or ``{}``
+    when no sampler runs."""
+    sampler = _SAMPLER
+    return {} if sampler is None else sampler.series()
+
+
+def flush() -> None:
+    """Take a last sample (and SLO tick), run the flush hooks, and write
+    the aggregate snapshot as a ``snapshot`` event to the JSONL file."""
+    if not enabled():
+        return
+    sampler = _SAMPLER
+    if sampler is not None:
+        try:
+            sampler.sample()
+        except Exception:
+            pass
+    path = _REG.sink_path
+    _run_hooks(_FLUSH_HOOKS, os.path.dirname(path) if path else None)
+    with _REG.lock:
+        payload = {"kind": "snapshot", "t": time.time(), "pid": os.getpid(),
+                   "worker": worker_id(), **_metrics_locked()}
+        _REG.write(payload)
+        if _REG.sink is not None:
+            try:
+                _REG.sink.flush()
+            except OSError:
+                pass
 
 
 def reset() -> None:
-    """Clear every metric and event and close the event file (tests; each
-    CLI run starts here)."""
+    """Clear every metric and event, close the event file, stop the
+    sampler and drop the cached worker id (tests; each CLI run starts
+    here)."""
+    global _WORKER_ID
+    stop_timeseries()
+    _TICK_HOOKS.clear()
     configure(None)
     with _REG.lock:
         _REG.counters.clear()
         _REG.gauges.clear()
         _REG.hists.clear()
+        _REG.qhists.clear()
         _REG.events.clear()
+    with _WORKER_ID_LOCK:
+        _WORKER_ID = None
+    _run_hooks(_RESET_HOOKS)
+
+
+def summary_table() -> str:
+    """The end-of-run table of spans, latency histograms, counters and
+    last-value gauges (the CLI prints it under ``-v``); empty when
+    nothing was recorded."""
+    snap = snapshot()
+    lines = []
+    if snap["hists"]:
+        lines.append(f"  {'span':<28} {'count':>7} {'total_s':>9} "
+                     f"{'mean_s':>9} {'max_s':>9}")
+        for name in sorted(snap["hists"]):
+            h = snap["hists"][name]
+            lines.append(f"  {name:<28} {h['count']:>7} {h['total']:>9.3f} "
+                         f"{h['mean']:>9.4f} {h['max']:>9.4f}")
+    if snap.get("qhists"):
+        lines.append(f"  {'latency hist':<28} {'count':>7} {'p50_s':>9} "
+                     f"{'p99_s':>9}")
+        for name in sorted(snap["qhists"]):
+            h = snap["qhists"][name]
+            p50 = quantile_from_buckets(h, 0.5)
+            p99 = quantile_from_buckets(h, 0.99)
+            lines.append(f"  {name:<28} {h['count']:>7} "
+                         f"{p50 if p50 is not None else 0.0:>9.4f} "
+                         f"{p99 if p99 is not None else 0.0:>9.4f}")
+    if snap["counters"]:
+        lines.append(f"  {'counter':<28} {'value':>7}")
+        for name in sorted(snap["counters"]):
+            lines.append(f"  {name:<28} {snap['counters'][name]:>7g}")
+    if snap["gauges"]:
+        lines.append(f"  {'gauge (last)':<28} {'value':>7}")
+        for name in sorted(snap["gauges"]):
+            lines.append(f"  {name:<28} {snap['gauges'][name]:>7g}")
+    if not lines:
+        return ""
+    return "\n".join(["telemetry summary:"] + lines)

@@ -1962,6 +1962,152 @@ def _inference(args, state) -> Stage:
         inferencer, prefetch_depth=args.prefetch_depth, **kwargs)
 
 
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def _serve_options(p):
+    p.add_argument("--port", type=int, default=0,
+                   help="HTTP listener port; 0 (default) binds an ephemeral "
+                        "port and prints it")
+    p.add_argument("--host", default="0.0.0.0")
+    _triple(p, "--input-patch-size", "-p", "-s", default=None,
+            help="required unless --spool (external workers own the "
+                 "model there)")
+    _triple(p, "--output-patch-size", "-z", default=None)
+    _triple(p, "--output-patch-overlap", default=(0, 0, 0))
+    p.add_argument("--num-output-channels", "-c", type=int, default=3)
+    p.add_argument("--num-input-channels", type=int, default=1)
+    p.add_argument("--framework", "-f",
+                   choices=["identity", "flax", "jax", "pytorch", "universal"],
+                   default="flax")
+    p.add_argument("--model-path", "-m", default="")
+    p.add_argument("--weight-path", "-w", default=None)
+    p.add_argument("--batch-size", "-b", type=int, default=4)
+    p.add_argument("--output-dtype", choices=["float32", "bfloat16", "uint8"],
+                   default="float32")
+    p.add_argument("--crop-output-margin",
+                   action=argparse.BooleanOptionalAction, default=True)
+    _triple(p, "--shape-bucket", default=None,
+            help="pad request shapes up to multiples of this zyx quantum")
+    p.add_argument("--serve-workers", type=int, default=2,
+                   help="in-process lifecycle worker threads claiming "
+                        "requests (local mode)")
+    p.add_argument("--max-inflight", type=int, default=8,
+                   help="admission control: concurrent requests past this "
+                        "are rejected 429")
+    p.add_argument("--default-deadline-s", type=float, default=30.0,
+                   help="per-request deadline when the request carries "
+                        "none; a miss is a 504")
+    p.add_argument("--max-retries", type=int, default=2,
+                   help="lifecycle retry budget per request")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="how long a partial device batch waits for more "
+                        "patches before it is dispatched underfull")
+    p.add_argument("--spool", default=None,
+                   help="spool mode: requests land in <dir>/in and a file "
+                        "queue, and external supervised workers complete "
+                        "them; this process serves HTTP only")
+    p.add_argument("--visibility-timeout", "-v", type=int, default=30,
+                   help="request lease timeout: a worker that dies "
+                        "mid-request loses the lease and the request is "
+                        "redelivered")
+    p.add_argument("--max-runtime", type=float, default=None,
+                   help="exit after this many seconds; default: run until "
+                        "SIGTERM or SIGINT")
+
+
+def _serve(args, state) -> Stage:
+    """``POST /infer`` over HTTP, each request a supervised task whose
+    patches share the packer's device batches (``serve/frontend.py``);
+    drains on SIGTERM, SIGINT or at ``--max-runtime``."""
+    if args.spool is None and (args.input_patch_size is None
+                               or not any(args.input_patch_size)):
+        raise UsageError("serve needs --input-patch-size (or --spool for "
+                         "external-worker mode)")
+
+    @generator
+    def stage(task):
+        import time
+
+        from chunkflow_tpu_torch.parallel import lifecycle
+        from chunkflow_tpu_torch.parallel.restapi import (
+            bound_port,
+            shutdown_server,
+            write_endpoint_file,
+        )
+        from chunkflow_tpu_torch.serve.frontend import (
+            AdmissionController,
+            LocalBackend,
+            ServingService,
+            SpoolBackend,
+            start_serving,
+        )
+
+        if args.spool is None:
+            from chunkflow_tpu_torch.inference.inferencer import Inferencer
+
+            out_patch = args.output_patch_size
+            inferencer = Inferencer(
+                input_patch_size=args.input_patch_size,
+                output_patch_size=(out_patch if out_patch and any(out_patch)
+                                   else None),
+                output_patch_overlap=args.output_patch_overlap,
+                num_output_channels=args.num_output_channels,
+                num_input_channels=args.num_input_channels,
+                framework=args.framework,
+                model_path=args.model_path,
+                weight_path=args.weight_path,
+                batch_size=args.batch_size,
+                output_dtype=args.output_dtype,
+                crop_output_margin=args.crop_output_margin,
+                shape_bucket=args.shape_bucket,
+                dry_run=state["dry_run"],
+                device=state["device"],
+            )
+            backend = LocalBackend(
+                inferencer, workers=args.serve_workers,
+                max_retries=args.max_retries, max_wait_ms=args.max_wait_ms,
+                visibility_timeout=args.visibility_timeout)
+        else:
+            backend = SpoolBackend(args.spool,
+                                   visibility_timeout=args.visibility_timeout)
+        admission = AdmissionController(max_inflight=args.max_inflight)
+        service = ServingService(backend, admission=admission,
+                                 default_deadline_s=args.default_deadline_s)
+        server = start_serving(service, host=args.host, port=args.port)
+        actual = bound_port(server)
+        # port 0 is the default: always say where the listener landed
+        print(f"serving: http://{args.host}:{actual}/infer "
+              f"(mode={'spool' if args.spool else 'local'})", flush=True)
+        if telemetry.configured_path():
+            write_endpoint_file(os.path.dirname(telemetry.configured_path()),
+                                serving_port=actual)
+        deadline = (time.time() + args.max_runtime
+                    if args.max_runtime is not None else None)
+        restore = lifecycle.install_preemption_handler()
+        try:
+            while deadline is None or time.time() < deadline:
+                time.sleep(0.2)
+        except (KeyboardInterrupt, SystemExit):
+            print("serve: draining on preemption signal", flush=True)
+        finally:
+            restore()
+            # stop admitting, finish what is in flight, close the listener
+            admission.drain()
+            shutdown_server(server)
+            backend.close()
+            stats = service.serving_stats()
+            print(f"serve drained: {stats['requests']:g} request(s), "
+                  f"{stats['completed']:g} completed, "
+                  f"{stats['rejected_admission'] + stats['rejected_memory']:g}"
+                  f" rejected, {stats['deadline_missed']:g} deadline "
+                  f"miss(es), {stats['errors']:g} error(s)", flush=True)
+        return
+        yield
+
+    return stage()
+
+
 COMMANDS: Dict[str, tuple] = {
     "generate-tasks": (_generate_tasks_options, _generate_tasks,
                        "Fan the seed task into a grid of bbox tasks, or "
@@ -2080,13 +2226,15 @@ COMMANDS: Dict[str, tuple] = {
                               "Rand/VOI scores against a ground truth."),
     "debug": (_debug_options, _debug,
               "Drop into a debugger with the task bound to ``task``."),
+    "serve": (_serve_options, _serve,
+              "Serve POST /infer with cross-request patch batching, "
+              "admission control and per-request deadlines."),
 }
 
 #: the JAX CLI's commands that are not ported yet, by the ROADMAP item
 #: (queue 1) that ports them: each raises ``NotImplementedError`` naming
 #: it, whatever its arguments
 NOT_PORTED = {
-    "serving packer": ("serve",),
     "fleet supervisor": ("fleet-run", "fleet-status", "log-summary"),
     "annotations and plugins": ("load-synapses", "save-synapses",
                                 "save-points", "load-skeleton", "save-swc",
@@ -2120,7 +2268,17 @@ def _group_parser() -> argparse.ArgumentParser:
                     "CHUNKFLOW_SCHED=static (the static executor), "
                     "CHUNKFLOW_SCHED_MEM_GB, CHUNKFLOW_SCHED_INTERVAL, "
                     "CHUNKFLOW_BLEND, CHUNKFLOW_BLEND_STACK_MAX_GB, "
-                    "CHUNKFLOW_PRECISION, CHUNKFLOW_TELEMETRY, "
+                    "CHUNKFLOW_PRECISION, CHUNKFLOW_INT8, "
+                    "CHUNKFLOW_SERVE, CHUNKFLOW_TELEMETRY, "
+                    "CHUNKFLOW_WORKER_ID, CHUNKFLOW_METRICS_PORT, "
+                    "CHUNKFLOW_SLO, CHUNKFLOW_TS_INTERVAL, "
+                    "CHUNKFLOW_TS_POINTS, CHUNKFLOW_PROFILE_DIR, "
+                    "CHUNKFLOW_PROFILE_TASKS, CHUNKFLOW_PROFILE_SECONDS, "
+                    "CHUNKFLOW_PROFILE_MAX_SECONDS, "
+                    "CHUNKFLOW_PROFILE_COOLDOWN, "
+                    "CHUNKFLOW_PROFILE_ON_ANOMALY, "
+                    "CHUNKFLOW_PROFILE_STALL_SHARE, "
+                    "CHUNKFLOW_PROFILE_STALL_TICKS, "
                     "CHUNKFLOW_CHAOS, CHUNKFLOW_STORAGE, "
                     "CHUNKFLOW_STORAGE_CACHE_MB, "
                     "CHUNKFLOW_STORAGE_CONCURRENCY.",
@@ -2129,8 +2287,27 @@ def _group_parser() -> argparse.ArgumentParser:
                    help="storage hierarchy level")
     p.add_argument("--metrics-dir", default=None,
                    help="append the run's telemetry events (task claims, "
-                        "commits, retries, ledger skips, depth changes) to "
-                        "a JSONL file of this process here")
+                        "commits, retries, ledger skips, depth changes, "
+                        "time-series samples, alerts) to a JSONL file of "
+                        "this process here")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve live /metrics (Prometheus text), /healthz, "
+                        "/alerts and POST /profile from this worker for the "
+                        "run (0 binds an ephemeral port and prints it; "
+                        "CHUNKFLOW_METRICS_PORT is the env equivalent). "
+                        "CHUNKFLOW_TELEMETRY=0 creates no listener")
+    p.add_argument("--slo-config", default=None,
+                   help="TOML file overriding the SLO objectives and "
+                        "burn-rate rules (its top level is the "
+                        "[tool.chunkflow.slo] table); CHUNKFLOW_SLO=0 "
+                        "disables the evaluator")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run's first "
+                        "--profile-tasks tasks here (trace.json)")
+    p.add_argument("--profile-tasks", type=int, default=None,
+                   help="tasks covered by the --profile-dir window "
+                        "(CHUNKFLOW_PROFILE_TASKS, default 4; <= 0 traces "
+                        "the whole run)")
     p.add_argument("--dry-run", dest="dry_run", action="store_true",
                    default=False)
     p.add_argument("--real-run", dest="dry_run", action="store_false")
@@ -2172,10 +2349,13 @@ def _split(argv: List[str]):
     return head, segments
 
 
-def build_stages(argv: List[str]) -> Tuple[argparse.Namespace, List[Stage]]:
-    """Parse a command line into (group options, one stage per command)."""
+def build_stages(argv: List[str], group: Optional[argparse.Namespace] = None
+                 ) -> Tuple[argparse.Namespace, List[Stage]]:
+    """Parse a command line into (group options, one stage per command);
+    ``group`` is the group options when they were parsed already."""
     head, segments = _split(argv)
-    group = _group_parser().parse_args(head)
+    if group is None:
+        group = _group_parser().parse_args(head)
     state = {"dry_run": group.dry_run, "device": group.device,
              "mip": group.mip}
     stages = []
@@ -2189,20 +2369,77 @@ def build_stages(argv: List[str]) -> Tuple[argparse.Namespace, List[Stage]]:
     return group, stages
 
 
+def _start_observability(group) -> Optional[object]:
+    """The run's observability plane, in the JAX CLI's order: the
+    telemetry file, then the time-series sampler and the SLO evaluator,
+    then the metrics exporter (its bound port printed, and published in
+    the endpoint file). Returns the exporter's server, or None."""
+    from chunkflow_tpu_torch.parallel.restapi import (
+        bound_port,
+        exporter_port_from_env,
+        start_metrics_exporter,
+        write_endpoint_file,
+    )
+
+    if group.metrics_dir:
+        telemetry.configure(group.metrics_dir)
+    if group.metrics_dir or group.slo_config:
+        from chunkflow_tpu_torch.core import slo
+
+        telemetry.start_timeseries()
+        slo.start_slo(group.slo_config)
+    port = (group.metrics_port if group.metrics_port is not None
+            else exporter_port_from_env())
+    server = start_metrics_exporter(port) if port is not None else None
+    if server is not None:
+        bound = bound_port(server)
+        if group.metrics_dir:
+            write_endpoint_file(group.metrics_dir, metrics_port=bound)
+        if group.verbose or port == 0:
+            # a requested port 0 must be reported: nothing else says
+            # where the listener landed
+            print(f"metrics exporter: http://{server.server_address[0]}:"
+                  f"{bound}/metrics", flush=True)
+    return server
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    from chunkflow_tpu_torch.core import profiling
+    from chunkflow_tpu_torch.parallel.restapi import shutdown_server
+
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not _split(argv)[1]:
+    head, segments = _split(argv)
+    if not segments:
         _group_parser().print_help()
         return 2
+    group = _group_parser().parse_args(head)
     # one CLI run = one telemetry run
     telemetry.reset()
+    server = window = None
     try:
-        group, stages = build_stages(argv)
-        telemetry.configure(group.metrics_dir)
+        server = _start_observability(group)
+        group, stages = build_stages(argv, group)
+        if group.profile_dir:
+            window = profiling.start_task_window(group.profile_dir,
+                                                 tasks=group.profile_tasks)
+            if window is None:
+                print("profiler window not started (telemetry disabled or "
+                      "another profiler session active)", file=sys.stderr)
         count = process_stream(stages, verbose=group.verbose)
     except UsageError as exc:
         raise SystemExit(str(exc)) from exc
     finally:
+        if window is not None:
+            window.close()
+        if group.verbose and telemetry.enabled():
+            table = telemetry.summary_table()
+            if table:
+                print(table)
+        if telemetry.configured_path():
+            telemetry.flush()
+        telemetry.stop_timeseries()
+        # a scraper of a finished worker sees connection refused
+        shutdown_server(server)
         telemetry.configure(None)
     if group.verbose:
         print(f"pipeline drained {count} task(s)")
@@ -2212,9 +2449,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _run_counters() -> dict:
     """The run's telemetry counters and each kernel's launches."""
-    from chunkflow_tpu_torch.ops import accumulate, gather
+    from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
 
     counters = telemetry.snapshot()["counters"]
     counters["kernels/gather"] = gather.launches
     counters["kernels/accumulate"] = accumulate.launches
+    counters["kernels/conv3d_int8"] = int8_conv.launches
+    for path, n in int8_conv.path_launches.items():
+        counters[f"kernels/conv3d_int8/{path}"] = n
     return counters

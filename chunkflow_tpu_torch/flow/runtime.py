@@ -31,7 +31,7 @@ import threading
 import time
 from typing import Callable, Iterable, Iterator, Optional
 
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.parallel import lifecycle
 from chunkflow_tpu_torch.testing import chaos
 
@@ -110,6 +110,8 @@ def process_stream(stages: Iterable[Callable], verbose: int = 0) -> int:
                         telemetry.span("pipeline/ack_writes"):
                     drain_pending_writes(task)
                 telemetry.inc("pipeline/tasks")
+                # the --profile-dir window closes after its first N tasks
+                profiling.note_task_done()
                 if task is None:
                     telemetry.inc("pipeline/tasks_skipped")
                 if verbose and task is not None and task.get("log"):

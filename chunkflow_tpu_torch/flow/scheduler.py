@@ -52,7 +52,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import torch
 
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.flow.pipeline import _drain_host
 from chunkflow_tpu_torch.parallel.lifecycle import surrender_task, tag_culprit
 from chunkflow_tpu_torch.testing import chaos
@@ -235,6 +235,9 @@ class DepthController:
             return []
         dominant = max(deltas, key=deltas.get)
         share = deltas[dominant] / window
+        # a share that holds above the capture threshold for a few ticks
+        # triggers one bounded profiler window (core/profiling.py)
+        profiling.note_stall(dominant, share)
         if share < self.min_share:
             return []  # no clear bottleneck: the depths are matched
         applied = []

@@ -601,6 +601,51 @@ def test_real_int8_forward_kernel_is_the_plain_path(cuda, monkeypatch,
     assert torch.isfinite(got).all() and torch.equal(got, ref)
 
 
+def test_serving_http_request_on_card_is_per_chunk(cuda):
+    """One ``POST /infer`` over a real listener, served on the card: the
+    decoded response is bitwise the same chunk's ``Inferencer.__call__``,
+    through the gather and the pre-weighted accumulate kernels."""
+    import base64
+    import json
+    import urllib.request
+
+    from chunkflow_tpu_torch.parallel.restapi import (
+        bound_port,
+        shutdown_server,
+    )
+    from chunkflow_tpu_torch.serve import (
+        LocalBackend,
+        ServingService,
+        start_serving,
+    )
+
+    inferencer = Inferencer(framework="pytorch", **STREAM_KW)
+    arr = np.random.default_rng(5).integers(0, 256, (6, 48, 61)).astype(
+        np.uint8)
+    ref = inferencer(Chunk(arr, voxel_offset=(2, 3, 4))).host().array
+    backend = LocalBackend(inferencer, workers=2)
+    server = start_serving(ServingService(backend), host="127.0.0.1", port=0)
+    body = json.dumps({"shape": list(arr.shape), "dtype": "uint8",
+                       "data_b64": base64.b64encode(arr.tobytes()).decode(),
+                       "voxel_offset": [2, 3, 4]}).encode()
+    try:
+        gather.launches = accumulate.launches = 0
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{bound_port(server)}/infer", data=body,
+            method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.status == 200
+            payload = json.loads(resp.read())
+    finally:
+        shutdown_server(server)
+        backend.close()
+    assert gather.launches > 0 and accumulate.launches > 0
+    out = np.frombuffer(base64.b64decode(payload["data_b64"]),
+                        dtype=payload["dtype"]).reshape(payload["shape"])
+    assert payload["voxel_offset"] == [2, 3, 4]
+    assert np.array_equal(out, ref)
+
+
 @pytest.mark.parametrize("precision_, leg", [
     ("float32", "fake"), ("bfloat16", "fake"), ("int8", "fake"),
     ("int8", "real")])

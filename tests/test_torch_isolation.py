@@ -70,7 +70,9 @@ def test_importing_every_module_loads_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("inference.inferencer", "flow.cli", "flow.setup_env",
                  "volume.storage", "volume.precomputed", "parallel.queues",
-                 "parallel.lifecycle", "testing.chaos"):
+                 "parallel.lifecycle", "testing.chaos", "core.telemetry",
+                 "core.profiling", "core.slo", "parallel.task_tree",
+                 "parallel.restapi", "serve.frontend", "serve.packer"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["loaded"] if _forbidden(m)]
     assert not leaked, leaked

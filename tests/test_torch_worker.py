@@ -232,8 +232,8 @@ def test_chaos_at_every_boundary_converges_bitwise(tmp_path, monkeypatch,
         with open(os.path.join(metrics, name)) as f:
             for line in f:
                 event = json.loads(line)
-                if event["name"] in ("lifecycle/committed",
-                                     "lifecycle/ledger_skip"):
+                if event.get("name") in ("lifecycle/committed",
+                                         "lifecycle/ledger_skip"):
                     acks[event["body"]] += 1
     assert acks == {body: 1 for body in bodies}
     counters = telemetry.snapshot()["counters"]
