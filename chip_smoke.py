@@ -152,6 +152,19 @@ non-zero exit and no result line:
              subprocess: its bound port, one request answered bitwise, a
              drain on SIGTERM with its ``serve drained:`` line and run
              counters
+16. segment-plane  the segmentation plane on channel 0 of phase 10's
+             parity output over its roi (112x768x768, kept as ``.npy``),
+             thresholded at its 70% quantile: ``segment-volume --device``
+             and ``--host`` (56x384x384 chunks, ``-w 4``) through the CLI
+             in process, label-isomorphic to each other and to one
+             monolithic host labelling, each card chunk the device leg's
+             fixpoint; the queue mode on its first 56 slices (a
+             coordinator and two workers, one SIGKILLed at
+             ``segment/merge``): isomorphic, the queue empty, the ledger
+             full; ``mesh --manifest``, ``mesh-manifest`` and
+             ``download-mesh`` on the largest objects of two chunks: every
+             fragment listed exists, every mesh closed, the ply the sum of
+             its fragments; wall s, Mvox/s, ms per stage, sweeps
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -225,6 +238,13 @@ MARGIN = (4, 64, 64)
 OUT_BLOCK = (8, 128, 128)
 VOLUME_FAMILIES = (("parity", "float32", "float32"),
                    ("tpu_s2d4", "bfloat16", "uint8"))
+# phase 16: channel 0 of phase 10's parity output over its roi, kept for
+# the segmentation plane; the z slices of its queue mode (half the roi:
+# 4 chunks), the workers' visibility timeout (s) and the meshed objects
+SEGMENT_INPUT = OUT_DIR / "segment_input.npy"
+SEGMENT_QUEUE_Z = 56
+SEGMENT_VISIBILITY_S = 4
+SEGMENT_MESH_IDS = 16
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -536,7 +556,8 @@ def main() -> int:
                   f"{torch.__version__}, CUDA {torch.version.cuda}, numpy "
                   f"{np.__version__}")
     # name and power limit exactly as nvidia-smi gives them
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     phase("card", "file formats and host build: " + ", ".join(
         f"{label} {_version(module)}" for label, module in (
             ("h5py", "h5py"), ("Pillow", "PIL"), ("scipy", "scipy")))
@@ -1229,7 +1250,7 @@ def main() -> int:
         torch, dict(volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI,
                     task=TASK, margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
                     overlap=OVERLAP, batch=BATCH, families=VOLUME_FAMILIES,
-                    device="cuda"),
+                    device="cuda", keep=SEGMENT_INPUT),
         weights=state, reset_counts=reset_counts, counts=counts,
         in_memory=in_memory, then=chain)
     for launched in (volume_launches, chain_launches):
@@ -1261,6 +1282,17 @@ def main() -> int:
     kernels["conv3d_int8"]["launches_by_path"] = int8_paths
     phase("precision", f"conv3d_int8 launches by path over phases 13-15: "
                        f"{int8_paths}")
+
+    # ---- 16. segment-plane: segment and mesh what phase 10 inferred -----
+    reset_counts()
+    plane_s = segment_plane_phase(torch, dict(
+        input=SEGMENT_INPUT, task=TASK, device="cuda", card=card,
+        queue_z=SEGMENT_QUEUE_Z, visibility=SEGMENT_VISIBILITY_S,
+        mesh_ids=SEGMENT_MESH_IDS, voxel=VOXEL_NM))
+    require(counts_all()["gather"] == counts_all()["accumulate"] == 0,
+            "segment-plane: a blend kernel launched in the plane")
+    phase("segment-plane", f"phase 16 took {plane_s:.1f} s; its input's "
+                           f"inference launches are phase 10's")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -1546,6 +1578,12 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                         f"{per_task * len(boxes)}")
                 total[kname] += k
             check_volume(refs, out, f"{label} fault-free")
+            if cfg.get("keep") and family == cfg["families"][0]:
+                # phase 16's input: channel 0 over the roi
+                roi = BoundingBox(roi_start, tuple(
+                    a + b for a, b in zip(roi_start, roi_size)))
+                np.save(cfg["keep"], np.ascontiguousarray(
+                    PrecomputedVolume(out).cutout(roi).array[0]))
             shutil.rmtree(out)
 
             def mean_ms(name):
@@ -3331,6 +3369,397 @@ def serve_command(weights, tmp, raw, offset, ref):
                    f"{drained[-1]}; kernels/gather "
                    f"{run['kernels/gather']}, kernels/accumulate "
                    f"{run['kernels/accumulate']}")
+
+
+def segment_plane_phase(torch, cfg):
+    """Phase 16: the segmentation plane on what the card inferred.
+
+    ``cfg["input"]`` is channel 0 of phase 10's parity (float32) output
+    volume over its roi, as ``.npy``; it is thresholded at its 70%
+    quantile (as phase 12b does) and cut into ``cfg["task"]`` chunks.
+
+    a. ``segment-volume --device`` and then ``--host`` through the port's
+       CLI in process (``-w 4``, 26-connectivity): the two exported
+       volumes label-isomorphic to each other and to one monolithic host
+       labelling; under ``--device`` every chunk's local labels (recorded
+       as the run made them) the device leg's fixpoint read off the host
+       labels of that chunk. Wall s, Mvox/s, ms per stage (``segment/*``
+       spans), sweeps, components and the ``segment/*`` counters.
+    b. ``segment-volume -q file://... --ledger ...`` as a coordinator
+       subprocess and two worker subprocesses chaining ``label-chunk |
+       merge-seg | relabel | delete-task-in-queue`` on ``cfg["device"]``:
+       the first killed at ``segment/merge``
+       (``CHUNKFLOW_CHAOS=once=segment/merge:action=kill``, rc -9), the
+       second started once it is dead; on ``cfg["queue_z"]`` slices of
+       the input (the cut is printed): the result label-isomorphic to the
+       monolithic labelling of that cut, the queue empty, the ledger
+       holding every tree and relabel task.
+    c. ``load-npy | mesh --manifest --ids ...`` on two neighbouring chunks
+       of (a)'s host-leg volume for the ``cfg["mesh_ids"]`` largest
+       objects of the first, then ``mesh-manifest`` and ``download-mesh``
+       of the largest: every listed fragment exists, every mesh is
+       closed (each edge shared by an even number of faces: two, or four
+       where voxels of one object touch only along an edge; those are
+       counted), the ply holds the sum of its fragments' faces.
+
+    Labels are compared by a one-dimensional isomorphism check (the ids
+    stay below 2^32, which it needs and the phase checks), held against
+    ``labels_isomorphic`` on a crop. Returns the phase's wall seconds."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import native
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.mesh import from_precomputed_bytes
+    from chunkflow_tpu_torch.ops import connected_components as cc
+    from chunkflow_tpu_torch.parallel.lifecycle import FileLedger
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.segment import driver, labels_isomorphic, stages
+
+    t_phase = time.perf_counter()
+    dev = cfg["device"]
+    dev_args = [] if dev == "cuda" else ["--device", "cpu"]
+    task = cfg["task"]
+    nums = [str(v) for v in task]
+    source = np.load(cfg["input"])
+    thr = float(np.quantile(source, 0.7))
+    fg = source > np.float32(thr)
+    vox = fg.size
+
+    def isomorphic(a, b):
+        """(bijective, pairs): ``labels_isomorphic`` on ids below 2^32,
+        one sort of packed (a, b) pairs."""
+        a, b = a.ravel(), b.ravel()
+        nz = a != 0
+        if not np.array_equal(nz, b != 0):
+            return False, 0
+        require(int(a.max(initial=0)) < 1 << 32
+                and int(b.max(initial=0)) < 1 << 32,
+                "segment-plane: an id reaches 2^32")
+        pairs = np.unique((a[nz].astype(np.uint64) << np.uint64(32))
+                          | b[nz].astype(np.uint64))
+        na = np.unique(pairs >> np.uint64(32)).size
+        nb = np.unique(pairs & np.uint64(0xFFFFFFFF)).size
+        return na == nb == pairs.size, int(pairs.size)
+
+    t = time.perf_counter()
+    mono, n_mono = native.connected_components(fg, 26)
+    mono_s = time.perf_counter() - t
+    crop = (slice(0, 8), slice(0, 160), slice(0, 160))
+    for a, b in ((mono, mono[::-1][::-1]), (mono, (mono > 0).astype(
+            np.uint32))):
+        require(isomorphic(a[crop], b[crop])[0]
+                == labels_isomorphic(a[crop], b[crop]),
+                "segment-plane: the isomorphism check disagrees with "
+                "labels_isomorphic on a crop")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_segment_") as tmp:
+        tmp = Path(tmp)
+        npy = tmp / "input.npy"
+        np.save(npy, source)
+
+        # ---- a. local mode, both legs ----------------------------------
+        local, ctx = {}, threading.local()
+        label_chunk, label_local = driver.label_chunk, stages._label_local
+
+        def recording_label_chunk(store, bbox):
+            ctx.bbox = bbox
+            return label_chunk(store, bbox)
+
+        def recording_label_local(store, src):
+            out = label_local(store, src)
+            local[ctx.bbox.string] = (ctx.bbox, out.copy())
+            return out
+
+        legs = {}
+        for leg in ("--device", "--host"):
+            job = tmp / f"job{leg}"
+            local.clear()
+            cc.sweeps = 0
+            with mock.patch.object(driver, "label_chunk",
+                                   recording_label_chunk), \
+                    mock.patch.object(stages, "_label_local",
+                                      recording_label_local):
+                t = time.perf_counter()
+                require(cli.main(dev_args + [
+                    "segment-volume", "-i", str(npy), "-d", str(job), "-c",
+                    *nums, "-t", repr(thr), "--connectivity", "26", "-w",
+                    "4", leg]) == 0, f"segment-plane: segment-volume {leg}")
+                wall = time.perf_counter() - t
+            snap = telemetry.snapshot()
+            store = driver.open_store(str(job), device=dev)
+            legs[leg] = dict(
+                wall=wall, sweeps=cc.sweeps, counters=snap["counters"],
+                spans={k: snap["hists"].get(f"segment/{k}", {})
+                       for k in ("label", "merge", "relabel")},
+                seg=driver.export_segmentation(store), plan=store.plan,
+                local=dict(local))
+        dev_seg, host_seg = legs["--device"]["seg"], legs["--host"]["seg"]
+        checks = {}
+        for what, a, b in (("device ~ host", dev_seg, host_seg),
+                           ("device ~ monolithic", dev_seg, mono),
+                           ("host ~ monolithic", host_seg, mono)):
+            ok, pairs = isomorphic(a, b)
+            require(ok and pairs == n_mono,
+                    f"segment-plane: {what}: not label-isomorphic "
+                    f"({pairs} pairs, {n_mono} components)")
+            checks[what] = pairs
+        plan = legs["--device"]["plan"]
+        recorded = legs["--device"]["local"]
+        require(len(recorded) == len(plan.chunks),
+                f"segment-plane: {len(recorded)} chunks labelled, not "
+                f"{len(plan.chunks)}")
+        for bbox, labels in recorded.values():
+            sel = tuple(slice(int(a), int(b))
+                        for a, b in zip(bbox.start, bbox.stop))
+            host_local, n_local = native.connected_components(fg[sel], 26)
+            # the host numbers components by their first voxel in raster
+            # order, so a component's first voxel is where the running
+            # maximum of the labels steps up
+            flat = host_local.ravel()
+            steps = np.flatnonzero(flat[1:] > np.maximum.accumulate(
+                flat)[:-1]) + 1
+            if flat[0]:
+                steps = np.concatenate([[0], steps])
+            require(steps.size == n_local, "segment-plane: the host "
+                                           "numbering is not raster order")
+            lut = np.zeros(n_local + 1, dtype=np.int64)
+            lut[flat[steps]] = steps + 1
+            oracle = lut[flat].astype(np.uint32)
+            require(labels.dtype == np.uint32
+                    and np.array_equal(labels.ravel(), oracle),
+                    f"segment-plane: chunk {bbox.string}: the device labels "
+                    f"differ from the device leg's fixpoint")
+        top = int(max(dev_seg.max(), host_seg.max()))
+        local_s = time.perf_counter() - t_phase
+        phase("segment-plane",
+              f"{cfg['card']}; input {source.shape} float32 (channel 0 of "
+              f"phase 10's parity output over its roi), T {thr:.6g} (70% "
+              f"quantile), foreground {fg.mean():.1%}; grid {plan.grid_shape}"
+              f" of {task} ({len(plan.chunks)} chunks, "
+              f"{len(plan.chunks) - 1} merge nodes); the largest global id "
+              f"{top} < 2^32 (ids are chunk index x {plan.id_stride} + "
+              f"local); monolithic host labelling {n_mono} components in "
+              f"{mono_s:.3f} s")
+        for leg, r in legs.items():
+            c = r["counters"]
+            stage_ms = ", ".join(
+                f"{k} {h.get('total', 0.0) * 1e3:.1f} ms over "
+                f"{h.get('count', 0)} ({h.get('mean', 0.0) * 1e3:.1f} each)"
+                for k, h in r["spans"].items())
+            phase("segment-plane",
+                  f"segment-volume {leg} -w 4: {r['wall']:.3f} s, "
+                  f"{vox / r['wall'] / 1e6:.3f} Mvox/s; {stage_ms}; "
+                  f"sweeps {r['sweeps']}; components {n_mono}; "
+                  f"segment/merges_applied "
+                  f"{c.get('segment/merges_applied', 0):g}, "
+                  f"segment/voxels_relabeled "
+                  f"{c.get('segment/voxels_relabeled', 0):g}, "
+                  f"segment/edges_found {c.get('segment/edges_found', 0):g}")
+        phase("segment-plane",
+              f"label-isomorphic: {', '.join(checks)}; every device chunk's "
+              f"local labels == the device leg's fixpoint of its host "
+              f"labels ({len(recorded)} chunks)")
+
+        # ---- b. queue mode with a kill ---------------------------------
+        t_queue = time.perf_counter()
+        cut = source[:cfg["queue_z"]]
+        cut_npy = tmp / "cut.npy"
+        np.save(cut_npy, cut)
+        cut_mono, n_cut = native.connected_components(
+            cut > np.float32(thr), 26)
+        job, qdir, ledger = tmp / "qjob", tmp / "queue", tmp / "ledger"
+        env = {k: v for k, v in os.environ.items() if k != "CHUNKFLOW_CHAOS"}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        port = [sys.executable, "-m", "chunkflow_tpu_torch", *dev_args]
+        worker = [*port, "fetch-task-from-queue", "-q", f"file://{qdir}",
+                  "-v", str(cfg["visibility"]), "--lease-renew", "1",
+                  "-r", "120", "--poll-interval", "0.05", "--max-retries",
+                  "3",
+                  "--ledger", str(ledger),
+                  "label-chunk", "-d", str(job), "merge-seg", "-d", str(job),
+                  "relabel", "-d", str(job), "delete-task-in-queue"]
+        procs = []
+        t = time.perf_counter()
+        try:
+            coordinator = subprocess.Popen(
+                [*port, "segment-volume", "-i", str(cut_npy), "-d", str(job),
+                 "-c", *nums, "-t", repr(thr), "--connectivity", "26",
+                 "--device", "-q", f"file://{qdir}", "--ledger",
+                 str(ledger), "--timeout", "300"],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            procs.append(coordinator)
+            deadline = time.monotonic() + 120
+            while not (job / "spec.json").exists():
+                require(coordinator.poll() is None
+                        and time.monotonic() < deadline,
+                        "segment-plane: the coordinator wrote no spec")
+                time.sleep(0.05)
+            killed = subprocess.Popen(
+                worker, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                env=dict(env, CHUNKFLOW_CHAOS="once=segment/merge:"
+                                              "action=kill"))
+            procs.append(killed)
+            rc_killed = killed.wait(timeout=240)
+            require(rc_killed in (-signal.SIGKILL, 137),
+                    f"segment-plane: the first worker was to die by "
+                    f"SIGKILL at segment/merge, rc {rc_killed}: "
+                    f"{killed.communicate()[0][-2000:]}")
+            killed_s = time.perf_counter() - t
+            drain = subprocess.Popen(
+                worker, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            procs.append(drain)
+            out, _ = coordinator.communicate(timeout=300)
+            require(coordinator.returncode == 0,
+                    f"segment-plane: the coordinator failed: {out[-2000:]}")
+            drain_out, _ = drain.communicate(timeout=120)
+            require(drain.returncode == 0,
+                    f"segment-plane: the draining worker failed: "
+                    f"{drain_out[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        queue_s = time.perf_counter() - t
+        store = driver.open_store(str(job), device=dev)
+        ok, _ = isomorphic(driver.export_segmentation(store), cut_mono)
+        require(ok, "segment-plane: the queue mode's volume is not "
+                    "label-isomorphic to the monolithic labelling of the cut")
+        qplan = store.plan
+        want = {qplan.node_body(n) for n in qplan.make_tree().walk()}
+        want |= {qplan.relabel_body(c) for c in qplan.chunks}
+        keys = FileLedger(str(ledger)).keys()
+        require(sorted(keys) == sorted(want),
+                f"segment-plane: the ledger holds {len(keys)} keys, not "
+                f"{len(want)}")
+        stats = open_queue(f"file://{qdir}").stats()
+        require(stats["pending"] == stats["inflight"] == stats["dead"] == 0,
+                f"segment-plane: the queue did not drain: {stats}")
+        phase("segment-plane",
+              f"queue mode on the first {cfg['queue_z']} z slices "
+              f"({cut.shape}: {len(qplan.chunks)} chunks, "
+              f"{len(qplan.chunks) - 1} merge nodes; cut to fit the phase's "
+              f"budget): coordinator + a worker killed at segment/merge "
+              f"(rc {rc_killed}, {killed_s:.1f} s after the start) + a "
+              f"draining worker, {queue_s:.1f} s; label-isomorphic to the "
+              f"monolithic labelling of the cut ({n_cut} components); "
+              f"queue {stats}; ledger {len(keys)} keys (every tree and "
+              f"relabel task)")
+
+        queue_total_s = time.perf_counter() - t_queue
+
+        # ---- c. meshes -------------------------------------------------
+        t_mesh = time.perf_counter()
+        mesh_dir = tmp / "mesh"
+        # the largest object percolates through the roi (a 30% foreground
+        # does): its mesh alone holds tens of millions of faces, so it is
+        # left out and its size printed
+        sizes_mono = np.bincount(mono.ravel())
+        sizes_mono[0] = 0
+        giant = int(host_seg.ravel()[np.flatnonzero(
+            mono.ravel() == sizes_mono.argmax())[0]])
+        first = plan.chunks[0]
+        second = next(c for c in plan.chunks
+                      if int(c.start[2]) == int(first.stop[2])
+                      and int(c.start[0]) == int(first.start[0])
+                      and int(c.start[1]) == int(first.start[1]))
+        sel0 = tuple(slice(int(a), int(b))
+                     for a, b in zip(first.start, first.stop))
+        ids, sizes = np.unique(host_seg[sel0], return_counts=True)
+        keep = (ids != 0) & (ids != giant)
+        sizes, ids = sizes[keep], ids[keep]
+        chosen = ids[np.argsort(sizes, kind="stable")[::-1][:cfg["mesh_ids"]]]
+        id_text = ",".join(str(int(i)) for i in chosen)
+        t = time.perf_counter()
+        for chunk in (first, second):
+            sel = tuple(slice(int(a), int(b))
+                        for a, b in zip(chunk.start, chunk.stop))
+            path = tmp / f"seg-{chunk.string}.npy"
+            np.save(path, host_seg[sel])
+            require(cli.main(dev_args + [
+                "load-npy", "-f", str(path), "--voxel-offset",
+                *[str(int(v)) for v in chunk.start], "--voxel-size",
+                *[str(v) for v in cfg["voxel"]], "mesh", "-o",
+                str(mesh_dir), "--manifest", "--ids", id_text]) == 0,
+                    "segment-plane: mesh failed")
+        mesh_s = time.perf_counter() - t
+        mesh_ms = {h: telemetry.snapshot()["hists"].get(h, {}).get(
+            "mean", 0.0) * 1e3 for h in ("op/mesh",)}
+        require(cli.main(dev_args + ["mesh-manifest", "-d",
+                                     str(mesh_dir)]) == 0,
+                "segment-plane: mesh-manifest failed")
+        big = int(chosen[0])
+        require(cli.main(dev_args + [
+            "download-mesh", "-v", str(mesh_dir), "-i", str(big), "-o",
+            str(tmp / "obj_"), "-f", "ply"]) == 0,
+                "segment-plane: download-mesh failed")
+        fragments = faces_total = nonmanifold = 0
+        big_faces = 0
+        for obj in chosen:
+            with open(mesh_dir / f"{int(obj)}:0") as f:
+                listed = json.load(f)["fragments"]
+            require(bool(listed), f"segment-plane: object {obj}: an empty "
+                                  f"manifest")
+            for frag in listed:
+                require((mesh_dir / frag).exists(),
+                        f"segment-plane: manifest of {obj} lists a missing "
+                        f"fragment {frag}")
+                vertices, faces = from_precomputed_bytes(
+                    (mesh_dir / frag).read_bytes())
+                edges = np.sort(np.concatenate(
+                    [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]),
+                    axis=1).astype(np.int64)
+                _, uses = np.unique(edges[:, 0] * (vertices.shape[0] + 1)
+                                    + edges[:, 1], return_counts=True)
+                require(bool((uses % 2 == 0).all()),
+                        f"segment-plane: fragment {frag} is not closed "
+                        f"(an edge of {sorted(set(uses.tolist()))} faces)")
+                nonmanifold += int((uses > 2).sum())
+                fragments += 1
+                faces_total += faces.shape[0]
+                if int(obj) == big:
+                    big_faces += faces.shape[0]
+        with open(tmp / f"obj_{big}.ply") as f:
+            header = [next(f) for _ in range(9)]
+        ply_faces = int(next(ln for ln in header
+                             if ln.startswith("element face")).split()[-1])
+        require(ply_faces == big_faces,
+                f"segment-plane: download-mesh's ply holds {ply_faces} "
+                f"faces, its fragments {big_faces}")
+        phase("segment-plane",
+              f"mesh --manifest on chunks {first.string} and "
+              f"{second.string} of the host-leg volume, the "
+              f"{len(chosen)} largest objects of the first (capped at "
+              f"{cfg['mesh_ids']}: surface nets scan a chunk once per "
+              f"object; the roi's largest object, {giant}, "
+              f"{int(sizes_mono.max())} voxels, "
+              f"{sizes_mono.max() / max(1, int(fg.sum())):.1%} of the "
+              f"foreground, left out): {fragments} fragments, "
+              f"{faces_total} faces, "
+              f"{mesh_s:.3f} s ({mesh_s * 1e3 / (2 * len(chosen)):.1f} ms "
+              f"per object and chunk; op/mesh "
+              f"{mesh_ms['op/mesh']:.1f} ms per chunk); every listed "
+              f"fragment exists, every mesh closed ({nonmanifold} edges "
+              f"shared by 4 faces, where an object's voxels touch only "
+              f"along an edge); download-mesh {big}: {ply_faces} faces, "
+              f"the sum of its fragments'")
+        shutil.rmtree(mesh_dir)
+        phase("segment-plane",
+              f"phase parts: input, both local legs and their checks "
+              f"{local_s:.1f} s; queue mode with its checks "
+              f"{queue_total_s:.1f} s; meshes with their checks "
+              f"{time.perf_counter() - t_mesh:.1f} s")
+    return time.perf_counter() - t_phase
 
 
 def _brief(counters):

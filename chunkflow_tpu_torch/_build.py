@@ -10,8 +10,9 @@ keeps it at seconds per file. ``-fmad=false`` keeps the compiler from
 contracting a multiply and an add into one FMA: the kernels' sums must
 round exactly as their plain PyTorch versions' do.
 
-The host C++ of the segmentation legs (``csrc/host/``: connected
-components and id remapping, the port's copies of the JAX package's
+The host C++ of the segmentation legs and plane (``csrc/host/``:
+connected components, id remapping, watershed and agglomeration,
+surface-nets meshing; the port's copies of the JAX package's
 ``native/src/``) is one more library, ``HOST_LIBRARY``: the same build
 compiles it with ``g++``, keyed by the hash of all its sources.
 
@@ -20,6 +21,7 @@ Nothing here runs at import: the CPU test box has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -33,7 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 KERNELS = ("gather", "accumulate", "conv3d_int8", "conv3d_int8_generic")
 HOST = CSRC / "host"
 HOST_LIBRARY = "chunkflow_host"
-HOST_SOURCES = ("cc3d.cpp", "remap.cpp")
+HOST_SOURCES = ("cc3d.cpp", "remap.cpp", "watershed.cpp",
+                "surface_nets.cpp")
 HOST_HEADERS = ("zslab.h",)
 
 NVCC_FLAGS = (
@@ -91,9 +94,18 @@ def build_all(names=KERNELS) -> Dict[str, Path]:
     together; returns name -> library path. Each library lands under a
     temporary name and is renamed into place, so a cut build never leaves
     a loadable half-written file. The compiler's report (for a kernel,
-    ``-Xptxas -v``'s resources) is kept beside it as ``.log``. A failed
+    ``-Xptxas -v``'s resources) is kept beside it as ``.log``. One
+    process builds at a time (a file lock beside the build directory), so
+    test workers starting together compile a library once. A failed
     build raises: nothing falls back to another leg."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock = BUILD_DIR.with_name(BUILD_DIR.name + ".lock")
+    with open(lock, "a") as held:
+        fcntl.flock(held, fcntl.LOCK_EX)
+        return _build_missing(names)
+
+
+def _build_missing(names) -> Dict[str, Path]:
     paths = {name: library_path(name) for name in names}
     running = []
     for name, path in paths.items():

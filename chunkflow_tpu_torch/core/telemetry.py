@@ -11,9 +11,15 @@ workers and HTTP handler threads may report concurrently. Events are
 kept in memory (the newest :data:`MAX_EVENTS`) and, after
 :func:`configure` (the CLI's ``--metrics-dir``), appended to
 ``telemetry-<worker>.jsonl``, one line each as it happens, so a worker
-killed mid-run leaves what it did. Every event carries the
-:func:`worker_id` and, inside a :func:`task_context`, the task's
-``trace_id``.
+killed mid-run leaves what it did; spans and gauges are written there
+too (``span`` events with their attributes, ``gauge`` events), as the
+JAX package writes them. The file rotates past
+``CHUNKFLOW_TELEMETRY_MAX_MB`` (default 256) to ``.1``, ``.2``, ...,
+keeping ``CHUNKFLOW_TELEMETRY_KEEP`` generations (default 2); the
+supervised claim loop writes a ``snapshot`` event every
+``CHUNKFLOW_TELEMETRY_SNAPSHOT_EVERY`` claimed tasks (default 8). Every
+event carries the :func:`worker_id` and, inside a :func:`task_context`,
+the task's ``trace_id``.
 
 Quantile histograms (:func:`observe_quantile`) count samples into the
 fixed :data:`QUANTILE_BOUNDS` buckets, so bucket counts add up across
@@ -31,15 +37,18 @@ Span names follow ``<layer>/<phase>``: ``pipeline/stage``,
 ``scheduler/load``, ``scheduler/post``, ``scheduler/write``,
 ``op/<operator>``, ``storage/read``, ``storage/write``,
 ``lifecycle/claim``, ``lifecycle/commit``, ``lifecycle/release``,
-``serving/request``, ``serving/forward``, ``serving/scatter``. The
+``inference/infer``, ``serving/request``, ``serving/forward``,
+``serving/scatter``, ``segment/label``, ``segment/merge``,
+``segment/relabel``. The
 depth controller sums the first six (and ``scheduler/write``) through
 :func:`hist_totals`. Counters of the worker loop: ``pipeline/tasks``,
 ``pipeline/chain_rebuilds``, ``inference/chunks``, ``storage/*``
 (``volume/storage.py``), ``queue/sent``, ``queue/receives``,
 ``tasks/committed``, ``tasks/retried``, ``tasks/dead_lettered``,
 ``tasks/preempted``, ``tasks/surrendered``, ``lease/renewals``,
-``ledger/skips`` (``parallel/lifecycle.py``), ``chaos/injected`` and
-the ``serving/*`` counters of ``serve/frontend.py``.
+``ledger/skips`` (``parallel/lifecycle.py``), ``chaos/injected``, the
+``serving/*`` counters of ``serve/frontend.py`` and the ``segment/*``
+counters of ``segment/stages.py``.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ __all__ = [
     "summary_table", "add_flush_hook", "add_reset_hook", "timeseries",
     "start_timeseries", "stop_timeseries", "timeseries_running",
     "add_tick_hook", "remove_tick_hook", "ts_interval", "ts_points",
+    "snapshot_interval",
     "CHIP_METRIC_RE", "MAX_EVENTS",
 ]
 
@@ -187,6 +197,8 @@ class _Registry:
         self.events: deque = deque(maxlen=MAX_EVENTS)
         self.sink = None  # the open JSONL file of :func:`configure`
         self.sink_path: Optional[str] = None
+        self.sink_bytes = 0
+        self.max_sink_bytes = 0
 
     def add_hist(self, name: str, value: float) -> None:
         with self.lock:
@@ -218,16 +230,91 @@ class _Registry:
 
     def write(self, payload: dict) -> None:
         """Append to the sink (caller holds the lock); a full disk or a
-        closed file drops the sink, never the pipeline."""
+        closed file drops the sink, never the pipeline. Past
+        ``CHUNKFLOW_TELEMETRY_MAX_MB`` the file rotates."""
         if self.sink is None:
             return
+        line = json.dumps(payload, default=str) + "\n"
         try:
-            self.sink.write(json.dumps(payload, default=str) + "\n")
+            self.sink.write(line)
         except (OSError, ValueError):
+            self.sink = None
+            return
+        self.sink_bytes += len(line)
+        if 0 < self.max_sink_bytes < self.sink_bytes:
+            self._rotate_locked()
+
+    def _rotate_locked(self) -> None:
+        """Shift the generations up one suffix (``<path>.1`` the youngest
+        rotation, ``<path>.N`` the oldest), sweep the consecutive ones
+        beyond ``CHUNKFLOW_TELEMETRY_KEEP`` (stale ones of a higher KEEP)
+        and open a fresh ``<path>`` (caller holds the lock). KEEP=1
+        truncates. A sink that cannot rotate stops; the pipeline goes
+        on."""
+        try:
+            self.sink.close()
+        except OSError:
+            pass
+        base = self.sink_path
+        rotations = _keep_generations() - 1
+        try:
+            for n in range(rotations, 1, -1):
+                if os.path.exists(f"{base}.{n - 1}"):
+                    os.replace(f"{base}.{n - 1}", f"{base}.{n}")
+            if rotations >= 1:
+                os.replace(base, base + ".1")
+            else:
+                os.remove(base)
+            n = rotations + 1
+            while os.path.exists(f"{base}.{n}"):
+                os.remove(f"{base}.{n}")
+                n += 1
+            self.sink = open(base, "a", buffering=1)
+            self.sink_bytes = 0
+        except OSError:
             self.sink = None
 
 
 _REG = _Registry()
+
+
+def _stamp(payload: dict) -> dict:
+    """The worker id and, inside a :func:`task_context`, the trace id on
+    an outgoing event."""
+    payload["worker"] = worker_id()
+    trace_id = _TASK_CTX.get()
+    if trace_id is not None:
+        payload["trace_id"] = trace_id
+    return payload
+
+
+def _env_number(name: str, default, cast):
+    raw = os.environ.get(name, "")
+    try:
+        return cast(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def snapshot_interval() -> int:
+    """Claimed tasks between the supervised claim loop's ``snapshot``
+    events (``CHUNKFLOW_TELEMETRY_SNAPSHOT_EVERY``, default 8; 0 turns
+    them off), so a killed worker leaves its counters behind."""
+    return max(0, _env_number("CHUNKFLOW_TELEMETRY_SNAPSHOT_EVERY", 8, int))
+
+
+def _max_sink_bytes() -> int:
+    """The JSONL file's rotation size (``CHUNKFLOW_TELEMETRY_MAX_MB``,
+    default 256; <= 0 never rotates)."""
+    return int(_env_number("CHUNKFLOW_TELEMETRY_MAX_MB", 256.0, float)
+               * (1 << 20))
+
+
+def _keep_generations() -> int:
+    """JSONL generations kept per worker, the live file included
+    (``CHUNKFLOW_TELEMETRY_KEEP``, default 2: the file and its ``.1``;
+    at least 1, which truncates at rotation)."""
+    return max(1, _env_number("CHUNKFLOW_TELEMETRY_KEEP", 2, int))
 
 
 def inc(name: str, n: float = 1) -> None:
@@ -240,12 +327,19 @@ def inc(name: str, n: float = 1) -> None:
 
 def gauge(name: str, value: float) -> None:
     """Record a level (ring occupancy, depth): kept as the last value and
-    folded into the histogram of the same name, so its mean is readable."""
+    folded into the histogram of the same name, so its mean is readable;
+    with a file configured, one ``gauge`` event is written (not kept in
+    memory, as spans)."""
     if not enabled():
         return
     with _REG.lock:
         _REG.gauges[name] = value
     _REG.add_hist(name, value)
+    if _REG.sink is not None:
+        payload = _stamp({"kind": "gauge", "name": name, "t": time.time(),
+                          "value": value})
+        with _REG.lock:
+            _REG.write(payload)
 
 
 def chip_gauge(plane: str, chip: int, metric: str, value: float) -> None:
@@ -287,11 +381,8 @@ def event(kind: str, name: str, **attrs) -> None:
     once configured, in the JSONL file."""
     if not enabled():
         return
-    payload = {"kind": kind, "name": name, "t": time.time(), **attrs,
-               "worker": worker_id()}
-    trace_id = _TASK_CTX.get()
-    if trace_id is not None:
-        payload["trace_id"] = trace_id
+    payload = _stamp({"kind": kind, "name": name, "t": time.time(),
+                      **attrs})
     with _REG.lock:
         _REG.events.append(payload)
         _REG.write(payload)
@@ -301,6 +392,7 @@ def configure(metrics_dir: Optional[str]) -> Optional[str]:
     """Append every later event to
     ``<metrics_dir>/telemetry-<worker>.jsonl`` (line-buffered: each line
     reaches the operating system as it is written); None closes the file.
+    The file rotates to ``.1`` past ``CHUNKFLOW_TELEMETRY_MAX_MB``.
     Returns the path, or None when off (nothing is created under
     ``CHUNKFLOW_TELEMETRY=0``)."""
     with _REG.lock:
@@ -314,6 +406,8 @@ def configure(metrics_dir: Optional[str]) -> Optional[str]:
     sink = open(path, "a", buffering=1)
     with _REG.lock:
         _REG.sink, _REG.sink_path = sink, path
+        _REG.sink_bytes = os.path.getsize(path)
+        _REG.max_sink_bytes = _max_sink_bytes()
     return path
 
 
@@ -339,10 +433,11 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "t0", "duration")
+    __slots__ = ("name", "attrs", "t0", "duration")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, attrs: dict):
         self.name = name
+        self.attrs = attrs
         self.duration = 0.0
 
     def __enter__(self):
@@ -352,15 +447,23 @@ class _Span:
     def __exit__(self, *exc):
         self.duration = time.perf_counter() - self.t0
         _REG.add_hist(self.name, self.duration)
+        if _REG.sink is not None:
+            payload = _stamp({"kind": "span", "name": self.name,
+                              "t": time.time(), "dur_s": self.duration,
+                              "pid": os.getpid(), **self.attrs})
+            with _REG.lock:
+                _REG.write(payload)
         return False
 
 
-def span(name: str):
+def span(name: str, **attrs):
     """Time a block into the histogram ``name`` (seconds); the span
-    exposes ``.duration`` after exit."""
+    exposes ``.duration`` after exit. With a file configured, each span
+    writes one ``span`` event carrying ``attrs`` (not kept in memory:
+    spans would crowd the other events out of :data:`MAX_EVENTS`)."""
     if not enabled():
         return _NULL_SPAN
-    return _Span(name)
+    return _Span(name, attrs)
 
 
 def hist_totals(names) -> Dict[str, float]:
@@ -407,14 +510,6 @@ def snapshot() -> dict:
 # ---------------------------------------------------------------------------
 # the time-series sampler
 # ---------------------------------------------------------------------------
-def _env_number(name: str, default, cast):
-    raw = os.environ.get(name, "")
-    try:
-        return cast(raw) if raw else default
-    except ValueError:
-        return default
-
-
 def ts_interval() -> float:
     """Seconds between samples (``CHUNKFLOW_TS_INTERVAL``, default 10;
     <= 0 disables the sampler)."""
@@ -599,8 +694,8 @@ def flush() -> None:
     path = _REG.sink_path
     _run_hooks(_FLUSH_HOOKS, os.path.dirname(path) if path else None)
     with _REG.lock:
-        payload = {"kind": "snapshot", "t": time.time(), "pid": os.getpid(),
-                   "worker": worker_id(), **_metrics_locked()}
+        payload = _stamp({"kind": "snapshot", "t": time.time(),
+                          "pid": os.getpid(), **_metrics_locked()})
         _REG.write(payload)
         if _REG.sink is not None:
             try:

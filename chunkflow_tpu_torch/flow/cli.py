@@ -2108,6 +2108,255 @@ def _serve(args, state) -> Stage:
     return stage()
 
 
+# ---------------------------------------------------------------------------
+# meshes
+# ---------------------------------------------------------------------------
+def _mesh_options(p):
+    _name(p, "mesh")
+    p.add_argument("--output-path", "-o", required=True)
+    p.add_argument("--output-format", "-t",
+                   choices=["precomputed", "obj", "ply"],
+                   default="precomputed")
+    p.add_argument("--ids", default=None,
+                   help="comma-separated object ids (default: all)")
+    p.add_argument("--skip-ids", default=None)
+    _on_off(p, "--manifest", "--no-manifest", default=False)
+    p.add_argument("--simplification-error", "--max-simplification-error",
+                   type=float, default=0.0,
+                   help="max geometric error in nm for vertex-clustering "
+                        "simplification (0 = off)")
+    p.add_argument("--simplification-factor", type=int, default=None,
+                   help="accepted for reference compatibility; the error "
+                        "bound above drives vertex clustering")
+    p.add_argument("--mip", type=int, default=None,
+                   help="accepted for reference compatibility (chunks "
+                        "carry their own voxel size)")
+    _triple(p, "--voxel-size", help="override the chunk's voxel size (nm) "
+                                    "for meshing")
+    p.add_argument("--input-chunk-name", "-i", default=DEFAULT_CHUNK_NAME)
+
+
+def _mesh(args, state) -> Stage:
+    from chunkflow_tpu_torch.flow.mesh import MeshOperator
+
+    op = MeshOperator(
+        args.output_path, output_format=args.output_format,
+        ids=[int(x) for x in args.ids.split(",")] if args.ids else None,
+        skip_ids=(tuple(int(x) for x in args.skip_ids.split(","))
+                  if args.skip_ids else ()),
+        manifest=args.manifest,
+        simplification_error_nm=args.simplification_error)
+
+    @operator
+    def stage(task):
+        chunk = task[args.input_chunk_name]
+        if args.voxel_size is not None:
+            chunk = chunk.with_voxel_size(args.voxel_size)
+        count = op(chunk)
+        if state["verbose"]:
+            print(f"meshed {count} objects")
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _mesh_manifest_options(p):
+    p.add_argument("--mesh-dir", "--volume-path", "-d", "-v", required=True)
+    p.add_argument("--prefix", "-p", default=None,
+                   help="only aggregate object ids starting with this "
+                        "prefix (one job per prefix)")
+    p.add_argument("--digits", type=int, default=None,
+                   help="accepted for reference compatibility")
+
+
+def _mesh_manifest(args, state) -> Stage:
+    from chunkflow_tpu_torch.flow.mesh import write_manifests
+
+    @generator
+    def stage(task):
+        count = write_manifests(args.mesh_dir, id_prefix=args.prefix)
+        print(f"wrote {count} mesh manifests")
+        return
+        yield
+
+    return stage()
+
+
+def _download_mesh_options(p):
+    _name(p, "download-mesh")
+    p.add_argument("--mesh-dir", "--volume-path", "-v", required=True,
+                   help="directory holding mesh fragments and manifests")
+    p.add_argument("--ids", "-i", default=None,
+                   help="comma-separated object ids, or a text file of them")
+    p.add_argument("--input-chunk-name", "--input", default=None,
+                   help="rank objects by voxel count from this "
+                        "segmentation chunk")
+    p.add_argument("--start-rank", "-s", type=int, default=0)
+    p.add_argument("--stop-rank", "-p", type=int, default=None)
+    p.add_argument("--out-pre", "-o", default="./")
+    p.add_argument("--output-format", "--out-format", "-f",
+                   choices=["ply", "obj"], default="ply")
+
+
+def _download_mesh(args, state) -> Stage:
+    import re
+
+    from chunkflow_tpu_torch.chunk.base import as_native_dtype
+    from chunkflow_tpu_torch.flow.mesh import download_mesh, to_obj, to_ply
+
+    @operator
+    def stage(task):
+        if args.input_chunk_name is not None:
+            seg = as_native_dtype(task[args.input_chunk_name].array)
+            unique, count = np.unique(seg, return_counts=True)
+            fg = unique != 0
+            unique, count = unique[fg], count[fg]
+            order = np.argsort(count)[::-1]
+            obj_ids = unique[order][args.start_rank:args.stop_rank].tolist()
+        else:
+            text = args.ids
+            if text is not None and os.path.isfile(text):
+                with open(text) as f:
+                    text = f.read()
+            if text is None:
+                raise UsageError("need --ids or --input-chunk-name")
+            obj_ids = [int(x) for x in re.split(r"[\s,]+", text) if x]
+        for obj_id in obj_ids:
+            fused = download_mesh(args.mesh_dir, int(obj_id))
+            if fused is None:
+                print(f"object {obj_id}: no mesh manifest found")
+                continue
+            vertices, faces = fused
+            out = f"{args.out_pre}{obj_id}.{args.output_format}"
+            with open(out, "w") as f:
+                f.write((to_ply if args.output_format == "ply" else to_obj)(
+                    vertices, faces))
+            print(f"wrote {out} ({vertices.shape[0]} vertices)")
+        return task
+
+    return stage(_name=args.op_name)
+
+
+# ---------------------------------------------------------------------------
+# the segmentation plane
+# ---------------------------------------------------------------------------
+def _segment_stage_options(name: str):
+    def options(p):
+        _name(p, name)
+        p.add_argument("--seg-dir", "-d", required=True,
+                       help="segmentation job directory (written by "
+                            "segment-volume)")
+
+    return options
+
+
+def _segment_stage(kind: str):
+    """One worker stage of the stitching job: run the queue bodies of
+    ``kind`` against the job directory's store (opened once per process,
+    labelling on the group ``--device`` when the job asks for the device
+    leg), pass every other task through, so one worker chains all three
+    stages."""
+
+    def build(args, state) -> Stage:
+        from chunkflow_tpu_torch.segment.driver import open_store
+        from chunkflow_tpu_torch.segment.plan import SegmentPlan
+        from chunkflow_tpu_torch.segment.stages import execute_body
+
+        cache = {}
+
+        @operator
+        def stage(task):
+            body = task.get("task_body")
+            if body is None:
+                return task
+            parsed = SegmentPlan.parse_body(body)
+            if parsed is None or parsed[0] != kind:
+                return task
+            if "store" not in cache:
+                cache["store"] = open_store(args.seg_dir,
+                                            device=state["device"])
+            execute_body(cache["store"], body)
+            return task
+
+        return stage(_name=args.op_name)
+
+    return build
+
+
+def _segment_volume_options(p):
+    p.add_argument("--input-npy", "-i", required=True,
+                   help="source volume (.npy): probability map, binary mask "
+                        "or multi-valued ids")
+    p.add_argument("--seg-dir", "-d", required=True,
+                   help="job directory: spec.json, the label volume and the "
+                        "face, merge and remap sidecars")
+    _triple(p, "--chunk-size", "-c", required=True,
+            help="grid chunk size (zyx)")
+    p.add_argument("--threshold", "-t", type=float, default=0.5)
+    p.add_argument("--connectivity", choices=["6", "18", "26"], default="26")
+    _on_off(p, "--multivalue", "--binary", default=False,
+            help="treat the input as multi-valued ids (equal-value "
+                 "connectivity) instead of thresholded/binary")
+    _on_off(p, "--device", "--host", default=False,
+            help="label chunks by propagation on the group --device (the "
+                 "card unless --device cpu) instead of the host union-find")
+    p.add_argument("--workers", "-w", type=int, default=4,
+                   help="local mode: labelling and relabel threads")
+    p.add_argument("--mesh-output", default=None,
+                   help="also mesh the merged labels into this directory")
+    p.add_argument("--queue-name", "-q", default=None,
+                   help="coordinator mode: pump the task tree into this "
+                        "queue instead of running it here (needs --ledger)")
+    p.add_argument("--ledger", default=None,
+                   help="coordinator mode: the ledger the workers commit to "
+                        "(children's commits unlock parent merges)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="coordinator mode: give up after this many seconds")
+
+
+def _segment_volume(args, state) -> Stage:
+    from chunkflow_tpu_torch.parallel.lifecycle import open_ledger
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.segment.driver import (
+        init_store,
+        run_coordinator,
+        run_local,
+    )
+
+    if args.queue_name is not None and args.ledger is None:
+        raise UsageError("coordinator mode needs --ledger: children's "
+                         "ledger commits are what unlock the parent merges")
+
+    @generator
+    def stage(task):
+        store = init_store(
+            args.seg_dir, args.input_npy, args.chunk_size,
+            threshold=args.threshold, connectivity=int(args.connectivity),
+            multivalue=args.multivalue,
+            device=state["device"] if args.device else False,
+            mesh_dir=args.mesh_output)
+        if args.queue_name is not None:
+            summary = run_coordinator(store, open_queue(args.queue_name),
+                                      open_ledger(args.ledger),
+                                      timeout=args.timeout)
+            print(f"segment-volume: coordinated {summary['tree_tasks']} "
+                  f"tree task(s) + {summary['relabel_tasks']} relabel "
+                  f"task(s) over {len(store.plan.chunks)} chunk(s)")
+        else:
+            summary = run_local(store, workers=args.workers)
+            print(f"segment-volume: {summary['chunks']} chunk(s) labeled, "
+                  f"{summary['merge_nodes']} merge node(s), relabeled in "
+                  f"place under {args.seg_dir}")
+        if args.mesh_output is not None:
+            from chunkflow_tpu_torch.flow.mesh import write_manifests
+
+            write_manifests(args.mesh_output)
+        return
+        yield
+
+    return stage()
+
+
 COMMANDS: Dict[str, tuple] = {
     "generate-tasks": (_generate_tasks_options, _generate_tasks,
                        "Fan the seed task into a grid of bbox tasks, or "
@@ -2229,6 +2478,28 @@ COMMANDS: Dict[str, tuple] = {
     "serve": (_serve_options, _serve,
               "Serve POST /infer with cross-request patch batching, "
               "admission control and per-request deadlines."),
+    "mesh": (_mesh_options, _mesh,
+             "Mesh every object of a segmentation chunk (surface nets)."),
+    "mesh-manifest": (_mesh_manifest_options, _mesh_manifest,
+                      "Aggregate per-chunk mesh fragments into object "
+                      "manifests."),
+    "download-mesh": (_download_mesh_options, _download_mesh,
+                      "Fuse an object's mesh fragments into a ply/obj "
+                      "file."),
+    "label-chunk": (_segment_stage_options("label-chunk"),
+                    _segment_stage("label"),
+                    "Stitching map 1: run seg-label_<bbox> tasks (label a "
+                    "chunk into the global ids, write its faces)."),
+    "merge-seg": (_segment_stage_options("merge-seg"),
+                  _segment_stage("merge"),
+                  "Stitching reduce: run seg-merge_<bbox> tasks (one tree "
+                  "node's cross-chunk merge)."),
+    "relabel": (_segment_stage_options("relabel"), _segment_stage("relabel"),
+                "Stitching map 2: run seg-relabel_<bbox> tasks (apply the "
+                "global remap to a chunk, mesh if asked)."),
+    "segment-volume": (_segment_volume_options, _segment_volume,
+                       "Whole-volume segmentation with exact cross-chunk "
+                       "stitching, in process or through a queue."),
 }
 
 #: the JAX CLI's commands that are not ported yet, by the ROADMAP item
@@ -2240,9 +2511,6 @@ NOT_PORTED = {
                                 "save-points", "load-skeleton", "save-swc",
                                 "aggregate-skeleton-fragments", "plugin",
                                 "view", "neuroglancer", "napari"),
-    "segmentation plane": ("mesh", "mesh-manifest", "download-mesh",
-                           "label-chunk", "merge-seg", "relabel",
-                           "segment-volume"),
 }
 
 
@@ -2270,6 +2538,8 @@ def _group_parser() -> argparse.ArgumentParser:
                     "CHUNKFLOW_BLEND, CHUNKFLOW_BLEND_STACK_MAX_GB, "
                     "CHUNKFLOW_PRECISION, CHUNKFLOW_INT8, "
                     "CHUNKFLOW_SERVE, CHUNKFLOW_TELEMETRY, "
+                    "CHUNKFLOW_TELEMETRY_SNAPSHOT_EVERY, "
+                    "CHUNKFLOW_TELEMETRY_MAX_MB, CHUNKFLOW_TELEMETRY_KEEP, "
                     "CHUNKFLOW_WORKER_ID, CHUNKFLOW_METRICS_PORT, "
                     "CHUNKFLOW_SLO, CHUNKFLOW_TS_INTERVAL, "
                     "CHUNKFLOW_TS_POINTS, CHUNKFLOW_PROFILE_DIR, "
@@ -2357,7 +2627,7 @@ def build_stages(argv: List[str], group: Optional[argparse.Namespace] = None
     if group is None:
         group = _group_parser().parse_args(head)
     state = {"dry_run": group.dry_run, "device": group.device,
-             "mip": group.mip}
+             "mip": group.mip, "verbose": group.verbose}
     stages = []
     for command, tokens in segments:
         add_options, build, help_text = COMMANDS[command]

@@ -374,9 +374,10 @@ class Inferencer:
     def __call__(self, chunk: Chunk) -> Chunk:
         """Infer one chunk; the result's payload lies on the inferencer's
         device (``.host()`` brings it back) and is complete on return."""
-        result = self._infer(chunk)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with telemetry.span("inference/infer", blend=self.blend_mode):
+            result = self._infer(chunk)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         return result
 
     def stream(self, chunks, postprocess=None, post_depth: int = 2,

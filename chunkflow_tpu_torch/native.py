@@ -1,8 +1,11 @@
-"""The host C++ of the segmentation legs, through ``ctypes``.
+"""The host C++ of the segmentation legs and plane, through ``ctypes``.
 
-The port's copy of ``chunkflow_tpu/native/__init__.py`` for connected
-components (``csrc/host/cc3d.cpp``) and id remapping
-(``csrc/host/remap.cpp``). The library builds with ``g++`` at first use
+The port's copy of ``chunkflow_tpu/native/__init__.py``: connected
+components (``csrc/host/cc3d.cpp``), id remapping
+(``csrc/host/remap.cpp``), watershed and agglomeration
+(``csrc/host/watershed.cpp``) and surface-nets meshing
+(``csrc/host/surface_nets.cpp``), with the JAX package's C signatures.
+The library builds with ``g++`` at first use
 (``_build.load(_build.HOST_LIBRARY)``); a failed build raises.
 ``CHUNKFLOW_NATIVE_THREADS`` sets the z-slab worker count (default: the
 cores, at most 8); the labels are the same for every count.
@@ -10,7 +13,7 @@ cores, at most 8); the labels are the same for every count.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -31,6 +34,23 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_uint32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
                        ctypes.c_int]
+    lib.watershed_agglomerate.restype = ctypes.c_uint32
+    lib.watershed_agglomerate.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float]
+    lib.watershed_agglomerate_scored.restype = ctypes.c_uint32
+    lib.watershed_agglomerate_scored.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int]
+    lib.agglomerate_fragments.restype = ctypes.c_uint32
+    lib.agglomerate_fragments.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
+        ctypes.c_float, ctypes.c_int]
+    lib.surface_nets_mesh_u32.restype = ctypes.c_int32
+    lib.surface_nets_mesh_u32.argtypes = [
+        ctypes.c_void_p, i64, i64, i64, ctypes.c_uint32,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(i64), ctypes.POINTER(i64)]
     for fn in (lib.cf_renumber_u32, lib.cf_renumber_u64):
         fn.restype = i64
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64,
@@ -72,6 +92,97 @@ def connected_components(arr: np.ndarray,
     count = fns[arr.dtype](arr.ctypes.data, out.ctypes.data, *arr.shape,
                            connectivity)
     return out, int(count)
+
+
+SCORING = {"mean": 0, "max": 1, "min": 2}
+
+
+def _scoring_code(scoring: str) -> int:
+    """``mean``, ``max``, ``min``, or ``quantileN`` (0 <= N <= 100;
+    ``quantile50`` is waterz's aff50 median; a 256-bin histogram)."""
+    if scoring in SCORING:
+        return SCORING[scoring]
+    if scoring.startswith("quantile"):
+        try:
+            q = int(scoring[len("quantile"):])
+        except ValueError:
+            q = -1
+        if 0 <= q <= 100:
+            return 100 + q
+    raise ValueError(f"scoring must be one of {sorted(SCORING)} or "
+                     f"'quantileN' (0<=N<=100), got {scoring!r}")
+
+
+def watershed_agglomerate(
+    affinity: np.ndarray,
+    t_high: float = 0.99,
+    t_low: float = 0.3,
+    merge_threshold: float = 0.5,
+    scoring: str = "mean",
+    fragments: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, int]:
+    """Affinity map ``[3, z, y, x]`` float32 -> (segmentation uint32,
+    count): seeds above ``t_high``, steepest-ascent fragments above
+    ``t_low``, then waterz-style agglomeration of boundaries scoring
+    above ``merge_threshold`` by ``scoring``. With ``fragments`` (a
+    ``[z, y, x]`` pre-segmentation, 0 = background, ids within uint32)
+    only the agglomeration runs."""
+    if affinity.ndim != 4 or affinity.shape[0] != 3:
+        raise ValueError(f"need [3, z, y, x] affinities, got "
+                         f"{affinity.shape}")
+    if affinity[0].size >= 1 << 32:
+        raise ValueError(
+            f"volume of {affinity[0].size} voxels exceeds the native "
+            f"kernel's 2^32 voxel addressing; split the chunk first")
+    lib = load()
+    scoring_code = _scoring_code(scoring)
+    aff = np.ascontiguousarray(affinity, dtype=np.float32)
+    out = np.empty(aff.shape[1:], dtype=np.uint32)
+    if fragments is not None:
+        frags = np.asarray(fragments)
+        if tuple(frags.shape) != tuple(aff.shape[1:]):
+            raise ValueError(f"fragments shape {frags.shape} does not match "
+                             f"the affinity volume {aff.shape[1:]}")
+        if frags.dtype.kind not in "iu":
+            raise TypeError(f"fragments must be integer labels, got "
+                            f"{frags.dtype}")
+        if frags.size and (int(frags.max()) > 0xFFFFFFFF
+                           or int(frags.min()) < 0):
+            # a uint32 cast would fuse ids equal mod 2^32
+            raise ValueError("fragment labels must fit uint32; renumber "
+                             "them first (native.renumber)")
+        frags = np.ascontiguousarray(frags, dtype=np.uint32)
+        count = lib.agglomerate_fragments(
+            aff.ctypes.data, frags.ctypes.data, out.ctypes.data,
+            *aff.shape[1:], float(merge_threshold), scoring_code)
+        return out, int(count)
+    count = lib.watershed_agglomerate_scored(
+        aff.ctypes.data, out.ctypes.data, *aff.shape[1:], float(t_high),
+        float(t_low), float(merge_threshold), scoring_code)
+    return out, int(count)
+
+
+def mesh_object(seg: np.ndarray,
+                obj_id: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Surface-nets mesh of one object: (vertices ``[N, 3]`` float32,
+    xyz in voxel units; faces ``[M, 3]`` uint32). As in the JAX package,
+    the labels are cast to uint32 and the id passed as ``c_uint32``:
+    ids equal mod 2^32 mesh as one object."""
+    lib = load()
+    seg = np.ascontiguousarray(seg, dtype=np.uint32)
+    nv = ctypes.c_int64()
+    nf = ctypes.c_int64()
+    lib.surface_nets_mesh_u32(seg.ctypes.data, *seg.shape, int(obj_id),
+                              None, None, ctypes.byref(nv),
+                              ctypes.byref(nf))
+    vertices = np.empty((nv.value, 3), dtype=np.float32)
+    faces = np.empty((nf.value, 3), dtype=np.uint32)
+    lib.surface_nets_mesh_u32(
+        seg.ctypes.data, *seg.shape, int(obj_id),
+        vertices.ctypes.data if nv.value else None,
+        faces.ctypes.data if nf.value else None,
+        ctypes.byref(nv), ctypes.byref(nf))
+    return vertices, faces
 
 
 def renumber(arr: np.ndarray, start_id: int = 1):

@@ -462,10 +462,14 @@ class LifecycleSupervisor:
 
     def tasks(self, num: int = -1) -> Iterator[TaskLifecycle]:
         """The claim loop: at most ``num`` lifecycles (< 0: drain), with
-        the SIGTERM handler installed and the heartbeat running."""
+        the SIGTERM handler installed and the heartbeat running. Every
+        ``CHUNKFLOW_TELEMETRY_SNAPSHOT_EVERY`` claimed tasks it flushes a
+        telemetry ``snapshot`` event, so a killed worker leaves its
+        counters behind."""
         restore = install_preemption_handler()
         heartbeat = (_Heartbeat(self, self.lease_renew).start()
                      if self.lease_renew > 0 else None)
+        snapshot_every = telemetry.snapshot_interval()
         count = 0
         try:
             for handle, body in self.queue:
@@ -474,6 +478,8 @@ class LifecycleSupervisor:
                     continue
                 yield lc
                 count += 1
+                if snapshot_every and count % snapshot_every == 0:
+                    telemetry.flush()
                 if 0 <= num <= count:
                     return
         finally:

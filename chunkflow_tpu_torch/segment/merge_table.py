@@ -1,18 +1,94 @@
-"""Union-find over edge sets, and label-isomorphism.
+"""Merge tables: cross-face equivalence edges and vectorized union-find.
 
-The port's copy of ``union_find`` and ``labels_isomorphic`` from
-``chunkflow_tpu/segment/merge_table.py``: the multi-value connected
-components split mixed components with the first, and tests compare
-labelings with the second. The rest of that module (the merge tables of
-the segmentation plane) is not ported yet.
+The port's copy of ``chunkflow_tpu/segment/merge_table.py``, the reduce
+half of the segmentation plane, all numpy:
+
+* :func:`face_pair_edges`: two adjacent one-voxel label planes in, the
+  unique (low-side id, high-side id) equivalence edges out, over the
+  in-plane neighbourhood of the 3D connectivity. Under 26-connectivity a
+  voxel touches the far side diagonally, so chunks that meet only at a
+  grid edge or corner still exchange edges, as long as the planes are a
+  tree node's FULL interface planes (``segment/stages.py``).
+* :func:`union_find`: pointer jumping to a fixpoint, then min-relinking
+  of every edge's roots, until no edge spans two roots. Each component's
+  representative is its minimum id, so a remap table maps canonical ids
+  to themselves: the relabel pass is idempotent.
+* :func:`merge_table`: one tree node's reduce, a pure function of its
+  inputs, so a replayed merge writes the same bytes.
+* :func:`labels_isomorphic`: exact bijective agreement of two labelings
+  (the stitched-vs-monolithic oracle). The multi-value connected
+  components split mixed components with :func:`union_find` too.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
 
 EDGE_DTYPE = np.uint64
+
+_EMPTY_EDGES = np.empty((0, 2), dtype=EDGE_DTYPE)
+
+
+def _inplane_offsets(connectivity: int) -> Tuple[Tuple[int, int], ...]:
+    """In-plane (du, dv) offsets a voxel reaches across a face: crossing
+    spends one axis step, leaving Chebyshev <= 1 (26), Manhattan <= 1
+    (18) or no (6) in-plane displacement."""
+    if connectivity == 6:
+        return ((0, 0),)
+    if connectivity == 18:
+        return ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1))
+    if connectivity == 26:
+        return tuple((du, dv) for du in (-1, 0, 1) for dv in (-1, 0, 1))
+    raise ValueError(f"connectivity must be 6, 18 or 26, got {connectivity}")
+
+
+def face_pair_edges(low: np.ndarray, high: np.ndarray,
+                    connectivity: int = 26, low_values: np.ndarray = None,
+                    high_values: np.ndarray = None) -> np.ndarray:
+    """Equivalence edges across one interface: ``low`` is the label plane
+    on the low side (the chunks' ``+`` faces), ``high`` the plane one
+    voxel across (the ``-`` faces). Returns the unique ``(N, 2)`` uint64
+    edges without background or identity pairs. With ``low_values`` and
+    ``high_values`` (multi-value mode: the input ids under the planes) an
+    edge also needs equal input values on both sides."""
+    low = np.asarray(low)
+    high = np.asarray(high)
+    if low.shape != high.shape or low.ndim != 2:
+        raise ValueError(f"face planes must be equal-shape 2D, got "
+                         f"{low.shape} vs {high.shape}")
+    if (low_values is None) != (high_values is None):
+        raise ValueError("value planes must come as a pair")
+    h, w = low.shape
+    pairs = []
+    for du, dv in _inplane_offsets(connectivity):
+        lo_sel = (slice(max(0, -du), h - max(0, du)),
+                  slice(max(0, -dv), w - max(0, dv)))
+        hi_sel = (slice(max(0, du), h - max(0, -du)),
+                  slice(max(0, dv), w - max(0, -dv)))
+        a = low[lo_sel]
+        b = high[hi_sel]
+        mask = (a != 0) & (b != 0)
+        if low_values is not None:
+            mask &= low_values[lo_sel] == high_values[hi_sel]
+        if mask.any():
+            pairs.append(np.stack([a[mask].astype(EDGE_DTYPE),
+                                   b[mask].astype(EDGE_DTYPE)], axis=1))
+    if not pairs:
+        return _EMPTY_EDGES.copy()
+    edges = np.unique(np.concatenate(pairs, axis=0), axis=0)
+    return edges[edges[:, 0] != edges[:, 1]]
+
+
+def merge_edge_sets(edge_sets: Iterable[np.ndarray]) -> np.ndarray:
+    """Concatenate and dedupe edge sets, sorted (a child's merge table is
+    itself a set of equivalence pairs)."""
+    stacked = [np.asarray(e, dtype=EDGE_DTYPE).reshape(-1, 2)
+               for e in edge_sets]
+    stacked = [e for e in stacked if e.size]
+    if not stacked:
+        return _EMPTY_EDGES.copy()
+    return np.unique(np.concatenate(stacked, axis=0), axis=0)
 
 
 def union_find(edges: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -68,3 +144,20 @@ def labels_isomorphic(a: np.ndarray, b: np.ndarray) -> bool:
     pairs = np.unique(pairs, axis=0)
     return bool(np.unique(pairs[:, 0]).size == pairs.shape[0]
                 and np.unique(pairs[:, 1]).size == pairs.shape[0])
+
+
+def merge_table(edge_sets: Iterable[np.ndarray]) -> np.ndarray:
+    """One tree node's reduce: combine the edge sets, union-find them,
+    return the non-identity ``(N, 2)`` (id -> canonical) rows."""
+    edges = merge_edge_sets(edge_sets)
+    ids, roots = union_find(edges)
+    moved = ids != roots
+    return np.stack([ids[moved], roots[moved]], axis=1)
+
+
+def apply_mapping(arr: np.ndarray, keys: Sequence[int],
+                  values: Sequence[int]) -> np.ndarray:
+    """:func:`ops.remap.remap_arrays` with missing ids kept."""
+    from chunkflow_tpu_torch.ops.remap import remap_arrays
+
+    return remap_arrays(arr, keys, values, preserve_missing=True)

@@ -330,7 +330,7 @@ class PatchPacker:
                 req.device_chunk, starts, pin)
         valid = torch.zeros(slots, dtype=torch.float32, device=device)
         valid[:len(live)] = 1.0
-        with telemetry.span("serving/forward"):
+        with telemetry.span("serving/forward", occupancy=round(occupancy, 3)):
             preds = inf._forward(patches)
             # the accumulate kernel's weighting, in its order
             weighted = preds * inf._bump * valid[:, None, None, None, None]

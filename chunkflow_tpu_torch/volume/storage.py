@@ -645,7 +645,7 @@ def serial_cutout(backend: StorageBackend, lo: Sequence[int],
     """One blocking whole-range read (``CHUNKFLOW_STORAGE=serial``)."""
     lo, hi = tuple(int(v) for v in lo), tuple(int(v) for v in hi)
     _check_domain(backend, lo, hi)
-    with telemetry.span("storage/read"):
+    with telemetry.span("storage/read", mode="serial"):
         arr = np.asarray(backend.read_async(lo, hi).result())
     telemetry.inc("storage/bytes_read", arr.nbytes)
     return arr
@@ -667,7 +667,8 @@ def blockwise_cutout(backend: StorageBackend, lo: Sequence[int],
     hits = 0
     bytes_read = 0
     missing: List[tuple] = []
-    with telemetry.span("storage/read"):
+    with telemetry.span("storage/read", mode="blockwise",
+                        blocks=len(blocks)):
         for blo, bhi in blocks:
             cached = (cache.get((backend.cache_token, blo))
                       if cache is not None else None)
@@ -734,7 +735,8 @@ def blockwise_save(backend: StorageBackend, lo: Sequence[int],
     aligned = (storage_mode() == "concurrent"
                and _write_is_aligned(lo, hi, block, goff, dlo, dhi))
     futures = []
-    with telemetry.span("storage/write"):
+    with telemetry.span("storage/write",
+                        mode="aligned" if aligned else "unaligned"):
         if aligned:
             for blo, bhi in _covering_blocks(lo, hi, block, goff, dlo, dhi):
                 sub = arr[tuple(slice(bl - l, bh - l)

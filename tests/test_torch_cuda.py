@@ -674,3 +674,54 @@ def test_packer_on_card_is_per_chunk(cuda, monkeypatch, precision_, leg):
     assert gather.launches > 0 and accumulate.launches > 0
     for ref, out in zip(refs, outs):
         assert np.array_equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# the segmentation plane's device leg
+# ---------------------------------------------------------------------------
+def _segment_input():
+    return np.random.default_rng(16).random((32, 128, 128)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("connectivity", [6, 26])
+def test_segment_volume_card_is_its_cpu_device_leg(cuda, connectivity):
+    """Each chunk labelled on the card, uploaded once and read back once:
+    the stitched volume bitwise the CPU device leg's, isomorphic to the
+    host leg's."""
+    from chunkflow_tpu_torch.segment import labels_isomorphic, segment_volume
+
+    arr = _segment_input()
+    kw = dict(threshold=0.6, connectivity=connectivity, workers=2)
+    got = segment_volume(arr, (16, 64, 64), device="cuda", **kw)
+    want = segment_volume(arr, (16, 64, 64), device="cpu", **kw)
+    assert np.array_equal(got, want)
+    assert labels_isomorphic(got, segment_volume(arr, (16, 64, 64), **kw))
+
+
+def test_segment_job_finished_by_a_card_worker_after_a_cpu_worker(
+        cuda, tmp_path):
+    """A device-leg job: a worker on the CPU labels half the chunks, a
+    worker on the card the rest, then merges and relabels: the volume is
+    the CPU device leg's."""
+    from chunkflow_tpu_torch.segment import driver, stages
+
+    arr = _segment_input()
+    npy = str(tmp_path / "in.npy")
+    np.save(npy, arr)
+    want = driver.segment_volume(arr, (16, 64, 64), threshold=0.6,
+                                 device="cpu")
+    cpu = driver.init_store(str(tmp_path / "job"), npy, (16, 64, 64),
+                            threshold=0.6, device="cpu")
+    card = driver.open_store(str(tmp_path / "job"), device="cuda")
+    chunks = cpu.plan.chunks
+    for chunk in chunks[: len(chunks) // 2]:
+        stages.label_chunk(cpu, chunk)
+    for chunk in chunks[len(chunks) // 2:]:
+        stages.label_chunk(card, chunk)
+    for node in card.plan.make_tree().post_order():
+        if not node.is_leaf:
+            stages.merge_node(card, node.bbox)
+    for chunk in chunks:
+        stages.relabel_chunk(card, chunk)
+    assert np.array_equal(driver.export_segmentation(card), want)

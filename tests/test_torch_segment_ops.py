@@ -87,7 +87,7 @@ def test_host_build_recipe():
     cmd = _build.gxx_command(_build.library_path(_build.HOST_LIBRARY))
     assert cmd[1:6] == ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
     assert [os.path.basename(a) for a in cmd if a.endswith(".cpp")] == [
-        "cc3d.cpp", "remap.cpp"]
+        "cc3d.cpp", "remap.cpp", "watershed.cpp", "surface_nets.cpp"]
     # keyed by the sources' hash, under the git-ignored build/
     path = _build.library_path(_build.HOST_LIBRARY)
     assert path.parent == _build.BUILD_DIR and "libchunkflow_host-" in \
