@@ -165,6 +165,21 @@ non-zero exit and no result line:
              ``download-mesh`` on the largest objects of two chunks: every
              fragment listed exists, every mesh closed, the ply the sum of
              its fragments; wall s, Mvox/s, ms per stage, sweeps
+17. encodings  phase 10's input re-encoded as jpeg (64³ blocks; bytes,
+             ratio, encode MB/s); phase 10's worker (parity float32) in
+             two subprocesses from the jpeg volume into a sharded raw
+             float32 volume (every shard holding chunks of several
+             tasks): bitwise the in-process reference on the port's own
+             decoded cutouts, 18 + 18 launches per computed task, each
+             task acked once, the queue empty; the same chain in process
+             (s/task, Mvox/s beside phase 10's from raw, host ms decoding);
+             phase 16's segmentation into a sharded
+             compressed_segmentation volume (64³ chunks, 8³ blocks,
+             murmurhash3, gzip) read back bitwise, MB/s of the host C++
+             codec and its numpy plain version; a uint16 png and an rgb
+             jpeg volume round-tripped; whether this machine's Pillow
+             writes and reads ``tests/data/jpeg_blocks.npz``'s jpeg bytes
+             as tensorstore did
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -245,6 +260,26 @@ SEGMENT_INPUT = OUT_DIR / "segment_input.npy"
 SEGMENT_QUEUE_Z = 56
 SEGMENT_VISIBILITY_S = 4
 SEGMENT_MESH_IDS = 16
+# phase 17: the stitched segmentation phase 16 keeps; the jpeg-fed
+# workers' sharded raw float32 output (murmurhash3 over 64 shards of ~8
+# chunks of OUT_BLOCK: every shard holds chunks of 2 or more of the 8
+# tasks, which the phase checks); the segmentation's sharded
+# compressed_segmentation volume as igneous writes one (64³ chunks, 8³
+# blocks, murmurhash3, gzip minishard index and data; 8 shards); the size
+# of the png and rgb jpeg round trips; the workers' time limit (s)
+SEGMENT_SEG = OUT_DIR / "segmentation.npy"
+SHARD_OUT = {"@type": "neuroglancer_uint64_sharded_v1", "preshift_bits": 0,
+             "hash": "murmurhash3_x86_128", "minishard_bits": 2,
+             "shard_bits": 6, "minishard_index_encoding": "gzip",
+             "data_encoding": "raw"}
+SHARD_SEG = {"@type": "neuroglancer_uint64_sharded_v1", "preshift_bits": 0,
+             "hash": "murmurhash3_x86_128", "minishard_bits": 3,
+             "shard_bits": 3, "minishard_index_encoding": "gzip",
+             "data_encoding": "gzip"}
+SEG_CHUNK = (64, 64, 64)
+SEG_BLOCK = (8, 8, 8)
+ENCODED_SMALL = (64, 512, 512)
+ENCODED_WORKER_S = 300
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -1246,11 +1281,12 @@ def main() -> int:
             launched[kname] += n
         return launched
 
+    volume_s = {}  # family -> s/task from disk, for phase 17
     volume_launches, chain_launches = volume_phase(
         torch, dict(volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI,
                     task=TASK, margin=MARGIN, out_block=OUT_BLOCK, pin=PIN,
                     overlap=OVERLAP, batch=BATCH, families=VOLUME_FAMILIES,
-                    device="cuda", keep=SEGMENT_INPUT),
+                    device="cuda", keep=SEGMENT_INPUT, timings=volume_s),
         weights=state, reset_counts=reset_counts, counts=counts,
         in_memory=in_memory, then=chain)
     for launched in (volume_launches, chain_launches):
@@ -1288,11 +1324,27 @@ def main() -> int:
     plane_s = segment_plane_phase(torch, dict(
         input=SEGMENT_INPUT, task=TASK, device="cuda", card=card,
         queue_z=SEGMENT_QUEUE_Z, visibility=SEGMENT_VISIBILITY_S,
-        mesh_ids=SEGMENT_MESH_IDS, voxel=VOXEL_NM))
+        mesh_ids=SEGMENT_MESH_IDS, voxel=VOXEL_NM, keep=SEGMENT_SEG))
     require(counts_all()["gather"] == counts_all()["accumulate"] == 0,
             "segment-plane: a blend kernel launched in the plane")
     phase("segment-plane", f"phase 16 took {plane_s:.1f} s; its input's "
                            f"inference launches are phase 10's")
+
+    # ---- 17. encodings: a jpeg-fed worker, sharded outputs --------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    for kname, n in encodings_phase(torch, dict(
+            volume=VOLUME, roi=ROI, task=TASK, margin=MARGIN,
+            out_block=OUT_BLOCK, pin=PIN, overlap=OVERLAP, batch=BATCH,
+            device="cuda", shard_out=SHARD_OUT, shard_seg=SHARD_SEG,
+            seg_chunk=SEG_CHUNK, seg_block=SEG_BLOCK,
+            segmentation=SEGMENT_SEG, small=ENCODED_SMALL,
+            worker_s=ENCODED_WORKER_S,
+            raw_s_per_task=volume_s.get("parity float32")),
+            weights=state, reset_counts=reset_counts,
+            counts=counts).items():
+        kernels[kname]["launches"] += n
+    phase("encodings", f"phase 17 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -1599,6 +1651,8 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                 idle = _idle_share(_device_trace(torch, traced))
                 shutil.rmtree(out)
             memory = in_memory.get(label) if in_memory else None
+            if "timings" in cfg:
+                cfg["timings"][label] = wall / len(boxes)
             phase("volume", f"{label}: {len(boxes)} tasks read from disk, "
                             f"{wall / len(boxes):.4f} s/task, "
                             f"{vox_in * len(boxes) / wall / 1e6:.3f} Mvox/s "
@@ -3509,6 +3563,8 @@ def segment_plane_phase(torch, cfg):
                     f"segment-plane: {what}: not label-isomorphic "
                     f"({pairs} pairs, {n_mono} components)")
             checks[what] = pairs
+        if cfg.get("keep"):  # phase 17's input: the stitched segmentation
+            np.save(cfg["keep"], host_seg)
         plan = legs["--device"]["plan"]
         recorded = legs["--device"]["local"]
         require(len(recorded) == len(plan.chunks),
@@ -3760,6 +3816,435 @@ def segment_plane_phase(torch, cfg):
               f"{queue_total_s:.1f} s; meshes with their checks "
               f"{time.perf_counter() - t_mesh:.1f} s")
     return time.perf_counter() - t_phase
+
+
+def encodings_phase(torch, cfg, weights, reset_counts, counts):
+    """Phase 17: the precomputed encodings on the worker's path.
+
+    a. Phase 10's seeded input volume re-encoded as ``jpeg`` in
+       ``create-info``'s default 64³ blocks (bytes on disk, the ratio to
+       ``raw``, encode MB/s). Phase 10's queue-fed worker (``fetch-task-
+       from-queue | load-precomputed | inference | save-precomputed
+       --async-write | delete-task-in-queue``, the parity UNet3D in
+       float32) in two worker subprocesses at once, reading the jpeg
+       volume and writing a sharded ``raw`` float32 volume whose every
+       shard holds chunks of more than one task (checked; the parameters
+       printed). Every task of the output is bitwise its in-process
+       reference (``Inferencer.__call__`` on the port's own decoded
+       cutout, cropped); each worker launched each kernel ``per_task``
+       times per computed task; each task acked once; the queue empty.
+       The same chain in this process, counted and timed (s/task, Mvox/s,
+       host ms per task decoding jpeg blocks), and bitwise the reference.
+    b. ``cfg["segmentation"]`` (phase 16's stitched global segmentation,
+       uint64) into a sharded ``compressed_segmentation`` volume as
+       igneous writes segmentations (64³ chunks, 8³ blocks, murmurhash3,
+       gzip minishard index and data), read back bitwise; MB/s of the
+       volume's save and cutout, and of the host C++ codec and its numpy
+       plain version on one chunk; bytes on disk and the ratio.
+    c. A uint16 ``png`` volume and a 3-channel uint8 ``jpeg`` volume,
+       written and read back: the png bitwise, the jpeg bitwise the
+       blocks' own decoding (and, through the write-through cache, the
+       array saved). Whether this machine's Pillow encodes the blocks of
+       ``tests/data/jpeg_blocks.npz`` into the bytes tensorstore wrote
+       there, and decodes those bytes as tensorstore decoded them, is
+       printed.
+
+    Returns the kernels' launches in the counted in-process run."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import BoundingBox, Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.core.bbox import BoundingBoxes
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import process_stream
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume import codecs, storage
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+    from chunkflow_tpu_torch.volume.sharding import (
+        ShardingSpec,
+        compressed_morton_code,
+    )
+
+    on_card = cfg["device"] == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start, roi_size = cfg["roi"]
+    task = cfg["task"]
+    chunk_in = tuple(t + 2 * m for t, m in zip(task, margin))
+    per_task = len(pad_to_batch(enumerate_patches(chunk_in, pin, pin,
+                                                  overlap), batch)[0]) // batch
+    boxes = list(BoundingBoxes.from_manual_setup(
+        chunk_size=task, roi_start=roi_start, roi_size=roi_size))
+    vox_in = int(np.prod(chunk_in))
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def disk_bytes(path):
+        return sum(os.path.getsize(os.path.join(root, n))
+                   for root, _, names in os.walk(path) for n in names
+                   if not n.endswith(".lock"))
+
+    def shard_tasks(spec, block):
+        """shard -> the tasks whose output chunks it holds."""
+        grid = [r // b for r, b in zip(roi_size, block)]
+        held = {}
+        for z, y, x in itertools.product(*map(range, grid)):
+            cid = compressed_morton_code((x, y, z), grid[::-1])
+            owner = tuple(i * b // t for i, b, t in zip((z, y, x), block,
+                                                           task))
+            held.setdefault(spec.locate(cid)[0], set()).add(owner)
+        return held
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encodings_") as tmp:
+        tmp = Path(tmp)
+        weights_pt = str(tmp / "unet3d_seed0.pt")
+        torch.save(weights, weights_pt)
+        # ---- a. the jpeg-fed worker ------------------------------------
+        image = np.random.default_rng(10).integers(0, 256, cfg["volume"],
+                                                   dtype=np.uint8)
+        vol_in = str(tmp / "image-jpeg")
+        require(cli.main(dev_args + [
+            "create-info", "-v", vol_in, "-s", *nums(cfg["volume"]),
+            "--voxel-size", *nums(VOXEL_NM), "-e", "jpeg"]) == 0,
+            "encodings: create-info -e jpeg failed")
+        t = time.perf_counter()
+        PrecomputedVolume(vol_in).save(Chunk(image, voxel_size=VOXEL_NM))
+        enc_s = time.perf_counter() - t
+        jpeg_bytes = disk_bytes(os.path.join(vol_in, "4_4_40"))
+        # the write-through cache holds the blocks saved, not their jpeg
+        # decoding (the JAX package's behaviour): every read below decodes
+        storage.reset_shared_cache()
+        block_in = PrecomputedVolume(vol_in).block_size(0)
+        phase("encodings", f"input {cfg['volume']} uint8 re-encoded as jpeg "
+                           f"(quality {codecs.JPEG_QUALITY}) in blocks of "
+                           f"{tuple(block_in)}: {jpeg_bytes} bytes on disk, "
+                           f"{jpeg_bytes / image.nbytes:.4f} of raw "
+                           f"({image.nbytes}); encode {enc_s:.3f} s, "
+                           f"{image.nbytes / enc_s / 1e6:.1f} MB/s")
+        spec_out = dict(cfg["shard_out"])
+        held = shard_tasks(ShardingSpec(spec_out), cfg["out_block"])
+        require(min(len(v) for v in held.values()) > 1,
+                f"encodings: a shard of the output holds chunks of one task "
+                f"only under {spec_out}")
+
+        def output_volume(name):
+            out = str(tmp / name)
+            PrecomputedVolume.create(
+                out, volume_size=roi_size, voxel_size=VOXEL_NM,
+                voxel_offset=roi_start, num_channels=3, dtype="float32",
+                block_size=cfg["out_block"], sharding=spec_out)
+            queue = f"file://{tmp}/{name}-queue"
+            require(cli.main(dev_args + [
+                "generate-tasks", "--volume-path", out, "--chunk-size",
+                *nums(task), "--queue-name", queue]) == 0,
+                f"encodings: generate-tasks for {name} failed")
+            return out, queue, str(tmp / f"{name}-ledger")
+
+        def worker_args(queue, ledger, out, polls):
+            return ["fetch-task-from-queue", "-q", queue, "--max-retries",
+                    "3", "--ledger", ledger, "--visibility-timeout",
+                    str(VISIBILITY_S), "--lease-renew", "1", "-r",
+                    str(polls), "--poll-interval", "0.5",
+                    "load-precomputed", "-v", vol_in, "-e", *nums(margin),
+                    "inference", "--framework", "pytorch",
+                    "--model-variant", "parity", "--dtype", "float32",
+                    "--weight-path", weights_pt,
+                    "--input-patch-size", *nums(pin),
+                    "--output-patch-overlap", *nums(overlap),
+                    "--output-crop-margin", *nums(margin),
+                    "--num-output-channels", "3", "--batch-size",
+                    str(batch), "--async-depth", "2",
+                    "save-precomputed", "-v", out, "--async-write",
+                    "delete-task-in-queue"]
+
+        inferencer = Inferencer(
+            input_patch_size=pin, output_patch_overlap=overlap,
+            num_output_channels=3, framework="pytorch",
+            model_variant="parity", dtype="float32", batch_size=batch,
+            weight_path=weights_pt, device=cfg["device"])
+        reader = PrecomputedVolume(vol_in)
+        refs = []
+        for bbox in boxes:
+            src = reader.cutout(bbox.adjust(margin))
+            refs.append(inferencer(src).crop_margin(margin).host().array)
+        del inferencer
+
+        def check_volume(out, what):
+            vol = PrecomputedVolume(out)
+            for bbox, ref in zip(boxes, refs):
+                got = vol.cutout(bbox).array
+                require(got.shape == ref.shape and np.array_equal(got, ref),
+                        f"encodings: {what}: task {bbox.string} differs "
+                        f"from its in-process reference")
+
+        out, queue, ledger = output_volume("out-workers")
+        metrics = str(tmp / "events")
+        env = {k: v for k, v in os.environ.items() if k != "CHUNKFLOW_CHAOS"}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "chunkflow_tpu_torch", *dev_args, "-v",
+             "--metrics-dir", metrics, *worker_args(queue, ledger, out, 4)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for _ in range(2)]
+        results = []
+        try:
+            for proc in procs:
+                stdout, stderr = proc.communicate(timeout=cfg["worker_s"])
+                results.append((proc.returncode, stdout, stderr))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t
+        counters = []
+        for rc, stdout, stderr in results:
+            require(rc == 0, f"encodings: a worker failed, rc {rc}: "
+                             f"{stderr[-3000:]}")
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("run counters: ")]
+            require(bool(line), "encodings: a worker printed no counters")
+            counters.append(json.loads(line[-1][len("run counters: "):]))
+        computed = [c.get("inference/chunks", 0) for c in counters]
+        require(sum(computed) == len(boxes),
+                f"encodings: the workers computed {computed} tasks, not "
+                f"{len(boxes)} in all")
+        for c, n in zip(counters, computed):
+            for kname in ("gather", "accumulate"):
+                require(not on_card or c.get(f"kernels/{kname}") == per_task
+                        * n, f"encodings: a worker launched {kname} "
+                             f"{c.get(f'kernels/{kname}')} times for {n} "
+                             f"tasks, not {per_task} each")
+        stats = open_queue(queue).stats()
+        require(stats["pending"] == stats["inflight"] == stats["dead"] == 0,
+                f"encodings: the queue did not drain: {stats}")
+        acks = {b.string: 0 for b in boxes}
+        for name in os.listdir(metrics):
+            with open(os.path.join(metrics, name)) as f:
+                for ln in f:
+                    event = json.loads(ln)
+                    if event.get("name") in ("lifecycle/committed",
+                                             "lifecycle/ledger_skip"):
+                        acks[event["body"]] += 1
+        require(set(acks.values()) == {1},
+                f"encodings: acks per task {acks}, not one each")
+        check_volume(out, "the two workers' sharded volume")
+        shards = sorted(n for n in os.listdir(os.path.join(out, "4_4_40"))
+                        if n.endswith(".shard"))
+        phase("encodings", f"two workers (parity float32) from the jpeg "
+                           f"volume into a sharded raw float32 volume "
+                           f"({spec_out}; {len(shards)} shards of "
+                           f"{tuple(cfg['out_block'])} chunks, each holding "
+                           f"chunks of {min(len(v) for v in held.values())}-"
+                           f"{max(len(v) for v in held.values())} tasks): "
+                           f"{wall:.1f} s for {len(boxes)} tasks with start-"
+                           f"up, tasks per worker {computed}; output == "
+                           f"in-process reference bitwise; {per_task} + "
+                           f"{per_task} launches per computed task; each "
+                           f"task acked once; queue {stats}")
+        shutil.rmtree(out)
+
+        # the same chain in this process: counted and timed
+        out, queue, ledger = output_volume("out-run")
+        _, stages = cli.build_stages(dev_args + worker_args(queue, ledger,
+                                                            out, 0))
+        decode_s = [0.0]
+        jpeg_decode = codecs.JpegCodec.decode
+
+        def timed_decode(self, data, shape):
+            t0 = time.perf_counter()
+            try:
+                return jpeg_decode(self, data, shape)
+            finally:
+                decode_s[0] += time.perf_counter() - t0
+
+        storage.reset_shared_cache()
+        telemetry.reset()
+        with mock.patch.object(codecs.JpegCodec, "decode", timed_decode):
+            reset_counts()
+            sync()
+            t = time.perf_counter()
+            n = process_stream(stages)
+            sync()
+            run_s = time.perf_counter() - t
+            launched = counts()
+        snap = telemetry.snapshot()
+        require(n == len(boxes), f"encodings: {n} tasks drained")
+        for kname, k in launched.items():
+            require(not on_card or k == per_task * len(boxes),
+                    f"encodings: {kname} launched {k} times, not "
+                    f"{per_task * len(boxes)}")
+        check_volume(out, "the in-process run's sharded volume")
+
+        def mean_ms(name):
+            h = snap["hists"].get(name)
+            return h["mean"] * 1e3 if h else 0.0
+
+        phase("encodings", f"the same chain in process: "
+                           f"{run_s / len(boxes):.4f} s/task, "
+                           f"{vox_in * len(boxes) / run_s / 1e6:.3f} Mvox/s "
+                           f"of input (phase 10 from raw: "
+                           + (f"{cfg['raw_s_per_task']:.4f} s/task"
+                              if cfg.get("raw_s_per_task") else "not run")
+                           + f"); host ms per task: decoding jpeg blocks "
+                           f"{decode_s[0] * 1e3 / len(boxes):.1f}, cutout "
+                           f"{mean_ms('op/load-precomputed'):.1f} (block "
+                           f"reads {mean_ms('storage/read'):.1f}), save "
+                           f"{mean_ms('op/save-precomputed'):.1f}, ack "
+                           f"{mean_ms('lifecycle/commit'):.1f}; launches "
+                           f"{launched}; output == reference bitwise")
+        shutil.rmtree(out)
+        del refs, stages, image
+
+        # ---- b. the segmentation as compressed_segmentation ---------------
+        seg = np.load(cfg["segmentation"])
+        require(seg.shape == tuple(roi_size),
+                f"encodings: the segmentation is {seg.shape}, not "
+                f"{tuple(roi_size)}")
+        seg = seg.astype(np.uint64, copy=False)
+        seg_vol = str(tmp / "segmentation")
+        PrecomputedVolume.create(
+            seg_vol, volume_size=roi_size, voxel_size=VOXEL_NM,
+            voxel_offset=roi_start, dtype="uint64",
+            layer_type="segmentation", block_size=cfg["seg_chunk"],
+            encoding="compressed_segmentation", sharding=cfg["shard_seg"],
+            compressed_segmentation_block_size=cfg["seg_block"])
+        t = time.perf_counter()
+        PrecomputedVolume(seg_vol).save(Chunk(seg, voxel_offset=roi_start,
+                                              voxel_size=VOXEL_NM))
+        save_s = time.perf_counter() - t
+        storage.reset_shared_cache()
+        roi = BoundingBox(roi_start, tuple(a + b for a, b in
+                                           zip(roi_start, roi_size)))
+        t = time.perf_counter()
+        back = PrecomputedVolume(seg_vol).cutout(roi).array
+        read_s = time.perf_counter() - t
+        require(back.dtype == np.uint64 and np.array_equal(back, seg),
+                "encodings: the compressed_segmentation volume does not "
+                "read back bitwise")
+        seg_bytes = disk_bytes(seg_vol) - len(open(
+            os.path.join(seg_vol, "info"), "rb").read())
+        one = np.ascontiguousarray(seg[None, :cfg["seg_chunk"][0],
+                                       :cfg["seg_chunk"][1],
+                                       :cfg["seg_chunk"][2]])
+        from chunkflow_tpu_torch import native
+        rates = {}
+        for label, enc, dec in (
+                ("host C++", native.compressed_segmentation_encode,
+                 native.compressed_segmentation_decode),
+                ("numpy plain", codecs.encode_compressed_segmentation_plain,
+                 codecs.decode_compressed_segmentation_plain)):
+            t = time.perf_counter()
+            data = enc(one, cfg["seg_block"])
+            enc_s = time.perf_counter() - t
+            t = time.perf_counter()
+            dec_one = dec(data, one.shape, np.uint64, cfg["seg_block"])
+            dec_s = time.perf_counter() - t
+            require(np.array_equal(dec_one, one),
+                    f"encodings: the {label} codec does not round-trip")
+            rates[label] = (one.nbytes / enc_s / 1e6,
+                            one.nbytes / dec_s / 1e6, data)
+        require(rates["host C++"][2] == rates["numpy plain"][2],
+                "encodings: the host C++ codec's bytes are not its numpy "
+                "plain version's")
+        phase("encodings", f"segmentation {seg.shape} uint64 "
+                           f"({len(np.unique(seg[::4, ::16, ::16]))} ids in a "
+                           f"sample) into sharded compressed_segmentation "
+                           f"(chunks {tuple(cfg['seg_chunk'])}, blocks "
+                           f"{tuple(cfg['seg_block'])}, {cfg['shard_seg']}): "
+                           f"{seg_bytes} bytes on disk, "
+                           f"{seg_bytes / seg.nbytes:.5f} of raw; save "
+                           f"{save_s:.3f} s ({seg.nbytes / save_s / 1e6:.1f} "
+                           f"MB/s), cutout {read_s:.3f} s "
+                           f"({seg.nbytes / read_s / 1e6:.1f} MB/s); read "
+                           f"back bitwise")
+        phase("encodings", "one chunk " + str(tuple(one.shape[1:])) + ": "
+              + "; ".join(f"{label} encode {r[0]:.1f} MB/s, decode "
+                          f"{r[1]:.1f} MB/s" for label, r in rates.items())
+              + f"; {len(rates['host C++'][2])} bytes, the same from both")
+        del seg, back
+
+        # ---- c. png and the card's jpeg ------------------------------------
+        rng = np.random.default_rng(17)
+        size = cfg["small"]
+        for name, encoding, dtype, channels in (
+                ("png", "png", "uint16", 1), ("rgb", "jpeg", "uint8", 3)):
+            path = str(tmp / name)
+            PrecomputedVolume.create(path, volume_size=size,
+                                     voxel_size=VOXEL_NM,
+                                     num_channels=channels, dtype=dtype,
+                                     encoding=encoding)
+            shape = ((channels,) if channels > 1 else ()) + tuple(size)
+            data = rng.integers(0, np.iinfo(dtype).max, shape).astype(dtype)
+            vol = PrecomputedVolume(path)
+            vol.save(Chunk(data))
+            box = BoundingBox((0, 0, 0), size)
+            cached = vol.cutout(box).array
+            storage.reset_shared_cache()
+            t = time.perf_counter()
+            back = PrecomputedVolume(path).cutout(box).array
+            read_s = time.perf_counter() - t
+            require(np.array_equal(cached, data),
+                    f"encodings: {name}: the write-through cache does not "
+                    f"return the array saved")
+            if encoding == "png":
+                require(np.array_equal(back, data),
+                        "encodings: the png volume does not read back "
+                        "bitwise")
+                what = "bitwise"
+            else:
+                codec = codecs.JpegCodec()
+                scale = os.path.join(path, "4_4_40")
+                for fname in os.listdir(scale):
+                    (x0, x1), (y0, y1), (z0, z1) = (
+                        map(int, part.split("-"))
+                        for part in fname.split("_"))
+                    with open(os.path.join(scale, fname), "rb") as f:
+                        blk = codec.decode(f.read(), (3, z1 - z0, y1 - y0,
+                                                      x1 - x0))
+                    require(np.array_equal(back[:, z0:z1, y0:y1, x0:x1],
+                                           blk),
+                            f"encodings: rgb: block {fname} reads "
+                            f"otherwise than it decodes")
+                what = (f"each block as it decodes, max abs to the input "
+                        f"{int(np.abs(back.astype(int) - data).max())}")
+            phase("encodings", f"{name}: {shape} {dtype} {encoding}, "
+                               f"{disk_bytes(path)} bytes on disk, read in "
+                               f"{read_s:.3f} s: {what}")
+        fixture = np.load(ROOT / "tests" / "data" / "jpeg_blocks.npz")
+        same = {}
+        for name in ("gray", "rgb"):
+            block = fixture[name]
+            stored = fixture[f"{name}_jpeg"].tobytes()
+            decoded = codecs.JpegCodec().decode(stored, block.shape)
+            same[name] = (codecs.JpegCodec().encode(block) == stored,
+                          bool(np.array_equal(decoded,
+                                              fixture[f"{name}_decoded"])))
+        import PIL
+        phase("encodings", f"this machine's Pillow {PIL.__version__}: the "
+                           f"jpeg bytes tensorstore wrote for "
+                           f"tests/data/jpeg_blocks.npz (1, 3 channels) "
+                           f"{same['gray'][0]}, {same['rgb'][0]}; their "
+                           f"decoding as tensorstore's "
+                           f"{same['gray'][1]}, {same['rgb'][1]}")
+    return {kname: int(k) for kname, k in launched.items()}
 
 
 def _brief(counters):

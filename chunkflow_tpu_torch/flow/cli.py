@@ -22,13 +22,14 @@ volumes are its only shared state)::
 
 Inference runs on the card; ``--device cpu`` (before the first command)
 runs the kernels' plain PyTorch versions on the CPU instead. Volumes are
-local neuroglancer precomputed directories in the raw encoding; queues
+local neuroglancer precomputed directories (``raw``, ``jpeg``, ``png`` or
+``compressed_segmentation`` blocks, unsharded or sharded); queues
 are ``file://`` directories or ``memory://`` names; chunk files are
 HDF5, TIFF, PNG sections, NRRD, zarr v2, and (to read) zarr v3 and N5.
 Every command name of the JAX CLI is registered:
-those not ported yet (``NOT_PORTED``), cloud URLs (``gs://``, ``s3://``,
-``sqs://``) and other encodings raise ``NotImplementedError`` naming
-their ROADMAP item. Chunk operators compute where their chunk lies;
+those not ported yet (``NOT_PORTED``) and cloud URLs (``gs://``,
+``s3://``, ``sqs://``) raise ``NotImplementedError`` naming their ROADMAP
+item. Chunk operators compute where their chunk lies;
 ``mask``, ``channel-voting`` and ``connected-components --device``
 compute a host chunk on ``--device``, as the JAX package computes them
 with ``jnp`` on its default device.
@@ -900,7 +901,8 @@ def _create_info_options(p):
                    default=1)
     p.add_argument("--dtype", "--data-type", default="uint8")
     p.add_argument("--encoding", "-e", default="raw",
-                   help="block encoding (the port writes raw)")
+                   help="block encoding: raw, jpeg, png or "
+                        "compressed_segmentation")
     p.add_argument("--input-chunk-name", "-i", default=None,
                    help="take size, offset, dtype and voxel size defaults "
                         "from this chunk of the task")

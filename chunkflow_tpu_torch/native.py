@@ -4,7 +4,10 @@ The port's copy of ``chunkflow_tpu/native/__init__.py``: connected
 components (``csrc/host/cc3d.cpp``), id remapping
 (``csrc/host/remap.cpp``), watershed and agglomeration
 (``csrc/host/watershed.cpp``) and surface-nets meshing
-(``csrc/host/surface_nets.cpp``), with the JAX package's C signatures.
+(``csrc/host/surface_nets.cpp``), with the JAX package's C signatures;
+and the precomputed block codecs that run per voxel
+(``csrc/host/compressed_segmentation.cpp``: ``compressed_segmentation``
+and the PNG row filters, which ``volume/codecs.py`` calls).
 The library builds with ``g++`` at first use
 (``_build.load(_build.HOST_LIBRARY)``); a failed build raises.
 ``CHUNKFLOW_NATIVE_THREADS`` sets the z-slab worker count (default: the
@@ -60,6 +63,17 @@ def load() -> ctypes.CDLL:
         fn.restype = i64
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64,
                        ctypes.c_void_p, ctypes.c_void_p, i64, ctypes.c_int]
+    for fn in (lib.cseg_encode_u32, lib.cseg_encode_u64):
+        fn.restype = i64
+        fn.argtypes = [ctypes.c_void_p, i64, i64, i64, i64, i64, i64, i64,
+                       ctypes.c_void_p, i64]
+    for fn in (lib.cseg_decode_u32, lib.cseg_decode_u64):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, i64, i64, i64, i64, i64, i64, i64,
+                       i64, ctypes.c_void_p]
+    lib.png_unfilter.restype = i64
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, i64, i64, i64,
+                                 ctypes.c_void_p]
     _lib = lib
     return lib
 
@@ -240,3 +254,69 @@ def remap(arr: np.ndarray, mapping: Dict[int, int],
                     keys.ctypes.data, vals.ctypes.data, keys.size,
                     1 if preserve_missing else 0)
     return out.reshape(arr.shape)
+
+
+def _cseg_fns(dtype: np.dtype):
+    lib = load()
+    fns = {np.dtype(np.uint32): (lib.cseg_encode_u32, lib.cseg_decode_u32),
+           np.dtype(np.uint64): (lib.cseg_encode_u64, lib.cseg_decode_u64)}
+    if np.dtype(dtype) not in fns:
+        raise ValueError(f"compressed_segmentation holds uint32 or uint64 "
+                         f"labels, not {np.dtype(dtype).name}")
+    return fns[np.dtype(dtype)]
+
+
+def compressed_segmentation_encode(block: np.ndarray,
+                                   block_size_zyx) -> bytes:
+    """A ``[c, z, y, x]`` uint32/uint64 chunk as compressed_segmentation
+    bytes, in blocks of ``block_size_zyx``."""
+    encode, _ = _cseg_fns(block.dtype)
+    block = np.ascontiguousarray(block)
+    c, z, y, x = block.shape
+    bz, by, bx = (int(v) for v in block_size_zyx)
+    blocks = -(-z // bz) * -(-y // by) * -(-x // bx)
+    words = block.dtype.itemsize // 4
+    # header, and per block its two words, its values at 32 bits at the
+    # most and a table of every voxel
+    capacity = c * (1 + blocks * (2 + bz * by * bx * (1 + words)))
+    out = np.empty(capacity, dtype=np.uint32)
+    n = encode(block.ctypes.data, c, z, y, x, bz, by, bx, out.ctypes.data,
+               capacity)
+    if n < 0:
+        raise RuntimeError(f"compressed_segmentation: {-n} words do not "
+                           f"fit the {capacity}-word bound")
+    return out[:n].astype("<u4", copy=False).tobytes()
+
+
+def compressed_segmentation_decode(data: bytes, shape_czyx, dtype,
+                                   block_size_zyx) -> np.ndarray:
+    """compressed_segmentation bytes as a ``[c, z, y, x]`` array; a chunk
+    whose offsets, bit widths or indices leave its bytes raises
+    ``ValueError``."""
+    _, decode = _cseg_fns(dtype)
+    if len(data) % 4:
+        raise ValueError(f"compressed_segmentation chunk of {len(data)} "
+                         f"bytes is not whole 32-bit words")
+    words = np.frombuffer(data, dtype="<u4")
+    c, z, y, x = (int(v) for v in shape_czyx)
+    out = np.empty((c, z, y, x), dtype=dtype)
+    if decode(words.ctypes.data, words.size, c, z, y, x,
+              *(int(v) for v in block_size_zyx), out.ctypes.data) != 0:
+        raise ValueError("corrupt compressed_segmentation chunk")
+    return out
+
+
+def png_unfilter(filtered: np.ndarray, rows: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of ``rows`` rows of ``stride`` bytes,
+    each led by its filter byte, ``bpp`` bytes per pixel."""
+    filtered = np.ascontiguousarray(filtered, dtype=np.uint8)
+    if filtered.size != rows * (stride + 1):
+        raise ValueError(f"PNG image data of {filtered.size} bytes, "
+                         f"expected {rows * (stride + 1)}")
+    out = np.empty(rows * stride, dtype=np.uint8)
+    bad = load().png_unfilter(filtered.ctypes.data, rows, stride, bpp,
+                              out.ctypes.data)
+    if bad:
+        raise ValueError(f"PNG row {-bad - 1} has an unknown filter type")
+    return out

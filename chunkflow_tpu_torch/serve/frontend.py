@@ -36,8 +36,8 @@ The wire: a request is JSON with ``shape`` ([z, y, x] or [c, z, y, x]),
 ``dtype`` (uint8, uint16 or float32), ``data_b64`` (base64 of the C-order
 bytes), optional ``voxel_offset`` and ``deadline_s``; or, instead of the
 data, ``volume_path``, ``bbox_start``, ``bbox_size`` and ``mip`` of a
-local precomputed volume (raw encoding). The response carries the result
-the same way (bfloat16 widened to float32), its ``trace_id`` and
+local precomputed volume (any encoding, sharded or not). The response
+carries the result the same way (bfloat16 widened to float32), its ``trace_id`` and
 ``latency_s``.
 
 Backpressure is the adaptive scheduler's memory watermark
@@ -528,9 +528,9 @@ class ServingService(CoordinationService):
         :meth:`PrecomputedVolume.cutout`, i.e. block-decomposed
         concurrent reads riding the shared hot-block LRU
         (``volume/storage.py``), so overlapping serving loads hit host
-        memory instead of re-reading the disk. An encoding other than
-        ``raw`` is refused (400) with the port's "precomputed encodings"
-        message."""
+        memory instead of re-reading the disk; blocks are decoded by the
+        volume's codec, as tensorstore decodes them for the JAX server. A
+        scale the codecs refuse or a block that does not decode is a 400."""
         path = payload.get("volume_path")
         if not isinstance(path, str) or not path:
             raise ValueError("volume_path must be a non-empty string")

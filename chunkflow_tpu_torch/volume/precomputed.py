@@ -3,15 +3,27 @@
 The counterpart of ``chunkflow_tpu/volume/precomputed.py``, which reads
 and writes through tensorstore. Here the port's own
 :class:`~chunkflow_tpu_torch.volume.storage.PrecomputedBackend` reads and
-writes the ``raw`` encoding, the same files tensorstore reads and writes,
-so a volume either package wrote reads the same in the other. Everything
-outside sees czyx chunks in global voxel coordinates; the info file is
-xyz.
+writes the ``raw``, ``jpeg``, ``png`` and ``compressed_segmentation``
+encodings (``volume/codecs.py``), unsharded or in
+``neuroglancer_uint64_sharded_v1`` shards (``volume/sharding.py``): the
+same files tensorstore reads and writes, so a volume either package wrote
+reads the same in the other. Everything outside sees czyx chunks in
+global voxel coordinates; the info file is xyz.
+
+Three behaviours of the JAX package are kept as they are:
+
+* its block cache sits above the codec, so a ``cutout`` after a ``save``
+  in one process returns the saved array, not its jpeg decoding, while
+  ``CHUNKFLOW_STORAGE_CACHE_MB`` leaves the cache on;
+* ``create(encoding="compressed_segmentation")`` writes no
+  ``compressed_segmentation_block_size`` unless one is given, and such a
+  scale raises ``ValueError`` at its first read or write;
+* on a sharded scale :meth:`PrecomputedVolume.block_names` lists the
+  unsharded file names, so ``has_all_blocks`` is False and a strict
+  ``cutout`` raises ``FileNotFoundError``.
 
 Local volumes only (a bare path or ``file://``): ``gs://`` and ``s3://``
-raise (ROADMAP, queue 1: cloud storage and SQS), and so does an encoding
-other than ``raw`` or a ``sharding`` entry (ROADMAP, queue 1: precomputed
-encodings).
+raise (ROADMAP, queue 1: cloud storage and SQS).
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from chunkflow_tpu_torch.chunk.base import (
 )
 from chunkflow_tpu_torch.core.bbox import BoundingBox
 from chunkflow_tpu_torch.core.cartesian import Cartesian, to_cartesian
+from chunkflow_tpu_torch.volume.codecs import make_codec
+from chunkflow_tpu_torch.volume.sharding import ShardedChunks, ShardingSpec
 from chunkflow_tpu_torch.volume.storage import (
     KVBackend,
     PrecomputedBackend,
@@ -44,12 +58,6 @@ from chunkflow_tpu_torch.volume.storage import (
 
 def _local_root(path: str) -> str:
     return path[len("file://"):] if path.startswith("file://") else path
-
-
-def _encodings_not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP, queue 1: "
-                              f"precomputed encodings); the port reads and "
-                              f"writes the raw encoding")
 
 
 def _plain(value):
@@ -123,19 +131,21 @@ class PrecomputedVolume:
     # ------------------------------------------------------------------
     def _backend(self, mip: int) -> PrecomputedBackend:
         """The storage-plane view of one mip (czyx, block grid anchored at
-        the scale's voxel offset), opened once."""
+        the scale's voxel offset, its codec and shards), opened once. A
+        scale tensorstore would not open raises ``ValueError``."""
         if mip not in self._backends:
             scale = self.scale(mip)
-            encoding = scale.get("encoding", "raw")
-            if encoding != "raw":
-                _encodings_not_ported(f"the {encoding!r} encoding")
+            codec = make_codec(scale, self.dtype, self.num_channels)
+            sharded = None
             if scale.get("sharding"):
-                _encodings_not_ported("a sharded precomputed scale")
+                sharded = ShardedChunks(
+                    os.path.join(self.kv.root, scale["key"]),
+                    ShardingSpec(scale["sharding"]))
             self._backends[mip] = PrecomputedBackend(
                 self.kv, scale["key"], self.volume_size(mip),
                 self.voxel_offset(mip), self.block_size(mip),
                 self.num_channels, self.dtype,
-                token=f"{self.path}|mip{mip}")
+                token=f"{self.path}|mip{mip}", codec=codec, sharded=sharded)
         return self._backends[mip]
 
     def _czyx_bounds(self, bbox: BoundingBox) -> Tuple[tuple, tuple]:
@@ -219,11 +229,16 @@ class PrecomputedVolume:
                num_channels: int = 1, dtype="uint8",
                layer_type: str = "image", block_size=(64, 64, 64),
                num_mips: int = 1, downsample_factor=(1, 2, 2),
-               encoding: str = "raw") -> "PrecomputedVolume":
+               encoding: str = "raw", sharding: Optional[dict] = None,
+               compressed_segmentation_block_size=None
+               ) -> "PrecomputedVolume":
         """Write the info file of a mip pyramid (zyx arguments at mip 0;
-        each mip divides the size by ``downsample_factor``, rounding up)."""
-        if encoding != "raw":
-            _encodings_not_ported(f"the {encoding!r} encoding")
+        each mip divides the size by ``downsample_factor``, rounding up).
+
+        Without the last two arguments the info is the JAX package's, byte
+        for byte. ``sharding`` (a ``neuroglancer_uint64_sharded_v1``
+        entry) shards every scale; ``compressed_segmentation_block_size``
+        (zyx) is the block of every ``compressed_segmentation`` scale."""
         volume_size = to_cartesian(volume_size)
         voxel_size = to_cartesian(voxel_size)
         voxel_offset = to_cartesian(voxel_offset)
@@ -242,6 +257,12 @@ class PrecomputedVolume:
                                  for v in (block.x, block.y, block.z)]],
                 "encoding": encoding,
             })
+            if compressed_segmentation_block_size is not None:
+                scales[-1]["compressed_segmentation_block_size"] = [
+                    int(v) for v in
+                    reversed(tuple(compressed_segmentation_block_size))]
+            if sharding is not None:
+                scales[-1]["sharding"] = dict(sharding)
             size = size.ceildiv(factor)
             offset = offset // factor
             res = res * factor

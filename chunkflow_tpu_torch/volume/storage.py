@@ -9,7 +9,8 @@ without reading them first:
 
 * :class:`StorageBackend`: the async array interface.
   :class:`PrecomputedBackend` reads and writes neuroglancer precomputed
-  ``raw`` blocks with numpy (the port's only reader of real volumes);
+  blocks through their codec and, on a sharded scale, their shards (the
+  port's only reader of real volumes);
   :class:`MemoryBackend` and :class:`KVArrayBackend` are fixtures and the
   npy-block store of the JAX package;
 * the KV plane (:class:`FileKV`, :class:`MemoryKV`, :func:`open_kv`):
@@ -45,6 +46,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.volume.codecs import CorruptBlockError
 
 __all__ = [
     "storage_mode", "cache_bytes_limit", "read_concurrency",
@@ -416,10 +418,6 @@ def open_kv(path: str) -> KVBackend:
     return FileKV(path)
 
 
-class CorruptBlockError(ValueError):
-    """A stored block whose size is not its shape's: never read as zeros."""
-
-
 class KVArrayBackend(StorageBackend):
     """One object per storage block through a :class:`KVBackend`, on the
     grid anchored at the domain origin; blocks are npy files keyed
@@ -531,25 +529,37 @@ def _done_future() -> Future:
 
 
 class PrecomputedBackend(KVArrayBackend):
-    """One scale of a neuroglancer precomputed volume in the ``raw``
-    encoding, in czyx index order.
+    """One scale of a neuroglancer precomputed volume, in czyx index
+    order, through its block codec (``volume/codecs.py``: ``raw``,
+    ``jpeg``, ``png``, ``compressed_segmentation``) and, for a sharded
+    scale, its shards (``volume/sharding.py``).
 
-    One file per block, named ``{key}/{x0}-{x1}_{y0}-{y1}_{z0}-{z1}`` in
-    voxel coordinates; the block grid is anchored at the scale's
-    ``voxel_offset``; an edge block is clipped to the volume bounds in its
-    name and its size. A file holds the block as little-endian values in
-    x-fastest order, i.e. the czyx block in C order. An absent file reads
-    as zeros (``cutout`` checks existence first in strict mode); a file of
-    the wrong size raises :class:`CorruptBlockError`.
+    Unsharded, one file per block, named
+    ``{key}/{x0}-{x1}_{y0}-{y1}_{z0}-{z1}`` in voxel coordinates; the
+    block grid is anchored at the scale's ``voxel_offset``; an edge block
+    is clipped to the volume bounds in its name and its size. Sharded, a
+    block is the chunk of its grid position's compressed Morton id. A
+    block holds every channel. An absent block reads as zeros
+    (``cutout`` checks existence first in strict mode); a block that does
+    not decode to its shape raises :class:`CorruptBlockError`.
+
+    A sharded write encodes every block it covers and then rewrites each
+    touched shard once (``whole_range_writes``: an aligned save hands
+    the backend its whole range, not block by block); a block all zeros
+    is removed from its shard, as tensorstore stores no chunk of the fill
+    value.
 
     ``write_async`` copies the data on the caller's thread (so the caller
-    may reuse its buffer) and writes the files in the pool: its future's
-    ``copy`` leg is done when it returns.
+    may reuse its buffer) and encodes and writes in the pool: its
+    future's ``copy`` leg is done when it returns.
     """
 
     def __init__(self, kv: KVBackend, key: str, size_zyx, offset_zyx,
                  block_zyx, num_channels: int, dtype,
-                 token: Optional[str] = None, max_workers: int = 8):
+                 token: Optional[str] = None, max_workers: int = 8,
+                 codec=None, sharded=None):
+        from chunkflow_tpu_torch.volume.codecs import RawCodec
+
         offset = tuple(int(v) for v in offset_zyx)
         domain = ((0,) + offset,
                   (int(num_channels),) + tuple(o + int(s) for o, s in
@@ -560,29 +570,50 @@ class PrecomputedBackend(KVArrayBackend):
                          prefix=key, max_workers=max_workers)
         if token is not None:
             self.cache_token = token
+        self._codec = codec if codec is not None else RawCodec(dtype)
+        self._sharded = sharded
+        self.whole_range_writes = sharded is not None
+        # xyz extent of the chunk grid, for sharded chunk ids
+        self._grid = tuple(-(-int(s) // int(b)) for s, b in
+                           zip(reversed(tuple(size_zyx)),
+                               reversed(tuple(block_zyx))))
 
     def _block_key(self, blo, bhi) -> str:
         (_, z0, y0, x0), (_, z1, y1, x1) = blo, bhi
         return f"{self._prefix}/{x0}-{x1}_{y0}-{y1}_{z0}-{z1}"
 
+    def _chunk_id(self, blo) -> int:
+        from chunkflow_tpu_torch.volume.sharding import \
+            compressed_morton_code
+
+        goff, block = self.grid_offset, self._block_shape
+        position = [(blo[d] - goff[d]) // block[d] for d in (3, 2, 1)]
+        return compressed_morton_code(position, self._grid)
+
     def _decode(self, data: bytes, shape) -> np.ndarray:
         # a block file holds every channel
         shape = (self._block_shape[0],) + tuple(shape[1:])
-        expected = int(np.prod(shape)) * self._dtype.itemsize
-        if len(data) != expected:
+        try:
+            return self._codec.decode(data, shape)
+        except CorruptBlockError as exc:
             raise CorruptBlockError(
-                f"corrupt block under {self._prefix}: {len(data)} bytes, "
-                f"expected {expected} for a {shape} {self._dtype.name} block")
-        return np.frombuffer(data, dtype=self._dtype).reshape(shape)
+                f"corrupt block under {self._prefix} ({self._codec.name}): "
+                f"{exc}") from None
 
     def _encode(self, arr: np.ndarray):
-        return np.ascontiguousarray(arr, dtype=self._dtype)
+        return self._codec.encode(arr)
 
     def _read_block(self, blo, bhi) -> np.ndarray:
         # a block is all its channels: read the whole, select the range
         full_lo = (0,) + tuple(blo[1:])
         full_hi = (self._block_shape[0],) + tuple(bhi[1:])
-        block = super()._read_block(full_lo, full_hi)
+        if self._sharded is None:
+            block = super()._read_block(full_lo, full_hi)
+        else:
+            data = self._sharded.read(self._chunk_id(full_lo))
+            shape = tuple(h - l for l, h in zip(full_lo, full_hi))
+            block = (np.zeros(shape, dtype=self._dtype) if data is None
+                     else self._decode(data, shape))
         return block[blo[0]:bhi[0]]
 
     def _write(self, lo, hi, arr: np.ndarray) -> None:
@@ -593,7 +624,26 @@ class PrecomputedBackend(KVArrayBackend):
             block = np.array(self._read(full_lo, full_hi))
             block[lo[0]:hi[0]] = arr
             lo, hi, arr = full_lo, full_hi, block
-        super()._write(lo, hi, arr)
+        if self._sharded is None:
+            super()._write(lo, hi, arr)
+            return
+        dlo, dhi = self._domain
+        updates = {}
+        for blo, bhi in _covering_blocks(lo, hi, self._block_shape,
+                                         self.grid_offset, dlo, dhi):
+            sel = tuple(slice(max(l, bl) - l, min(h, bh) - l)
+                        for l, h, bl, bh in zip(lo, hi, blo, bhi))
+            if all(l <= bl and bh <= h
+                   for l, h, bl, bh in zip(lo, hi, blo, bhi)):
+                block = arr[sel]
+            else:  # partial: read, modify
+                block = np.array(self._read_block(blo, bhi))
+                block[tuple(slice(max(l, bl) - bl, min(h, bh) - bl)
+                            for l, h, bl, bh in zip(lo, hi, blo, bhi))] = \
+                    arr[sel]
+            updates[self._chunk_id(blo)] = (self._encode(block)
+                                            if block.any() else None)
+        self._sharded.write(updates)
 
     def write_async(self, lo, hi, arr):
         data = np.array(arr, dtype=self._dtype, order="C", copy=True)
@@ -717,7 +767,8 @@ def _write_is_aligned(lo, hi, block, goff, dlo, dhi) -> bool:
 def blockwise_save(backend: StorageBackend, lo: Sequence[int],
                    arr: np.ndarray, cache: Optional[BlockCache] = None,
                    wait: bool = True):
-    """Write ``arr`` at ``lo``. An aligned write is one future per block,
+    """Write ``arr`` at ``lo``. An aligned write is one future per block
+    (one for the whole range on a backend with ``whole_range_writes``),
     and the cache takes a copy of each written block (read-after-write
     through the cache returns the new bytes before they are durable); an
     unaligned write is one backend write and drops the covered blocks
@@ -734,14 +785,18 @@ def blockwise_save(backend: StorageBackend, lo: Sequence[int],
     block, goff = backend.block_shape, backend.grid_offset
     aligned = (storage_mode() == "concurrent"
                and _write_is_aligned(lo, hi, block, goff, dlo, dhi))
+    whole_range = getattr(backend, "whole_range_writes", False)
     futures = []
     with telemetry.span("storage/write",
                         mode="aligned" if aligned else "unaligned"):
         if aligned:
+            if whole_range:  # the backend batches its blocks itself
+                futures.append(backend.write_async(lo, hi, arr))
             for blo, bhi in _covering_blocks(lo, hi, block, goff, dlo, dhi):
                 sub = arr[tuple(slice(bl - l, bh - l)
                                 for l, bl, bh in zip(lo, blo, bhi))]
-                futures.append(backend.write_async(blo, bhi, sub))
+                if not whole_range:
+                    futures.append(backend.write_async(blo, bhi, sub))
                 if cache is not None:
                     block_copy = np.array(sub, copy=True)
                     if block_copy.any():

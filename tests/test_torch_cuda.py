@@ -725,3 +725,60 @@ def test_segment_job_finished_by_a_card_worker_after_a_cpu_worker(
     for chunk in chunks:
         stages.relabel_chunk(card, chunk)
     assert np.array_equal(driver.export_segmentation(card), want)
+
+
+def _encoded_worker(tmp_path, device, image, out_scale):
+    """``load-precomputed | inference -f identity | save-precomputed`` over
+    every task of an encoded image volume, into an encoded and sharded
+    output volume; the output's array."""
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    out = str(tmp_path / f"out-{device}")
+    PrecomputedVolume.create(out, volume_size=(16, 64, 64),
+                             voxel_size=(40, 4, 4), voxel_offset=(4, 16, 16),
+                             num_channels=3, block_size=(8, 32, 32),
+                             **out_scale)
+    dev = ["--device", "cpu"] if device == "cpu" else []
+    tasks = str(tmp_path / f"tasks-{device}.npy")
+    assert cli.main(dev + ["generate-tasks", "--volume-path", out,
+                           "--chunk-size", "8", "32", "32",
+                           "--file-path", tasks]) == 0
+    assert cli.main(dev + [
+        "fetch-task-from-file", "-f", tasks, "load-precomputed", "-v", image,
+        "-e", "2", "8", "8", "inference", "-f", "identity", "-p", "4", "16",
+        "16", "-v", "2", "8", "8", "-c", "3", "-b", "2",
+        "--output-crop-margin", "2", "8", "8", "save-precomputed", "-v",
+        out]) == 0
+    vol = PrecomputedVolume(out)
+    return vol.cutout(vol.bounds(0)).array
+
+
+@pytest.mark.parametrize("out_scale", [
+    {"dtype": "float32", "sharding": {
+        "@type": "neuroglancer_uint64_sharded_v1", "preshift_bits": 0,
+        "hash": "murmurhash3_x86_128", "minishard_bits": 1, "shard_bits": 2,
+        "minishard_index_encoding": "gzip", "data_encoding": "raw"}},
+    {"dtype": "uint8", "encoding": "png"}])
+def test_encoded_volume_worker_card_is_its_cpu_leg(cuda, tmp_path,
+                                                   monkeypatch, out_scale):
+    """The worker reads a jpeg image volume and writes a sharded or png
+    output on the card: bitwise the same chain on the CPU, and the kernels
+    launch on the card."""
+    from chunkflow_tpu_torch import Chunk as PortChunk
+    from chunkflow_tpu_torch.volume import storage
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    monkeypatch.setenv("CHUNKFLOW_STORAGE_CACHE_MB", "0")
+    storage.reset_shared_cache()
+    image = str(tmp_path / "image")
+    PrecomputedVolume.create(image, volume_size=(24, 96, 96),
+                             voxel_size=(40, 4, 4), block_size=(8, 32, 32),
+                             encoding="jpeg")
+    PrecomputedVolume(image).save(PortChunk(np.random.default_rng(3).integers(
+        0, 256, (24, 96, 96), dtype=np.uint8)))
+    before = gather.launches, accumulate.launches
+    card = _encoded_worker(tmp_path, "cuda", image, out_scale)
+    assert gather.launches > before[0] and accumulate.launches > before[1]
+    cpu = _encoded_worker(tmp_path, "cpu", image, out_scale)
+    assert card.any() and np.array_equal(card, cpu)

@@ -87,7 +87,8 @@ def test_host_build_recipe():
     cmd = _build.gxx_command(_build.library_path(_build.HOST_LIBRARY))
     assert cmd[1:6] == ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
     assert [os.path.basename(a) for a in cmd if a.endswith(".cpp")] == [
-        "cc3d.cpp", "remap.cpp", "watershed.cpp", "surface_nets.cpp"]
+        "cc3d.cpp", "remap.cpp", "watershed.cpp", "surface_nets.cpp",
+        "compressed_segmentation.cpp"]
     # keyed by the sources' hash, under the git-ignored build/
     path = _build.library_path(_build.HOST_LIBRARY)
     assert path.parent == _build.BUILD_DIR and "libchunkflow_host-" in \
@@ -103,11 +104,22 @@ def test_host_build_recipe():
     assert "csrc/host/*.cpp" in data and "csrc/host/*.h" in data
 
 
+# host sources the port has and the JAX package has not: the precomputed
+# codecs, which the JAX package leaves to tensorstore
+PORT_ONLY_SOURCES = ("compressed_segmentation.cpp",)
+
+
 def test_host_sources_are_the_jax_packages_copies():
     """The port compiles its own copies; the union-find and remap code is
-    the JAX package's, line for line below the header comment."""
+    the JAX package's, line for line below the header comment. The
+    port's own sources are no copies."""
     jax_src = os.path.join(os.path.dirname(jax_native.__file__), "src")
+    for name in PORT_ONLY_SOURCES:
+        assert name in _build.HOST_SOURCES
+        assert not os.path.exists(os.path.join(jax_src, name))
     for name in _build.HOST_SOURCES + _build.HOST_HEADERS:
+        if name in PORT_ONLY_SOURCES:
+            continue
         ours = (_build.HOST / name).read_text().splitlines()
         with open(os.path.join(jax_src, name)) as f:
             theirs = f.read().splitlines()

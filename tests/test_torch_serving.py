@@ -747,11 +747,18 @@ def test_volume_reference_over_bound_bbox_rejected(clean, tmp_path):
 
 
 def test_volume_reference_other_encoding_is_refused(clean, tmp_path):
-    path, _ = _volume(tmp_path)
+    """A volume whose info says jpeg over raw blocks: the blocks do not
+    decode, and the request is a 400 naming the corrupt block (every
+    encoding is served: tests/test_torch_encodings.py)."""
+    path, vol = _volume(tmp_path)
+    vol.save(Chunk(np.full((16, 48, 48), 7, np.uint8)))
     info_path = os.path.join(path, "info")
     info = json.load(open(info_path))
     info["scales"][0]["encoding"] = "jpeg"
     json.dump(info, open(info_path, "w"))
+    from chunkflow_tpu_torch.volume.storage import reset_shared_cache
+
+    reset_shared_cache()
     backend = LocalBackend(make_inferencer(), workers=1)
     service = ServingService(backend)
     try:
@@ -759,7 +766,7 @@ def test_volume_reference_other_encoding_is_refused(clean, tmp_path):
             "volume_path": path, "bbox_start": [0, 0, 0],
             "bbox_size": [8, 16, 16]}).encode())
         assert status == 400
-        assert "precomputed encodings" in payload["error"]
+        assert "corrupt block" in payload["error"]
     finally:
         backend.close()
 

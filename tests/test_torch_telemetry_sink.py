@@ -142,14 +142,43 @@ def _cli_events(directory):
             and not str(e.get("name")).startswith("compile_cache/")]
 
 
+def _is_decision(shape) -> bool:
+    """An event the adaptive depth controller writes when it widens a
+    knob: ``depth_change`` with its ``scheduler/depth/<knob>`` gauge, and
+    the ``storage/read_concurrency`` gauge of the ``storage`` knob."""
+    kind, name, _keys = shape
+    return kind == "depth_change" or (kind == "gauge" and (
+        name.startswith("scheduler/depth/")
+        or name == "storage/read_concurrency"))
+
+
+def _decisions_are_well_formed(shape) -> bool:
+    """Each ``depth_change`` of a knob comes with one gauge of its depth,
+    with the JAX package's attribute keys."""
+    changes = [name.split("/")[-1] for kind, name, keys in shape
+               if kind == "depth_change"
+               and keys == ("dominant", "kind", "name", "new", "old",
+                            "share", "tasks", "worker")]
+    gauges = [name.split("/")[-1] for kind, name, _ in shape
+              if kind == "gauge" and name.startswith("scheduler/depth/")]
+    return (sorted(changes) == sorted(gauges)
+            and len(changes) == sum(kind == "depth_change"
+                                    for kind, _, _ in shape))
+
+
 @pytest.mark.parametrize("sched", ["static", "adaptive"])
 def test_worker_events_through_both_clis(tmp_path, monkeypatch, image,
                                          sched):
     """``tests/test_torch_worker.py``'s worker with ``--metrics-dir``:
-    the static executor writes the same events in the same order; the
+    the static executor writes the same events in the same order. The
     adaptive one stages in a producer thread, whose events interleave
     with the dispatching thread's as the threads run, so there the
-    events are compared as a multiset."""
+    events are compared as a multiset; and its depth controller widens a
+    knob when one phase's share of the measured time passes its
+    threshold, which the two runs' clocks decide apart (on a loaded
+    machine one run widens ``post`` and ``write`` where the other does
+    not). So the controller's decision events are left out of the
+    comparison and held, in each run, to their own form."""
     monkeypatch.setenv("CHUNKFLOW_SCHED", sched)
     engine = ["-f", "identity"]
     shapes = {}
@@ -158,6 +187,8 @@ def test_worker_events_through_both_clis(tmp_path, monkeypatch, image,
         _run(tmp_path, tag, image, engine, runner, metrics=metrics)
         shapes[tag] = _shape(_cli_events(metrics))
     if sched == "adaptive":
-        shapes = {tag: sorted(shape, key=repr)
+        assert all(map(_decisions_are_well_formed, shapes.values()))
+        shapes = {tag: sorted((s for s in shape if not _is_decision(s)),
+                              key=repr)
                   for tag, shape in shapes.items()}
     assert shapes["port"] == shapes["jax"]

@@ -321,19 +321,21 @@ def test_unported_storage_raises(tmp_path):
         with pytest.raises(NotImplementedError,
                            match="cloud storage and SQS"):
             PrecomputedVolume(url)
-    with pytest.raises(NotImplementedError, match="precomputed encodings"):
-        _create(PrecomputedVolume, tmp_path / "j", encoding="jpeg")
-    for name, change in (("jpeg", {"encoding": "jpeg"}),
+    # every precomputed encoding is ported (tests/test_torch_encodings.py):
+    # an encoding or a sharding that neither package reads raises
+    # ValueError at the first read, in both
+    for name, change in (("lz4", {"encoding": "lz4"}),
                          ("sharded", {"sharding": {"@type":
                                                    "neuroglancer_uint64_"
-                                                   "sharded_v1"}})):
+                                                   "sharded_v2"}})):
         vol = _create(JaxVolume, tmp_path / name)
         info = dict(vol.info)
         info["scales"] = [dict(info["scales"][0], **change)]
         (tmp_path / name / "info").write_text(json.dumps(info))
-        with pytest.raises(NotImplementedError,
-                           match="precomputed encodings"):
+        with pytest.raises(ValueError):
             _port_read(tmp_path / name, FULL)
+        with pytest.raises(ValueError):
+            _jax_read(tmp_path / name, FULL)
     # a zarr store whose codec the port lacks (tensorstore's default,
     # blosc) raises naming its item
     from chunkflow_tpu_torch.volume.zarr import ZarrArray
