@@ -180,6 +180,20 @@ non-zero exit and no result line:
              jpeg volume round-tripped; whether this machine's Pillow
              writes and reads ``tests/data/jpeg_blocks.npz``'s jpeg bytes
              as tensorstore did
+18. fleet    ``python -m chunkflow_tpu_torch fleet-run`` (1 to 3 worker
+             processes on the card) drains phase 10's 8 tasks with its
+             worker (parity float32, visibility timeout 120 s) while the
+             phase SIGKILLs a worker holding leases: the output volume
+             bitwise ``Inferencer.__call__`` on each cutout, each trace
+             committed once (the killed worker's by another worker within
+             half the visibility timeout), the queue empty, the ledger
+             full, a scale-up, the killed worker reaped, a lease
+             force-released, every other worker 18 + 18 launches per
+             computed task; ``fleet-status`` during the run,
+             ``log-summary --fleet --trace-id`` and ``--export-trace`` on
+             the events; wall time and tasks/s beside phase 10's, workers
+             over time, kill-to-recommit seconds, per worker its commits,
+             dominant stall, host RSS and device peak, the cold start
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -190,12 +204,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -280,6 +297,18 @@ SEG_CHUNK = (64, 64, 64)
 SEG_BLOCK = (8, 8, 8)
 ENCODED_SMALL = (64, 512, 512)
 ENCODED_WORKER_S = 300
+# phase 18: the fleet supervisor over phase 10's volume and worker: its
+# size bounds, the workers' visibility timeout (s: long, so only a
+# force-release brings a killed worker's task back soon) and the run's
+# time limit (s)
+FLEET_WORKERS = (1, 3)
+FLEET_VISIBILITY_S = 120
+FLEET_RUNTIME_S = 300
+# fleet-run's default --term-grace (s): a SIGTERMed worker exits by then
+TERM_GRACE_S = 10.0
+# the host memory (GiB) a scale-up must leave free: a worker process on
+# the card holds 5-7 GiB of host RSS
+FLEET_HOST_FLOOR_GB = 16
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -1345,6 +1374,24 @@ def main() -> int:
             counts=counts).items():
         kernels[kname]["launches"] += n
     phase("encodings", f"phase 17 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 18. fleet: fleet-run drains phase 10's volume through a kill -----
+    # the worker processes need the host memory this one no longer uses
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()  # cached pinned buffers
+    t = time.perf_counter()
+    fleet_phase(torch, dict(
+        volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI, task=TASK,
+        margin=MARGIN, out_block=OUT_BLOCK, pin=PIN, overlap=OVERLAP,
+        batch=BATCH, device="cuda", workers=FLEET_WORKERS,
+        visibility=FLEET_VISIBILITY_S, runtime=FLEET_RUNTIME_S,
+        inference=["--framework", "pytorch", "--model-variant", "parity",
+                   "--dtype", "float32"],
+        raw_s_per_task=volume_s.get("parity float32")), weights=state)
+    phase("fleet", f"phase 18 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -4245,6 +4292,432 @@ def encodings_phase(torch, cfg, weights, reset_counts, counts):
                            f"decoding as tensorstore's "
                            f"{same['gray'][1]}, {same['rgb'][1]}")
     return {kname: int(k) for kname, k in launched.items()}
+
+
+def fleet_phase(torch, cfg, weights=None):
+    """Phase 18: ``fleet-run`` drains phase 10's volume through a SIGKILL.
+
+    Phase 10's seeded input volume and output volume, and a ``file://``
+    queue of its 8 tasks filled by ``generate-tasks`` with this process's
+    telemetry on (the traces begin here). ``python -m chunkflow_tpu_torch
+    -v --metrics-dir M fleet-run`` runs as a subprocess with ``--min-workers
+    1 --max-workers 3`` and a short interval; each worker runs phase 10's
+    chain (``cfg["inference"]``; ``weights`` as a ``.pt`` file; a CPU
+    rehearsal may slow it with ``cfg["extra_stages"]``) with a
+    visibility timeout of ``cfg["visibility"]`` seconds. Once a worker's
+    ``/healthz`` (found through its endpoint file) reports the same leases
+    over more than a supervisor tick, the phase SIGKILLs it; ``fleet-status``
+    answers during the run; then it SIGTERMs another worker holding
+    leases, which must exit 143 within the supervisor's grace. Required: every task of the output volume
+    bitwise ``Inferencer.__call__`` on its cutout, cropped; the queue empty,
+    no dead letters, the ledger full; each trace committed once, the killed
+    worker's unfinished traces by other workers well inside the visibility
+    timeout; a scale-up, the killed worker reaped as a death, a lease
+    force-released (``fleet/leases_nacked``); each other worker launched
+    each kernel ``per_task`` times per computed task (its run counters);
+    ``log-summary --fleet --trace-id`` and ``--export-trace`` show the hop
+    (one process per worker, the trace as a flow). Printed: the wall time
+    with start-up and tasks/s against phase 10's in-process worker, the
+    worker count over time, kill-to-recommit seconds, per worker its
+    commits, dominant stall, largest host RSS and device peak, and the
+    cold start."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core.bbox import BoundingBoxes
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.log_summary import (
+        load_telemetry_dir,
+        summarize_fleet,
+    )
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel import restapi
+    from chunkflow_tpu_torch.parallel.fleet import (
+        _proc_rss_gb,
+        host_available_gb,
+    )
+    from chunkflow_tpu_torch.parallel.lifecycle import FileLedger
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    on_card = cfg["device"] == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start, roi_size = cfg["roi"]
+    task = cfg["task"]
+    chunk_in = tuple(t + 2 * m for t, m in zip(task, margin))
+    per_task = len(pad_to_batch(enumerate_patches(chunk_in, pin, pin,
+                                                  overlap), batch)[0]) // batch
+    boxes = list(BoundingBoxes.from_manual_setup(
+        chunk_size=task, roi_start=roi_start, roi_size=roi_size))
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        tmp = Path(tmp)
+        inference = list(cfg["inference"])
+        if weights is not None:
+            weights_pt = str(tmp / "unet3d_seed0.pt")
+            torch.save(weights, weights_pt)
+            inference += ["--weight-path", weights_pt]
+        image = np.random.default_rng(10).integers(0, 256, cfg["volume"],
+                                                   dtype=np.uint8)
+        vol_in, out = str(tmp / "image"), str(tmp / "out")
+        PrecomputedVolume.create(vol_in, volume_size=cfg["volume"],
+                                 voxel_size=VOXEL_NM,
+                                 block_size=cfg["volume_block"])
+        PrecomputedVolume(vol_in).save(Chunk(image, voxel_size=VOXEL_NM))
+        metrics, ledger = tmp / "events", str(tmp / "ledger")
+        queue = f"file://{tmp}/queue"
+        require(cli.main(dev_args + [
+            "create-info", "-v", out, "-c", "3", "--dtype", "float32",
+            "--volume-size", *nums(roi_size), "--voxel-size",
+            *nums(VOXEL_NM), "--voxel-offset", *nums(roi_start),
+            "--block-size", *nums(cfg["out_block"])]) == 0
+            and cli.main(dev_args + [
+                "--metrics-dir", str(metrics), "generate-tasks",
+                "--volume-path", out, "--chunk-size", *nums(task),
+                "--queue-name", queue]) == 0,
+            "fleet: setting up the volumes and the queue failed")
+        require(len(open_queue(queue)) == len(boxes),
+                f"fleet: the queue holds {len(open_queue(queue))} tasks")
+
+        # the reference: Inferencer.__call__ on each task's cutout
+        framework = inference[inference.index("--framework") + 1]
+        variant = (inference[inference.index("--model-variant") + 1]
+                   if "--model-variant" in inference else None)
+        inferencer = Inferencer(
+            input_patch_size=pin, output_patch_overlap=overlap,
+            num_output_channels=3, framework=framework,
+            model_variant=variant, batch_size=batch,
+            weight_path=weights_pt if weights is not None else None,
+            device=cfg["device"])
+        refs = []
+        for bbox in boxes:
+            src = bbox.adjust(margin)
+            got = inferencer(Chunk(image[src.slices], voxel_offset=src.start,
+                                   voxel_size=VOXEL_NM))
+            refs.append(got.crop_margin(margin).host().array)
+        del inferencer
+        if on_card:
+            torch.cuda.empty_cache()
+
+        stages = " ".join(
+            ["load-precomputed", "-v", vol_in, "-e", *nums(margin),
+             *cfg.get("extra_stages", ()), "inference", *inference, "--input-patch-size", *nums(pin),
+             "--output-patch-overlap", *nums(overlap),
+             "--output-crop-margin", *nums(margin),
+             "--num-output-channels", "3", "--batch-size", str(batch),
+             "--async-depth", "2", "save-precomputed", "-v", out,
+             "--async-write", "delete-task-in-queue"])
+        env = {k: v for k, v in os.environ.items() if k != "CHUNKFLOW_CHAOS"}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        # a page alert's automatic profiler capture would slow one worker
+        env["CHUNKFLOW_PROFILE_ON_ANOMALY"] = "0"
+        lo, hi = cfg["workers"]
+        cmd = [sys.executable, "-m", "chunkflow_tpu_torch", *dev_args, "-v",
+               "--metrics-dir", str(metrics), "fleet-run", "-q", queue,
+               "--min-workers", str(lo), "--max-workers", str(hi),
+               # probation of 3 s: a drained worker's listener closes
+               # before it exits
+               "--interval", "0.25", "--probe-misses", "12",
+               "--scale-up-backlog", "2", "--idle-ticks", "2",
+               "-v", str(cfg["visibility"]), "-r", "20",
+               "--mem-watermark-gb", str(FLEET_HOST_FLOOR_GB),
+               "--poll-interval", "0.25", "--max-retries", "3",
+               "--ledger", ledger, "--max-runtime", str(cfg["runtime"]),
+               "-w", stages]
+        available = [host_available_gb()]
+        phase("fleet", f"host memory available "
+                       f"{available[0] or float('nan'):.1f} GiB, this "
+                       f"process's RSS "
+                       f"{_proc_rss_gb(os.getpid()) or float('nan'):.2f} GiB; "
+                       f"scale-ups keep {FLEET_HOST_FLOOR_GB} GiB free")
+        started = time.time()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        log = []
+        reader = threading.Thread(target=lambda: log.extend(proc.stdout),
+                                  daemon=True)
+        reader.start()
+        rss, victim, killed_at, status, drained = {}, None, None, None, None
+
+        def endpoints():
+            records = []
+            for path in metrics.glob("endpoint-fleet-w*.json"):
+                try:
+                    records.append(json.loads(path.read_text()))
+                except ValueError:
+                    pass
+            return records
+
+        def run(args):
+            """A command of the port's CLI in this process: its stdout."""
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(dev_args + args)
+            require(rc == 0, f"fleet: {args} failed, rc {rc}")
+            return text.getvalue()
+
+        def handles(record):
+            sample = restapi.scrape_worker(
+                f"127.0.0.1:{record['metrics_port']}", timeout=1.0)
+            return (sample.get("healthz") or {}).get("inflight_handles")
+
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > cfg["runtime"] + 60:
+                    raise SmokeFailure("fleet: fleet-run outlived its "
+                                       "--max-runtime")
+                available.append(host_available_gb())
+                for record in endpoints():
+                    gb = _proc_rss_gb(record["pid"])
+                    if gb is not None:
+                        rss[record["worker"]] = max(
+                            gb, rss.get(record["worker"], 0.0))
+                if victim is None:
+                    for record in endpoints():
+                        held = handles(record)
+                        if held:
+                            time.sleep(0.4)  # more than one tick
+                            if handles(record) == held:
+                                os.kill(record["pid"], signal.SIGKILL)
+                                killed_at, victim = time.time(), record
+                                break
+                elif status is None and len(endpoints()) > 1:
+                    status = run(["--metrics-dir", str(metrics),
+                                  "fleet-status", "-q", queue, "--timeout",
+                                  "2"])
+                elif drained is None:
+                    # a preemption notice to a busy worker: it must nack,
+                    # flush and exit 143 within the supervisor's grace
+                    for record in endpoints():
+                        if record["worker"] != victim["worker"] \
+                                and handles(record):
+                            os.kill(record["pid"], signal.SIGTERM)
+                            drained = (record["worker"], time.time())
+                            break
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            reader.join(timeout=10)
+        wall = time.perf_counter() - t0
+        out_text = "".join(log)
+        require(proc.returncode == 0 and "fleet drained:" in out_text,
+                f"fleet: fleet-run failed, rc {proc.returncode}: "
+                f"{out_text[-3000:]}")
+        require(victim is not None, "fleet: no worker held a lease to kill")
+        require(status is not None and "fleet " in status
+                and "target=" in status and "leases=" in status,
+                f"fleet: fleet-status during the run answered {status!r}")
+
+        # the queue, the ledger, the volume
+        stats = open_queue(queue).stats()
+        require(stats["pending"] == stats["inflight"] == stats["dead"] == 0,
+                f"fleet: the queue did not drain: {stats}")
+        require(open_queue(queue).dead_letters() == [],
+                "fleet: dead letters")
+        keys = FileLedger(ledger).keys()
+        require(sorted(keys) == sorted(b.string for b in boxes),
+                f"fleet: the ledger holds {len(keys)} keys")
+        vol = PrecomputedVolume(out)
+        for bbox, ref in zip(boxes, refs):
+            got = vol.cutout(bbox).array
+            require(got.shape == ref.shape and np.array_equal(got, ref),
+                    f"fleet: task {bbox.string} differs from its "
+                    f"in-process reference")
+
+        # the events: each trace committed once, the hop, the decisions
+        events = load_telemetry_dir(str(metrics))
+        commits = {}
+        for e in events:
+            if e.get("name") == "lifecycle/committed":
+                commits.setdefault(e["trace_id"], []).append(e)
+        require(len(commits) == len(boxes)
+                and all(len(v) == 1 for v in commits.values()),
+                f"fleet: commits per trace "
+                f"{sorted(len(v) for v in commits.values())}")
+        vid = victim["worker"]
+        held = {e["trace_id"] for e in events if e.get("worker") == vid
+                and e.get("name") == "lifecycle/claimed"}
+        hopped = sorted(t for t in held if commits[t][0]["worker"] != vid)
+        require(bool(hopped), "fleet: the killed worker held no unfinished "
+                              "task")
+        recommit_s = max(commits[t][0]["t"] for t in hopped) - killed_at
+        require(recommit_s < cfg["visibility"] / 2,
+                f"fleet: the killed worker's tasks came back after "
+                f"{recommit_s:.1f} s (visibility {cfg['visibility']} s)")
+        fleet_events = [e for e in events if e.get("kind") == "fleet"]
+        require(any(e["name"] == "fleet/scale" and e.get("direction") == "up"
+                    for e in fleet_events), "fleet: no scale-up")
+        reaped = [e for e in fleet_events if e["name"] == "fleet/exit"
+                  and e.get("fleet_worker") == vid]
+        require(bool(reaped) and reaped[0]["exit_code"] == -signal.SIGKILL
+                and not reaped[0]["expected"],
+                f"fleet: the killed worker was not reaped as a death: "
+                f"{reaped}")
+        require(drained is not None, "fleet: no busy worker to SIGTERM")
+        did, termed_at = drained
+        exits = [e for e in fleet_events if e["name"] == "fleet/exit"
+                 and e.get("fleet_worker") == did]
+        drain_s = exits[0]["t"] - termed_at if exits else None
+        require(bool(exits) and exits[0]["exit_code"] == 143
+                and drain_s < TERM_GRACE_S,
+                f"fleet: the SIGTERMed worker {did} exited "
+                f"{exits[0]['exit_code'] if exits else None} after "
+                f"{drain_s} s, not 143 within {TERM_GRACE_S} s")
+        supervisor = [e for e in events if e.get("kind") == "snapshot"
+                      and not str(e.get("worker")).startswith("fleet-w")
+                      and "fleet/spawns" in (e.get("counters") or {})]
+        counters = supervisor[-1]["counters"] if supervisor else {}
+        require(counters.get("fleet/leases_nacked", 0) >= 1,
+                f"fleet: no lease force-released: {counters}")
+
+        # each worker's launches, from its run counters
+        computed, cut = {}, None
+        for path in sorted(metrics.glob("worker-fleet-w*.log")):
+            wid = path.name[len("worker-"):-len(".log")]
+            lines = [ln for ln in path.read_text().splitlines()
+                     if ln.startswith("run counters: ")]
+            if wid == vid or not lines:
+                require(wid == vid or not any(
+                    e.get("worker") == wid and e.get("name")
+                    == "lifecycle/claimed" for e in events),
+                    f"fleet: worker {wid} claimed tasks and printed no run "
+                    f"counters")
+                continue
+            c = json.loads(lines[-1][len("run counters: "):])
+            n = c.get("inference/chunks", 0)
+            computed[wid] = n
+            launched = {k: c.get(f"kernels/{k}", 0)
+                        for k in ("gather", "accumulate")}
+            if wid == did:
+                # the drain may cut forwards short: up to the two tasks
+                # of --async-depth 2 were in flight
+                cut = launched
+                ok = all(per_task * n <= k <= per_task * (n + 2)
+                         for k in launched.values())
+            else:
+                ok = all(k == per_task * n for k in launched.values())
+            require(not on_card or ok,
+                    f"fleet: worker {wid} launched {launched} for {n} "
+                    f"finished tasks, not {per_task} each")
+
+        # log-summary reconstructs the hop
+        trace = hopped[0]
+        text = run(["log-summary", "--metrics-dir", str(metrics), "--fleet",
+                    "--trace-id", trace])
+        timeline = text[text.index(f"trace {trace}:"):]
+        require(f"[{vid}] task:lifecycle/claimed" in timeline
+                and f"[{commits[trace][0]['worker']}] "
+                    f"task:lifecycle/committed" in timeline,
+                f"fleet: log-summary --trace-id shows no hop: {timeline}")
+        export = tmp / "fleet-trace.json"
+        text = run(["log-summary", "--metrics-dir", str(metrics),
+                    "--export-trace", str(export)])
+        require("trace validation" not in text,
+                f"fleet: the exported trace is invalid: {text}")
+        chrome = json.loads(export.read_text())
+        names = {e["args"]["name"] for e in chrome["traceEvents"]
+                 if e.get("name") == "process_name"}
+        workers = sorted({e["worker"] for e in events
+                          if str(e.get("worker")).startswith("fleet-w")})
+        require({f"worker {w}" for w in workers} <= names,
+                f"fleet: the trace lacks worker processes: {names}")
+        flow = [e["ph"] for e in chrome["traceEvents"]
+                if e.get("cat") == "task_flow"
+                and e["args"].get("trace_id") == trace]
+        require(flow[:1] == ["s"] and flow[-1:] == ["f"],
+                f"fleet: the hop of {trace} is no flow: {flow}")
+
+        # what the run was
+        fleet = summarize_fleet(events)
+        sizes, last = [], None
+        for e in events:
+            if e.get("kind") == "gauge" and e.get("name") == "fleet/workers" \
+                    and e["value"] != last:
+                last = e["value"]
+                sizes.append(f"{e['t'] - started:.1f}s:{last:g}")
+        peaks = {}
+        for e in events:
+            if e.get("kind") == "gauge" and e.get("name") == "device/peak_bytes":
+                peaks[e["worker"]] = max(e["value"], peaks.get(e["worker"], 0))
+        first = {}
+        for name in ("fleet/start", "lifecycle/claimed",
+                     "lifecycle/committed"):
+            ts = [e["t"] for e in events if e.get("name") == name]
+            first[name] = min(ts) - started if ts else float("nan")
+        published = [r["t"] - started for r in endpoints()]
+        build = [ln for ln in log if ln.startswith("fleet: CUDA kernels")]
+        raw = cfg.get("raw_s_per_task")
+        phase("fleet", f"fleet-run ({lo}..{hi} workers, interval 0.25 s) "
+                       f"drained {len(boxes)} tasks of {task} in {wall:.2f} "
+                       f"s with start-up, {len(boxes) / wall:.3f} tasks/s "
+                       f"(phase 10's in-process worker: "
+                       + (f"{1 / raw:.3f} tasks/s" if raw else "not run")
+                       + f"); workers over time {' '.join(sizes)}; "
+                       + [ln for ln in log
+                          if ln.startswith("fleet drained:")][-1].strip())
+        require(cut is not None, f"fleet: the drained worker {did} printed "
+                                 f"no run counters")
+        phase("fleet", f"SIGTERMed {did} holding leases: exit 143 "
+                       f"{drain_s:.2f} s after (grace {TERM_GRACE_S} s), "
+                       f"{computed[did]} task(s) finished and launches "
+                       f"{cut} ("
+                       + ("a forward cut short" if any(
+                           k != per_task * computed[did]
+                           for k in cut.values()) else "none cut short")
+                       + "), its tasks handed back and committed by others")
+        phase("fleet", f"SIGKILLed {vid} holding {len(hopped)} unfinished "
+                       f"task(s); recommitted by "
+                       f"{sorted({commits[t][0]['worker'] for t in hopped})} "
+                       f"{recommit_s:.2f} s after the kill (visibility "
+                       f"{cfg['visibility']} s); force-released "
+                       f"{counters.get('fleet/leases_nacked', 0):g} lease(s); "
+                       f"output == in-process reference bitwise; each trace "
+                       f"committed once; queue {stats}; "
+                       f"{per_task} + {per_task} launches per computed task "
+                       f"in {sorted(computed.items())}")
+        for wid in workers:
+            info = fleet.get(wid, {})
+            peak = peaks.get(wid)
+            phase("fleet", f"{wid}: committed {info.get('committed', 0):g}, "
+                           f"dominant stall {info.get('dominant')}, host RSS "
+                           + (f"{rss[wid]:.2f} GiB" if wid in rss
+                              else "not sampled")
+                           + ", device peak "
+                           + (f"{peak / 2**30:.2f} GiB" if peak
+                              else "not reported"))
+        phase("fleet", f"cold start: "
+                       + (build[-1].strip() if build else "no kernel build")
+                       + f"; least host memory available during the run "
+                       + (f"{min(a for a in available if a is not None):.1f}"
+                          f" GiB" if any(a is not None for a in available)
+                          else "not read")
+                       + f"; from launch, the supervisor's first tick "
+                       f"{first['fleet/start']:.2f} s, first endpoint "
+                       f"published {min(published):.2f} s, first claim "
+                       f"{first['lifecycle/claimed']:.2f} s, first commit "
+                       f"{first['lifecycle/committed']:.2f} s; fleet-status "
+                       f"answered during the run; log-summary --trace-id "
+                       f"and --export-trace ({len(names)} processes) show "
+                       f"the hop")
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _brief(counters):

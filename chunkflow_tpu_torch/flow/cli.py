@@ -459,6 +459,252 @@ def _dead_letter(args, state) -> Stage:
     return stage()
 
 
+def _fleet_status_options(p):
+    p.add_argument("--queue-name", "-q", required=True)
+    p.add_argument("--workers", "-w", default=None,
+                   help="comma-separated worker /metrics endpoints "
+                        "(host:port or full URLs) to sample live")
+    p.add_argument("--timeout", type=float, default=1.0,
+                   help="per-worker scrape timeout in seconds")
+    p.add_argument("--fleet-state", default=None,
+                   help="a fleet-run state file: its workers are sampled "
+                        "too, and dead ones report their last-seen time and "
+                        "exit code (default: fleet-state.json beside "
+                        "--metrics-dir)")
+
+
+def _fleet_status(args, state) -> Stage:
+    @generator
+    def stage(task):
+        import time
+
+        from chunkflow_tpu_torch.parallel.queues import open_queue
+        from chunkflow_tpu_torch.parallel.restapi import (
+            achieved_mvox_s,
+            scrape_worker,
+        )
+
+        queue = open_queue(args.queue_name)
+        stats = queue.stats()
+
+        def show(value):
+            return "?" if value is None else f"{value:g}"
+
+        print(
+            f"queue {queue.describe()}: "
+            f"pending={show(stats.get('pending'))} "
+            f"in-flight={show(stats.get('inflight'))} "
+            f"dead={show(stats.get('dead'))} "
+            f"receives={show(stats.get('receives'))}"
+        )
+        if stats.get("dead"):
+            print(
+                "  -> dead-letter tasks pending triage: inspect with "
+                f"`chunkflow dead-letter -q {args.queue_name}`"
+            )
+        # the supervisor's state file: the post-mortem of what a live
+        # scrape cannot answer
+        state_path = args.fleet_state
+        if state_path is None and telemetry.configured_path():
+            candidate = os.path.join(
+                os.path.dirname(telemetry.configured_path()),
+                "fleet-state.json")
+            if os.path.exists(candidate):
+                state_path = candidate
+        records = {}
+        if state_path:
+            try:
+                with open(state_path) as f:
+                    fleet = json.load(f)
+                for rec in fleet.get("workers", []):
+                    if rec.get("endpoint"):
+                        records[rec["endpoint"]] = rec
+                print(
+                    f"fleet {state_path}: target={fleet.get('target')} "
+                    f"{'static' if fleet.get('static') else 'elastic'} "
+                    f"[{fleet.get('min_workers')}..{fleet.get('max_workers')}]"
+                )
+            except (OSError, ValueError) as exc:
+                print(f"fleet-state {state_path}: unreadable ({exc})",
+                      file=sys.stderr)
+
+        def age(t):
+            return "never" if not t else f"{time.time() - t:.1f}s ago"
+
+        endpoints = [e.strip() for e in (args.workers or "").split(",")
+                     if e.strip()]
+        endpoints += [e for e in records if e not in endpoints]
+        for endpoint in endpoints:
+            rec = records.get(endpoint) or {}
+            label = f" [{rec['worker']}]" if rec.get("worker") else ""
+            if rec.get("state") == "exited":
+                # reaped by the supervisor: its exit code and last-seen time
+                code = rec.get("exit_code")
+                note = f"exit code {code}"
+                if isinstance(code, int) and code < 0:
+                    note += f" (signal {-code})"
+                print(f"worker {endpoint}{label}: exited, {note}, "
+                      f"last seen {age(rec.get('last_seen'))}")
+                continue
+            sample = scrape_worker(endpoint, timeout=args.timeout)
+            if sample["error"] is not None:
+                line = (f"worker {sample['endpoint']}{label}: "
+                        f"unreachable ({sample['error']})")
+                if rec:
+                    line += (f", state={rec.get('state', '?')}, "
+                             f"last seen {age(rec.get('last_seen'))}")
+                print(line)
+                continue
+            health = sample["healthz"] or {}
+            metrics = sample["metrics"] or {}
+            committed = metrics.get("chunkflow_tasks_committed_total", 0)
+            retried = metrics.get("chunkflow_tasks_retried_total", 0)
+            dominant = metrics.get("chunkflow_stall_dominant_share")
+            line = (
+                f"worker {sample['endpoint']}{label}: "
+                f"{health.get('worker', '?')} "
+                f"leases={health.get('inflight_leases', '?')} "
+                f"committed={committed:g} retried={retried:g}"
+            )
+            if dominant is not None:
+                line += f" dominant-stall-share={dominant:.0%}"
+            mvox = achieved_mvox_s(metrics)
+            if mvox is not None:
+                line += f" achieved={mvox:.2f} Mvox/s"
+            if sample.get("slo_firing"):
+                line += " SLO-FIRING: " + ",".join(sample["slo_firing"])
+            print(line)
+            serving = sample.get("serving")
+            if serving:
+                def ms(value):
+                    return ("?" if value is None
+                            else f"{value * 1e3:.1f}ms")
+
+                print(
+                    f"  serving: in-flight={serving['inflight']:g} "
+                    f"requests={serving['requests']:g} "
+                    f"completed={serving['completed']:g} "
+                    f"p50={ms(serving['p50_s'])} "
+                    f"p99={ms(serving['p99_s'])} "
+                    f"rejects={serving['rejects']:g} "
+                    f"deadline-misses={serving['deadline_missed']:g}"
+                )
+        return
+        yield  # a generator that yields nothing
+
+    return stage()
+
+
+def _fleet_run_options(p):
+    p.add_argument("--queue-name", "-q", required=True)
+    p.add_argument("--worker-args", "-w", dest="worker_args_str",
+                   required=True,
+                   help="the quoted stages each worker runs after its "
+                        "supervised fetch stage, ending in "
+                        "delete-task-in-queue")
+    p.add_argument("--min-workers", type=int, default=1)
+    p.add_argument("--max-workers", type=int, default=4)
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="decision-tick interval in seconds")
+    p.add_argument("--scale-up-backlog", type=float, default=4.0,
+                   help="pending tasks per active worker above which a "
+                        "compute-bound fleet grows by one worker per tick")
+    p.add_argument("--idle-ticks", type=int, default=3,
+                   help="idle ticks in a row (pending = in-flight = 0) "
+                        "before draining back to --min-workers")
+    p.add_argument("--probe-misses", type=int, default=3,
+                   help="failed /healthz probes in a row before a worker "
+                        "is quarantined (SIGKILL, leases force-released)")
+    p.add_argument("--term-grace", type=float, default=10.0,
+                   help="seconds a SIGTERMed worker gets to nack and flush "
+                        "before SIGKILL")
+    p.add_argument("--mem-watermark-gb", type=float, default=2.0,
+                   help="host MemAvailable floor: no scale-up that would "
+                        "go below it")
+    p.add_argument("--drill-rate", type=float, default=0.0,
+                   help="spot-preemption drill: per-tick probability of "
+                        "reclaiming a random live worker through SIGTERM "
+                        "(0: off)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the drill's random choices")
+    p.add_argument("--max-runtime", type=float, default=86400.0)
+    p.add_argument("--state-file", default=None,
+                   help="the fleet-state JSON fleet-status reads (default: "
+                        "fleet-state.json under --metrics-dir)")
+    p.add_argument("--visibility-timeout", "-v", type=int, default=300)
+    p.add_argument("--retry-times", "-r", type=int, default=10,
+                   help="empty polls before a worker ends its session (the "
+                        "supervisor spawns another while it owes the "
+                        "target size)")
+    p.add_argument("--poll-interval", type=float, default=1.0)
+    p.add_argument("--max-retries", type=int, default=10,
+                   help="failed deliveries per task before it goes to the "
+                        "dead-letter store")
+    p.add_argument("--lease-renew", type=float, default=None,
+                   help="lease heartbeat interval (default: "
+                        "visibility-timeout / 3)")
+    p.add_argument("--ledger", default=None,
+                   help="completion ledger passed to every worker (needed "
+                        "for exactly-once effects under kills)")
+
+
+def _fleet_run(args, state) -> Stage:
+    import shlex
+
+    @generator
+    def stage(task):
+        from chunkflow_tpu_torch.parallel.fleet import FleetSupervisor
+
+        renew = (args.visibility_timeout / 3.0
+                 if args.lease_renew is None else args.lease_renew)
+        worker_args = [
+            "fetch-task-from-queue", "-q", args.queue_name,
+            "-v", str(args.visibility_timeout), "-r", str(args.retry_times),
+            "--poll-interval", str(args.poll_interval),
+            "--max-retries", str(args.max_retries),
+            "--lease-renew", str(renew),
+        ]
+        if args.ledger:
+            worker_args += ["--ledger", args.ledger]
+        worker_args += shlex.split(args.worker_args_str)
+        metrics_dir = (
+            os.path.dirname(telemetry.configured_path())
+            if telemetry.configured_path() else None
+        )
+        supervisor = FleetSupervisor(
+            args.queue_name, worker_args,
+            min_workers=args.min_workers, max_workers=args.max_workers,
+            interval=args.interval, scale_up_backlog=args.scale_up_backlog,
+            idle_ticks=args.idle_ticks, probe_misses=args.probe_misses,
+            term_grace=args.term_grace,
+            mem_watermark_gb=args.mem_watermark_gb,
+            drill_rate=args.drill_rate, seed=args.seed,
+            metrics_dir=metrics_dir, state_path=args.state_file,
+            visibility_timeout=args.visibility_timeout,
+            device=state["device"], verbose=state["verbose"],
+        )
+        summary = supervisor.run(max_runtime=args.max_runtime)
+        if supervisor.kernel_build_s is not None:
+            print(f"fleet: CUDA kernels ready in "
+                  f"{supervisor.kernel_build_s:.1f} s before the first "
+                  f"spawn")
+        print(
+            f"fleet drained: {summary['spawned']} worker session(s), "
+            f"{summary['scale_ups']:g} scale-up(s), "
+            f"{summary['scale_downs']:g} scale-down(s), "
+            f"{summary['evictions']:g} eviction(s), "
+            f"{summary['worker_deaths']:g} unexpected death(s), "
+            f"{summary['drill_preemptions']:g} drill preemption(s)"
+            + (" [static]" if summary["static"] else "")
+        )
+        if supervisor.state_path:
+            print(f"fleet state: {supervisor.state_path}")
+        return
+        yield  # a generator that yields nothing
+
+    return stage()
+
+
 def _create_bbox_options(p):
     _name(p, "create-bbox")
     _triple(p, "--start", "-s", required=True)
@@ -2359,6 +2605,116 @@ def _segment_volume(args, state) -> Stage:
     return stage()
 
 
+def _log_summary_options(p):
+    p.add_argument("--log-dir", "-l", default=None,
+                   help="per-task JSON timing logs")
+    p.add_argument("--metrics-dir", dest="summary_metrics_dir", default=None,
+                   help="the telemetry JSONL directory of a run (its "
+                        "--metrics-dir): stall attribution, fault tolerance, "
+                        "spans, the fleet's counters")
+    _on_off(p, "--fleet", "--no-fleet", default=False,
+            help="merge the workers' JSONL by worker: per-worker dominant "
+                 "stall, retries, ledger skips, cache hit rates")
+    p.add_argument("--trace-id", default=None,
+                   help="with --fleet: this task's timeline across workers "
+                        "(submit, claims, retries, commit or dead letter)")
+    p.add_argument("--slo", dest="slo_view", action="store_true",
+                   default=False,
+                   help="the SLO block: alerts with their burn rates and "
+                        "budgets, each objective's state, fleet-merged "
+                        "sparklines")
+    p.add_argument("--no-slo", dest="slo_view", action="store_false")
+    p.add_argument("--export-trace", default=None, metavar="OUT.JSON",
+                   help="write the merged JSONL as a Chrome/Perfetto trace: "
+                        "workers as processes, spans as slices, gauges and "
+                        "counters as tracks, task hops between workers as "
+                        "flows")
+    _triple(p, "--output-size", default=None)
+
+
+def _log_summary(args, state) -> Stage:
+    from chunkflow_tpu_torch.flow.log_summary import (
+        print_fleet_summary,
+        print_slo_summary,
+        print_summary,
+        print_telemetry_summary,
+    )
+
+    if args.log_dir is None and args.summary_metrics_dir is None:
+        raise UsageError("log-summary needs --log-dir and/or --metrics-dir")
+    if (args.fleet or args.trace_id or args.slo_view or args.export_trace) \
+            and args.summary_metrics_dir is None:
+        raise UsageError("log-summary --fleet/--trace-id/--slo/"
+                         "--export-trace needs --metrics-dir")
+    output_size = args.output_size
+
+    @generator
+    def stage(task):
+        metrics_dir = args.summary_metrics_dir
+        if args.log_dir is not None:
+            print_summary(args.log_dir, output_size=output_size
+                          if output_size and any(output_size) else None)
+        if metrics_dir is not None:
+            if args.fleet or args.trace_id:
+                print_fleet_summary(metrics_dir, trace_id=args.trace_id)
+            elif not args.slo_view and not args.export_trace:
+                print_telemetry_summary(metrics_dir)
+            if args.slo_view:
+                print_slo_summary(metrics_dir)
+            if args.export_trace:
+                from chunkflow_tpu_torch.flow.trace_export import (
+                    export_metrics_dir,
+                )
+
+                stats = export_metrics_dir(metrics_dir, args.export_trace)
+                print(
+                    f"exported {stats['trace_events']} trace event(s) "
+                    f"({stats['workers']} worker process(es), "
+                    f"{stats['flow_pairs']} cross-worker flow(s)) to "
+                    f"{args.export_trace}"
+                )
+                for problem in stats["problems"]:
+                    print(f"trace validation: {problem}")
+        return
+        yield  # a generator that yields nothing
+
+    return stage()
+
+
+def _plugin_options(p):
+    p.add_argument("--name", "-n", "--file", "-f", required=True)
+    p.add_argument("--input-names", "-i", default=DEFAULT_CHUNK_NAME,
+                   help="comma-separated task keys")
+    p.add_argument("--output-names", "-o", default=DEFAULT_CHUNK_NAME,
+                   help="comma-separated task keys")
+    p.add_argument("--args", "-a", default=None,
+                   help="plugin arguments: k=v;k2=(1,2)")
+
+
+def _plugin(args, state) -> Stage:
+    from chunkflow_tpu_torch.flow.plugin import (
+        load_plugin,
+        str_to_dict,
+        wrap_outputs,
+    )
+
+    execute = load_plugin(args.name)
+    kwargs = str_to_dict(args.args)
+    in_keys = [k.strip() for k in args.input_names.split(",") if k.strip()]
+    out_keys = [k.strip() for k in args.output_names.split(",")
+                if k.strip()]
+
+    @operator
+    def stage(task):
+        inputs = [task[k] for k in in_keys]
+        wrapped = wrap_outputs(execute(*inputs, **kwargs), inputs)
+        for key, value in zip(out_keys, wrapped):
+            task[key] = value
+        return task
+
+    return stage(_name=f"plugin-{args.name}")
+
+
 COMMANDS: Dict[str, tuple] = {
     "generate-tasks": (_generate_tasks_options, _generate_tasks,
                        "Fan the seed task into a grid of bbox tasks, or "
@@ -2378,6 +2734,12 @@ COMMANDS: Dict[str, tuple] = {
                              "Ack the task after its writes are durable."),
     "dead-letter": (_dead_letter_options, _dead_letter,
                     "List or requeue a queue's dead-letter tasks."),
+    "fleet-status": (_fleet_status_options, _fleet_status,
+                     "The queue's depth, leases and dead letters, and each "
+                     "worker's health and headline metrics."),
+    "fleet-run": (_fleet_run_options, _fleet_run,
+                  "Run an elastic, preemption-native fleet of queue-fed "
+                  "workers."),
     "create-bbox": (_create_bbox_options, _create_bbox,
                     "Set the task bbox explicitly."),
     "prefetch": (_prefetch_options, _prefetch,
@@ -2477,6 +2839,11 @@ COMMANDS: Dict[str, tuple] = {
                               "Rand/VOI scores against a ground truth."),
     "debug": (_debug_options, _debug,
               "Drop into a debugger with the task bound to ``task``."),
+    "log-summary": (_log_summary_options, _log_summary,
+                    "Timing logs and telemetry JSONL as throughput, stall, "
+                    "fleet, SLO and trace reports."),
+    "plugin": (_plugin_options, _plugin,
+               "Run a plugin file: execute(*inputs, **args)."),
     "serve": (_serve_options, _serve,
               "Serve POST /infer with cross-request patch batching, "
               "admission control and per-request deadlines."),
@@ -2508,11 +2875,10 @@ COMMANDS: Dict[str, tuple] = {
 #: (queue 1) that ports them: each raises ``NotImplementedError`` naming
 #: it, whatever its arguments
 NOT_PORTED = {
-    "fleet supervisor": ("fleet-run", "fleet-status", "log-summary"),
     "annotations and plugins": ("load-synapses", "save-synapses",
                                 "save-points", "load-skeleton", "save-swc",
-                                "aggregate-skeleton-fragments", "plugin",
-                                "view", "neuroglancer", "napari"),
+                                "aggregate-skeleton-fragments", "view",
+                                "neuroglancer", "napari"),
 }
 
 
@@ -2700,6 +3066,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         count = process_stream(stages, verbose=group.verbose)
     except UsageError as exc:
         raise SystemExit(str(exc)) from exc
+    except SystemExit as exc:
+        if group.verbose and exc.code == 143:
+            # a drained worker (SIGTERM) still says what it did
+            print(f"run counters: {json.dumps(_run_counters())}", flush=True)
+        raise
     finally:
         if window is not None:
             window.close()

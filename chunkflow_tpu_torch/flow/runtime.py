@@ -88,7 +88,13 @@ def process_stream(stages: Iterable[Callable], verbose: int = 0) -> int:
     :func:`~chunkflow_tpu_torch.parallel.lifecycle.handle_failure`
     settles the claims, and the chain is built again
     (``pipeline/chain_rebuilds``); a preemption (SIGTERM, SIGINT) settles
-    them and re-raises. Without supervised tasks a failure re-raises."""
+    them and re-raises. Without supervised tasks a failure re-raises.
+
+    SIGTERM becomes ``SystemExit(143)`` in this (the main) thread for the
+    whole drain: the claim loop installs the same handler, but under the
+    adaptive scheduler it runs in a producer thread, where a handler
+    cannot be installed (the JAX package's worker dies there by the
+    signal, its claims left to the visibility timeout)."""
     from chunkflow_tpu_torch.flow.scheduler import (
         scheduler_mode,
         write_behind_stage,
@@ -97,6 +103,14 @@ def process_stream(stages: Iterable[Callable], verbose: int = 0) -> int:
     stages = list(stages)
     if scheduler_mode() == "adaptive":
         stages.append(write_behind_stage())
+    restore = lifecycle.install_preemption_handler()
+    try:
+        return _drain(stages, verbose)
+    finally:
+        restore()
+
+
+def _drain(stages: list, verbose: int) -> int:
     count = 0
     while True:
         chain = [iter([new_task()])]

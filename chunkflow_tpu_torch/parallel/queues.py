@@ -5,7 +5,9 @@ strings with a visibility timeout and ack-after-write commits, plus the
 lifecycle protocol ``parallel/lifecycle.py`` drives: :meth:`renew` (the
 lease heartbeat), :meth:`nack` (hand a claim back now), per-task
 :meth:`receive_count`, and a dead-letter store
-(:meth:`dead_letter` / :meth:`dead_letters` / :meth:`requeue_dead`).
+(:meth:`dead_letter` / :meth:`dead_letters` / :meth:`requeue_dead`);
+:meth:`force_release` hands back a dead worker's claims for the fleet
+supervisor (``parallel/fleet.py``).
 
 Backends: ``memory://name`` (in-process) and ``file:///dir`` (a directory
 of task files, claimed by atomic rename, safe across processes on one
@@ -28,10 +30,15 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 from chunkflow_tpu_torch.core import telemetry
 
-__all__ = ["pack_task", "unpack_task", "QueueBase", "MemoryQueue",
-           "FileQueue", "open_queue"]
+__all__ = ["new_trace_id", "pack_task", "unpack_task", "QueueBase",
+           "MemoryQueue", "FileQueue", "open_queue"]
 
 _ENVELOPE_PREFIX = '{"chunkflow"'
+
+
+def new_trace_id() -> str:
+    """A fresh 32-hex trace id, minted once per task submission."""
+    return uuid.uuid4().hex
 
 
 def pack_task(body: str, trace_id: Optional[str] = None) -> str:
@@ -40,7 +47,7 @@ def pack_task(body: str, trace_id: Optional[str] = None) -> str:
     if unpack_task(body)[1] is not None:
         return body
     if trace_id is None:
-        trace_id = uuid.uuid4().hex
+        trace_id = new_trace_id()
     return json.dumps({"chunkflow": 1, "body": body, "trace_id": trace_id})
 
 
@@ -88,6 +95,24 @@ class QueueBase:
         is a hand-back, not a failure: the receive count goes down by
         one. False when there was no claim to release."""
         raise NotImplementedError
+
+    def force_release(self, handles, refund: bool = False) -> int:
+        """Third-party nack: hand back the claims a dead or evicted worker
+        still holds (the handles it last reported over ``/healthz``), so
+        its tasks come back now, not after the visibility timeout. No
+        refund by default: a crash-shaped delivery keeps counting toward
+        ``--max-retries``, or a task that kills every worker it lands on
+        would come back forever. An error on one handle (expired, acked,
+        claimed again) is skipped; returns how many claims were really
+        released."""
+        released = 0
+        for handle in handles or ():
+            try:
+                if self.nack(handle, refund=refund):
+                    released += 1
+            except Exception:
+                continue
+        return released
 
     def receive_count(self, handle: str) -> int:
         """Deliveries of the claimed task, this one included."""

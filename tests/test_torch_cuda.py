@@ -782,3 +782,74 @@ def test_encoded_volume_worker_card_is_its_cpu_leg(cuda, tmp_path,
     assert gather.launches > before[0] and accumulate.launches > before[1]
     cpu = _encoded_worker(tmp_path, "cpu", image, out_scale)
     assert card.any() and np.array_equal(card, cpu)
+
+
+def test_fleet_run_on_card_is_one_worker(cuda, tmp_path):
+    """``fleet-run`` with two worker processes on the card drains a
+    volume into the bytes one in-process worker writes there, and every
+    worker that computed a task launched both kernels."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from chunkflow_tpu_torch import Chunk as PortChunk
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    image = str(tmp_path / "image")
+    PrecomputedVolume.create(image, volume_size=(16, 96, 96),
+                             voxel_size=(40, 4, 4), block_size=(8, 32, 32))
+    PrecomputedVolume(image).save(PortChunk(np.random.default_rng(5).integers(
+        0, 256, (16, 96, 96), dtype=np.uint8)))
+    stages = ["load-precomputed", "-v", image, "-e", "2", "8", "8",
+              "inference", "-f", "identity", "-p", "4", "16", "16", "-v",
+              "2", "8", "8", "-c", "3", "-b", "2", "--output-crop-margin",
+              "2", "8", "8", "--async-depth", "2"]
+    outputs = {}
+    for name in ("one", "fleet"):
+        out = str(tmp_path / name)
+        queue = f"file://{tmp_path / f'{name}-queue'}"
+        assert cli.main(["create-info", "-v", out, "-c", "3", "--dtype",
+                         "float32", "--volume-size", "12", "64", "64",
+                         "--voxel-offset", "2", "8", "8", "--block-size",
+                         "2", "16", "16"]) == 0
+        assert cli.main(["generate-tasks", "--volume-path", out,
+                         "--chunk-size", "6", "32", "32", "--queue-name",
+                         queue]) == 0
+        chain = stages + ["save-precomputed", "-v", out,
+                          "delete-task-in-queue"]
+        if name == "one":
+            assert cli.main(["fetch-task-from-queue", "-q", queue, "-r", "0",
+                             *chain]) == 0
+        else:
+            metrics = tmp_path / "metrics"
+            env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                                  .parent.parent))
+            proc = subprocess.run(
+                [sys.executable, "-m", "chunkflow_tpu_torch", "-v",
+                 "--metrics-dir", str(metrics), "fleet-run", "-q", queue,
+                 "--min-workers", "2", "--max-workers", "2", "--interval",
+                 "0.5", "-r", "4", "--poll-interval", "0.25", "--ledger",
+                 str(tmp_path / "ledger"), "--max-runtime", "240", "-w",
+                 " ".join(chain)],
+                env=env, capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, proc.stdout + proc.stderr
+            assert "fleet drained:" in proc.stdout
+            launched = []
+            for log in metrics.glob("worker-fleet-w*.log"):
+                lines = [ln for ln in log.read_text().splitlines()
+                         if ln.startswith("run counters: ")]
+                if lines:
+                    c = json.loads(lines[-1][len("run counters: "):])
+                    if c.get("inference/chunks"):
+                        launched.append((c["kernels/gather"],
+                                         c["kernels/accumulate"]))
+            assert launched and all(g > 0 and a > 0 for g, a in launched)
+        assert open_queue(queue).stats()["pending"] == 0
+        outputs[name] = PrecomputedVolume(out).cutout(
+            PrecomputedVolume(out).bounds()).array
+    assert outputs["fleet"].any()
+    assert np.array_equal(outputs["fleet"], outputs["one"])

@@ -72,10 +72,25 @@ def test_importing_every_module_loads_no_jax():
                  "volume.storage", "volume.precomputed", "parallel.queues",
                  "parallel.lifecycle", "testing.chaos", "core.telemetry",
                  "core.profiling", "core.slo", "parallel.task_tree",
-                 "parallel.restapi", "serve.frontend", "serve.packer"):
+                 "parallel.restapi", "serve.frontend", "serve.packer",
+                 "parallel.fleet", "flow.log_summary", "flow.trace_export",
+                 "flow.profile_summary", "flow.plugin",
+                 "plugins.agglomerate", "plugins.load_n5"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["loaded"] if _forbidden(m)]
     assert not leaked, leaked
+
+
+def test_the_fleet_spawns_the_port_and_reads_no_tools():
+    """Workers are ``python -m chunkflow_tpu_torch``; no source names the
+    JAX CLI's module or the repository's ``tools/``."""
+    fleet = (PACKAGE / "parallel" / "fleet.py").read_text()
+    assert '"-m", "chunkflow_tpu_torch"' in fleet
+    for path in _sources():
+        text = path.read_text()
+        for name in ("chunkflow_tpu.flow.cli", "tools.trace_export",
+                     "tools.analyze_trace"):
+            assert name not in text, f"{path.relative_to(ROOT)}: {name}"
 
 
 def test_every_kernel_has_a_source_and_a_launcher():

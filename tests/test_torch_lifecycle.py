@@ -226,6 +226,49 @@ def test_sigterm_hands_the_in_flight_task_back(tmp_path, monkeypatch):
     assert telemetry.snapshot()["counters"]["tasks/preempted"] == 1
 
 
+def test_sigterm_under_the_adaptive_scheduler_hands_the_tasks_back(
+        tmp_path, monkeypatch):
+    """The same under the adaptive scheduler with ``inference
+    --async-depth 2``, whose producer thread runs the claim loop (no
+    handler can be installed there): the stream's own handler turns
+    SIGTERM into exit 143 in the main thread, and every claim goes back
+    with its receive refunded."""
+    monkeypatch.setenv("CHUNKFLOW_SCHED", "adaptive")
+    queue = f"file://{tmp_path / 'q'}"
+    queues.open_queue(queue).send_messages(BODIES[:4])
+
+    @operator
+    def sigterm(task):
+        os.kill(os.getpid(), signal.SIGTERM)
+        time.sleep(1.0)
+        return task
+
+    _, stages = cli.build_stages([
+        "--device", "cpu", "fetch-task-from-queue", "-q", queue,
+        "--max-retries", "3", "-r", "0", "create-chunk", "--size", "4",
+        "16", "16", "inference", "-f", "identity", "-p", "4", "16", "16",
+        "-v", "2", "8", "8", "-c", "3", "-b", "2", "--async-depth", "2"])
+    # what SIGTERM does when no handler of the worker's is installed
+    # (recorded here, so a miss fails the test instead of ending it)
+    missed = []
+
+    def recorder(*args):
+        missed.append(args)
+
+    previous = signal.signal(signal.SIGTERM, recorder)
+    try:
+        with pytest.raises(SystemExit) as exc:
+            process_stream(stages + [sigterm(_name="sigterm")])
+        assert signal.getsignal(signal.SIGTERM) is recorder
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    assert exc.value.code == 143 and not missed
+    stats = queues.open_queue(queue).stats()
+    assert stats["pending"] == 4 and stats["inflight"] == 0
+    assert stats["receives"] == 0
+    assert telemetry.snapshot()["counters"]["tasks/preempted"] >= 1
+
+
 def _breaker(runtime_operator):
     """An operator that waits until the upstream executor holds claimed
     tasks, then ends the run as a preemption would."""
@@ -403,6 +446,7 @@ def test_dead_letter_command_lists_and_requeues(tmp_path, capsys):
     assert cli.main(["dead-letter", "-q", queue, "--requeue"]) == 0
     assert "requeued 1 task(s)" in capsys.readouterr().out
     assert q.stats()["pending"] == 1 and not q.dead_letters()
-    with pytest.raises(NotImplementedError, match="fleet supervisor"):
+    # fleet-run is ported: without its worker stages it is a usage error
+    with pytest.raises(SystemExit):
         cli.main(["fleet-run", "-q", queue])
     assert threading.active_count() >= 1

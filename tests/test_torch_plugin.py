@@ -1,0 +1,303 @@
+"""The port's ``plugin`` command and bundled plugins against the JAX
+package's, on the CPU.
+
+Each bundled plugin the port has runs through both CLIs' ``plugin``
+command on the same seeded task (``tests/test_torch_cli_ops.py``'s
+chunks): the tasks they leave are bitwise equal, dtype and metadata
+included, and so is what they print or write. So does a user plugin
+found through ``$CHUNKFLOW_PLUGIN_DIR`` whose output shrank
+symmetrically (the voxel-offset fix). ``str_to_dict`` parses the
+arguments' mini-language as the JAX package does, and each bundled
+plugin the port leaves out raises ``NotImplementedError`` naming why.
+"""
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import pytest
+import torch
+
+from chunkflow_tpu.flow import plugin as jplugin
+from chunkflow_tpu_torch.flow import cli, plugin
+from tests.test_torch_chunk import assert_same_chunk
+from tests.test_torch_cli_ops import (
+    OFFSET,
+    VSIZE,
+    assert_same_tasks,
+    run_both,
+)
+
+# the suite runs in several pytest-xdist workers on one machine: each
+# worker's default intra-op pool (a thread per core) oversubscribes it,
+# which slows every worker and starves the timing tests beside them
+torch.set_num_threads(1)
+
+CHUNK_PLUGINS = {
+    "inverse": ["-n", "inverse"],
+    "inverse-float": ["-n", "inverse", "-i", "prob", "-o", "inv"],
+    "mapto01": ["-n", "mapto01.py", "-o", "unit"],
+    "median_filter": ["-n", "median_filter", "-a", "size=3"],
+    "median_filter-zyx": ["-n", "median_filter", "-i", "aff", "-a",
+                          "size=(1,3,3);mode=nearest"],
+    "rescale_intensity": ["-n", "rescale_intensity", "-a",
+                          "low=10;high=200"],
+    "rescale_intensity-float": ["-n", "rescale_intensity", "-i", "prob"],
+    "stretch_intensity": ["-n", "stretch_intensity", "-a",
+                          "low_percentile=5;high_percentile=95"],
+    "fill_segmentation_holes": ["-n", "fill_segmentation_holes", "-i",
+                                "seg", "-o", "filled"],
+    "gaussian_filter": ["-n", "gaussian_filter", "-i", "prob", "-a",
+                        "sigma=1.5"],
+    "transpose": ["-n", "transpose", "-i", "aff"],
+    "detect_points": ["-n", "detect_points", "-i", "prob", "-o", "points",
+                      "-a", "min_distance=2;threshold_rel=0.5"],
+    "print_max_id": ["-n", "print_max_id", "-i", "seg", "-o", "none"],
+    "statistics": ["-n", "statistics", "-o", "none"],
+    "agglomerate": ["-n", "agglomerate", "-i", "aff", "-o", "seg2", "-a",
+                    "threshold=0.5;scoring_function=OneMinus<QuantileAffinity"
+                    "<RegionGraphType, ScoreValue, 50, false>>"],
+    "agglomerate-fragments": ["-n", "agglomerate", "-i", "aff,seg", "-o",
+                              "seg2", "-a", "scoring_function=max"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHUNK_PLUGINS))
+def test_bundled_plugin_matches_jax(name, capsys):
+    args = ["plugin", *CHUNK_PLUGINS[name]]
+    capsys.readouterr()
+    jax_tasks, port_tasks = run_both(args)
+    printed = capsys.readouterr().out.splitlines()
+    # each package's plugin printed once, in that order
+    half = len(printed) // 2
+    jax_out, port_out = printed[:half], printed[half:]
+    assert port_out == jax_out
+    assert_same_tasks(port_tasks, jax_tasks)
+
+
+def _loaders(tmp_path):
+    """Files for the loader plugins: MRC and NRRD written by the JAX
+    package, an N5 dataset by tensorstore."""
+    from chunkflow_tpu.volume.io_mrc import save_mrc
+    from chunkflow_tpu.volume.io_nrrd import save_nrrd
+
+    rng = np.random.default_rng(31)
+    img = rng.integers(0, 256, (4, 16, 16)).astype(np.uint8)
+    save_mrc(str(tmp_path / "a.mrc"), img, voxel_size_nm=(40.0, 4.0, 4.0))
+    save_nrrd(str(tmp_path / "a.nrrd"), img.astype(np.uint16),
+              voxel_size=(40, 4, 4), voxel_offset=(4, 8, 40))
+    return {
+        "load_mrc": ["-n", "load_mrc", "-i", "", "-o", "mrc", "-a",
+                     f"file_name={tmp_path / 'a.mrc'};voxel_offset=(1,2,3)"],
+        "load_nrrd": ["-n", "load_nrrd", "-i", "", "-o", "nrrd", "-a",
+                      f"file_name={tmp_path / 'a.nrrd'}"],
+    }
+
+
+@pytest.mark.parametrize("name", ["load_mrc", "load_nrrd"])
+def test_loader_plugin_matches_jax(name, tmp_path):
+    jax_tasks, port_tasks = run_both(["plugin", *_loaders(tmp_path)[name]])
+    assert_same_tasks(port_tasks, jax_tasks)
+
+
+def test_load_n5_reads_what_tensorstore_reads(tmp_path):
+    ts = pytest.importorskip("tensorstore")
+    rng = np.random.default_rng(32)
+    data = rng.integers(0, 2 ** 16, (12, 40, 72, 2)).astype(np.uint16)
+    for compression in ({"type": "raw"}, {"type": "gzip"}):
+        path = tmp_path / compression["type"]
+        store = ts.open({
+            "driver": "n5", "kvstore": {"driver": "file", "path": str(path)},
+            "path": "group/ds",
+            "metadata": {"dimensions": list(data.shape),
+                         "blockSize": [5, 16, 32, 2],
+                         "dataType": "uint16", "compression": compression},
+            "create": True}).result()
+        store.write(data).result()
+        args = ["plugin", "-n", "load_n5", "-i", "bbox", "-o", "n5", "-a",
+                f"n5_dir={path};group_path=group/ds;voxel_size=(40,4,4)"]
+        jax_tasks, port_tasks = run_both(args)
+        assert_same_tasks(port_tasks, jax_tasks)
+        got = port_tasks[0]["n5"]
+        assert got.array.shape == (2, 12, 12, 2)
+
+
+def test_save_nrrd_writes_the_jax_bytes(tmp_path, capsys):
+    jax_file, port_file = tmp_path / "jax.nrrd", tmp_path / "port.nrrd"
+    from tests.test_torch_cli_ops import jax_stage, port_stage, _tasks
+
+    jax_task, port_task = _tasks()
+    list(jax_stage(["plugin", "-n", "save_nrrd", "-i", "other", "-o", "x",
+                    "-a", f"file_name={jax_file}"])(iter([jax_task])))
+    list(port_stage(["plugin", "-n", "save_nrrd", "-i", "other", "-o", "x",
+                     "-a", f"file_name={port_file}"])(iter([port_task])))
+    assert port_file.read_bytes() == jax_file.read_bytes()
+    out = capsys.readouterr().out
+    assert f"saved chunk to {port_file}" in out
+
+
+class _Dvid(BaseHTTPRequestHandler):
+    """A local DVID raw-label endpoint: the labels of a seeded volume."""
+
+    labels = np.random.default_rng(33).integers(
+        0, 2 ** 40, (16, 32, 64)).astype(np.uint64)
+    paths = []
+
+    def do_GET(self):
+        type(self).paths.append(self.path)
+        parts = self.path.split("?")[0].split("/")
+        sx, sy, sz = map(int, parts[-2].split("_"))
+        ox, oy, oz = map(int, parts[-1].split("_"))
+        block = self.labels[oz:oz + sz, oy:oy + sy, ox:ox + sx]
+        body = np.ascontiguousarray(block).tobytes()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):
+        pass
+
+
+def test_cutout_dvid_label_against_a_local_server():
+    server = ThreadingHTTPServer(("127.0.0.1", 0), _Dvid)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        args = ["plugin", "-n", "cutout_dvid_label", "-i", "bbox", "-o",
+                "labels", "-a", f"server={url};uuid=abc;supervoxels=true"]
+        jax_tasks, port_tasks = run_both(args)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert_same_tasks(port_tasks, jax_tasks)
+    assert _Dvid.paths[0] == _Dvid.paths[1]
+    assert "supervoxels=true" in _Dvid.paths[0]
+    got = port_tasks[0]["labels"]
+    assert np.array_equal(got.array, _Dvid.labels[5:7, 10:22, 42:54])
+
+
+USER_PLUGIN = '''import numpy as np
+
+
+def execute(chunk, margin=(1, 2, 3), scale=2):
+    arr = np.asarray(chunk.host() if hasattr(chunk, "host")
+                     else chunk.array)
+    mz, my, mx = margin
+    return [arr[..., mz:-mz, my:-my, mx:-mx] * scale,
+            arr[..., :-1, :, :], None]
+'''
+
+
+def test_user_plugin_from_plugin_dir_and_crop_offset(tmp_path, monkeypatch):
+    """A symmetric shrink moves the voxel offset by half of it; an
+    asymmetric one keeps it, in both packages."""
+    (tmp_path / "shrink.py").write_text(USER_PLUGIN)
+    monkeypatch.setenv("CHUNKFLOW_PLUGIN_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path.parent)
+    args = ["plugin", "-n", "shrink", "-i", "aff", "-o", "core,lopped,none",
+            "-a", "margin=(1,2,3);scale=3"]
+    jax_tasks, port_tasks = run_both(args)
+    assert_same_tasks(port_tasks, jax_tasks)
+    core = port_tasks[0]["core"]
+    assert tuple(core.voxel_offset) == tuple(
+        o + m for o, m in zip(OFFSET, (1, 2, 3)))
+    assert tuple(core.voxel_size) == VSIZE
+    assert tuple(port_tasks[0]["lopped"].voxel_offset) == OFFSET
+    assert port_tasks[0]["none"] is None
+
+
+def test_wrap_outputs_matches_jax():
+    from chunkflow_tpu.chunk.base import Chunk as JaxChunk
+    from chunkflow_tpu_torch import Chunk
+
+    arr = np.arange(2 * 6 * 8 * 10, dtype=np.float32).reshape(2, 6, 8, 10)
+    outputs = [arr[:, 1:-1, 2:-2, 3:-3], arr[0, :5], arr[0, 0], 7, None]
+    got = plugin.wrap_outputs(outputs, [Chunk(arr, voxel_offset=OFFSET,
+                                              voxel_size=VSIZE)])
+    ref = jplugin.wrap_outputs(outputs, [JaxChunk(arr, voxel_offset=OFFSET,
+                                                  voxel_size=VSIZE)])
+    assert len(got) == len(ref) == 5
+    for g, r in zip(got, ref):
+        if isinstance(r, JaxChunk):
+            assert_same_chunk(g, r)
+        else:
+            assert type(g) is type(r) and np.array_equal(g, r)
+    assert plugin.wrap_outputs(None, []) == jplugin.wrap_outputs(None, [])
+
+
+STR_TO_DICT = [
+    None, "", "k=3", "k=3;k2=(1,2);k3=abc", "a=1.5;b=-2;c=1e-3",
+    "flag=True;other=false;x=TRUE", "t=();l=[];u=(1,);v=[1, 2.5, x]",
+    "  spaced = 4 ; ;trail=;", "path=/tmp/a=b.h5", "neg=(-1, -2, 0)",
+    "s=OneMinus<MeanAffinity<RegionGraphType, ScoreValue>>",
+]
+
+
+@pytest.mark.parametrize("text", STR_TO_DICT)
+def test_str_to_dict_matches_jax(text):
+    got, ref = plugin.str_to_dict(text), jplugin.str_to_dict(text)
+    assert got == ref
+    assert [type(v) for v in got.values()] == [type(v) for v in ref.values()]
+
+
+UNPORTED = ["skeletonize", "aggregate_skeleton_fragments", "adjust_pre",
+            "synapse/detect_duplicate_post", "detect_post_synapses",
+            "detect_pre_synapses", "find_tbar_object", "clahe",
+            "czann_inference", "napari_pixel_classifier", "aws/cloud_watch",
+            "load_tensorstore"]
+
+
+@pytest.mark.parametrize("name", UNPORTED)
+def test_a_plugin_left_out_raises_naming_its_item(name):
+    """The JAX package finds each of these among its bundled plugins; the
+    port names why it lacks it, at the command's build."""
+    assert os.path.exists(jplugin.find_plugin(name))
+    with pytest.raises(NotImplementedError,
+                       match="annotations and plugins") as info:
+        cli.build_stages(["--device", "cpu", "plugin", "-n", name])
+    needs = {"clahe": "cv2", "czann_inference": "czmodel",
+             "napari_pixel_classifier": "apoc", "aws/cloud_watch": "boto3",
+             "load_tensorstore": "tensorstore"}.get(name, "annotations")
+    assert needs in str(info.value)
+
+
+def test_a_missing_plugin_is_not_found(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("CHUNKFLOW_PLUGIN_DIR", raising=False)
+    with pytest.raises(FileNotFoundError, match="not found"):
+        plugin.find_plugin("no_such_plugin")
+    # a user file beats the bundled one, as in the JAX package
+    (tmp_path / "inverse.py").write_text("def execute(c):\n    return c\n")
+    assert plugin.find_plugin("inverse") == str(tmp_path / "inverse.py")
+    assert plugin.find_plugin("inverse") == jplugin.find_plugin("inverse")
+    (tmp_path / "noexec.py").write_text("x = 1\n")
+    with pytest.raises(AttributeError, match="no execute"):
+        plugin.load_plugin("noexec")
+
+
+def test_plugin_through_whole_command_lines(tmp_path):
+    """``load-npy | plugin | save-npy`` through both CLIs."""
+    from click.testing import CliRunner
+
+    from chunkflow_tpu.flow.cli import main as jax_main
+
+    arr = np.random.default_rng(34).integers(0, 256, (4, 16, 16)).astype(
+        np.uint8)
+    np.save(tmp_path / "in.npy", arr)
+    outs = {}
+    for which in ("jax", "port"):
+        out = str(tmp_path / f"{which}.npy")
+        args = ["load-npy", "-f", str(tmp_path / "in.npy"), "plugin", "-n",
+                "inverse", "plugin", "-n", "mapto01", "save-npy", "-f", out]
+        if which == "jax":
+            result = CliRunner().invoke(jax_main, args,
+                                        catch_exceptions=False)
+            assert result.exit_code == 0, result.output
+        else:
+            assert cli.main(["--device", "cpu", *args]) == 0
+        outs[which] = np.load(out)
+    assert outs["port"].dtype == outs["jax"].dtype == np.float32
+    assert np.array_equal(outs["port"], outs["jax"])
+    assert outs["port"].max() == 1.0

@@ -1,10 +1,11 @@
 """The port's serving front end against the JAX package, on the CPU.
 
-The cases of ``tests/serve/test_frontend.py`` through the port (but the
-fleet supervisor's endpoint discovery and the log-summary SERVING block,
-which wait for the fleet supervisor item): ``POST /infer`` over real
-HTTP, admission and memory rejects, 400s, deadlines, lifecycle retries
-and dead letters, volume-reference requests, and the ``serve`` command.
+The cases of ``tests/serve/test_frontend.py`` through the port (the
+fleet supervisor's endpoint discovery and the log-summary SERVING block
+are in ``tests/test_torch_fleet.py`` and ``test_torch_log_summary.py``):
+``POST /infer`` over real HTTP, admission and memory rejects, 400s,
+deadlines, lifecycle retries and dead letters, volume-reference
+requests, and the ``serve`` command.
 The same request bodies go through the port's and the JAX package's
 ``ServingService.handle`` and the decoded responses are bitwise equal,
 and so are the two CLIs' ``serve`` answers to one request. Spool mode
@@ -13,8 +14,9 @@ fetch-task-from-queue ... delete-task-in-queue``); the first is killed by
 ``CHUNKFLOW_CHAOS="once=lifecycle/pre_ledger:action=kill"`` after it
 wrote the output but before the ledger marked it, and the request is
 redelivered on lease expiry and answered once. The cases of
-``tests/serve/test_slo_acceptance.py`` (but the log-summary one) tick
-the SLO evaluator with an explicit clock.
+``tests/serve/test_slo_acceptance.py`` (the log-summary one is in
+``tests/test_torch_log_summary.py``) tick the SLO evaluator with an
+explicit clock.
 """
 import base64
 import json
@@ -615,8 +617,10 @@ def test_cli_serve_needs_a_patch_size_and_stays_registered(clean):
         cli.main(["--device", "cpu", "serve", "--max-runtime", "0"])
     assert "serve" not in [c for cs in cli.NOT_PORTED.values() for c in cs]
     assert "serving packer" not in cli.NOT_PORTED
+    assert "fleet supervisor" not in cli.NOT_PORTED
     for command in ("fleet-run", "fleet-status", "log-summary"):
-        with pytest.raises(NotImplementedError, match="fleet supervisor"):
+        # ported: without their required options they are usage errors
+        with pytest.raises(SystemExit):
             cli.main(["--device", "cpu", command])
 
 
