@@ -194,6 +194,21 @@ non-zero exit and no result line:
              the events; wall time and tasks/s beside phase 10's, workers
              over time, kill-to-recommit seconds, per worker its commits,
              dominant stall, host RSS and device peak, the cold start
+19. annotations  a synapse-detection worker through the CLI in process
+             on phase 10's first task box: ``load-precomputed |
+             inference`` (parity float32, 18 + 18 launches) ``| plugin
+             detect_pre_synapses`` (channel 0) ``| detect_post_synapses``
+             (channel 1, 50 nm) ``| adjust_pre |`` phase 16's
+             segmentation ``| detect_duplicate_post | find_tbar_object |
+             save-synapses | save-points | load-synapses``: the files read
+             back equal, the synapses bitwise the same plugins on a
+             ``.host()`` copy of the inference output, T-bars and posts
+             found; counts, ms per operator, s/task beside phase 10's.
+             Then ``plugin skeletonize`` on two adjacent crops of the
+             segmentation, ``aggregate-skeleton-fragments``, ``save-swc``
+             and ``load-skeleton``: the aggregated objects the fragments'
+             ids, each one tree, each swc read back equal; the cuts,
+             objects, nodes, ms per object, cable length
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -309,6 +324,17 @@ TERM_GRACE_S = 10.0
 # the host memory (GiB) a scale-up must leave free: a worker process on
 # the card holds 5-7 GiB of host RSS
 FLEET_HOST_FLOOR_GB = 16
+# phase 19: the synapse worker's post-synapse search radius (nm); the
+# skeletons' two adjacent crops of phase 16's segmentation (the halves of
+# the synapse task's box), the voxels an object needs to be skeletonized
+# (there the percolating object is the only one of 20 or more: the rest
+# is dust of a few voxels, each skeletonized too) and the paths each
+# skeleton may take (the percolating object would take thousands: ~6 s a
+# crop for 200)
+SYNAPSE_RADIUS_NM = 50
+SKELETON_CROP = (56, 384, 192)
+SKELETON_VOXELS = 2
+SKELETON_PATHS = 200
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -1392,6 +1418,21 @@ def main() -> int:
                    "--dtype", "float32"],
         raw_s_per_task=volume_s.get("parity float32")), weights=state)
     phase("fleet", f"phase 18 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 19. annotations: a synapse worker and skeletons ---------------
+    torch.cuda.empty_cache()
+    for kname, n in annotations_phase(torch, dict(
+            volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI, task=TASK,
+            margin=MARGIN, pin=PIN, overlap=OVERLAP, batch=BATCH,
+            device="cuda", segmentation=SEGMENT_SEG,
+            inference=["--framework", "pytorch", "--model-variant",
+                       "parity", "--dtype", "float32"],
+            search_radius=SYNAPSE_RADIUS_NM, skeleton_crop=SKELETON_CROP,
+            skeleton_threshold=SKELETON_VOXELS, max_paths=SKELETON_PATHS,
+            raw_s_per_task=volume_s.get("parity float32")),
+            weights=state, reset_counts=reset_counts,
+            counts=counts).items():
+        kernels[kname]["launches"] += n
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -4718,6 +4759,316 @@ def fleet_phase(torch, cfg, weights=None):
                        f"and --export-trace ({len(names)} processes) show "
                        f"the hop")
         shutil.rmtree(out, ignore_errors=True)
+
+
+CHANNEL_PLUGIN = '''from chunkflow_tpu_torch import Chunk
+
+
+def execute(chunk, channel=1):
+    """One channel of a czyx chunk, kept where it lies."""
+    return Chunk(chunk.array[channel:channel + 1],
+                 voxel_offset=chunk.voxel_offset,
+                 voxel_size=chunk.voxel_size)
+'''
+PRE_SITES_PLUGIN = '''def execute(synapses):
+    """The T-bars as a point cloud."""
+    return synapses.pre_point_cloud
+'''
+SKELETONS_PLUGIN = '''import os
+
+from chunkflow_tpu_torch.annotations.skeleton import Skeleton
+
+
+def execute(path=""):
+    """The aggregated skeletons in ``path``, by object id."""
+    out = {}
+    for name in sorted(os.listdir(path), key=int):
+        with open(os.path.join(path, name), "rb") as f:
+            out[int(name)] = Skeleton.from_precomputed_bytes(f.read())
+    return out
+'''
+
+
+def annotations_phase(torch, cfg, weights, reset_counts, counts):
+    """Phase 19: a synapse-detection worker and skeletons, through the
+    port's CLI in process.
+
+    a. Phase 10's seeded input over the first task box of its roi (and
+       the margin) as a precomputed volume, then one chain: ``create-bbox
+       | load-precomputed -e margin | inference`` (``cfg["inference"]``,
+       ``weights`` as a ``.pt`` file, cropped to the task) ``| plugin
+       detect_pre_synapses`` (channel 0) ``| plugin`` (channel 1, a plugin
+       of the phase) ``| plugin detect_post_synapses`` (search radius
+       ``cfg["search_radius"]`` nm) ``| plugin adjust_pre | load-npy``
+       (``cfg["segmentation"]``, phase 16's stitched labels of the roi,
+       over the same box) ``| plugin detect_duplicate_post | plugin
+       find_tbar_object | save-synapses`` (json) ``| save-points`` (the
+       T-bars, npy) ``| load-synapses``. Required: ``per_task`` launches
+       of each blend kernel; the synapses read back equal to those saved,
+       the npy their T-bars; the chain's synapses and T-bar ids bitwise
+       the same plugins on a ``.host()`` copy of the inference output;
+       T-bars and posts found. Printed: the counts, ms per operator
+       (``op/<name>`` spans) and s/task beside phase 10's.
+    b. ``plugin skeletonize`` (``cfg["skeleton_threshold"]`` voxels,
+       ``cfg["max_paths"]`` paths) on two adjacent ``cfg["skeleton_crop"]``
+       crops of the segmentation, writing fragments;
+       ``aggregate-skeleton-fragments``; the aggregated skeletons
+       (a plugin of the phase reads them) through ``save-swc`` and each
+       back through ``load-skeleton``. Required: the aggregated objects
+       are the union of the fragments' ids, each one tree, and each swc
+       read back holds its skeleton's nodes and parents. Printed: the
+       cuts, objects, nodes, ms per object, cable length.
+
+    Returns the blend kernels' launches in (a)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import BoundingBox, Cartesian, Chunk
+    from chunkflow_tpu_torch.annotations.skeleton import Skeleton
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+    from chunkflow_tpu_torch.flow.runtime import new_task
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start = cfg["roi"][0]
+    box = BoundingBox.from_delta(roi_start, cfg["task"])
+    src = box.adjust(margin)
+    per_task = len(pad_to_batch(enumerate_patches(tuple(src.shape), pin, pin,
+                                                  overlap), batch)[0]) // batch
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run_chain(argv):
+        """The chain's tasks, through the CLI's stages in this process."""
+        _, stages = cli.build_stages(dev_args + argv)
+        chain = iter([new_task()])
+        for stage in stages:
+            chain = stage(chain)
+        return [task for task in chain if task is not None]
+
+    def span_ms(snap, name):
+        h = snap["hists"].get(f"op/{name}")
+        return h["total"] * 1e3 if h else 0.0
+
+    def same(a, b):
+        """Two synapse sets (or id arrays) hold the same arrays."""
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        fields = ("pre", "post", "pre_confidence", "post_confidence")
+        return tuple(a.resolution) == tuple(b.resolution) and all(
+            (getattr(a, f) is None) == (getattr(b, f) is None)
+            and (getattr(a, f) is None or same(getattr(a, f), getattr(b, f)))
+            for f in fields)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_annotations_") as tmp:
+        tmp = Path(tmp)
+        weights_pt = str(tmp / "unet3d_seed0.pt")
+        torch.save(weights, weights_pt)
+        for name, text in (("channel.py", CHANNEL_PLUGIN),
+                           ("pre_sites.py", PRE_SITES_PLUGIN),
+                           ("skeletons.py", SKELETONS_PLUGIN)):
+            (tmp / name).write_text(text)
+        # ---- a. the synapse worker --------------------------------------
+        image = np.random.default_rng(10).integers(0, 256, cfg["volume"],
+                                                   dtype=np.uint8)
+        vol_in = str(tmp / "image")
+        PrecomputedVolume.create(vol_in, volume_size=cfg["volume"],
+                                 voxel_size=VOXEL_NM,
+                                 block_size=cfg["volume_block"])
+        PrecomputedVolume(vol_in).save(Chunk(
+            image[src.slices], voxel_offset=src.start, voxel_size=VOXEL_NM))
+        del image
+        labels = np.load(cfg["segmentation"], mmap_mode="r")
+        seg_npy = str(tmp / "seg_task.npy")
+        np.save(seg_npy, np.ascontiguousarray(
+            labels[box.translate(-Cartesian(*roi_start)).slices]))
+        out = tmp / "synapses"
+        out.mkdir()
+        radius = cfg["search_radius"]
+        argv = [
+            "create-bbox", "-s", *nums(box.start), "--size", *nums(box.shape),
+            "load-precomputed", "-v", vol_in, "-e", *nums(margin),
+            "inference", *cfg["inference"], "--weight-path", weights_pt,
+            "--input-patch-size", *nums(pin),
+            "--output-patch-overlap", *nums(overlap),
+            "--output-crop-margin", *nums(margin),
+            "--num-output-channels", "3", "--batch-size", str(batch),
+            "-o", "prob",
+            "plugin", "-n", "detect_pre_synapses", "-i", "prob", "-o",
+            "synapses",
+            "plugin", "-n", str(tmp / "channel.py"), "-i", "prob", "-o",
+            "post_prob", "-a", "channel=1",
+            "plugin", "-n", "detect_post_synapses", "-i",
+            "synapses,post_prob", "-o", "synapses", "-a",
+            f"search_radius={radius}",
+            "plugin", "-n", "adjust_pre", "-i", "synapses,prob", "-o",
+            "synapses",
+            "load-npy", "-f", seg_npy, "--voxel-offset", *nums(box.start),
+            "--voxel-size", *nums(VOXEL_NM), "-o", "seg",
+            "plugin", "-n", "detect_duplicate_post", "-i", "synapses,seg",
+            "-o", "synapses",
+            "plugin", "-n", "find_tbar_object", "-i", "synapses,seg", "-o",
+            "tbar_ids",
+            "plugin", "-n", str(tmp / "pre_sites.py"), "-i", "synapses",
+            "-o", "pre_sites",
+            "save-synapses", "-f", str(out / "synapses.json"),
+            "save-points", "-i", "pre_sites", "-f", str(out / "pre.npy"),
+            "load-synapses", "-f", str(out / "synapses.json"), "-o",
+            "loaded"]
+        telemetry.reset()
+        reset_counts()
+        printed = io.StringIO()
+        sync()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            tasks = run_chain(argv)
+        sync()
+        wall = time.perf_counter() - t
+        launched = counts()
+        snap = telemetry.snapshot()
+        require(len(tasks) == 1, f"annotations: {len(tasks)} tasks came out")
+        task = tasks[0]
+        for kname, n in launched.items():
+            require(not on_card or n == per_task,
+                    f"annotations: {kname} launched {n} times, not "
+                    f"{per_task}")
+        prob = task["prob"]
+        require(prob.is_on_device == on_card and prob.bbox == box,
+                f"annotations: the inference output {prob!r} is not the "
+                f"task's on {cfg['device']}")
+        syn, ids = task["synapses"], task["tbar_ids"]
+        require(same(task["loaded"], syn),
+                "annotations: the synapses read back differ from those "
+                "saved")
+        require(same(np.load(out / "pre.npy"), syn.pre.copy()),
+                "annotations: the saved T-bar points differ")
+        # the same plugins on a host copy of the inference output
+        host = prob.host()
+        run = {name: load_plugin(name) for name in (
+            "detect_pre_synapses", "detect_post_synapses", "adjust_pre",
+            "detect_duplicate_post", "find_tbar_object")}
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = run["detect_pre_synapses"](host)
+            ref = run["detect_post_synapses"](
+                ref, Chunk(host.array[1:2], voxel_offset=host.voxel_offset,
+                           voxel_size=host.voxel_size), search_radius=radius)
+            ref = run["adjust_pre"](ref, host)
+            ref = run["detect_duplicate_post"](ref, task["seg"])
+            ref_ids = run["find_tbar_object"](ref, task["seg"])
+        require(same(syn, ref) and same(ids, ref_ids),
+                "annotations: the chain's synapses differ from the same "
+                "plugins on a host copy of the inference output")
+        require(syn.pre_num > 0 and syn.post_num > 0,
+                f"annotations: {syn.pre_num} T-bars, {syn.post_num} posts")
+        ops = list(task["log"]["timer"])
+        raw = cfg.get("raw_s_per_task")
+        phase("annotations", f"19a: task {box.string} ({cfg['inference']}, "
+                             f"{' '.join(printed.getvalue().split())}): "
+                             f"{syn.pre_num} T-bars, {syn.post_num} "
+                             f"post-synapses on {syn.pre_with_post_num} of "
+                             f"them, {int(np.count_nonzero(ids))} T-bars on "
+                             f"labelled objects; launches {launched}; "
+                             f"synapses == the plugins on a host copy "
+                             f"bitwise; json and npy read back equal")
+        phase("annotations", f"19a: {wall:.4f} s/task (phase 10's worker "
+                             + (f"{raw:.4f}" if raw else "not run")
+                             + "); ms per operator: " + ", ".join(
+                                 f"{name.replace(str(tmp) + os.sep, '')} "
+                                 f"{span_ms(snap, name):.1f}"
+                                 for name in ops))
+        del task, tasks, prob, host
+        # ---- b. skeletons -----------------------------------------------
+        crop = cfg["skeleton_crop"]
+        frags, agg, swc = tmp / "frags", tmp / "agg", tmp / "swc"
+        swc.mkdir()
+        telemetry.reset()
+        made = {}
+        for k in range(2):
+            rel = BoundingBox.from_delta((0, 0, k * crop[2]), crop)
+            crop_npy = str(tmp / f"crop{k}.npy")
+            np.save(crop_npy, np.ascontiguousarray(labels[rel.slices]))
+            with contextlib.redirect_stdout(printed):
+                (task,) = run_chain([
+                    "load-npy", "-f", crop_npy, "--voxel-offset",
+                    *nums(rel.translate(Cartesian(*roi_start)).start),
+                    "--voxel-size", *nums(VOXEL_NM), "-o", "seg",
+                    "plugin", "-n", "skeletonize", "-i", "seg", "-o",
+                    "skels", "-a",
+                    f"voxel_num_threshold={cfg['skeleton_threshold']};"
+                    f"max_paths={cfg['max_paths']};output_path={frags}"])
+            made[k] = task["skels"]
+        del labels
+        skel_ms = span_ms(telemetry.snapshot(), "plugin-skeletonize")
+        frag_ids = {name.split(":")[0] for name in os.listdir(frags)}
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            require(cli.main(dev_args + [
+                "aggregate-skeleton-fragments", "-f", str(frags), "-o",
+                str(agg)]) == 0, "annotations: aggregation failed")
+        agg_ms = (time.perf_counter() - t) * 1e3
+        require(set(os.listdir(agg)) == frag_ids and frag_ids,
+                f"annotations: {len(os.listdir(agg))} aggregated objects, "
+                f"{len(frag_ids)} fragment ids")
+        ids = sorted(int(i) for i in frag_ids)
+        argv = ["plugin", "-n", str(tmp / "skeletons.py"), "-i", "", "-o",
+                "skels", "-a", f"path={agg}",
+                "save-swc", "-i", "skels", "-f", str(swc / "obj-")]
+        for obj_id in ids:
+            argv += ["load-skeleton", "-f", str(swc / f"obj-{obj_id}.swc"),
+                     "-o", f"swc-{obj_id}"]
+        telemetry.reset()
+        (task,) = run_chain(argv)
+        snap = telemetry.snapshot()
+        nodes = cable = 0
+        for obj_id in ids:
+            merged, back = task["skels"][obj_id], task[f"swc-{obj_id}"]
+            require(int((merged.parents == -1).sum()) == 1,
+                    f"annotations: aggregated skeleton {obj_id} is not one "
+                    f"tree")
+            require(isinstance(back, Skeleton) and len(back) == len(merged)
+                    and np.array_equal(back.parents, merged.parents)
+                    and np.array_equal(back.nodes, merged.nodes),
+                    f"annotations: the swc of {obj_id} reads back "
+                    f"different")
+            nodes += len(merged)
+            cable += merged.cable_length()
+        spans = sum(len(made[k]) for k in made)
+        phase("annotations", f"19b: cuts: two adjacent {crop} crops of "
+                             f"phase 16's segmentation, "
+                             f"voxel_num_threshold "
+                             f"{cfg['skeleton_threshold']}, max_paths "
+                             f"{cfg['max_paths']}: {len(made[0])} + "
+                             f"{len(made[1])} skeletons "
+                             f"({skel_ms:.1f} ms, "
+                             f"{skel_ms / max(spans, 1):.1f} ms per object), "
+                             f"{len(ids)} objects aggregated in "
+                             f"{agg_ms:.1f} ms, {nodes} nodes, one tree "
+                             f"each, cable {cable / 1e3:.1f} um; save-swc "
+                             f"{span_ms(snap, 'save-swc'):.1f} ms, "
+                             f"load-skeleton "
+                             f"{span_ms(snap, 'load-skeleton'):.1f} ms; each "
+                             f"swc read back equal")
+        shutil.rmtree(frags)
+    phase("annotations", f"phase 19 took {time.perf_counter() - t_phase:.1f}"
+                         f" s")
+    return launched
 
 
 def _brief(counters):

@@ -25,9 +25,9 @@ runs the kernels' plain PyTorch versions on the CPU instead. Volumes are
 local neuroglancer precomputed directories (``raw``, ``jpeg``, ``png`` or
 ``compressed_segmentation`` blocks, unsharded or sharded); queues
 are ``file://`` directories or ``memory://`` names; chunk files are
-HDF5, TIFF, PNG sections, NRRD, zarr v2, and (to read) zarr v3 and N5.
-Every command name of the JAX CLI is registered:
-those not ported yet (``NOT_PORTED``) and cloud URLs (``gs://``,
+HDF5, TIFF, PNG sections, NRRD, zarr v2, and (to read) zarr v3 and N5;
+annotations are synapse JSON/HDF5, point npy/HDF5 and SWC files.
+Every command of the JAX CLI is ported; cloud URLs (``gs://``,
 ``s3://``, ``sqs://``) raise ``NotImplementedError`` naming their ROADMAP
 item. Chunk operators compute where their chunk lies;
 ``mask``, ``channel-voting`` and ``connected-components --device``
@@ -2681,6 +2681,267 @@ def _log_summary(args, state) -> Stage:
     return stage()
 
 
+# ---------------------------------------------------------------------------
+# annotations: synapses, points, skeletons
+# ---------------------------------------------------------------------------
+def _load_synapses_options(p):
+    _name(p, "load-synapses")
+    p.add_argument("--file-name", "--file-path", "-f", required=True,
+                   help=".json/.h5 file, or a directory with --suffix")
+    p.add_argument("--suffix", "-s", default=".h5",
+                   help="with a directory --file-path: load "
+                        "<dir>/<bbox><suffix>")
+    _triple(p, "--resolution", default=None,
+            help="override the synapses' voxel size (nm)")
+    p.add_argument("--output-name", "-o", default="synapses")
+
+
+def _load_synapses(args, state) -> Stage:
+    from chunkflow_tpu_torch.annotations.synapses import Synapses
+
+    @operator
+    def stage(task):
+        path = args.file_name
+        if os.path.isdir(path):
+            if task.get("bbox") is None:
+                raise UsageError("directory --file-path needs a task bbox")
+            path = os.path.join(path, f"{task['bbox'].string}{args.suffix}")
+        synapses = Synapses.from_file(path)
+        if args.resolution is not None:
+            synapses.resolution = to_cartesian(args.resolution)
+        if task.get("bbox") is not None:
+            synapses = synapses.filter_by_bbox(task["bbox"])
+        task[args.output_name] = synapses
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_synapses_options(p):
+    _name(p, "save-synapses")
+    p.add_argument("--file-name", "--file-path", "-f", required=True)
+    p.add_argument("--input-name", "-i", default="synapses")
+
+
+def _save_synapses(args, state) -> Stage:
+    @write_operator
+    def stage(task):
+        task[args.input_name].to_file(args.file_name)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_points_options(p):
+    _name(p, "save-points")
+    p.add_argument("--file-name", "--file-path", "-f", required=True,
+                   help=".h5 or .npy")
+    p.add_argument("--input-name", "-i", default="points")
+
+
+def _save_points(args, state) -> Stage:
+    from chunkflow_tpu_torch.annotations.point_cloud import PointCloud
+
+    @write_operator
+    def stage(task):
+        points = task[args.input_name]
+        if not isinstance(points, PointCloud):
+            points = PointCloud(np.asarray(points))
+        if args.file_name.endswith(".npy"):
+            points.to_npy(args.file_name)
+        else:
+            points.to_h5(args.file_name)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _load_skeleton_options(p):
+    _name(p, "load-skeleton")
+    p.add_argument("--file-name", "--path", "-f", required=True,
+                   help=".swc file")
+    _triple(p, "--voxel-offset", "--offset", default=None,
+            help="shift node coordinates by this voxel offset")
+    _triple(p, "--voxel-size", default=None,
+            help="scale voxel-offset shifts into nm (default 1nm)")
+    p.add_argument("--output-name", "-o", default="skeleton")
+
+
+def _load_skeleton(args, state) -> Stage:
+    from chunkflow_tpu_torch.annotations.skeleton import Skeleton
+
+    @operator
+    def stage(task):
+        skel = Skeleton.from_swc(args.file_name)
+        if args.voxel_offset is not None:
+            vs = np.asarray(args.voxel_size if args.voxel_size is not None
+                            else (1, 1, 1))
+            skel.nodes += np.asarray(args.voxel_offset) * vs
+        task[args.output_name] = skel
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _save_swc_options(p):
+    _name(p, "save-swc")
+    p.add_argument("--file-name", "--output-prefix", "-f", required=True,
+                   help=".swc path, or a prefix completed per skeleton id")
+    p.add_argument("--input-name", "-i", default="skeleton")
+
+
+def _save_swc(args, state) -> Stage:
+    file_name = args.file_name
+
+    @write_operator
+    def stage(task):
+        value = task[args.input_name]
+        if isinstance(value, dict):
+            # skeletonize's output, {obj_id: Skeleton}: a file per id
+            if file_name.endswith(".swc") and len(value) > 1:
+                raise UsageError(
+                    "multiple skeletons need a prefix (non-.swc "
+                    "--output-prefix), not a single .swc path"
+                )
+            for obj_id, skel in value.items():
+                path = (file_name if file_name.endswith(".swc")
+                        else f"{file_name}{obj_id}.swc")
+                skel.to_swc(path)
+        else:
+            path = (file_name if file_name.endswith(".swc")
+                    else f"{file_name}.swc")
+            value.to_swc(path)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _aggregate_skeleton_fragments_options(p):
+    p.add_argument("--fragments-path", "--input-name", "-f", required=True)
+    p.add_argument("--prefix", "-p", default=None,
+                   help="only aggregate fragment files starting with this "
+                        "id prefix (one job per prefix)")
+    p.add_argument("--output-path", "-o", default=None)
+
+
+def _aggregate_skeleton_fragments(args, state) -> Stage:
+    from chunkflow_tpu_torch.plugins.aggregate_skeleton_fragments import (
+        execute,
+    )
+
+    @generator
+    def stage(task):
+        execute(args.fragments_path, args.output_path, id_prefix=args.prefix)
+        return
+        yield
+
+    return stage()
+
+
+# ---------------------------------------------------------------------------
+# viewers
+# ---------------------------------------------------------------------------
+def _view_options(p):
+    _name(p, "view")
+    p.add_argument("--image-chunk-name", default=DEFAULT_CHUNK_NAME)
+    p.add_argument("--segmentation-chunk-name", default=None)
+    p.add_argument("--screenshot", default=None,
+                   help="save a middle-section png instead of opening a "
+                        "window")
+
+
+def _view(args, state) -> Stage:
+    @operator
+    def stage(task):
+        import matplotlib
+
+        if args.screenshot:
+            matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        arr = np.asarray(task[args.image_chunk_name].host())
+        if arr.ndim == 4:
+            arr = arr[0]
+        mid = arr[arr.shape[0] // 2]
+        ncols = 2 if args.segmentation_chunk_name else 1
+        fig, axes = plt.subplots(1, ncols, squeeze=False)
+        axes[0][0].imshow(mid, cmap="gray")
+        axes[0][0].set_title(args.image_chunk_name)
+        if args.segmentation_chunk_name:
+            seg = np.asarray(task[args.segmentation_chunk_name].host())
+            if seg.ndim == 4:
+                seg = seg[0]
+            axes[0][1].imshow(seg[seg.shape[0] // 2] % 251, cmap="tab20")
+            axes[0][1].set_title(args.segmentation_chunk_name)
+        if args.screenshot:
+            fig.savefig(args.screenshot, dpi=120)
+            print(f"wrote {args.screenshot}")
+        else:  # pragma: no cover - interactive
+            plt.show()
+        plt.close(fig)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _viewer_options(name: str):
+    def options(p):
+        _name(p, name)
+        p.add_argument("--chunk-names", "--inputs", "-c",
+                       default=DEFAULT_CHUNK_NAME,
+                       help="comma-separated task keys to show as layers")
+        if name == "neuroglancer":
+            p.add_argument("--port", "-p", type=int, default=0)
+            _triple(p, "--voxel-size", default=None)
+        else:
+            _triple(p, "--voxel-size", default=None,
+                    help="accepted for reference compatibility (chunks "
+                         "carry their own)")
+
+    return options
+
+
+def _neuroglancer(args, state) -> Stage:
+    @operator
+    def stage(task):
+        try:
+            import neuroglancer  # noqa: F401
+        except ImportError as exc:
+            raise UsageError(
+                "the neuroglancer package is not installed in this "
+                "environment; install it to use this operator") from exc
+        from chunkflow_tpu_torch.flow.viewers import serve_neuroglancer
+
+        serve_neuroglancer(
+            {name: task[name] for name in args.chunk_names.split(",")
+             if name in task},
+            port=args.port, voxel_size=args.voxel_size)
+        return task
+
+    return stage(_name=args.op_name)
+
+
+def _napari(args, state) -> Stage:
+    @operator
+    def stage(task):
+        try:
+            import napari
+        except ImportError as exc:
+            raise UsageError("the napari package is not installed in this "
+                             "environment") from exc
+        from chunkflow_tpu_torch.flow.viewers import add_napari_layers
+
+        viewer = napari.Viewer()
+        add_napari_layers(
+            viewer,
+            {name: task[name] for name in args.chunk_names.split(",")
+             if name in task})
+        napari.run()  # pragma: no cover - interactive
+        return task
+
+    return stage(_name=args.op_name)
+
+
 def _plugin_options(p):
     p.add_argument("--name", "-n", "--file", "-f", required=True)
     p.add_argument("--input-names", "-i", default=DEFAULT_CHUNK_NAME,
@@ -2869,30 +3130,34 @@ COMMANDS: Dict[str, tuple] = {
     "segment-volume": (_segment_volume_options, _segment_volume,
                        "Whole-volume segmentation with exact cross-chunk "
                        "stitching, in process or through a queue."),
+    "load-synapses": (_load_synapses_options, _load_synapses,
+                      "Load synapses (.json/.h5), filtered by the task "
+                      "bbox."),
+    "save-synapses": (_save_synapses_options, _save_synapses,
+                      "Save synapses to .json or .h5."),
+    "save-points": (_save_points_options, _save_points,
+                    "Save a point cloud to .npy or .h5."),
+    "load-skeleton": (_load_skeleton_options, _load_skeleton,
+                      "Load an SWC skeleton."),
+    "save-swc": (_save_swc_options, _save_swc,
+                 "Save a skeleton, or one per id of a skeleton dict, as "
+                 "SWC."),
+    "aggregate-skeleton-fragments": (
+        _aggregate_skeleton_fragments_options, _aggregate_skeleton_fragments,
+        "Merge per-chunk skeleton fragments into whole skeletons."),
+    "view": (_view_options, _view,
+             "Quick look at the middle section (matplotlib; --screenshot "
+             "writes a png)."),
+    "neuroglancer": (_viewer_options("neuroglancer"), _neuroglancer,
+                     "Serve task entries in an in-process neuroglancer "
+                     "viewer (needs the neuroglancer package)."),
+    "napari": (_viewer_options("napari"), _napari,
+               "Open chunks in napari (needs the napari package)."),
 }
 
 #: the JAX CLI's commands that are not ported yet, by the ROADMAP item
-#: (queue 1) that ports them: each raises ``NotImplementedError`` naming
-#: it, whatever its arguments
-NOT_PORTED = {
-    "annotations and plugins": ("load-synapses", "save-synapses",
-                                "save-points", "load-skeleton", "save-swc",
-                                "aggregate-skeleton-fragments", "view",
-                                "neuroglancer", "napari"),
-}
-
-
-def _raising(command: str, item: str):
-    def build(tokens, state):
-        _not_ported(f"the {command} command", item)
-
-    return build
-
-
-for _item, _commands in NOT_PORTED.items():
-    for _command in _commands:
-        COMMANDS[_command] = (None, _raising(_command, _item),
-                              f"Not ported ({_item}).")
+#: (queue 1) that ports them: none, every command is
+NOT_PORTED: Dict[str, Tuple[str, ...]] = {}
 
 
 def _group_parser() -> argparse.ArgumentParser:
@@ -2977,9 +3242,7 @@ def _split(argv: List[str]):
         if token in COMMANDS and not pending:
             segments.append((token, []))
             parser = argparse.ArgumentParser(add_help=False)
-            add_options = COMMANDS[token][0]
-            if add_options is not None:
-                add_options(parser)
+            COMMANDS[token][0](parser)
             expect = _value_counts(parser)
             continue
         (segments[-1][1] if segments else head).append(token)
@@ -2999,8 +3262,6 @@ def build_stages(argv: List[str], group: Optional[argparse.Namespace] = None
     stages = []
     for command, tokens in segments:
         add_options, build, help_text = COMMANDS[command]
-        if add_options is None:  # not ported: raises whatever its options
-            build(tokens, state)
         parser = argparse.ArgumentParser(prog=command, description=help_text)
         add_options(parser)
         stages.append(build(parser.parse_args(tokens), state))

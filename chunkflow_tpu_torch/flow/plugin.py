@@ -3,11 +3,13 @@
 The counterpart of ``chunkflow_tpu/flow/plugin.py``. A name is looked
 for in the working directory, then among the bundled plugins
 (``chunkflow_tpu_torch/plugins/`` and its ``synapse/``), then in
-``$CHUNKFLOW_PLUGIN_DIR``. A bundled plugin of the JAX package that the
-port lacks raises ``NotImplementedError`` naming what it needs
-(``UNPORTED``). An ndarray a plugin returns becomes a ``Chunk`` with the
-first input chunk's metadata; when it shrank symmetrically (a valid-mode
-filter), its voxel offset moves by half the shrink.
+``$CHUNKFLOW_PLUGIN_DIR``. A bundled plugin of the JAX package that
+needs a package the port does without raises ``NotImplementedError``
+naming that package (``UNPORTED``). An ndarray a plugin returns becomes
+a ``Chunk`` with the first input chunk's metadata; when it shrank
+symmetrically (a valid-mode filter), its voxel offset moves by half the
+shrink. Anything else (``Synapses``, a dict of skeletons, a 1-D id
+array) passes through as it is.
 """
 from __future__ import annotations
 
@@ -25,18 +27,9 @@ BUNDLED = os.path.join(os.path.dirname(os.path.dirname(
 
 _PLUGINS_ITEM = "ROADMAP, queue 1: annotations and plugins"
 
-_ANNOTATIONS = f"needs the annotations ({_PLUGINS_ITEM})"
-
 #: the JAX package's bundled plugins the port does not have (their paths
-#: in the bundled directory), and why
+#: in the bundled directory): each needs a package the port does without
 UNPORTED = {
-    "skeletonize.py": _ANNOTATIONS,
-    "aggregate_skeleton_fragments.py": _ANNOTATIONS,
-    "synapse/adjust_pre.py": _ANNOTATIONS,
-    "synapse/detect_duplicate_post.py": _ANNOTATIONS,
-    "synapse/detect_post_synapses.py": _ANNOTATIONS,
-    "synapse/detect_pre_synapses.py": _ANNOTATIONS,
-    "synapse/find_tbar_object.py": _ANNOTATIONS,
     "clahe.py": f"needs cv2, which neither machine has ({_PLUGINS_ITEM})",
     "czann_inference.py":
         f"needs czmodel, which neither machine has ({_PLUGINS_ITEM})",

@@ -1,14 +1,14 @@
 """The port's chunk-operator commands against the JAX CLI, on the CPU.
 
-Each of the 20 commands ported here is parsed by each CLI from the same
-argument list (the JAX options' names and defaults) and run on the same
+Each chunk-operator command (and each annotation command) is parsed
+by each CLI from the same argument list (the JAX options' names and defaults) and run on the same
 task: the port's stage (``--device cpu``) and the JAX command's stage
 get equal inputs (seeded numpy chunks, one per package) and must leave
 equal tasks behind: chunks BITWISE with the same dtype and metadata,
 skips, markers and files the same. Whole command lines run through both
-CLIs too. The registry: the port names every command the JAX CLI has,
-and an unported one raises ``NotImplementedError`` naming its ROADMAP
-item instead of an argparse error.
+CLIs too. The registry: the port has every command the JAX CLI has,
+with its options; an option not ported yet (a cloud URL) raises
+``NotImplementedError`` naming its ROADMAP item before anything runs.
 """
 import json
 import os
@@ -326,8 +326,9 @@ def test_the_port_names_every_jax_command():
     assert len(JAX_COMMANDS) == 71
     assert sorted(cli.COMMANDS) == JAX_COMMANDS
     not_ported = [c for items in cli.NOT_PORTED.values() for c in items]
-    assert len(not_ported) == len(set(not_ported)) == 9
-    assert sum(1 for v in cli.COMMANDS.values() if v[0] is not None) == 62
+    assert not_ported == [] and cli.NOT_PORTED == {}
+    assert sum(1 for v in cli.COMMANDS.values() if v[0] is not None) == 71
+    assert "annotations and plugins" not in cli.NOT_PORTED
     assert "segmentation plane" not in cli.NOT_PORTED
     assert "fleet supervisor" not in cli.NOT_PORTED
 
@@ -357,11 +358,13 @@ def test_every_jax_command_runs_or_names_its_item(command):
 
 
 def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
+    """Every command is ported; an option that is not (a ``gs://``
+    volume) refuses its chain the same way."""
     with pytest.raises(NotImplementedError,
-                       match="annotations and plugins"):
+                       match="cloud storage and SQS"):
         cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",
-                  "16", "save-h5", "-f", str(tmp_path / "x.h5"), "save-swc",
-                  "-o", str(tmp_path / "swc")])
+                  "16", "save-h5", "-f", str(tmp_path / "x.h5"),
+                  "save-precomputed", "-v", "gs://bucket/volume"])
     # the chain is refused whole: nothing ran, the file was not written
     assert not os.path.exists(tmp_path / "x.h5")
 
@@ -394,3 +397,294 @@ def test_a_value_named_like_a_command_is_a_value(argv, commands):
 
 def test_jax_cli_module_is_the_reference():
     assert jax_cli.DEFAULT_CHUNK_NAME == "chunk"
+
+
+# ---------------------------------------------------------------------------
+# the annotation and viewer commands
+# ---------------------------------------------------------------------------
+def _box_synapses(ns):
+    """Seeded synapses around the task bbox ``BOX``: some inside it."""
+    from tests.test_torch_annotations import synapses
+
+    rng = np.random.default_rng(23)
+    pre = (rng.integers(0, 5, (12, 3)) * (1, 4, 4)
+           + (4, 8, 40)).astype(np.int32)
+    post = np.concatenate([np.arange(12).repeat(2)[:, None],
+                           pre.repeat(2, axis=0) + rng.integers(
+                               -1, 2, (24, 3))], axis=1).astype(np.int32)
+    return synapses(ns, pre=pre, post=post,
+                    pre_confidence=rng.random(12).astype(np.float32),
+                    post_confidence=rng.random(24).astype(np.float32))
+
+
+def _annotated_tasks():
+    """``_tasks()`` with synapses, a dict of skeletons and points of each
+    package."""
+    from tests.test_torch_annotations import (
+        JAX,
+        PORT,
+        point_cloud,
+        skeleton,
+    )
+
+    tasks = _tasks()
+    for task, ns in zip(tasks, (JAX, PORT)):
+        task["synapses"] = _box_synapses(ns)
+        task["skels"] = {5: skeleton(ns), 9: skeleton(ns, n=7, seed=3)}
+        task["skeleton"] = skeleton(ns, n=4, seed=4)
+        task["points"] = point_cloud(ns)
+        task["bare_points"] = np.arange(12).reshape(4, 3)
+    return tasks
+
+
+def assert_same_annotated_tasks(got_tasks, ref_tasks):
+    """Chunks bitwise, annotations by their arrays, the rest as data."""
+    from tests.test_torch_annotations import canon
+
+    assert len(got_tasks) == len(ref_tasks)
+    for got, ref in zip(got_tasks, ref_tasks):
+        assert sorted(k for k in got if k != "log") == \
+            sorted(k for k in ref if k != "log")
+        for key, value in ref.items():
+            if key == "log":
+                continue
+            if isinstance(value, JaxChunk):
+                assert_same_chunk(got[key], value)
+            else:
+                assert canon(got[key]) == canon(value), key
+
+
+def _files(root):
+    return {name: (root / name).read_bytes()
+            for name in sorted(os.listdir(root))}
+
+
+def _each(tmp_path, make_args, tasks=None):
+    """Run one command per package, each writing under its own directory:
+    (JAX tasks, port tasks, JAX directory, port directory)."""
+    jax_task, port_task = tasks or _annotated_tasks()
+    dirs = {tag: tmp_path / tag for tag in ("jax", "port")}
+    for d in dirs.values():
+        d.mkdir(exist_ok=True)
+    ref = list(jax_stage(make_args(dirs["jax"]))(iter([jax_task])))
+    got = list(port_stage(make_args(dirs["port"]))(iter([port_task])))
+    return ref, got, dirs["jax"], dirs["port"]
+
+
+@pytest.mark.parametrize("suffix", [".json", ".h5"])
+@pytest.mark.parametrize("how", ["file", "directory", "resolution"])
+def test_load_synapses_matches_jax(tmp_path, suffix, how):
+    if suffix == ".h5":
+        pytest.importorskip("h5py")
+    from tests.test_torch_annotations import JAX
+
+    src = tmp_path / "src"
+    src.mkdir()
+    path = src / (f"{JaxBox(*BOX).string}{suffix}" if how == "directory"
+                  else f"syn{suffix}")
+    _box_synapses(JAX).to_file(str(path))
+    args = ["load-synapses", "-f", str(src if how == "directory" else path),
+            "-o", "loaded"]
+    if how == "directory":
+        args += ["-s", suffix]
+    if how == "resolution":
+        args += ["--resolution", "8", "16", "32"]
+    ref, got = run_both(args, _annotated_tasks())
+    assert_same_annotated_tasks(got, ref)
+    loaded = got[0]["loaded"]
+    assert 0 < loaded.pre_num < 12 and loaded.post_num > 0
+    assert BoundingBox(*BOX).contains(tuple(loaded.pre.max(axis=0)))
+
+
+def test_load_synapses_directory_needs_a_bbox(tmp_path):
+    import click
+
+    tasks = _annotated_tasks()
+    for task in tasks:
+        del task["bbox"]
+    args = ["load-synapses", "-f", str(tmp_path)]
+    with pytest.raises(click.UsageError) as ref:
+        list(jax_stage(args)(iter([tasks[0]])))
+    with pytest.raises(cli.UsageError) as got:
+        list(port_stage(args)(iter([tasks[1]])))
+    assert str(got.value) == ref.value.message
+
+
+@pytest.mark.parametrize("suffix", [".json", ".h5"])
+def test_save_synapses_matches_jax(tmp_path, suffix):
+    if suffix == ".h5":
+        pytest.importorskip("h5py")
+    from chunkflow_tpu.annotations.synapses import Synapses as JaxSynapses
+    from chunkflow_tpu_torch.annotations import Synapses
+    from tests.test_torch_annotations import canon
+
+    ref, got, jdir, pdir = _each(tmp_path, lambda d: [
+        "save-synapses", "-f", str(d / f"s{suffix}")])
+    assert_same_annotated_tasks(got, ref)
+    if suffix == ".json":
+        assert _files(pdir) == _files(jdir)
+    for path in (jdir / f"s{suffix}", pdir / f"s{suffix}"):
+        assert canon(Synapses.from_file(str(path))) == \
+            canon(JaxSynapses.from_file(str(path)))
+
+
+@pytest.mark.parametrize("key, suffix", [
+    ("points", ".npy"), ("bare_points", ".npy"), ("points", ".h5"),
+    ("bare_points", ".h5")])
+def test_save_points_matches_jax(tmp_path, key, suffix):
+    if suffix == ".h5":
+        pytest.importorskip("h5py")
+    from chunkflow_tpu.annotations.point_cloud import PointCloud as JaxPC
+    from chunkflow_tpu_torch.annotations import PointCloud
+    from tests.test_torch_annotations import canon
+
+    ref, got, jdir, pdir = _each(tmp_path, lambda d: [
+        "save-points", "-i", key, "-f", str(d / f"p{suffix}")])
+    assert_same_annotated_tasks(got, ref)
+    if suffix == ".npy":
+        assert _files(pdir) == _files(jdir)
+    else:
+        for path in (jdir / "p.h5", pdir / "p.h5"):
+            assert canon(PointCloud.from_h5(str(path))) == \
+                canon(JaxPC.from_h5(str(path)))
+
+
+@pytest.mark.parametrize("offset", [None, ("1", "2", "3")])
+@pytest.mark.parametrize("size", [None, ("40", "4", "4")])
+def test_load_skeleton_matches_jax(tmp_path, offset, size):
+    from tests.test_torch_annotations import JAX, skeleton
+
+    path = str(tmp_path / "s.swc")
+    skeleton(JAX).to_swc(path)
+    args = ["load-skeleton", "-f", path, "-o", "loaded"]
+    if offset:
+        args += ["--voxel-offset", *offset]
+    if size:
+        args += ["--voxel-size", *size]
+    ref, got = run_both(args, _annotated_tasks())
+    assert_same_annotated_tasks(got, ref)
+
+
+@pytest.mark.parametrize("key, name", [
+    ("skels", "prefix-"), ("skeleton", "one.swc"), ("skeleton", "bare"),
+    ("single", "only.swc")])
+def test_save_swc_matches_jax(tmp_path, key, name):
+    tasks = _annotated_tasks()
+    for task in tasks:
+        task["single"] = {3: task["skeleton"]}
+    ref, got, jdir, pdir = _each(tmp_path, lambda d: [
+        "save-swc", "-i", key, "-f", str(d / name)], tasks)
+    assert_same_annotated_tasks(got, ref)
+    assert _files(pdir) == _files(jdir) and _files(pdir)
+
+
+def test_save_swc_of_several_to_one_file_is_a_usage_error(tmp_path):
+    import click
+
+    jax_task, port_task = _annotated_tasks()
+    args = ["save-swc", "-i", "skels", "-f", str(tmp_path / "all.swc")]
+    with pytest.raises(click.UsageError) as ref:
+        list(jax_stage(args)(iter([jax_task])))
+    with pytest.raises(cli.UsageError) as got:
+        list(port_stage(args)(iter([port_task])))
+    assert str(got.value) == ref.value.message
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("by_prefix", [False, True])
+def test_aggregate_skeleton_fragments_matches_jax(tmp_path, by_prefix):
+    """Fragments of two adjacent crops (the JAX plugin's), aggregated by
+    each CLI: no task comes out, the same files go in."""
+    from chunkflow_tpu.chunk.segmentation import Segmentation
+    from chunkflow_tpu.plugins import skeletonize
+    from tests.test_torch_skeletonize import _labels
+
+    frags = tmp_path / "frags"
+    seg = _labels(5, (8, 24, 48))
+    for x0 in (0, 24):
+        skeletonize.execute(Segmentation(seg[..., x0:x0 + 24].copy(),
+                                         voxel_offset=(0, 0, x0),
+                                         voxel_size=(40, 4, 4)),
+                            voxel_num_threshold=10, output_path=str(frags))
+    ids = {n.split(":")[0] for n in os.listdir(frags)}
+    prefix = min(ids)[0] if by_prefix else None
+    ref, got, jdir, pdir = _each(tmp_path, lambda d: [
+        "aggregate-skeleton-fragments", "-f", str(frags), "-o", str(d)]
+        + (["-p", prefix] if prefix else []))
+    assert ref == got == []
+    assert _files(pdir) == _files(jdir) and _files(pdir)
+    assert set(_files(pdir)) == {i for i in ids
+                                 if not prefix or i.startswith(prefix)}
+
+
+def test_view_stage_matches_jax(tmp_path):
+    pytest.importorskip("matplotlib")
+    ref, got, jdir, pdir = _each(tmp_path, lambda d: [
+        "view", "--segmentation-chunk-name", "seg", "--screenshot",
+        str(d / "v.png")])
+    assert_same_annotated_tasks(got, ref)
+    assert _files(pdir) == _files(jdir)
+
+
+def _viewer_stubs(monkeypatch):
+    """Stub ``neuroglancer`` and ``napari`` modules recording what each
+    stage hands them."""
+    import sys
+    import types
+
+    from tests.test_torch_viewers import _Record, _Txn
+
+    seen = []
+    ng = types.ModuleType("neuroglancer")
+    for name in ("CoordinateSpace", "LocalVolume", "LocalAnnotationLayer",
+                 "AnnotationPropertySpec", "PointAnnotation",
+                 "LineAnnotation"):
+        setattr(ng, name, type(name, (_Record,), {}))
+
+    class _NgViewer:
+        def txn(self):
+            import contextlib
+
+            @contextlib.contextmanager
+            def cm():
+                seen.append(_Txn())
+                yield seen[-1]
+
+            return cm()
+
+        def get_viewer_url(self):
+            return "http://stub"
+
+    ng.Viewer = _NgViewer
+    ng.set_server_bind_address = lambda **kw: seen.append(kw)
+    napari = types.ModuleType("napari")
+
+    class _NapariViewer:
+        def add_labels(self, arr, name=None):
+            seen.append(("labels", name, arr))
+
+        def add_image(self, arr, name=None):
+            seen.append(("image", name, arr))
+
+    napari.Viewer = _NapariViewer
+    napari.run = lambda: seen.append("run")
+    monkeypatch.setitem(sys.modules, "neuroglancer", ng)
+    monkeypatch.setitem(sys.modules, "napari", napari)
+    monkeypatch.setattr("builtins.input", lambda prompt="": "")
+    return seen
+
+
+@pytest.mark.parametrize("args", [
+    ["neuroglancer", "-c", "chunk,seg,aff,synapses,points,missing", "-p",
+     "7", "--voxel-size", "40", "8", "8"],
+    ["napari", "-c", "chunk,seg,prob"]], ids=["neuroglancer", "napari"])
+def test_viewer_commands_match_jax(monkeypatch, args):
+    from tests.test_torch_viewers import _Txn, record
+
+    seen = _viewer_stubs(monkeypatch)
+    ref, got = run_both(args, _annotated_tasks())
+    assert_same_annotated_tasks(got, ref)
+    seen = [s.layers.entries if isinstance(s, _Txn) else s for s in seen]
+    half = len(seen) // 2
+    assert half > 0
+    assert record(seen[half:]) == record(seen[:half])

@@ -853,3 +853,56 @@ def test_fleet_run_on_card_is_one_worker(cuda, tmp_path):
             PrecomputedVolume(out).bounds()).array
     assert outputs["fleet"].any()
     assert np.array_equal(outputs["fleet"], outputs["one"])
+
+
+def test_synapse_plugins_on_a_card_chunk(cuda, tmp_path):
+    """The five synapse plugins and ``skeletonize`` on an inference output
+    and a segmentation that lie on the card equal the same plugins on
+    their host copies (each plugin reads its chunks with ``.host()``)."""
+    from scipy import ndimage
+
+    from chunkflow_tpu_torch.annotations.synapses import Synapses
+    from chunkflow_tpu_torch.chunk.segmentation import Segmentation
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+
+    rng = np.random.default_rng(61)
+    image = ndimage.gaussian_filter(rng.random((16, 64, 64)), 2).astype(
+        np.float32)
+    inferencer = Inferencer(
+        input_patch_size=(4, 16, 16), output_patch_overlap=(2, 8, 8),
+        num_output_channels=2, framework="identity", batch_size=2,
+        device="cuda")
+    prob = inferencer(Chunk(image, voxel_offset=(2, 4, 6),
+                            voxel_size=(40, 4, 4)))
+    labels = ndimage.label(image > np.quantile(image, 0.6))[0]
+    seg = Segmentation(torch.from_numpy(labels.astype(np.int64)).to(cuda),
+                       voxel_offset=(2, 4, 6), voxel_size=(40, 4, 4))
+    assert prob.is_on_device and seg.is_on_device
+    with pytest.raises(TypeError, match="host"):
+        np.asarray(prob)
+    post = Chunk(prob.array[1:2], voxel_offset=prob.voxel_offset,
+                 voxel_size=prob.voxel_size)
+
+    def chain(prob, post, seg):
+        run = {name: load_plugin(name) for name in (
+            "detect_pre_synapses", "detect_post_synapses", "adjust_pre",
+            "detect_duplicate_post", "find_tbar_object", "skeletonize")}
+        syn = run["detect_pre_synapses"](prob, min_distance=3)
+        syn = run["detect_post_synapses"](syn, post, search_radius=50,
+                                          min_distance=2)
+        syn = run["adjust_pre"](syn, prob)
+        syn = run["detect_duplicate_post"](syn, seg)
+        ids = run["find_tbar_object"](syn, seg)
+        skels = run["skeletonize"](seg, voxel_num_threshold=50, max_paths=20)
+        return syn, ids, {k: s.to_precomputed_bytes()
+                          for k, s in skels.items()}
+
+    card = chain(prob, post, seg)
+    host = chain(prob.host(), post.host(), seg.host())
+    assert isinstance(card[0], Synapses) and card[0].pre_num > 0
+    assert card[0] == host[0]
+    for a, b in ((card[0].pre_confidence, host[0].pre_confidence),
+                 (card[0].post_confidence, host[0].post_confidence),
+                 (card[1], host[1])):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    assert card[2] == host[2] and card[2]

@@ -75,7 +75,16 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.restapi", "serve.frontend", "serve.packer",
                  "parallel.fleet", "flow.log_summary", "flow.trace_export",
                  "flow.profile_summary", "flow.plugin",
-                 "plugins.agglomerate", "plugins.load_n5"):
+                 "plugins.agglomerate", "plugins.load_n5",
+                 "annotations", "annotations.synapses",
+                 "annotations.point_cloud", "annotations.skeleton",
+                 "flow.viewers", "plugins.skeletonize",
+                 "plugins.aggregate_skeleton_fragments",
+                 "plugins.synapse.detect_pre_synapses",
+                 "plugins.synapse.detect_post_synapses",
+                 "plugins.synapse.adjust_pre",
+                 "plugins.synapse.detect_duplicate_post",
+                 "plugins.synapse.find_tbar_object"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["loaded"] if _forbidden(m)]
     assert not leaked, leaked

@@ -7,8 +7,11 @@ chunks): the tasks they leave are bitwise equal, dtype and metadata
 included, and so is what they print or write. So does a user plugin
 found through ``$CHUNKFLOW_PLUGIN_DIR`` whose output shrank
 symmetrically (the voxel-offset fix). ``str_to_dict`` parses the
-arguments' mini-language as the JAX package does, and each bundled
-plugin the port leaves out raises ``NotImplementedError`` naming why.
+arguments' mini-language as the JAX package does. The seven plugins
+built on the annotations (synapse detection and editing, skeletonize
+and fragment aggregation) leave the JAX tasks, output and files; each
+of the five bundled plugins that needs a package the port does without
+raises ``NotImplementedError`` naming it.
 """
 import os
 import threading
@@ -248,19 +251,140 @@ UNPORTED = ["skeletonize", "aggregate_skeleton_fragments", "adjust_pre",
             "czann_inference", "napari_pixel_classifier", "aws/cloud_watch",
             "load_tensorstore"]
 
+#: the bundled plugins of the JAX package that need a package the port
+#: does without
+PACKAGE_GATED = {"clahe": "cv2", "czann_inference": "czmodel",
+                 "napari_pixel_classifier": "apoc",
+                 "aws/cloud_watch": "boto3", "load_tensorstore": "tensorstore"}
+
 
 @pytest.mark.parametrize("name", UNPORTED)
-def test_a_plugin_left_out_raises_naming_its_item(name):
-    """The JAX package finds each of these among its bundled plugins; the
-    port names why it lacks it, at the command's build."""
+def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
+    """The JAX package finds each of these among its bundled plugins. The
+    five that need a package the port does without raise naming it, at
+    the command's build; the seven the annotations brought run, equal to
+    the JAX package's."""
     assert os.path.exists(jplugin.find_plugin(name))
+    if name not in PACKAGE_GATED:
+        run_annotation_plugin(ANNOTATION_PLUGINS[name.split("/")[-1]],
+                              tmp_path, capsys)
+        return
     with pytest.raises(NotImplementedError,
                        match="annotations and plugins") as info:
         cli.build_stages(["--device", "cpu", "plugin", "-n", name])
-    needs = {"clahe": "cv2", "czann_inference": "czmodel",
-             "napari_pixel_classifier": "apoc", "aws/cloud_watch": "boto3",
-             "load_tensorstore": "tensorstore"}.get(name, "annotations")
-    assert needs in str(info.value)
+    assert PACKAGE_GATED[name] in str(info.value)
+
+
+def test_unported_names_exactly_the_package_gated_plugins():
+    assert sorted(plugin.UNPORTED) == sorted(
+        f"{name}.py" for name in PACKAGE_GATED)
+
+
+# ---------------------------------------------------------------------------
+# the plugins built on the annotations
+# ---------------------------------------------------------------------------
+ANNOTATION_PLUGINS = {
+    "detect_pre_synapses": ["-n", "detect_pre_synapses", "-i", "prob",
+                            "-o", "found", "-a",
+                            "min_distance=2;threshold_rel=0.5"],
+    "detect_post_synapses": ["-n", "detect_post_synapses", "-i",
+                             "synapses,prob", "-o", "synapses", "-a",
+                             "search_radius=50;min_distance=1"],
+    "adjust_pre": ["-n", "adjust_pre", "-i", "synapses,prob", "-o",
+                   "adjusted", "-a", "window=2"],
+    "detect_duplicate_post": ["-n", "synapse/detect_duplicate_post", "-i",
+                              "synapses,seg", "-o", "deduped", "-a",
+                              "distance_threshold=6.0"],
+    "find_tbar_object": ["-n", "find_tbar_object", "-i", "synapses,seg",
+                         "-o", "ids"],
+    "skeletonize": ["-n", "skeletonize", "-i", "seg", "-o", "skels", "-a",
+                    "voxel_num_threshold=5;max_paths=40;output_path={out}"],
+    "aggregate_skeleton_fragments": [
+        "-n", "aggregate_skeleton_fragments", "-i", "frags", "-o", "count",
+        "-a", "output_dir={out}"],
+    # more settings of the same plugins
+    "detect_pre_synapses-default": ["-n", "detect_pre_synapses", "-i",
+                                    "prob", "-o", "found"],
+    "detect_post_synapses-none-near": [
+        "-n", "detect_post_synapses", "-i", "synapses,prob", "-o", "s2",
+        "-a", "search_radius=1;threshold_rel=0.9"],
+    "detect_post_synapses-on-aff": [
+        "-n", "detect_post_synapses", "-i", "synapses,aff", "-o", "s2",
+        "-a", "min_distance=1"],
+    "adjust_pre-default": ["-n", "adjust_pre", "-i", "synapses,aff", "-o",
+                           "adjusted"],
+    "detect_duplicate_post-no-seg": ["-n", "detect_duplicate_post", "-i",
+                                     "synapses", "-o", "deduped"],
+    "detect_duplicate_post-none": ["-n", "detect_duplicate_post", "-i",
+                                   "synapses", "-o", "deduped", "-a",
+                                   "distance_threshold=0.1"],
+    "find_tbar_object-4d": ["-n", "find_tbar_object", "-i",
+                            "synapses,seg4", "-o", "ids"],
+    "skeletonize-threshold": ["-n", "skeletonize", "-i", "seg", "-o",
+                              "skels", "-a", "voxel_num_threshold=40"],
+}
+
+
+def run_annotation_plugin(args, tmp_path, capsys):
+    """One plugin through both CLIs' ``plugin`` command on the same seeded
+    task (``tests/test_torch_cli_ops.py``'s, with synapses, a 4D
+    segmentation and a directory of skeleton fragments): the tasks, what
+    each printed and the files each wrote are the same."""
+    from chunkflow_tpu.chunk.segmentation import Segmentation
+    from chunkflow_tpu.plugins import skeletonize
+    from tests.test_torch_cli_ops import (
+        _annotated_tasks,
+        _files,
+        assert_same_annotated_tasks,
+        jax_stage,
+        port_stage,
+    )
+    from tests.test_torch_skeletonize import _labels
+
+    frags = tmp_path / "frags"
+    seg = _labels(6, (6, 16, 32))
+    for x0 in (0, 16):
+        skeletonize.execute(Segmentation(seg[..., x0:x0 + 16].copy(),
+                                         voxel_offset=(0, 0, x0)),
+                            voxel_num_threshold=10, output_path=str(frags))
+    tasks = _annotated_tasks()
+    for task in tasks:
+        task["frags"] = str(frags)
+        task["seg4"] = type(task["seg"])(task["seg"].array[None].copy(),
+                                         voxel_offset=OFFSET,
+                                         voxel_size=VSIZE)
+    capsys.readouterr()
+    out = {}
+    for tag, stage, task in (("jax", jax_stage, tasks[0]),
+                             ("port", port_stage, tasks[1])):
+        d = tmp_path / tag
+        d.mkdir()
+        argv = ["plugin"] + [a.replace("{out}", str(d)) for a in args]
+        out[tag] = (list(stage(argv)(iter([task]))),
+                    capsys.readouterr().out, _files(d))
+    (ref, ref_out, ref_files), (got, got_out, got_files) = (out["jax"],
+                                                           out["port"])
+    assert_same_annotated_tasks(got, ref)
+    assert got_out == ref_out
+    assert got_files == ref_files
+    return got[0]
+
+
+@pytest.mark.parametrize("name", sorted(ANNOTATION_PLUGINS))
+def test_annotation_plugin_matches_jax(name, tmp_path, capsys):
+    task = run_annotation_plugin(ANNOTATION_PLUGINS[name], tmp_path, capsys)
+    key = ANNOTATION_PLUGINS[name][ANNOTATION_PLUGINS[name].index("-o") + 1]
+    value = task[key]
+    if name in ("detect_pre_synapses", "detect_post_synapses"):
+        assert value.pre_num > 0
+    if name == "detect_post_synapses":
+        assert value.post_num > 0
+    if name == "find_tbar_object":
+        assert value.ndim == 1 and value.size == task["synapses"].pre_num
+    if name.startswith("skeletonize"):
+        assert isinstance(value, dict)
+    if name == "aggregate_skeleton_fragments":
+        assert value > 0
 
 
 def test_a_missing_plugin_is_not_found(tmp_path, monkeypatch):
