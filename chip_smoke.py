@@ -209,6 +209,23 @@ non-zero exit and no result line:
              and ``load-skeleton``: the aggregated objects the fragments'
              ids, each one tree, each swc read back equal; the cuts,
              objects, nodes, ms per object, cable length
+20. cloud    phase 10's worker on the cloud plane, against local fakes of
+             GCS, S3 and SQS in a process of their own (SigV4 checked,
+             GCS bearer tokens from a service account's RS256 JWT, 1%
+             seeded 503s): phase 10's input copied to
+             ``gs://chunkflow-in/img`` (MB/s), phase 17's sharded raw
+             float32 output at ``s3://chunkflow-out/aff`` (one shared
+             shard answered once with a forced 412), the 8 tasks on
+             ``sqs://tasks`` (visibility 20 s); two worker processes
+             (parity float32), one SIGKILLed at its first commit: the
+             output volume bitwise ``Inferencer.__call__`` on each cutout,
+             each task acked once, the queue and ``tasks-dead`` empty, 18 +
+             18 launches per computed task, a 412 on a shared shard; then
+             the chain in process without and with 25 ms added to every
+             request: bitwise, s/task and Mvox/s beside phase 10's,
+             requests by verb per task, bytes, retries, 412s, host ms in
+             ``storage/read``, ``storage/write``, ``lifecycle/commit``,
+             the drain's wall with the workers' last long polls
 
 Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -335,6 +352,13 @@ SYNAPSE_RADIUS_NM = 50
 SKELETON_CROP = (56, 384, 192)
 SKELETON_VOXELS = 2
 SKELETON_PATHS = 200
+# phase 20: the cloud fakes' seeded share of 503s, the queue's visibility
+# timeout (s), the latency the fakes add to every request in the second
+# in-process run (ms), and the workers' time limit (s)
+CLOUD_FAIL_RATE = 0.01
+CLOUD_VISIBILITY_S = 20
+CLOUD_DELAY_MS = 25
+CLOUD_WORKER_S = 300
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -1429,6 +1453,21 @@ def main() -> int:
                        "parity", "--dtype", "float32"],
             search_radius=SYNAPSE_RADIUS_NM, skeleton_crop=SKELETON_CROP,
             skeleton_threshold=SKELETON_VOXELS, max_paths=SKELETON_PATHS,
+            raw_s_per_task=volume_s.get("parity float32")),
+            weights=state, reset_counts=reset_counts,
+            counts=counts).items():
+        kernels[kname]["launches"] += n
+
+    # ---- 20. cloud: phase 10's worker on gs://, s3:// and sqs:// fakes ---
+    torch.cuda.empty_cache()
+    for kname, n in cloud_phase(torch, dict(
+            volume=VOLUME, volume_block=VOLUME_BLOCK, roi=ROI, task=TASK,
+            margin=MARGIN, out_block=OUT_BLOCK, pin=PIN, overlap=OVERLAP,
+            batch=BATCH, device="cuda", shard_out=SHARD_OUT,
+            inference=["--framework", "pytorch", "--model-variant",
+                       "parity", "--dtype", "float32"],
+            fail_rate=CLOUD_FAIL_RATE, visibility=CLOUD_VISIBILITY_S,
+            delay_ms=CLOUD_DELAY_MS, worker_s=CLOUD_WORKER_S,
             raw_s_per_task=volume_s.get("parity float32")),
             weights=state, reset_counts=reset_counts,
             counts=counts).items():
@@ -5068,6 +5107,408 @@ def annotations_phase(torch, cfg, weights, reset_counts, counts):
         shutil.rmtree(frags)
     phase("annotations", f"phase 19 took {time.perf_counter() - t_phase:.1f}"
                          f" s")
+    return launched
+
+
+def cloud_phase(torch, cfg, weights, reset_counts, counts):
+    """Phase 20: phase 10's worker on the cloud plane, against local fakes
+    of GCS, S3 and SQS in a process of their own
+    (``python -m chunkflow_tpu_torch.testing.cloud_fakes``: SigV4 checked
+    on S3 and SQS, GCS bearer tokens from a service-account file's JWT on
+    the fake's token endpoint, ``cfg["fail_rate"]`` seeded 503s).
+
+    Phase 10's seeded uint8 input is copied to ``gs://chunkflow-in/img``
+    through the port's ``GCSKV`` (MB/s); ``s3://chunkflow-out/aff`` is
+    created as phase 17's sharded raw float32 output (shards holding
+    chunks of several tasks, one of which the S3 fake answers once with a
+    forced 412); the task grid goes to ``sqs://tasks`` (visibility
+    ``cfg["visibility"]`` s). Two worker processes run ``fetch-task-from-
+    queue -q sqs://tasks | load-precomputed -v gs://... | inference |
+    save-precomputed -v s3://... --async-write | delete-task-in-queue``;
+    one is SIGKILLed at its first commit, the other drains the queue,
+    taking the killed worker's tasks when their leases lapse (a third
+    worker takes them when the survivor's last 20 s long poll ended
+    first). Required: the output volume bitwise
+    ``Inferencer.__call__`` on each cutout, each task acked once, the
+    queue and ``tasks-dead`` empty, ``per_task`` launches of each kernel
+    per computed task in the survivor's run counters, a 412 on a shared
+    shard. Then the same chain in this process, twice, into fresh outputs
+    and queues: without added latency, and with ``cfg["delay_ms"]`` ms the
+    fakes add to every request; each bitwise, counted and timed: s/task,
+    Mvox/s, requests by verb per task, bytes, retries, 412s, host ms in
+    ``storage/read``, ``storage/write`` and ``lifecycle/commit``.
+
+    Returns the kernels' launches in the first in-process run."""
+    import itertools
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.core.bbox import BoundingBoxes
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import process_stream
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel.queues import SQSQueue
+    from chunkflow_tpu_torch.testing import cloud_fakes
+    from chunkflow_tpu_torch.volume import storage
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+    from chunkflow_tpu_torch.volume.sharding import (
+        ShardingSpec,
+        compressed_morton_code,
+    )
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    pin, overlap, batch, margin = (cfg["pin"], cfg["overlap"], cfg["batch"],
+                                   cfg["margin"])
+    roi_start, roi_size = cfg["roi"]
+    task = cfg["task"]
+    chunk_in = tuple(t + 2 * m for t, m in zip(task, margin))
+    per_task = len(pad_to_batch(enumerate_patches(chunk_in, pin, pin,
+                                                  overlap), batch)[0]) // batch
+    boxes = list(BoundingBoxes.from_manual_setup(
+        chunk_size=task, roi_start=roi_start, roi_size=roi_size))
+    vox_in = int(np.prod(chunk_in))
+    vol_in = "gs://chunkflow-in/img"
+    spec = ShardingSpec(cfg["shard_out"])
+    key = ROOT / "tests" / "data" / "gcs_test_key.pem"
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # the shards of the output and the tasks whose chunks each holds
+    grid = [r // b for r, b in zip(roi_size, cfg["out_block"])]
+    held = {}
+    for z, y, x in itertools.product(*map(range, grid)):
+        cid = compressed_morton_code((x, y, z), grid[::-1])
+        owner = tuple(i * b // t for i, b, t in zip((z, y, x),
+                                                     cfg["out_block"], task))
+        held.setdefault(spec.locate(cid)[0], set()).add(owner)
+    require(min(len(v) for v in held.values()) > 1,
+            "cloud: a shard of the output holds one task's chunks only")
+    shared = min(held, key=lambda s: (-len(held[s]), s))
+    scale_key = "_".join(str(v) for v in VOXEL_NM[::-1])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cloud_") as tmp:
+        tmp = Path(tmp)
+        env = {k: v for k, v in os.environ.items() if k != "CHUNKFLOW_CHAOS"}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        fakes, urls = cloud_fakes.spawn(str(tmp / "fakes.json"), sigv4=True,
+                                        key=str(key),
+                                        fail_rate=cfg["fail_rate"], seed=20,
+                                        env=env)
+        saved_env = dict(os.environ)
+        try:
+            sa = cloud_fakes.service_account_file(
+                str(tmp / "sa.json"), str(key), urls["gcs"] + "/token")
+            os.environ.update(cloud_fakes.cloud_env(
+                gcs=urls["gcs"], s3=urls["s3"], sqs=urls["sqs"],
+                credentials=sa))
+            os.environ["HOME"] = str(tmp / "home")
+            env = {k: v for k, v in os.environ.items()
+                   if k != "CHUNKFLOW_CHAOS"}
+            env["CHUNKFLOW_PROFILE_ON_ANOMALY"] = "0"
+
+            def stats(name):
+                return cloud_fakes.control(urls[name])
+
+            # ---- the input, the output, the queue ------------------------
+            image = np.random.default_rng(10).integers(
+                0, 256, cfg["volume"], dtype=np.uint8)
+            t = time.perf_counter()
+            PrecomputedVolume.create(vol_in, volume_size=cfg["volume"],
+                                     voxel_size=VOXEL_NM,
+                                     block_size=cfg["volume_block"])
+            PrecomputedVolume(vol_in).save(Chunk(image,
+                                                 voxel_size=VOXEL_NM))
+            up_s = time.perf_counter() - t
+            storage.reset_shared_cache()
+            gcs_up = stats("gcs")
+            phase("cloud", f"fakes at {urls['gcs']}, {urls['s3']}, "
+                           f"{urls['sqs']} (SigV4 checked, bearer tokens "
+                           f"from a service account's JWT, "
+                           f"{cfg['fail_rate']:.0%} seeded 503s); input "
+                           f"{cfg['volume']} uint8 to {vol_in} in blocks of "
+                           f"{cfg['volume_block']}: {up_s:.3f} s, "
+                           f"{image.nbytes / up_s / 1e6:.1f} MB/s "
+                           f"({gcs_up['requests']} requests, "
+                           f"{gcs_up['faults_503']} 503s retried)")
+
+            def output(name, queue):
+                out = f"s3://chunkflow-out/{name}"
+                PrecomputedVolume.create(
+                    out, volume_size=roi_size, voxel_size=VOXEL_NM,
+                    voxel_offset=roi_start, num_channels=3,
+                    dtype="float32", block_size=cfg["out_block"],
+                    sharding=cfg["shard_out"])
+                SQSQueue(queue, visibility_timeout=cfg["visibility"]) \
+                    .send_messages([b.string for b in boxes])
+                cloud_fakes.control(urls["s3"], race=[
+                    f"{name}/{scale_key}/{spec.shard_name(shared)}"])
+                return out, f"sqs://{queue}"
+
+            inference = list(cfg["inference"])
+            weights_pt = None
+            if weights is not None:
+                weights_pt = str(tmp / "unet3d_seed0.pt")
+                torch.save(weights, weights_pt)
+                inference += ["--weight-path", weights_pt]
+
+            def worker_args(queue, out, polls, num=-1):
+                return ["fetch-task-from-queue", "-q", queue,
+                        "--max-retries", "3", "--visibility-timeout",
+                        str(cfg["visibility"]), "--lease-renew", "1",
+                        "-r", str(polls), "--poll-interval", "0.5",
+                        "--num", str(num),
+                        "load-precomputed", "-v", vol_in, "-e",
+                        *nums(margin), "inference", *inference,
+                        "--input-patch-size", *nums(pin),
+                        "--output-patch-overlap", *nums(overlap),
+                        "--output-crop-margin", *nums(margin),
+                        "--num-output-channels", "3", "--batch-size",
+                        str(batch), "--async-depth", "2",
+                        "save-precomputed", "-v", out, "--async-write",
+                        "delete-task-in-queue"]
+
+            # ---- the reference --------------------------------------------
+            framework = inference[inference.index("--framework") + 1]
+            variant = (inference[inference.index("--model-variant") + 1]
+                       if "--model-variant" in inference else None)
+            inferencer = Inferencer(
+                input_patch_size=pin, output_patch_overlap=overlap,
+                num_output_channels=3, framework=framework,
+                model_variant=variant, batch_size=batch,
+                weight_path=weights_pt, device=cfg["device"])
+            refs = []
+            for bbox in boxes:
+                src = bbox.adjust(margin)
+                got = inferencer(Chunk(image[src.slices],
+                                       voxel_offset=src.start,
+                                       voxel_size=VOXEL_NM))
+                refs.append(got.crop_margin(margin).host().array)
+            del inferencer
+            if on_card:
+                torch.cuda.empty_cache()
+
+            def check_volume(out, what):
+                storage.reset_shared_cache()
+                vol = PrecomputedVolume(out)
+                for bbox, ref in zip(boxes, refs):
+                    got = vol.cutout(bbox).array
+                    require(got.shape == ref.shape
+                            and np.array_equal(got, ref),
+                            f"cloud: {what}: task {bbox.string} differs "
+                            f"from its in-process reference")
+
+            def drained(queue):
+                q = SQSQueue(queue[len("sqs://"):],
+                             visibility_timeout=cfg["visibility"])
+                got = q.stats()
+                require(got["pending"] == got["inflight"] == got["dead"]
+                        == 0, f"cloud: {queue} did not drain: {got}")
+                return got
+
+            # ---- two worker processes, one SIGKILLed ----------------------
+            out, queue = output("aff", "tasks")
+            metrics = str(tmp / "events")
+            for name in ("s3", "sqs"):
+                cloud_fakes.control(urls[name], reset_stats=True)
+            cmd = [sys.executable, "-m", "chunkflow_tpu_torch", *dev_args,
+                   "-v", "--metrics-dir", metrics]
+            t = time.perf_counter()
+            def start(chaos=None):
+                return subprocess.Popen(
+                    cmd + worker_args(queue, out, 0), cwd=ROOT,
+                    env=dict(env, **({"CHUNKFLOW_CHAOS": chaos}
+                                     if chaos else {})),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+
+            def finish(proc, what):
+                """A worker's run counters once it has drained."""
+                try:
+                    stdout, stderr = proc.communicate(
+                        timeout=cfg["worker_s"])
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                require(proc.returncode == 0, f"cloud: {what} failed, rc "
+                                              f"{proc.returncode}: "
+                                              f"{stderr[-3000:]}")
+                line = [ln for ln in stdout.splitlines()
+                        if ln.startswith("run counters: ")]
+                require(bool(line), f"cloud: {what} printed no counters")
+                return json.loads(line[-1][len("run counters: "):])
+
+            # the other worker starts once this one holds a task, so that
+            # it has one to die with at its first commit
+            killed = start("once=lifecycle/pre_ledger:action=kill")
+            watch = SQSQueue(queue[len("sqs://"):],
+                             visibility_timeout=cfg["visibility"])
+            while not watch.stats()["inflight"]:
+                require(killed.poll() is None
+                        and time.perf_counter() - t < cfg["worker_s"],
+                        "cloud: the first worker claimed no task")
+                time.sleep(0.2)
+            survivor = start()
+            try:
+                _, k_err = killed.communicate(timeout=cfg["worker_s"])
+            finally:
+                if killed.poll() is None:
+                    killed.kill()
+                    killed.wait()
+            kill_s = time.perf_counter() - t
+            require(killed.returncode == -signal.SIGKILL,
+                    f"cloud: the worker was to die by SIGKILL, rc "
+                    f"{killed.returncode}: {k_err[-3000:]}")
+            runs = [finish(survivor, "the surviving worker")]
+            # the survivor ends at its first empty 20 s long poll; had it
+            # begun before the killed worker's leases lapsed, a third
+            # worker takes what they held
+            q_left = watch.stats()
+            if q_left["pending"] or q_left["inflight"]:
+                runs.append(finish(start(), "the third worker"))
+            wall = time.perf_counter() - t
+            counters = runs[0]
+            n = sum(c.get("inference/chunks", 0) for c in runs)
+            for c in runs:
+                for kname in ("gather", "accumulate"):
+                    k = c.get("inference/chunks", 0)
+                    require(not on_card
+                            or c.get(f"kernels/{kname}") == per_task * k,
+                            f"cloud: a worker launched {kname} "
+                            f"{c.get(f'kernels/{kname}')} times for {k} "
+                            f"tasks, not {per_task} each")
+            acks = {b.string: 0 for b in boxes}
+            for name in os.listdir(metrics):
+                with open(os.path.join(metrics, name)) as f:
+                    for ln in f:
+                        event = json.loads(ln)
+                        if event.get("name") == "lifecycle/committed":
+                            acks[event["body"]] += 1
+            require(set(acks.values()) == {1},
+                    f"cloud: acks per task {acks}, not one each")
+            left = drained(queue)
+            check_volume(out, "the two workers' volume")
+            s3_run, sqs_run = stats("s3"), stats("sqs")
+            s3_412 = s3_run["status"].get("412", 0)
+            require(s3_412 >= 1, "cloud: no 412 on a shared shard")
+            label = " ".join(v for v in (framework, variant) if v)
+            phase("cloud", f"two workers ({label}), one "
+                           f"SIGKILLed at its first commit after "
+                           f"{kill_s:.1f} s; the survivor"
+                           + (" and a third worker" if len(runs) > 1
+                              else "")
+                           + f" computed {n} of {len(boxes)} tasks, drained "
+                             f"in {wall:.1f} s with start-up and the last "
+                             f"20 s long poll; output == in-process "
+                             f"reference "
+                           f"bitwise; each task acked once; queue {left}; "
+                           f"{per_task} + {per_task} launches per computed "
+                           f"task; S3 answered {s3_412} 412s "
+                           f"({s3_run['forced_412']} forced) and "
+                           f"{s3_run['faults_503']} 503s, SQS "
+                           f"{sqs_run['faults_503']}; the survivor's "
+                           f"storage/http: retries "
+                           f"{counters.get('storage/http/retries', 0):g}, "
+                           f"412 {counters.get('storage/http/412', 0):g}, "
+                           f"shard conflicts "
+                           f"{counters.get('storage/shard_conflicts', 0):g}")
+
+            # ---- the same chain in this process, twice ---------------------
+            launched = None
+            for run, delay_ms in (("run", 0), ("delay", cfg["delay_ms"])):
+                out, queue = output(f"aff-{run}", f"tasks-{run}")
+                _, stages = cli.build_stages(
+                    dev_args + worker_args(queue, out, 0, num=len(boxes)))
+                for name in ("gcs", "s3", "sqs"):
+                    cloud_fakes.control(urls[name], delay_s=delay_ms / 1e3,
+                                        reset_stats=True)
+                storage.reset_shared_cache()
+                telemetry.reset()
+                reset_counts()
+                sync()
+                t = time.perf_counter()
+                done = process_stream(stages)
+                sync()
+                run_s = time.perf_counter() - t
+                got_launches = counts()
+                snap = telemetry.snapshot()
+                for name in ("gcs", "s3", "sqs"):
+                    cloud_fakes.control(urls[name], delay_s=0.0)
+                require(done == len(boxes), f"cloud: {done} tasks drained")
+                for kname, k in got_launches.items():
+                    require(not on_card or k == per_task * len(boxes),
+                            f"cloud: {kname} launched {k} times, not "
+                            f"{per_task * len(boxes)}")
+                if launched is None:
+                    launched = got_launches
+                drained(queue)
+                check_volume(out, f"the in-process run ({delay_ms} ms)")
+                c = snap["counters"]
+                require(c.get("storage/shard_conflicts", 0) >= 1,
+                        "cloud: the forced race was not retried")
+
+                def per(prefix):
+                    verbs = {k.rsplit("/", 1)[-1]: v / len(boxes)
+                             for k, v in c.items()
+                             if k.startswith(f"{prefix}/requests/")}
+                    return ", ".join(f"{v} {verbs[v]:.1f}"
+                                     for v in sorted(verbs))
+
+                def mean_ms(name):
+                    h = snap["hists"].get(name)
+                    return h["mean"] * 1e3 if h else 0.0
+
+                mb = (c.get("storage/http/bytes_sent", 0)
+                      + c.get("storage/http/bytes_received", 0)) / 1e6
+                phase("cloud", f"in process, {delay_ms} ms added per "
+                               f"request: {run_s / len(boxes):.4f} s/task, "
+                               f"{vox_in * len(boxes) / run_s / 1e6:.3f} "
+                               f"Mvox/s of input (phase 10 from disk: "
+                               + (f"{cfg['raw_s_per_task']:.4f} s/task"
+                                  if cfg.get("raw_s_per_task")
+                                  else "not run")
+                               + f"); requests per task: storage "
+                                 f"{per('storage/http')}, queue "
+                                 f"{per('queue/http')}; storage MB per "
+                                 f"task {mb / len(boxes):.1f}; retries "
+                                 f"{c.get('storage/http/retries', 0):g} "
+                                 f"storage, "
+                                 f"{c.get('queue/http/retries', 0):g} "
+                                 f"queue; 412s "
+                                 f"{c.get('storage/http/412', 0):g} (shard "
+                                 f"conflicts "
+                                 f"{c.get('storage/shard_conflicts', 0):g})"
+                                 f"; host ms per task: storage/read "
+                                 f"{mean_ms('storage/read'):.1f} (a span "
+                                 f"per cutout), storage/write "
+                                 f"{mean_ms('storage/write'):.1f}, "
+                                 f"lifecycle/commit "
+                                 f"{mean_ms('lifecycle/commit'):.1f}; "
+                                 f"launches {got_launches}; output == "
+                                 f"reference bitwise")
+        finally:
+            os.environ.clear()
+            os.environ.update(saved_env)
+            fakes.terminate()
+            fakes.wait(timeout=30)
+            storage.reset_shared_cache()
+    phase("cloud", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 

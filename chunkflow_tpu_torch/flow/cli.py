@@ -22,14 +22,15 @@ volumes are its only shared state)::
 
 Inference runs on the card; ``--device cpu`` (before the first command)
 runs the kernels' plain PyTorch versions on the CPU instead. Volumes are
-local neuroglancer precomputed directories (``raw``, ``jpeg``, ``png`` or
-``compressed_segmentation`` blocks, unsharded or sharded); queues
-are ``file://`` directories or ``memory://`` names; chunk files are
-HDF5, TIFF, PNG sections, NRRD, zarr v2, and (to read) zarr v3 and N5;
-annotations are synapse JSON/HDF5, point npy/HDF5 and SWC files.
-Every command of the JAX CLI is ported; cloud URLs (``gs://``,
-``s3://``, ``sqs://``) raise ``NotImplementedError`` naming their ROADMAP
-item. Chunk operators compute where their chunk lies;
+neuroglancer precomputed volumes (``raw``, ``jpeg``, ``png`` or
+``compressed_segmentation`` blocks, unsharded or sharded) in a local
+directory, ``gs://bucket/path`` or ``s3://bucket/path``; queues are
+``file://`` directories, ``memory://`` names or ``sqs://`` names (the
+port's own clients, ``cloud/``, with the usual Google and AWS
+credentials and endpoint variables); chunk files are HDF5, TIFF, PNG
+sections, NRRD, zarr v2, and (to read) zarr v3 and N5; annotations are
+synapse JSON/HDF5, point npy/HDF5 and SWC files. Every command of the JAX
+CLI is ported. Chunk operators compute where their chunk lies;
 ``mask``, ``channel-voting`` and ``connected-components --device``
 compute a host chunk on ``--device``, as the JAX package computes them
 with ``jnp`` on its default device.
@@ -1363,8 +1364,9 @@ def _save_precomputed(args, state) -> Stage:
             task.setdefault("pending_writes", []).append(future)
         if args.create_thumbnail:
             _write_thumbnails(vol, chunk)
-        if args.upload_log:
-            log_dir = os.path.join(_local_root(args.volume_path), "log")
+        local = _local_root(args.volume_path)
+        if args.upload_log and local is not None:  # a cloud volume: none
+            log_dir = os.path.join(local, "log")
             os.makedirs(log_dir, exist_ok=True)
             record = {"timer": task["log"]["timer"],
                       "compute_device": task["log"].get("compute_device", ""),

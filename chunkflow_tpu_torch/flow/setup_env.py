@@ -202,9 +202,9 @@ def setup_environment(
     if not dry_run:
         from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
 
-        info_path = os.path.join(volume_path, "info")
-        local_exists = os.path.exists(info_path)
-        if not overwrite_info and not local_exists:
+        exists = PrecomputedVolume(volume_path).kv.read_bytes("info") \
+            is not None
+        if not overwrite_info and not exists:
             raise FileNotFoundError(
                 f"no existing info at {volume_path}; pass --overwrite-info "
                 "to create it"

@@ -9,11 +9,12 @@ lease heartbeat), :meth:`nack` (hand a claim back now), per-task
 :meth:`force_release` hands back a dead worker's claims for the fleet
 supervisor (``parallel/fleet.py``).
 
-Backends: ``memory://name`` (in-process) and ``file:///dir`` (a directory
+Backends: ``memory://name`` (in-process), ``file:///dir`` (a directory
 of task files, claimed by atomic rename, safe across processes on one
 filesystem), with the JAX package's on-disk layout, so a queue that
-either package filled drains in the other. ``sqs://`` raises: the port
-has no cloud client (ROADMAP, queue 1: cloud storage and SQS).
+either package filled drains in the other, and ``sqs://name``
+(:class:`SQSQueue`, the JAX class over the port's own SQS client,
+``cloud/sqs.py``, where the JAX package needs boto3).
 
 Every task sent is wrapped in a JSON envelope carrying a fresh trace id;
 :meth:`receive` unwraps it, so consumers see the plain body, and a body
@@ -21,6 +22,7 @@ without an envelope unwraps to itself.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import threading
@@ -31,7 +33,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 from chunkflow_tpu_torch.core import telemetry
 
 __all__ = ["new_trace_id", "pack_task", "unpack_task", "QueueBase",
-           "MemoryQueue", "FileQueue", "open_queue"]
+           "MemoryQueue", "FileQueue", "SQSQueue", "open_queue"]
 
 _ENVELOPE_PREFIX = '{"chunkflow"'
 
@@ -496,15 +498,189 @@ class FileQueue(QueueBase):
         return len(os.listdir(self.pending_dir))
 
 
+class SQSQueue(QueueBase):
+    """An SQS queue, the JAX package's ``SQSQueue`` call for call: batch
+    sends of 10 whose ``Failed`` subset is retried once, an md5 check of
+    each body, ``ApproximateReceiveCount`` as the receive count, ``nack``
+    as visibility 0, dead letters in ``<name>-dead`` (visibility 300 s,
+    listed by receiving until it is empty). ``client`` is anything with
+    boto3's SQS methods; by default the port's own ``SQSClient``."""
+
+    def __init__(self, name: str, visibility_timeout: int = 1800,
+                 client=None):
+        if client is None:
+            from chunkflow_tpu_torch.cloud.sqs import SQSClient
+
+            client = SQSClient()
+        self.client = client
+        self.name = name
+        self.visibility_timeout = visibility_timeout
+        resp = self.client.create_queue(
+            QueueName=name,
+            Attributes={"VisibilityTimeout": str(visibility_timeout)})
+        self.queue_url = resp["QueueUrl"]
+        self._dead_url: Optional[str] = None
+        self._receive_counts: Dict[str, int] = {}
+        self._bodies: Dict[str, str] = {}
+
+    def _send_batch(self, entries: List[dict]) -> None:
+        resp = self.client.send_message_batch(QueueUrl=self.queue_url,
+                                              Entries=entries)
+        failed = resp.get("Failed") or []
+        if not failed:
+            return
+        # a partial failure is a success answer carrying Failed entries:
+        # retry that subset once (throttling is transient), then raise
+        failed_ids = {f["Id"] for f in failed}
+        retry = [e for e in entries if e["Id"] in failed_ids]
+        resp = self.client.send_message_batch(QueueUrl=self.queue_url,
+                                              Entries=retry)
+        failed = resp.get("Failed") or []
+        if failed:
+            raise IOError(
+                f"SQS send_message_batch failed for {len(failed)} "
+                f"message(s) after retry: "
+                + "; ".join(f"{f.get('Id')}: {f.get('Code')} "
+                            f"{f.get('Message', '')}" for f in failed))
+
+    def send_messages(self, bodies: List[str]) -> None:
+        bodies = self._pack_bodies(bodies)
+        for i in range(0, len(bodies), 10):  # the SQS batch limit
+            self._send_batch([{"Id": str(j), "MessageBody": body}
+                              for j, body in enumerate(bodies[i:i + 10])])
+
+    def receive(self) -> Optional[Tuple[str, str]]:
+        resp = self.client.receive_message(
+            QueueUrl=self.queue_url, MaxNumberOfMessages=1,
+            WaitTimeSeconds=20, AttributeNames=["ApproximateReceiveCount"])
+        messages = resp.get("Messages", [])
+        if not messages:
+            return None
+        msg = messages[0]
+        expected = msg.get("MD5OfBody")
+        if expected:
+            got = hashlib.md5(msg["Body"].encode()).hexdigest()
+            if got != expected:
+                raise IOError(f"SQS body md5 mismatch: got {got}, "
+                              f"expected {expected}")
+        handle = msg["ReceiptHandle"]
+        try:
+            self._receive_counts[handle] = int(
+                (msg.get("Attributes") or {}).get("ApproximateReceiveCount",
+                                                  0))
+        except (TypeError, ValueError):
+            self._receive_counts[handle] = 0
+        self._bodies[handle] = msg["Body"]  # a dead letter re-sends it
+        body, trace_id = unpack_task(msg["Body"])
+        self._note_receive(handle, trace_id)
+        return handle, body
+
+    def delete(self, handle: str) -> None:
+        self.client.delete_message(QueueUrl=self.queue_url,
+                                   ReceiptHandle=handle)
+        self._receive_counts.pop(handle, None)
+        self._bodies.pop(handle, None)
+        getattr(self, "_traces", {}).pop(handle, None)
+
+    def renew(self, handle: str, timeout: Optional[float] = None) -> None:
+        timeout = self.visibility_timeout if timeout is None else timeout
+        self.client.change_message_visibility(
+            QueueUrl=self.queue_url, ReceiptHandle=handle,
+            VisibilityTimeout=int(timeout))
+
+    def nack(self, handle: str, refund: bool = True) -> bool:
+        # SQS cannot lower ApproximateReceiveCount: ``refund`` is accepted
+        # and has no effect
+        self.renew(handle, 0)
+        return True
+
+    def receive_count(self, handle: str) -> int:
+        return self._receive_counts.get(handle, 0)
+
+    def _dead_queue_url(self) -> str:
+        if self._dead_url is None:
+            # a short visibility: dead_letters() lists by receiving until
+            # the queue is empty, so listed entries must hide in between
+            # and come back soon after
+            resp = self.client.create_queue(
+                QueueName=f"{self.name}-dead",
+                Attributes={"VisibilityTimeout": "300"})
+            self._dead_url = resp["QueueUrl"]
+        return self._dead_url
+
+    def dead_letter(self, handle: str, reason: str = "") -> None:
+        body = self._bodies.get(handle)
+        if body is None:
+            return  # not a task this client received
+        entry = {"body": body, "reason": reason,
+                 "receives": self.receive_count(handle), "t": time.time()}
+        self.client.send_message(QueueUrl=self._dead_queue_url(),
+                                 MessageBody=json.dumps(entry))
+        self.delete(handle)
+
+    def _drain_dead(self):
+        while True:
+            resp = self.client.receive_message(
+                QueueUrl=self._dead_queue_url(), MaxNumberOfMessages=10,
+                WaitTimeSeconds=0)
+            messages = resp.get("Messages", [])
+            if not messages:
+                return
+            for msg in messages:
+                try:
+                    entry = json.loads(msg["Body"])
+                except ValueError:
+                    entry = {"body": msg["Body"], "reason": "",
+                             "receives": 0}
+                yield msg["ReceiptHandle"], entry
+
+    def dead_letters(self) -> List[dict]:
+        # SQS lists nothing without receiving it: the entries hide for
+        # the dead queue's visibility timeout and then come back
+        return [self._present(entry) for _, entry in self._drain_dead()]
+
+    def requeue_dead(self) -> int:
+        count = 0
+        for handle, entry in self._drain_dead():
+            self.send_messages([entry["body"]])
+            self.client.delete_message(QueueUrl=self._dead_queue_url(),
+                                       ReceiptHandle=handle)
+            count += 1
+        return count
+
+    def stats(self) -> dict:
+        """Depths the service reports; ``None`` where it cannot say."""
+        out = {"pending": None, "inflight": None, "dead": None,
+               "receives": sum(self._receive_counts.values()) or None}
+        try:
+            resp = self.client.get_queue_attributes(
+                QueueUrl=self.queue_url,
+                AttributeNames=["ApproximateNumberOfMessages",
+                                "ApproximateNumberOfMessagesNotVisible"])
+            attrs = resp.get("Attributes") or {}
+            out["pending"] = int(attrs.get("ApproximateNumberOfMessages", 0))
+            out["inflight"] = int(
+                attrs.get("ApproximateNumberOfMessagesNotVisible", 0))
+        except Exception:
+            pass  # restricted permissions: the depth stays unknown
+        try:
+            resp = self.client.get_queue_attributes(
+                QueueUrl=self._dead_queue_url(),
+                AttributeNames=["ApproximateNumberOfMessages"])
+            out["dead"] = int((resp.get("Attributes") or {})
+                              .get("ApproximateNumberOfMessages", 0))
+        except Exception:
+            pass
+        return out
+
+
 def open_queue(spec: str, visibility_timeout: float = 1800.0) -> QueueBase:
-    """A queue from ``memory://name`` or ``file:///dir`` (a bare path is a
-    directory); ``sqs://`` raises."""
+    """A queue from ``memory://name``, ``file:///dir`` (a bare path is a
+    directory) or ``sqs://name``."""
     if spec.startswith("memory://"):
         return MemoryQueue.open(spec[len("memory://"):], visibility_timeout)
     if spec.startswith("sqs://"):
-        raise NotImplementedError(
-            "sqs:// queues are not ported yet (ROADMAP, queue 1: cloud "
-            "storage and SQS); use a file:// or memory:// queue")
+        return SQSQueue(spec[len("sqs://"):], int(visibility_timeout))
     if spec.startswith("file://"):
         spec = spec[len("file://"):]
     return FileQueue(spec, visibility_timeout)

@@ -22,8 +22,11 @@ Three behaviours of the JAX package are kept as they are:
   unsharded file names, so ``has_all_blocks`` is False and a strict
   ``cutout`` raises ``FileNotFoundError``.
 
-Local volumes only (a bare path or ``file://``): ``gs://`` and ``s3://``
-raise (ROADMAP, queue 1: cloud storage and SQS).
+A volume root is a local directory (a bare path or ``file://``),
+``gs://bucket/path`` or ``s3://bucket/path``, parsed as the JAX
+package's ``_kvstore_spec`` parses it; every object (``info``, blocks,
+shards, sidecars) goes through the root's KV plane (``open_kv``), so the
+three behave alike.
 """
 from __future__ import annotations
 
@@ -52,12 +55,16 @@ from chunkflow_tpu_torch.volume.storage import (
     open_kv,
     serial_cutout,
     shared_cache,
+    split_url,
     storage_mode,
 )
 
 
-def _local_root(path: str) -> str:
-    return path[len("file://"):] if path.startswith("file://") else path
+def _local_root(path: str) -> Optional[str]:
+    """The directory of a local volume root; None for ``gs://`` and
+    ``s3://``."""
+    scheme, _, rest = split_url(path)
+    return rest if scheme == "file" else None
 
 
 def _plain(value):
@@ -138,9 +145,8 @@ class PrecomputedVolume:
             codec = make_codec(scale, self.dtype, self.num_channels)
             sharded = None
             if scale.get("sharding"):
-                sharded = ShardedChunks(
-                    os.path.join(self.kv.root, scale["key"]),
-                    ShardingSpec(scale["sharding"]))
+                sharded = ShardedChunks(self.kv, scale["key"],
+                                        ShardingSpec(scale["sharding"]))
             self._backends[mip] = PrecomputedBackend(
                 self.kv, scale["key"], self.volume_size(mip),
                 self.voxel_offset(mip), self.block_size(mip),
@@ -268,7 +274,9 @@ class PrecomputedVolume:
             res = res * factor
         info = {"type": layer_type, "data_type": str(np.dtype(dtype)),
                 "num_channels": _plain(num_channels), "scales": scales}
-        os.makedirs(_local_root(path), exist_ok=True)
+        local = _local_root(path)
+        if local is not None:
+            os.makedirs(local, exist_ok=True)
         vol = cls(path)
         vol.kv.write_bytes("info", json.dumps(info).encode())
         vol._info = info

@@ -24,23 +24,27 @@ not store one; a stored chunk written back to zero leaves its shard
 shard left without chunks is removed. The layout is the one tensorstore
 writes, so a ``raw`` shard is its file byte for byte.
 
-:class:`ShardedChunks` reads and writes chunks by id. A write is a
-read-modify-write of the whole shard under an ``fcntl`` lock on
-``<shard>.lock`` beside it, written to a temporary file and renamed into
-place: a reader sees the old shard or the new one, and two processes
-writing disjoint chunks of one shard lose neither.
+:class:`ShardedChunks` reads and writes chunks by id through a KV plane
+(a directory, ``gs://``, ``s3://``). A write is a conditional
+read-modify-write of the whole shard; on a directory it also holds an
+``fcntl`` lock on ``<shard>.lock`` beside it and writes through a
+temporary file and a rename: a reader sees the old shard or the new one,
+and two processes writing disjoint chunks of one shard lose neither.
 """
 from __future__ import annotations
 
-import fcntl
 import gzip
-import os
+import random
 import threading
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+
+from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.volume.storage import PreconditionFailed
 
 SHARDING_TYPE = "neuroglancer_uint64_sharded_v1"
 _MASK32 = 0xFFFFFFFF
@@ -150,38 +154,42 @@ class ShardingSpec:
 
 
 class ShardedChunks:
-    """The chunks of one sharded scale under a local directory, by id."""
+    """The chunks of one sharded scale, by id, in the shards under
+    ``prefix`` of a KV plane (``volume/storage.py``: a directory, a bucket).
 
-    def __init__(self, directory: str, spec: ShardingSpec):
-        self.directory = directory
+    A read is three ranged reads, as tensorstore reads a remote shard: the
+    shard index, the minishard index, the chunk; the later two pinned to
+    the first one's generation (a shard rewritten between them is read
+    again). A write rewrites each touched shard: read it with its
+    generation, re-encode it, write it under ``if_generation`` (a shard
+    left empty is deleted under the same condition) and, when another
+    writer got there first, read it again and retry, with backoff, so two
+    writers of disjoint chunks of one shard lose neither's. On a local
+    directory the rewrite runs under the shard's ``<shard>.lock`` flock
+    (``FileKV.locked``), so it never has to retry."""
+
+    #: rewrites of one shard tried before giving up, and the first backoff
+    retries = 24
+    backoff = 0.01
+
+    def __init__(self, kv, prefix: str, spec: ShardingSpec):
+        self.kv = kv
+        self.prefix = prefix
         self.spec = spec
         self._index_bytes = 16 << spec.minishard_bits
-        self._locks: Dict[int, threading.Lock] = {}
-        self._locks_lock = threading.Lock()
 
-    def _path(self, shard: int) -> str:
-        return os.path.join(self.directory, self.spec.shard_name(shard))
+    def _name(self, shard: int) -> str:
+        name = self.spec.shard_name(shard)
+        return f"{self.prefix}/{name}" if self.prefix else name
 
     # ---- reading ----------------------------------------------------------
-    def _minishard(self, f, minishard: int) -> np.ndarray:
-        """The minishard index as rows (ids, absolute offsets, sizes)."""
-        f.seek(16 * minishard)
-        entry = f.read(16)
-        if len(entry) != 16:
-            raise ValueError(f"truncated shard index in {f.name}")
-        start, end = np.frombuffer(entry, dtype="<u8").tolist()
-        if end == start:
-            return np.zeros((3, 0), dtype=np.uint64)
-        if end < start:
-            raise ValueError(f"corrupt shard index in {f.name}")
-        f.seek(self._index_bytes + start)
-        raw = f.read(end - start)
-        if len(raw) != end - start:
-            raise ValueError(f"truncated minishard index in {f.name}")
+    def _minishard_rows(self, raw: bytes, name: str) -> np.ndarray:
+        """A minishard index as rows (ids, offsets from the end of the
+        shard index, sizes)."""
         if self.spec.minishard_index_encoding == "gzip":
             raw = _gunzip(raw)
         if len(raw) % 24:
-            raise ValueError(f"corrupt minishard index in {f.name}")
+            raise ValueError(f"corrupt minishard index in {name}")
         rows = np.frombuffer(raw, dtype="<u8").reshape(3, -1).astype(
             np.uint64)
         ids = np.cumsum(rows[0], dtype=np.uint64)
@@ -194,40 +202,71 @@ class ShardedChunks:
             pos += size
         return np.stack([ids, starts, rows[2]])
 
+    def _span(self, index: bytes, minishard: int, name: str):
+        """The [start, end) of a minishard's index from the shard index
+        (None: an empty minishard)."""
+        if len(index) < self._index_bytes:
+            raise ValueError(f"truncated shard index in {name}")
+        start, end = np.frombuffer(index[16 * minishard:16 * minishard + 16],
+                                   dtype="<u8").tolist()
+        if end == start:
+            return None
+        if end < start:
+            raise ValueError(f"corrupt shard index in {name}")
+        return start, end
+
+    def _read_part(self, name, start, stop, generation) -> bytes:
+        data, _ = self.kv.read_range(name, start, stop,
+                                     if_generation=generation)
+        if data is None or len(data) != stop - start:
+            raise ValueError(f"truncated shard {name}")
+        return data
+
     def read(self, chunk_id: int) -> Optional[bytes]:
         """The chunk's block bytes (data encoding undone), or None when
         the shard does not hold it."""
         shard, minishard = self.spec.locate(chunk_id)
-        try:
-            f = open(self._path(shard), "rb")
-        except FileNotFoundError:
-            return None
-        with f:
-            index = self._minishard(f, minishard)
-            hit = np.nonzero(index[0] == np.uint64(chunk_id))[0]
-            if hit.size == 0:
+        name = self._name(shard)
+        base = self._index_bytes
+        for _ in range(self.retries):
+            index, generation = self.kv.read_range(name, 0, base)
+            if index is None:
                 return None
-            start, size = int(index[1, hit[0]]), int(index[2, hit[0]])
-            f.seek(self._index_bytes + start)
-            data = f.read(size)
-        if len(data) != size:
-            raise ValueError(f"truncated chunk {chunk_id} in "
-                             f"{self._path(shard)}")
-        return self.spec.decode_data(data)
+            span = self._span(index, minishard, name)
+            if span is None:
+                return None
+            try:
+                rows = self._minishard_rows(self._read_part(
+                    name, base + span[0], base + span[1], generation), name)
+                hit = np.nonzero(rows[0] == np.uint64(chunk_id))[0]
+                if hit.size == 0:
+                    return None
+                start, size = int(rows[1, hit[0]]), int(rows[2, hit[0]])
+                if size == 0:
+                    return self.spec.decode_data(b"")
+                data = self._read_part(name, base + start,
+                                       base + start + size, generation)
+            except PreconditionFailed:
+                continue  # rewritten meanwhile: read the new shard
+            return self.spec.decode_data(data)
+        raise PreconditionFailed(f"{name} kept changing while it was read")
 
-    def _entries(self, path: str) -> Dict[int, bytes]:
-        """Every stored chunk of a shard, id -> its stored bytes."""
-        try:
-            f = open(path, "rb")
-        except FileNotFoundError:
+    def _entries(self, blob: Optional[bytes], name: str) -> Dict[int, bytes]:
+        """Every stored chunk of a shard file, id -> its stored bytes."""
+        if blob is None:
             return {}
         entries = {}
-        with f:
-            for minishard in range(1 << self.spec.minishard_bits):
-                index = self._minishard(f, minishard)
-                for cid, start, size in index.T.tolist():
-                    f.seek(self._index_bytes + start)
-                    entries[cid] = f.read(size)
+        base = self._index_bytes
+        for minishard in range(1 << self.spec.minishard_bits):
+            span = self._span(blob, minishard, name)
+            if span is None:
+                continue
+            if base + span[1] > len(blob):
+                raise ValueError(f"truncated minishard index in {name}")
+            rows = self._minishard_rows(blob[base + span[0]:base + span[1]],
+                                        name)
+            for cid, start, size in rows.T.tolist():
+                entries[cid] = blob[base + start:base + start + size]
         return entries
 
     # ---- writing ----------------------------------------------------------
@@ -256,17 +295,12 @@ class ShardedChunks:
             pos += len(packed)
         return index.tobytes() + b"".join(parts)
 
-    def _thread_lock(self, shard: int) -> threading.Lock:
-        with self._locks_lock:
-            return self._locks.setdefault(shard, threading.Lock())
-
     def write(self, updates: Mapping[int, Optional[bytes]]) -> None:
         """Store each chunk's block bytes (None: remove the chunk), one
-        locked read-modify-write per shard, the shards concurrently."""
+        conditional read-modify-write per shard, the shards concurrently."""
         by_shard: Dict[int, Dict[int, Optional[bytes]]] = {}
         for cid, data in updates.items():
             by_shard.setdefault(self.spec.locate(cid)[0], {})[cid] = data
-        os.makedirs(self.directory, exist_ok=True)
         if len(by_shard) == 1:
             self._rewrite(*next(iter(by_shard.items())))
             return
@@ -278,23 +312,30 @@ class ShardedChunks:
     def _rewrite(self, shard: int, changes: Mapping[int, Optional[bytes]]):
         stored = {cid: None if data is None else self.spec.encode_data(data)
                   for cid, data in changes.items()}
-        path = self._path(shard)
-        with self._thread_lock(shard), open(f"{path}.lock", "a") as held:
-            fcntl.flock(held, fcntl.LOCK_EX)
-            entries = self._entries(path)
-            for cid, data in stored.items():
-                if data is None:
-                    entries.pop(cid, None)
-                else:
-                    entries[cid] = data
-            if not entries:
-                if os.path.exists(path):
-                    os.remove(path)
-                return
-            tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
-            with open(tmp, "wb") as f:
-                f.write(self.encode_shard(entries))
-            os.replace(tmp, path)
+        name = self._name(shard)
+        rng = random.Random()
+        with self.kv.locked(name):
+            for attempt in range(self.retries):
+                blob, generation = self.kv.read_with_generation(name)
+                entries = self._entries(blob, name)
+                for cid, data in stored.items():
+                    if data is None:
+                        entries.pop(cid, None)
+                    else:
+                        entries[cid] = data
+                try:
+                    if entries:
+                        self.kv.write_bytes(name, self.encode_shard(entries),
+                                            if_generation=generation)
+                    elif blob is not None:
+                        self.kv.delete(name, if_generation=generation)
+                    return
+                except PreconditionFailed:
+                    telemetry.inc("storage/shard_conflicts")
+                    time.sleep(min(1.0, self.backoff * 2 ** attempt)
+                               * rng.uniform(0.5, 1.0))
+        raise PreconditionFailed(f"{name}: lost {self.retries} races in a "
+                                 f"row rewriting the shard")
 
 
 _POOL: Optional[ThreadPoolExecutor] = None

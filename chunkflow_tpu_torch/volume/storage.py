@@ -13,8 +13,10 @@ without reading them first:
   port's only reader of real volumes);
   :class:`MemoryBackend` and :class:`KVArrayBackend` are fixtures and the
   npy-block store of the JAX package;
-* the KV plane (:class:`FileKV`, :class:`MemoryKV`, :func:`open_kv`):
-  ``info`` and sidecar files, block existence;
+* the KV plane (:class:`FileKV`, :class:`MemoryKV`, and ``cloud/``'s
+  ``GCSKV`` and ``S3KV`` through :func:`open_kv`): ``info`` and sidecar
+  files, blocks, shards, block existence, ranged reads and conditional
+  writes;
 * :func:`blockwise_cutout` / :func:`serial_cutout` and
   :func:`blockwise_save`.
 
@@ -29,12 +31,16 @@ neighbour's later write must not be hidden behind them.
 Telemetry: spans ``storage/read``, ``storage/write``; counters
 ``storage/hits``, ``storage/misses``, ``storage/block_reads``,
 ``storage/bytes_read``, ``storage/bytes_written``,
-``storage/aligned_writes``, ``storage/unaligned_writes``; gauges
+``storage/aligned_writes``, ``storage/unaligned_writes``,
+``storage/shard_conflicts`` (a shard rewrite that lost a race) and, on
+``gs://`` and ``s3://``, ``storage/http/*`` (``cloud/http.py``); gauges
 ``storage/cache_bytes``, ``storage/read_concurrency``.
 """
 from __future__ import annotations
 
 import abc
+import contextlib
+import fcntl
 import itertools
 import os
 import threading
@@ -52,7 +58,8 @@ __all__ = [
     "storage_mode", "cache_bytes_limit", "read_concurrency",
     "set_read_concurrency", "BlockCache", "shared_cache",
     "reset_shared_cache", "GatherFuture", "StorageBackend", "MemoryBackend",
-    "KVBackend", "FileKV", "MemoryKV", "open_kv", "KVArrayBackend",
+    "KVBackend", "PreconditionFailed", "FileKV", "MemoryKV", "split_url",
+    "open_kv", "KVArrayBackend",
     "PrecomputedBackend", "CorruptBlockError", "serial_cutout",
     "blockwise_cutout", "blockwise_save",
 ]
@@ -341,81 +348,244 @@ class MemoryBackend(StorageBackend):
 
 
 # ---------------------------------------------------------------------------
-# the KV plane (sidecar files, block existence)
+# the KV plane (sidecar files, block existence, shards)
 # ---------------------------------------------------------------------------
+class PreconditionFailed(IOError):
+    """A conditional write or delete found another generation: another
+    writer got there first."""
+
+
 class KVBackend(abc.ABC):
-    """The object plane of a volume root: ``info``, sidecars, blocks."""
+    """The object plane of a volume root: ``info``, sidecars, blocks and
+    shards.
+
+    A *generation* names one version of an object (GCS's generation, S3's
+    ETag, a file's ``(st_mtime_ns, st_size, st_ino)``); an absent object's
+    is ``0``. A write or delete under ``if_generation`` happens only while
+    the object is at that generation (``0``: must not exist) and raises
+    :class:`PreconditionFailed` otherwise, so a read-modify-write that
+    lost a race can read again and retry."""
 
     @abc.abstractmethod
     def read_bytes(self, name: str) -> Optional[bytes]:
         """The value of ``name``, or None when absent."""
 
     @abc.abstractmethod
-    def write_bytes(self, name: str, data) -> None:
+    def read_with_generation(self, name: str) -> Tuple[Optional[bytes], object]:
+        """``(value or None, generation)``."""
+
+    @abc.abstractmethod
+    def read_range(self, name: str, start: int, stop: int,
+                   if_generation=None) -> Tuple[Optional[bytes], object]:
+        """``(bytes [start, stop) of the value or None, generation)``;
+        under ``if_generation`` another generation raises
+        :class:`PreconditionFailed`."""
+
+    @abc.abstractmethod
+    def write_bytes(self, name: str, data, if_generation=None) -> None:
         """Write ``data`` (bytes or any buffer) as ``name``."""
+
+    @abc.abstractmethod
+    def delete(self, name: str, if_generation=None) -> None:
+        """Remove ``name`` (absent: nothing to do, unless a generation
+        other than 0 is required)."""
 
     @abc.abstractmethod
     def exists_many(self, names: Sequence[str]) -> Dict[str, bool]:
         ...
 
+    def locked(self, name: str):
+        """A context that holds off other writers of ``name`` where the
+        backend can (a file lock); elsewhere writes race and conditional
+        writes settle it."""
+        return contextlib.nullcontext()
+
+
+def _file_generation(st: os.stat_result) -> tuple:
+    return (st.st_mtime_ns, st.st_size, st.st_ino)
+
 
 class FileKV(KVBackend):
     """A directory on the local filesystem. Writes go through a temporary
-    file and a rename, so no reader sees a torn value."""
+    file and a rename, so no reader sees a torn value; a conditional write
+    or delete compares and writes under the name's ``<name>.lock`` flock
+    (:meth:`locked`, re-entrant in a thread)."""
 
     def __init__(self, root: str):
         self.root = root
+        self._held = threading.local()
+        self._thread_locks: Dict[str, threading.Lock] = {}
+        self._thread_locks_lock = threading.Lock()
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.root, name)
 
     def read_bytes(self, name: str) -> Optional[bytes]:
         try:
-            with open(os.path.join(self.root, name), "rb") as f:
+            with open(self._path(name), "rb") as f:
                 return f.read()
         except FileNotFoundError:
             return None
 
-    def write_bytes(self, name: str, data) -> None:
-        path = os.path.join(self.root, name)
+    def read_with_generation(self, name: str):
+        try:
+            with open(self._path(name), "rb") as f:
+                return f.read(), _file_generation(os.fstat(f.fileno()))
+        except FileNotFoundError:
+            return None, 0
+
+    def read_range(self, name: str, start: int, stop: int,
+                   if_generation=None):
+        try:
+            f = open(self._path(name), "rb")
+        except FileNotFoundError:
+            if if_generation not in (None, 0):
+                raise PreconditionFailed(f"{name} is gone") from None
+            return None, 0
+        with f:
+            generation = _file_generation(os.fstat(f.fileno()))
+            if if_generation is not None and generation != if_generation:
+                raise PreconditionFailed(f"{name} changed")
+            f.seek(start)
+            return f.read(max(0, stop - start)), generation
+
+    def _generation(self, name: str):
+        try:
+            return _file_generation(os.stat(self._path(name)))
+        except FileNotFoundError:
+            return 0
+
+    @contextlib.contextmanager
+    def locked(self, name: str):
+        held = getattr(self._held, "names", None)
+        if held is None:
+            held = self._held.names = {}
+        if held.get(name):
+            held[name] += 1
+            try:
+                yield
+            finally:
+                held[name] -= 1
+            return
+        with self._thread_locks_lock:
+            lock = self._thread_locks.setdefault(name, threading.Lock())
+        path = self._path(name)
+        os.makedirs(os.path.dirname(path) or self.root, exist_ok=True)
+        with lock, open(f"{path}.lock", "a") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            held[name] = 1
+            try:
+                yield
+            finally:
+                held[name] = 0
+
+    def write_bytes(self, name: str, data, if_generation=None) -> None:
+        if if_generation is not None:
+            with self.locked(name):
+                if self._generation(name) != if_generation:
+                    raise PreconditionFailed(f"{name} changed")
+                self.write_bytes(name, data)
+            return
+        path = self._path(name)
         os.makedirs(os.path.dirname(path) or self.root, exist_ok=True)
         tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
         with open(tmp, "wb") as f:
             f.write(data)
         os.replace(tmp, path)
 
+    def delete(self, name: str, if_generation=None) -> None:
+        if if_generation is not None:
+            with self.locked(name):
+                if self._generation(name) != if_generation:
+                    raise PreconditionFailed(f"{name} changed")
+                self.delete(name)
+            return
+        try:
+            os.remove(self._path(name))
+        except FileNotFoundError:
+            pass
+
     def exists_many(self, names: Sequence[str]) -> Dict[str, bool]:
-        return {name: os.path.exists(os.path.join(self.root, name))
-                for name in names}
+        return {name: os.path.exists(self._path(name)) for name in names}
 
 
 class MemoryKV(KVBackend):
-    """An in-process KV plane (tests); thread-safe."""
+    """An in-process KV plane (tests); thread-safe; generations count
+    writes."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._data: Dict[str, bytes] = {}
+        self._generations: Dict[str, int] = {}
+        self._next = itertools.count(1)
 
     def read_bytes(self, name: str) -> Optional[bytes]:
         with self._lock:
             return self._data.get(name)
 
-    def write_bytes(self, name: str, data) -> None:
+    def read_with_generation(self, name: str):
         with self._lock:
+            return self._data.get(name), self._generations.get(name, 0)
+
+    def read_range(self, name: str, start: int, stop: int,
+                   if_generation=None):
+        with self._lock:
+            generation = self._generations.get(name, 0)
+            if if_generation is not None and generation != if_generation:
+                raise PreconditionFailed(f"{name} changed")
+            data = self._data.get(name)
+            return (None if data is None else data[start:stop]), generation
+
+    def _check(self, name: str, if_generation) -> None:
+        if if_generation is not None and \
+                self._generations.get(name, 0) != if_generation:
+            raise PreconditionFailed(f"{name} changed")
+
+    def write_bytes(self, name: str, data, if_generation=None) -> None:
+        with self._lock:
+            self._check(name, if_generation)
             self._data[name] = bytes(data)
+            self._generations[name] = next(self._next)
+
+    def delete(self, name: str, if_generation=None) -> None:
+        with self._lock:
+            self._check(name, if_generation)
+            self._data.pop(name, None)
+            self._generations.pop(name, None)
 
     def exists_many(self, names: Sequence[str]) -> Dict[str, bool]:
         with self._lock:
             return {name: name in self._data for name in names}
 
 
-def open_kv(path: str) -> KVBackend:
-    """The KV plane of a local volume root (a bare path or ``file://``);
-    remote roots raise (ROADMAP, queue 1: cloud storage and SQS)."""
-    if path.startswith(("gs://", "s3://")):
-        raise NotImplementedError(
-            f"{path.split('://')[0]}:// storage is not ported yet (ROADMAP, "
-            f"queue 1: cloud storage and SQS); use a local path")
+def split_url(path: str) -> Tuple[str, str, str]:
+    """``(scheme, bucket, prefix)`` of a volume root, as the JAX package's
+    ``_kvstore_spec`` reads it: ``gs://b/p`` and ``s3://b/p`` name a bucket
+    and a path in it; ``file://p`` and a bare path are ``("file", "",
+    p)``."""
+    for scheme in ("gs", "s3"):
+        if path.startswith(f"{scheme}://"):
+            bucket, _, rest = path[len(scheme) + 3:].partition("/")
+            return scheme, bucket, rest
     if path.startswith("file://"):
         path = path[len("file://"):]
-    return FileKV(path)
+    return "file", "", path
+
+
+def open_kv(path: str) -> KVBackend:
+    """The KV plane of a volume root: :class:`FileKV` for a bare path or
+    ``file://``, ``GCSKV`` for ``gs://bucket/path``, ``S3KV`` for
+    ``s3://bucket/path`` (``cloud/``)."""
+    scheme, bucket, rest = split_url(path)
+    if scheme == "gs":
+        from chunkflow_tpu_torch.cloud.gcs import GCSKV
+
+        return GCSKV(bucket, rest)
+    if scheme == "s3":
+        from chunkflow_tpu_torch.cloud.s3 import S3KV
+
+        return S3KV(bucket, rest)
+    return FileKV(rest)
 
 
 class KVArrayBackend(StorageBackend):
@@ -437,7 +607,7 @@ class KVArrayBackend(StorageBackend):
         self._block_shape = tuple(int(v) for v in block_shape)
         self._prefix = prefix
         self._fill = fill
-        root = getattr(kv, "root", None)
+        root = getattr(kv, "root", None) or getattr(kv, "url", None)
         self.cache_token = (f"kvarray:{root}:{prefix}" if root is not None
                             else f"kvarray:mem{next(self._SEQ)}:{prefix}")
         self._pool = ThreadPoolExecutor(max_workers=max_workers,

@@ -358,15 +358,20 @@ def test_every_jax_command_runs_or_names_its_item(command):
 
 
 def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
-    """Every command is ported; an option that is not (a ``gs://``
-    volume) refuses its chain the same way."""
-    with pytest.raises(NotImplementedError,
-                       match="cloud storage and SQS"):
-        cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",
-                  "16", "save-h5", "-f", str(tmp_path / "x.h5"),
-                  "save-precomputed", "-v", "gs://bucket/volume"])
-    # the chain is refused whole: nothing ran, the file was not written
-    assert not os.path.exists(tmp_path / "x.h5")
+    """Every command is ported; an option that is not (an orbax checkpoint
+    directory, a multi-device mesh) refuses its chain the same way."""
+    (tmp_path / "orbax").mkdir()
+    for option, item in (
+            (["-f", "pytorch", "-w", str(tmp_path / "orbax")],
+             "convnet engines, orbax checkpoints"),
+            (["-f", "identity", "--mesh", "data=2"], "multi-GPU engine")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",
+                      "16", "save-h5", "-f", str(tmp_path / "x.h5"),
+                      "inference", *option, "-p", "4", "16", "16", "-v",
+                      "2", "8", "8"])
+        # the chain is refused whole: nothing ran, the file was not written
+        assert not os.path.exists(tmp_path / "x.h5")
 
 
 def test_threshold_after_create_chunk_parses():

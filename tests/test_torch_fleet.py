@@ -304,6 +304,12 @@ CASES = {
     "slo-annotated-scale": dict(
         script=[IDLE, DEEP], ticks=2, scrape=_stall(
             "pipeline/compute", 0.9, firing={"latency"})),
+    # an sqs:// queue's stats: None where the service cannot say
+    "sqs-unknown-depths": dict(
+        script=[dict(DEEP, receives=None),
+                dict(DEEP, inflight=None, dead=None, receives=None),
+                dict(IDLE, inflight=None, dead=None, receives=None)],
+        ticks=5, kw=dict(scale_up_backlog=4.0, idle_ticks=2)),
     "exit-code-and-last-seen": dict(
         script=[IDLE], ticks=3, kw=dict(max_workers=2),
         actions={2: [_kill(0)]}),

@@ -28,8 +28,11 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "chunkflow_tpu_torch"
+# and the cloud packages: the port speaks HTTP, SigV4 and RS256 itself,
+# with what the card machine has
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "chunkflow_tpu", "tensorstore", "click", "boto3")
+             "chunkflow_tpu", "tensorstore", "click", "boto3", "botocore",
+             "google", "requests", "urllib3", "cryptography")
 
 
 def _forbidden(module: str) -> bool:
@@ -57,12 +60,14 @@ def test_sources_import_no_jax(path):
 def test_importing_every_module_loads_no_jax():
     script = (
         "import importlib, json, pkgutil, sys\n"
+        "preloaded = set(sys.modules)\n"
         "import chunkflow_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
-        "print(json.dumps({'imported': mods, 'loaded': sorted(sys.modules)}))\n"
+        "print(json.dumps({'imported': mods,\n"
+        "                  'loaded': sorted(set(sys.modules) - preloaded)}))\n"
     )
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -84,10 +89,37 @@ def test_importing_every_module_loads_no_jax():
                  "plugins.synapse.detect_post_synapses",
                  "plugins.synapse.adjust_pre",
                  "plugins.synapse.detect_duplicate_post",
-                 "plugins.synapse.find_tbar_object"):
+                 "plugins.synapse.find_tbar_object", "cloud.http",
+                 "cloud.aws", "cloud.google", "cloud.gcs", "cloud.s3",
+                 "cloud.sqs", "testing.cloud_fakes"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
+    # what the interpreter loads before the first line (a site-packages
+    # .pth file may pre-import a namespace package such as ``google``) is
+    # not the port's doing
     leaked = [m for m in report["loaded"] if _forbidden(m)]
     assert not leaked, leaked
+
+
+def _imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", sorted((PACKAGE / "cloud").glob("*.py"))
+                         + [PACKAGE / "testing" / "cloud_fakes.py"],
+                         ids=lambda p: p.name)
+def test_the_cloud_clients_and_fakes_need_only_the_standard_library(path):
+    """What the cloud plane and its fakes import: the standard library,
+    numpy, torch and the port itself."""
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch",
+                                              "chunkflow_tpu_torch"}
+    bad = [n for n in _imports(path) if n.split(".")[0] not in allowed]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_the_fleet_spawns_the_port_and_reads_no_tools():

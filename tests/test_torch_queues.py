@@ -151,14 +151,21 @@ def test_envelopes_are_the_jax_packages():
     assert queues.unpack_task("plain") == ("plain", None)
 
 
-def test_open_queue_specs(tmp_path):
+def test_open_queue_specs(tmp_path, monkeypatch):
     assert isinstance(queues.open_queue("memory://x"), queues.MemoryQueue)
     assert queues.open_queue("memory://x") is queues.open_queue("memory://x")
     for spec in (f"file://{tmp_path / 'a'}", str(tmp_path / "b")):
         q = queues.open_queue(spec, visibility_timeout=5)
         assert isinstance(q, queues.FileQueue) and q.visibility_timeout == 5
-    with pytest.raises(NotImplementedError, match="cloud storage and SQS"):
-        queues.open_queue("sqs://tasks")
+    # sqs:// opens an SQSQueue over the port's SQS client, here a stand-in
+    # (tests/test_torch_sqs.py drives it against a fake service)
+    from chunkflow_tpu_torch.cloud import sqs
+    from tests.parallel.test_queues import FakeSQSClient
+
+    monkeypatch.setattr(sqs, "SQSClient", FakeSQSClient)
+    q = queues.open_queue("sqs://tasks", visibility_timeout=20)
+    assert isinstance(q, queues.SQSQueue) and q.visibility_timeout == 20
+    assert q.queue_url == "fake://tasks" and q.name == "tasks"
 
 
 def test_queue_counters():

@@ -209,7 +209,7 @@ def test_partial_writes_are_tensorstores_and_zeroed_chunks_leave(tmp_path):
 def test_a_missing_or_truncated_shard(tmp_path):
     spec = _spec("murmurhash3_x86_128", (0, 1, 1))
     _write_info(tmp_path, "raw", "uint16", 1, spec)
-    chunks = ShardedChunks(str(tmp_path / "s"), ShardingSpec(spec))
+    chunks = ShardedChunks(storage.FileKV(str(tmp_path)), "s", ShardingSpec(spec))
     assert chunks.read(5) is None       # no shard file
     chunks.write({5: b"x" * 16, 6: b"y" * 16})
     assert (chunks.read(5), chunks.read(6)) == (b"x" * 16, b"y" * 16)
@@ -226,9 +226,10 @@ def test_a_missing_or_truncated_shard(tmp_path):
 _WRITER = """
 import sys
 from chunkflow_tpu_torch.volume.sharding import ShardedChunks, ShardingSpec
+from chunkflow_tpu_torch.volume.storage import FileKV
 import json
 spec = ShardingSpec(json.loads(sys.argv[2]))
-chunks = ShardedChunks(sys.argv[1], spec)
+chunks = ShardedChunks(FileKV(sys.argv[1]), "", spec)
 first = int(sys.argv[3])
 for cid in range(first, 400, 2):   # this writer's ids: one parity
     chunks.write({cid: (b"%d:" % cid) * 50})
@@ -248,7 +249,7 @@ def test_two_processes_writing_disjoint_chunks_of_one_shard(tmp_path):
                                json.dumps(spec), str(first)], env=env)
              for first in (0, 1)]
     assert [p.wait(timeout=120) for p in procs] == [0, 0]
-    chunks = ShardedChunks(directory, ShardingSpec(spec))
+    chunks = ShardedChunks(storage.FileKV(directory), "", ShardingSpec(spec))
     for cid in range(400):
         assert chunks.read(cid) == (b"%d:" % cid) * 50
     assert sorted(os.listdir(directory)) == ["0.shard", "0.shard.lock"]

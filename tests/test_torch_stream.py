@@ -688,8 +688,23 @@ def test_cli_generate_tasks_and_create_bbox(tmp_path, capsys):
     assert "pipeline drained 1 task(s)" in capsys.readouterr().out
     one_task = ["--device", "cpu", "generate-tasks", "-c", "8", "8", "8",
                 "-g", "1", "1", "1"]
-    with pytest.raises(NotImplementedError, match="cloud storage and SQS"):
-        cli.main(one_task + ["--volume-path", "gs://v"])
+    # a gs:// volume's bounds are read from its info (a local fake)
+    from chunkflow_tpu_torch.testing import cloud_fakes
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    with cloud_fakes.FakeGCS() as gcs, pytest.MonkeyPatch.context() as mp:
+        for key, value in cloud_fakes.cloud_env(gcs=gcs.url).items():
+            mp.setenv(key, value)
+        mp.setenv("HOME", str(tmp_path / "home"))
+        mp.delenv("GOOGLE_APPLICATION_CREDENTIALS", raising=False)
+        PrecomputedVolume.create("gs://bucket/v", volume_size=(8, 16, 8),
+                                 voxel_size=(1, 1, 1), voxel_offset=(0, 8, 0),
+                                 block_size=(8, 8, 8))
+        gs_file = tmp_path / "gs.txt"
+        assert cli.main(["--device", "cpu", "generate-tasks", "-c", "8", "8",
+                         "8", "--volume-path", "gs://bucket/v",
+                         "--task-file", str(gs_file)]) == 0
+        assert gs_file.read_text() == "0-8_8-16_0-8\n0-8_16-24_0-8\n"
     task_file = tmp_path / "t.txt"
     assert cli.main(one_task + ["--task-file", str(task_file)]) == 0
     assert task_file.read_text() == "0-8_0-8_0-8\n"

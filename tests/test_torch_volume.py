@@ -316,11 +316,28 @@ def test_async_save_is_durable_once_drained(tmp_path):
     assert np.array_equal(_jax_read(tmp_path / "v", FULL), data)
 
 
-def test_unported_storage_raises(tmp_path):
-    for url in ("gs://bucket/v", "s3://bucket/v"):
-        with pytest.raises(NotImplementedError,
-                           match="cloud storage and SQS"):
-            PrecomputedVolume(url)
+def test_cloud_roots_open_and_unknown_codecs_raise(tmp_path, monkeypatch):
+    # gs:// and s3:// open through the port's own clients, here against
+    # local fakes (tests/test_torch_cloud_storage.py holds them against
+    # the JAX package)
+    from chunkflow_tpu_torch.testing import cloud_fakes
+
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("CHUNKFLOW_STORAGE_CACHE_MB", "0")
+    monkeypatch.delenv("GOOGLE_APPLICATION_CREDENTIALS", raising=False)
+    with cloud_fakes.FakeGCS() as gcs, cloud_fakes.FakeS3(secrets={
+            cloud_fakes.ACCESS_KEY: cloud_fakes.SECRET_KEY}) as s3:
+        for key, value in cloud_fakes.cloud_env(gcs=gcs.url,
+                                                s3=s3.url).items():
+            monkeypatch.setenv(key, value)
+        data = _data("float32", 3)
+        for url in ("gs://bucket/v", "s3://bucket/v"):
+            vol = _create(PrecomputedVolume, url, "float32", 3)
+            vol.save(Chunk(data, voxel_offset=OFFSET))
+            storage.reset_shared_cache()
+            got = PrecomputedVolume(url).cutout(BoundingBox(*FULL)).array
+            assert np.array_equal(got, data)
+        assert gcs.objects.keys() == s3.objects.keys()
     # every precomputed encoding is ported (tests/test_torch_encodings.py):
     # an encoding or a sharding that neither package reads raises
     # ValueError at the first read, in both
