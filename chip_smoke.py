@@ -216,7 +216,8 @@ non-zero exit and no result line:
              ``gs://chunkflow-in/img`` (MB/s), phase 17's sharded raw
              float32 output at ``s3://chunkflow-out/aff`` (one shared
              shard answered once with a forced 412), the 8 tasks on
-             ``sqs://tasks`` (visibility 20 s); two worker processes
+             ``sqs://tasks`` (visibility 8 s, long polls capped at 4
+             s by the fake); two worker processes
              (parity float32), one SIGKILLed at its first commit: the
              output volume bitwise ``Inferencer.__call__`` on each cutout,
              each task acked once, the queue and ``tasks-dead`` empty, 18 +
@@ -226,8 +227,19 @@ non-zero exit and no result line:
              requests by verb per task, bytes, retries, 412s, host ms in
              ``storage/read``, ``storage/write``, ``lifecycle/commit``,
              the drain's wall with the workers' last long polls
+21. checkpoints  the committed orbax checkpoint of the seeded parity
+             UNet3D (``tests/data/orbax_parity_seed0``: OCDBT, zstd zarr
+             v2 arrays) into the full-width parity engine, its weights
+             bitwise the seeded tree; one 64x512x512 chunk through ``load-
+             npy | inference -f flax -w <dir> | save-npy`` (parity float32,
+             batch 2): bitwise ``Inferencer.__call__``, the kernel path
+             bitwise the plain path, 18 + 18 launches; the load's ms
+             split into OCDBT, zstd and convert; the host C++ zstd and
+             blosc decoders' MB/s beside their plain versions' (the
+             checkpoint's largest chunk, the committed blosc store
+             ``tests/data/blosc_zarr``)
 
-Launch counts are read from each kernel wrapper's counter, set to 0 just
+The script prints the seconds of each phase and its total. Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
 one JSON object with every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -356,12 +368,22 @@ SKELETON_PATHS = 200
 # timeout (s), the latency the fakes add to every request in the second
 # in-process run (ms), and the workers' time limit (s)
 CLOUD_FAIL_RATE = 0.01
-CLOUD_VISIBILITY_S = 20
+CLOUD_VISIBILITY_S = 8
+# the fake's cap on an SQS long poll: a worker with -r 0 ends at its first
+# empty receive, which real SQS holds for 20 s
+CLOUD_LONG_POLL_S = 4
 CLOUD_DELAY_MS = 25
 CLOUD_WORKER_S = 300
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
+# phase 21: the committed orbax checkpoint of the seeded parity UNet3D
+# and blosc store (tests/test_torch_orbax.py, tests/test_torch_blosc.py)
+CHECKPOINT = ROOT / "tests" / "data" / "orbax_parity_seed0"
+BLOSC_STORE = ROOT / "tests" / "data" / "blosc_zarr"
+CODEC_REPS = 5
+# a volume worker's task (zyx) as one blosc frame
+BLOSC_TASK = (56, 384, 384)
 CHAIN_ROI = ((4, 72, 68), (112, 768, 768))
 MASK_FACTOR = (1, 16, 16)
 # phase 12: the README's quick start runs batch 4
@@ -573,6 +595,12 @@ def main() -> int:
     import numpy as np
     import torch
 
+    laps = [("start", time.perf_counter())]
+
+    def lap(label):
+        """The start of a phase (or of phases that run in one call)."""
+        laps.append((label, time.perf_counter()))
+
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no card")
     sys.path.insert(0, str(ROOT))
@@ -658,6 +686,7 @@ def main() -> int:
         require(torch.equal(a, b), f"{name}: kernel differs from its plain "
                                    f"version (max abs {err[name]})")
 
+    lap("1-2 card, build")
     # ---- 1. card --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -688,6 +717,7 @@ def main() -> int:
                    f"{time.perf_counter() - t0:.3f} s into "
                    f"{_build.BUILD_DIR.relative_to(ROOT)}")
 
+    lap("3 kernels")
     # ---- 3. kernels vs plain on the card --------------------------------
     timer = Timer(torch)
     rng = np.random.default_rng(0)
@@ -897,6 +927,7 @@ def main() -> int:
                          f"{bound / ms:.0%} of bound, plain {plain_ms:.4f} ms")
     del big_chunks, base_out, base_w
 
+    lap("4 identity")
     # ---- 4. identity main path ------------------------------------------
     def run_paths(inferencer, chunk, label):
         """Kernel path (counted) then plain path; bitwise equal."""
@@ -972,6 +1003,7 @@ def main() -> int:
                       f"validity-0 row), launches {r_launched}, kernel == "
                       f"plain bitwise, oracle max abs {r_oracle:.3g}")
 
+    lap("5 unet3d")
     # ---- 5. UNet3D main path at full width -------------------------------
     # the process keeps PyTorch's global flags (cuDNN TF32 on): the engine
     # scopes its own (TF32 off, deterministic, no autotuning) around every
@@ -1003,6 +1035,7 @@ def main() -> int:
             "unet3d: output not finite sigmoid maps of the chunk's shape")
     for kname, n in launched.items():
         kernels[kname]["launches"] = n
+    phase5_launches = dict(launched)
     # where a chunk's time goes: the forward of one batch
     patches = gather.gather_patches(raw_dev, in_b, PIN)
     fwd_ms = timer.call_ms(lambda: forward(model, patches), reps=3)
@@ -1038,6 +1071,7 @@ def main() -> int:
                     f"{float(tf32.max()):.3g}, first index beyond 1e-4 "
                     f"{tuple(beyond[0].tolist()) if len(beyond) else None}")
 
+    lap("6 cli")
     # ---- 6. CLI -----------------------------------------------------------
     npy = OUT_DIR / "cli_identity.npy"
     rc = cli.main([
@@ -1056,6 +1090,7 @@ def main() -> int:
     phase("cli", "create-chunk | inference -f identity | save-npy == "
                  "phase 4 result")
 
+    lap("7 models")
     # ---- 7. every convnet family, both compute dtypes --------------------
     rsunet_files = _reference_rsunet(torch, OUT_DIR, dev)
     tpu = engines.create_engine("pytorch", model_variant="tpu").model
@@ -1151,6 +1186,7 @@ def main() -> int:
                 f"{variant}: bfloat16 vs float32 {gap} beyond the gates "
                 f"(max {BF16_MAX}, mean {BF16_MEAN})")
 
+    lap("8 stream")
     # ---- 8. the streamed worker loop ------------------------------------
     from chunkflow_tpu_torch.flow.runtime import new_task, process_stream
 
@@ -1298,6 +1334,7 @@ def main() -> int:
                         f"serial {s_idle:.1%}")
         del inf
 
+    lap("9 fold")
     # ---- 9. fold -------------------------------------------------------------
     fold_kw = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
                    num_output_channels=CHANNELS, batch_size=BATCH,
@@ -1339,6 +1376,7 @@ def main() -> int:
                   f"the uniform {UNIFORM}: max abs {fold_gap:.3g} <= 1e-5")
     del fold_unet, scatter_unet, a, b, fold_res, fold_out
 
+    lap("10-12 volume, chain, segment")
     # ---- 10. volume: the worker loop on disk ------------------------------
     torch.cuda.empty_cache()
     # ---- 11. chain: the README's worker chain, on phase 10's volume -------
@@ -1372,6 +1410,7 @@ def main() -> int:
         for kname, n in launched.items():
             kernels[kname]["launches"] += n
 
+    lap("13-15 precision, packer, serve")
     # ---- 13. precision: the ladder at full width --------------------------
     torch.cuda.empty_cache()
     int8_paths = {path: 0 for path in int8_conv.path_launches}
@@ -1398,6 +1437,7 @@ def main() -> int:
     phase("precision", f"conv3d_int8 launches by path over phases 13-15: "
                        f"{int8_paths}")
 
+    lap("16 segment-plane")
     # ---- 16. segment-plane: segment and mesh what phase 10 inferred -----
     reset_counts()
     plane_s = segment_plane_phase(torch, dict(
@@ -1409,6 +1449,7 @@ def main() -> int:
     phase("segment-plane", f"phase 16 took {plane_s:.1f} s; its input's "
                            f"inference launches are phase 10's")
 
+    lap("17 encodings")
     # ---- 17. encodings: a jpeg-fed worker, sharded outputs --------------
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -1425,6 +1466,7 @@ def main() -> int:
         kernels[kname]["launches"] += n
     phase("encodings", f"phase 17 took {time.perf_counter() - t:.1f} s")
 
+    lap("18 fleet")
     # ---- 18. fleet: fleet-run drains phase 10's volume through a kill -----
     # the worker processes need the host memory this one no longer uses
     gc.collect()
@@ -1443,6 +1485,7 @@ def main() -> int:
         raw_s_per_task=volume_s.get("parity float32")), weights=state)
     phase("fleet", f"phase 18 took {time.perf_counter() - t:.1f} s")
 
+    lap("19 annotations")
     # ---- 19. annotations: a synapse worker and skeletons ---------------
     torch.cuda.empty_cache()
     for kname, n in annotations_phase(torch, dict(
@@ -1458,6 +1501,7 @@ def main() -> int:
             counts=counts).items():
         kernels[kname]["launches"] += n
 
+    lap("20 cloud")
     # ---- 20. cloud: phase 10's worker on gs://, s3:// and sqs:// fakes ---
     torch.cuda.empty_cache()
     for kname, n in cloud_phase(torch, dict(
@@ -1467,11 +1511,30 @@ def main() -> int:
             inference=["--framework", "pytorch", "--model-variant",
                        "parity", "--dtype", "float32"],
             fail_rate=CLOUD_FAIL_RATE, visibility=CLOUD_VISIBILITY_S,
+            long_poll=CLOUD_LONG_POLL_S,
             delay_ms=CLOUD_DELAY_MS, worker_s=CLOUD_WORKER_S,
             raw_s_per_task=volume_s.get("parity float32")),
             weights=state, reset_counts=reset_counts,
             counts=counts).items():
         kernels[kname]["launches"] += n
+
+    # ---- 21. checkpoints: an orbax directory on the main path -----------
+    lap("21 checkpoints")
+    torch.cuda.empty_cache()
+    for kname, n in checkpoint_phase(torch, dict(
+            chunk=chunk_u8.host().array, pin=PIN, overlap=OVERLAP,
+            batch=BATCH, device="cuda", checkpoint=CHECKPOINT,
+            blosc_store=BLOSC_STORE, blosc_task=BLOSC_TASK, reps=CODEC_REPS,
+            per_chunk=phase5_launches),
+            state, reset_counts, counts, plain_functions).items():
+        kernels[kname]["launches"] += n
+    lap("end")
+    spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
+             in zip(laps[1:-1], laps[2:])}
+    phase("timing", f"seconds per phase: {json.dumps(spans)}; phases 20 "
+                    f"and 21 together "
+                    f"{spans['20 cloud'] + spans['21 checkpoints']:.1f} s; "
+                    f"the script {laps[-1][1] - laps[0][1]:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -5127,8 +5190,8 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
     save-precomputed -v s3://... --async-write | delete-task-in-queue``;
     one is SIGKILLed at its first commit, the other drains the queue,
     taking the killed worker's tasks when their leases lapse (a third
-    worker takes them when the survivor's last 20 s long poll ended
-    first). Required: the output volume bitwise
+    worker takes them when the survivor's last long poll, which the SQS
+    fake caps at ``cfg["long_poll"]`` s, ended first). Required: the output volume bitwise
     ``Inferencer.__call__`` on each cutout, each task acked once, the
     queue and ``tasks-dead`` empty, ``per_task`` launches of each kernel
     per computed task in the survivor's run counters, a 412 on a shared
@@ -5224,6 +5287,10 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
 
             def stats(name):
                 return cloud_fakes.control(urls[name])
+
+            # a worker with -r 0 ends at its first empty long poll
+            long_poll = cfg.get("long_poll", 20)
+            cloud_fakes.control(urls["sqs"], max_wait_s=long_poll)
 
             # ---- the input, the output, the queue ------------------------
             image = np.random.default_rng(10).integers(
@@ -5376,7 +5443,7 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
                     f"cloud: the worker was to die by SIGKILL, rc "
                     f"{killed.returncode}: {k_err[-3000:]}")
             runs = [finish(survivor, "the surviving worker")]
-            # the survivor ends at its first empty 20 s long poll; had it
+            # the survivor ends at its first empty long poll; had it
             # begun before the killed worker's leases lapsed, a third
             # worker takes what they held
             q_left = watch.stats()
@@ -5415,7 +5482,8 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
                               else "")
                            + f" computed {n} of {len(boxes)} tasks, drained "
                              f"in {wall:.1f} s with start-up and the last "
-                             f"20 s long poll; output == in-process "
+                             f"{long_poll} s long poll (leases of "
+                             f"{cfg['visibility']} s); output == in-process "
                              f"reference "
                            f"bitwise; each task acked once; queue {left}; "
                            f"{per_task} + {per_task} launches per computed "
@@ -5509,6 +5577,197 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
             fakes.wait(timeout=30)
             storage.reset_shared_cache()
     phase("cloud", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def checkpoint_phase(torch, cfg, state, reset_counts, counts,
+                     plain_functions):
+    """Phase 21: an orbax checkpoint on the main path.
+
+    ``cfg["checkpoint"]`` (the committed full-width parity checkpoint of
+    the seeded tree) loads into the parity engine through
+    ``create_convnet_engine``, its state dict bitwise ``state``. One chunk
+    (``cfg["chunk"]``, host uint8) goes through the CLI's ``load-npy |
+    inference -f flax -w <dir> | save-npy``: bitwise
+    ``Inferencer.__call__`` with the same weights, whose kernel path is
+    bitwise its plain path (``plain_functions``); ``cfg["per_chunk"]``
+    launches of each kernel. Printed: the one load's ms split, by the
+    telemetry spans it records, into OCDBT (``orbax/open``: the manifest;
+    ``zarr/kv_read``: nodes and ranged reads), zstd (``zarr/decode``),
+    convert (``weights/convert``: ``state_from_flax`` and the state dict)
+    and the rest, which sum to the load; and the host C++ zstd and blosc
+    decoders' MB/s beside their plain versions' on the checkpoint's
+    largest chunk, ``cfg["blosc_store"]``'s lz4 chunks and one task-sized
+    frame (``cfg["chunk"]``'s corner of ``cfg["blosc_task"]``) that the
+    port's ``blosc.compress`` encodes.
+
+    Returns the kernels' launches in the CLI run."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.models import orbax
+    from chunkflow_tpu_torch.models.convert import init_or_load_weights
+    from chunkflow_tpu_torch.models.unet3d import UNet3D
+    from chunkflow_tpu_torch.volume import blosc, zstd
+    from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] == "cuda"
+    path = str(cfg["checkpoint"])
+
+    def ms(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # ---- the load, end to end and in its parts --------------------------
+    parts = ("orbax/open", "zarr/kv_read", "zarr/decode", "weights/convert")
+    require(telemetry.enabled(), "checkpoints: telemetry is off, so the "
+                                 "load cannot be split")
+    model = UNet3D(in_channels=1, out_channels=3)
+    before = telemetry.hist_totals(parts)
+    _, load_ms = ms(lambda: init_or_load_weights(model, path))
+    after = telemetry.hist_totals(parts)
+    split = {k: (after[k] - before[k]) * 1e3 for k in parts}
+    ocdbt_ms = split["orbax/open"] + split["zarr/kv_read"]
+    rest_ms = load_ms - sum(split.values())
+    with open(os.path.join(path, orbax.METADATA)) as f:
+        metadata = json.load(f)
+    frames = dict(orbax.open_store(path, metadata).items())
+    arrays = {}
+    for key in frames:
+        if key.endswith("/.zarray"):
+            meta = json.loads(frames[key])
+            arrays[key[:-len("/.zarray")]] = (
+                int(np.prod(meta["shape"])) * np.dtype(meta["dtype"]).itemsize)
+    chunks = {k: v for k, v in frames.items() if not k.endswith(".zarray")}
+    require(len(chunks) == len(arrays), f"checkpoints: {len(chunks)} chunks "
+                                        f"for {len(arrays)} arrays")
+    engine = engines.create_convnet_engine("", path, model_variant="parity")
+    loaded = engine.model.state_dict()
+    require(set(loaded) == set(state)
+            and all(torch.equal(loaded[k], state[k]) for k in state),
+            "checkpoints: the engine's weights differ from the seeded tree")
+    engine.model.to(cfg["device"])
+    require(all(torch.equal(v.cpu(), state[k])
+                for k, v in engine.model.state_dict().items()),
+            "checkpoints: the weights changed on the way to the device")
+    del engine
+    phase("checkpoints", f"{path[len(str(ROOT)) + 1:]}: {len(arrays)} "
+                         f"arrays, {sum(arrays.values()) / 1e6:.2f} MB of "
+                         f"float32, {sum(map(len, chunks.values())) / 1e6:.2f}"
+                         f" MB of zstd frames; load {load_ms:.1f} ms = "
+                         f"OCDBT {ocdbt_ms:.1f} ms (manifest "
+                         f"{split['orbax/open']:.1f}, nodes and reads "
+                         f"{split['zarr/kv_read']:.1f}) + zstd "
+                         f"{split['zarr/decode']:.1f} ms + convert "
+                         f"{split['weights/convert']:.1f} ms + the rest "
+                         f"{rest_ms:.1f} ms (metadata, the tree); the "
+                         f"parity engine's weights == the seeded tree "
+                         f"bitwise")
+
+    # ---- one chunk through the CLI --------------------------------------
+    chunk = cfg["chunk"]
+    pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["batch"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        src, dst = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.npy")
+        np.save(src, chunk)
+        argv = ([] if on_card else ["--device", "cpu"]) + [
+            "load-npy", "--file-name", src,
+            "inference", "--framework", "flax", "--model-variant", "parity",
+            "--weight-path", path,
+            "--input-patch-size", *map(str, pin),
+            "--output-patch-overlap", *map(str, overlap),
+            "--num-output-channels", "3", "--batch-size", str(batch),
+            "save-npy", "--file-name", dst]
+        reset_counts()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        cli_s = time.perf_counter() - t
+        launched = counts()
+        require(rc == 0, f"checkpoints: CLI exit code {rc}")
+        got = np.load(dst)
+    for kname, n in launched.items():
+        if on_card:
+            require(n == cfg["per_chunk"][kname],
+                    f"checkpoints: {kname} launched {n} times, not "
+                    f"{cfg['per_chunk'][kname]}")
+    inferencer = Inferencer(
+        input_patch_size=pin, output_patch_overlap=overlap,
+        num_output_channels=3, framework="flax", model_variant="parity",
+        weight_path=path, batch_size=batch, device=cfg["device"])
+    ref = inferencer(Chunk(chunk)).host().array
+    with plain_functions():
+        plain = inferencer(Chunk(chunk)).host().array
+    del inferencer
+    require(got.shape == (3,) + tuple(chunk.shape) and np.isfinite(got).all(),
+            f"checkpoints: output {got.shape}, or not finite")
+    require(np.array_equal(got, ref), "checkpoints: the CLI's output differs "
+                                      "from Inferencer.__call__")
+    require(np.array_equal(ref, plain), "checkpoints: the kernel path "
+                                        "differs from the plain path")
+    phase("checkpoints", f"load-npy | inference -f flax -w <orbax dir> | "
+                         f"save-npy on {tuple(chunk.shape)} uint8 (parity "
+                         f"float32, batch {batch}): {cli_s:.2f} s with the "
+                         f"engine's build; == Inferencer.__call__ bitwise, "
+                         f"kernel == plain bitwise; launches {launched}")
+
+    # ---- the decoders' rates --------------------------------------------
+    def rate(fn, nbytes, reps):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return nbytes / statistics.median(times) / 1e6
+
+    key = max(chunks, key=lambda k: len(chunks[k]))
+    size = arrays[key.split("/")[0]]
+    frame = chunks[key]
+    cpp = rate(lambda: zstd.decompress(frame, size), size, cfg["reps"])
+    plain_rate = rate(lambda: zstd.decompress_plain(frame), size, 1)
+    require(zstd.decompress(frame, size) == zstd.decompress_plain(frame),
+            "checkpoints: the zstd decoders differ")
+    store = ZarrArray(str(cfg["blosc_store"]))
+    names = sorted(n for n in os.listdir(cfg["blosc_store"])
+                   if not n.startswith("."))
+    blosc_frames = [store.kv.read_bytes(n) for n in names]
+    raw = sum(int.from_bytes(f[4:8], "little") for f in blosc_frames)
+    b_cpp = rate(lambda: [blosc.decompress(f) for f in blosc_frames], raw,
+                 cfg["reps"] * 20)
+    b_plain = rate(lambda: [blosc.decompress_plain(f)
+                            for f in blosc_frames], raw, 1)
+    require(all(blosc.decompress(f) == blosc.decompress_plain(f)
+                for f in blosc_frames), "checkpoints: the blosc decoders "
+                                        "differ")
+    task = np.ascontiguousarray(chunk[tuple(slice(0, s)
+                                            for s in cfg["blosc_task"])])
+    task_frame = blosc.compress(task.tobytes(), task.dtype.itemsize)
+    t_cpp = rate(lambda: blosc.decompress(task_frame), task.nbytes,
+                 cfg["reps"])
+    t_plain = rate(lambda: blosc.decompress_plain(task_frame), task.nbytes, 1)
+    require(blosc.decompress(task_frame) == blosc.decompress_plain(
+        task_frame) == task.tobytes(), "checkpoints: the blosc decoders "
+                                       "differ on the task-sized frame")
+    phase("checkpoints", f"host C++ zstd on the largest chunk ({key}, "
+                         f"{len(frame)} -> {size} bytes): {cpp:.1f} MB/s "
+                         f"(median of {cfg['reps']}), plain {plain_rate:.3f}"
+                         f" MB/s; blosc lz4 shuffle on the committed store "
+                         f"({len(blosc_frames)} frames, {raw} bytes): "
+                         f"{b_cpp:.1f} MB/s, plain {b_plain:.3f} MB/s; "
+                         f"blosc zlib on a {tuple(task.shape)} uint8 frame "
+                         f"({len(task_frame)} -> {task.nbytes} bytes, the "
+                         f"port encodes no lz4): {t_cpp:.1f} MB/s, plain "
+                         f"{t_plain:.1f} MB/s")
+    phase("checkpoints", f"phase 21 took {time.perf_counter() - t_phase:.1f}"
+                         f" s")
     return launched
 
 

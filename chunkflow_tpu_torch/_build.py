@@ -13,9 +13,11 @@ round exactly as their plain PyTorch versions' do.
 The host C++ of the segmentation legs and plane (``csrc/host/``:
 connected components, id remapping, watershed and agglomeration,
 surface-nets meshing; the port's copies of the JAX package's
-``native/src/``) and the precomputed block codecs that run per voxel
-(``compressed_segmentation``, the PNG row filters) is one more library, ``HOST_LIBRARY``: the same build
-compiles it with ``g++``, keyed by the hash of all its sources.
+``native/src/``), the precomputed block codecs that run per voxel
+(``compressed_segmentation``, the PNG row filters) and the zstd and
+blosc decoders of the zarr, N5 and OCDBT stores is one more library,
+``HOST_LIBRARY``: the same build compiles it with ``g++``, keyed by the
+hash of all its sources.
 
 Nothing here runs at import: the CPU test box has no ``nvcc``.
 """
@@ -37,7 +39,8 @@ KERNELS = ("gather", "accumulate", "conv3d_int8", "conv3d_int8_generic")
 HOST = CSRC / "host"
 HOST_LIBRARY = "chunkflow_host"
 HOST_SOURCES = ("cc3d.cpp", "remap.cpp", "watershed.cpp",
-                "surface_nets.cpp", "compressed_segmentation.cpp")
+                "surface_nets.cpp", "compressed_segmentation.cpp", "zstd.cpp",
+                "blosc.cpp")
 HOST_HEADERS = ("zslab.h",)
 
 NVCC_FLAGS = (

@@ -1071,14 +1071,14 @@ def _load_zarr(args, state) -> Stage:
 
     @operator
     def stage(task):
-        store = open_array(args.store_path, args.driver)
+        read = open_array(args.store_path, args.driver).read_values
         explicit = (BoundingBox.from_delta(args.chunk_start, args.chunk_size)
                     if args.chunk_start is not None else None)
         if explicit is not None or task.get("bbox") is not None:
             bbox = explicit if explicit is not None else task["bbox"]
-            chunk = Chunk(store.read(bbox.slices), voxel_offset=bbox.start)
+            chunk = Chunk(read(bbox.slices), voxel_offset=bbox.start)
         else:
-            chunk = Chunk(store.read(), voxel_offset=args.voxel_offset)
+            chunk = Chunk(read(), voxel_offset=args.voxel_offset)
         if args.voxel_size is not None:
             chunk = chunk.with_voxel_size(args.voxel_size)
         task[args.output_chunk_name] = chunk

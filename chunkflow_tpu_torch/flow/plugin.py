@@ -37,8 +37,6 @@ UNPORTED = {
         f"needs apoc, which neither machine has ({_PLUGINS_ITEM})",
     "aws/cloud_watch.py":
         f"needs boto3, which neither machine has ({_PLUGINS_ITEM})",
-    "load_tensorstore.py":
-        f"needs tensorstore, which the port does not use ({_PLUGINS_ITEM})",
 }
 
 

@@ -153,8 +153,9 @@ def create_convnet_engine(
     returns an ``nn.Module``, or a reference-chunkflow pytorch
     ``model.py`` (``InstantiatedModel`` / ``load_model``) whose weights
     load by name into the built-in mirror (``models/migrate.py``).
-    ``weight_path`` may be a ``.pt`` state dict or a flax ``.msgpack``
-    file (``models/convert.py:init_or_load_weights``); without one the
+    ``weight_path`` may be a ``.pt`` state dict, a flax ``.msgpack``
+    file or an orbax checkpoint directory
+    (``models/convert.py:init_or_load_weights``); without one the
     weights are a seeded init. ``dtype`` is the built-in models' compute
     dtype; a ``create_model`` module computes in what it chooses, as in
     the JAX package. The engine returns float32.

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.models import flax_msgpack
 from chunkflow_tpu_torch.models.unet3d import seeded_init
 
@@ -218,13 +219,18 @@ def init_or_load_weights(model: nn.Module,
     - ``*.pt``/``*.pth`` -> a torch state dict, by name; positional only
       when no name matched
     - ``*.msgpack``      -> flax params (``serialization.to_bytes``)
-    - a directory        -> an orbax checkpoint: not ported, raises
+    - a directory        -> flax params in an orbax checkpoint
+      (``models/orbax.py``)
+
+    The conversion and ``load_state_dict`` are timed into the telemetry
+    span ``weights/convert``.
     """
     if not weight_path:
         return seeded_init(model, torch.Generator().manual_seed(0))
     if not os.path.exists(weight_path):
         raise FileNotFoundError(f"weights not found: {weight_path}")
     template = model.state_dict()
+    params = None  # flax params, converted in the span below
     if weight_path.endswith((".pt", ".pth")):
         state = load_torch_state_dict(weight_path)
         try:
@@ -234,14 +240,16 @@ def init_or_load_weights(model: nn.Module,
                 raise
             state = state_from_torch_positional(state, template)
     elif weight_path.endswith(".msgpack"):
-        state = state_from_flax(flax_msgpack.load(weight_path))
+        params = flax_msgpack.load(weight_path)
     elif os.path.isdir(weight_path):
-        raise NotImplementedError(
-            f"{weight_path}: orbax checkpoint directories are not ported "
-            f"yet: their OCDBT/tensorstore format has no reader without "
-            f"JAX (ROADMAP, queue 1: convnet engines, orbax checkpoints)")
+        from chunkflow_tpu_torch.models import orbax
+
+        params = orbax.load_params(weight_path)
     else:
         raise ValueError(f"{weight_path}: weights are a .pt/.pth state "
                          f"dict, a flax .msgpack file or an orbax directory")
-    model.load_state_dict(state)
+    with telemetry.span("weights/convert"):
+        if params is not None:
+            state = state_from_flax(params)
+        model.load_state_dict(state)
     return model

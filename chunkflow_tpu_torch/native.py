@@ -7,7 +7,9 @@ components (``csrc/host/cc3d.cpp``), id remapping
 (``csrc/host/surface_nets.cpp``), with the JAX package's C signatures;
 and the precomputed block codecs that run per voxel
 (``csrc/host/compressed_segmentation.cpp``: ``compressed_segmentation``
-and the PNG row filters, which ``volume/codecs.py`` calls).
+and the PNG row filters, which ``volume/codecs.py`` calls); and the
+decoders of the zarr, N5 and OCDBT stores (``csrc/host/zstd.cpp``,
+``csrc/host/blosc.cpp``, which ``volume/compressors.py`` calls).
 The library builds with ``g++`` at first use
 (``_build.load(_build.HOST_LIBRARY)``); a failed build raises.
 ``CHUNKFLOW_NATIVE_THREADS`` sets the z-slab worker count (default: the
@@ -74,6 +76,15 @@ def load() -> ctypes.CDLL:
     lib.png_unfilter.restype = i64
     lib.png_unfilter.argtypes = [ctypes.c_void_p, i64, i64, i64,
                                  ctypes.c_void_p]
+    lib.cf_zstd_decompress.restype = i64
+    lib.cf_zstd_decompress.argtypes = [ctypes.c_char_p, i64,
+                                       ctypes.c_void_p, i64]
+    lib.cf_blosc_decompress.restype = i64
+    lib.cf_blosc_decompress.argtypes = [ctypes.c_char_p, i64,
+                                        ctypes.c_void_p, i64, _INFLATE]
+    for fn in (lib.cf_zstd_error, lib.cf_blosc_error):
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [i64]
     _lib = lib
     return lib
 
@@ -320,3 +331,70 @@ def png_unfilter(filtered: np.ndarray, rows: int, stride: int,
     if bad:
         raise ValueError(f"PNG row {-bad - 1} has an unknown filter type")
     return out
+
+
+#: cf_zstd_decompress's code for frames that do not fit the output
+_ZSTD_OUTPUT_FULL = -6
+
+
+class ZstdOutputFull(ValueError):
+    """zstd frames that decode to more bytes than the output holds."""
+
+
+def zstd_decompress(data: bytes, size: int, exact: bool = True) -> bytes:
+    """The frames in ``data`` decoded into ``size`` bytes (``exact``) or
+    at most ``size``; a frame that does not decode, or decodes to another
+    size, raises ``ValueError`` (:class:`ZstdOutputFull` where the frames
+    do not fit ``size`` bytes)."""
+    lib = load()
+    out = np.empty(size, dtype=np.uint8)
+    n = lib.cf_zstd_decompress(data, len(data), out.ctypes.data, size)
+    if n < 0:
+        error = ZstdOutputFull if n == _ZSTD_OUTPUT_FULL else ValueError
+        raise error(f"zstd: {lib.cf_zstd_error(n).decode()}")
+    if exact and n != size:
+        raise ValueError(f"zstd: frames of {n} bytes where {size} were "
+                         f"expected")
+    return out[:n].tobytes()
+
+
+#: a zlib stream's decoder for the host C++: (source, its size, output,
+#: its capacity) -> bytes written, or a negative code
+_INFLATE = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                            ctypes.c_void_p, ctypes.c_int64)
+
+
+def _inflate_stream(src, n, dst, cap):
+    """A blosc frame's zlib stream (the library links no zlib)."""
+    import zlib
+
+    try:
+        data = zlib.decompress(ctypes.string_at(src, n))
+    except zlib.error:
+        return -5
+    if len(data) > cap:
+        return -4
+    ctypes.memmove(dst, data, len(data))
+    return len(data)
+
+
+# kept for the life of the process: the host C++ calls it
+_inflate = _INFLATE(_inflate_stream)
+
+
+def blosc_decompress(data: bytes, expect: Optional[int] = None) -> bytes:
+    """The blosc frame ``data`` decoded; a frame that does not decode, or
+    whose size is not ``expect`` (where given), raises ``ValueError``."""
+    lib = load()
+    if len(data) < 16:
+        raise ValueError("blosc: truncated frame")
+    size = int.from_bytes(data[4:8], "little")
+    if expect is not None and size != expect:
+        raise ValueError(f"blosc: a frame of {size} bytes where {expect} "
+                         f"were expected")
+    out = np.empty(size, dtype=np.uint8)
+    n = lib.cf_blosc_decompress(data, len(data), out.ctypes.data, size,
+                                _inflate)
+    if n < 0:
+        raise ValueError(f"blosc: {lib.cf_blosc_error(n).decode()}")
+    return out.tobytes()

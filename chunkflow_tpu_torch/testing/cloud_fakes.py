@@ -622,7 +622,8 @@ def _sqs_error(code: str, message: str, status: int = 400):
 
 class FakeSQS(_SigV4Fake):
     """SQS over the AWS JSON 1.0 protocol. ``fail_ids`` / ``fail_batches``
-    report those batch entry ids as ``Failed`` in that many batches."""
+    report those batch entry ids as ``Failed`` in that many batches;
+    ``max_wait_s`` caps a long poll below SQS's own 20 s."""
 
     name = "sqs"
 
@@ -631,6 +632,7 @@ class FakeSQS(_SigV4Fake):
         self.queues: Dict[str, dict] = {}
         self.fail_ids = set(fail_ids)
         self.fail_batches = int(fail_batches)
+        self.max_wait_s = 20.0
 
     def clear(self) -> None:
         with self.lock:
@@ -644,6 +646,8 @@ class FakeSQS(_SigV4Fake):
                 self.fail_ids = set(doc["fail_ids"])
             if "fail_batches" in doc:
                 self.fail_batches = int(doc["fail_batches"])
+            if "max_wait_s" in doc:
+                self.max_wait_s = min(20.0, float(doc["max_wait_s"]))
 
     def route(self, h, path, query, body):
         why = self._refused(h, body)
@@ -725,7 +729,8 @@ class FakeSQS(_SigV4Fake):
     def _do_ReceiveMessage(self, h, params):
         queue = params["_queue"]
         most = max(1, min(10, int(params.get("MaxNumberOfMessages", 1))))
-        wait = max(0.0, min(20.0, float(params.get("WaitTimeSeconds", 0))))
+        wait = max(0.0, min(self.max_wait_s,
+                            float(params.get("WaitTimeSeconds", 0))))
         names = set(params.get("AttributeNames") or ()) | set(
             params.get("MessageSystemAttributeNames") or ())
         deadline = time.time() + wait

@@ -558,6 +558,24 @@ class MemoryKV(KVBackend):
             return {name: name in self._data for name in names}
 
 
+_BACKEND_LOCK = threading.Lock()
+_OPEN_BACKENDS: Dict[str, StorageBackend] = {}
+
+
+def open_backend_cached(key: str, opener) -> StorageBackend:
+    """The backend ``opener()`` opens, once per process for ``key`` (the
+    plugin path opens per task; one handle keeps the block cache's token
+    stable). The open runs outside the lock; a lost race keeps the first
+    backend registered."""
+    with _BACKEND_LOCK:
+        backend = _OPEN_BACKENDS.get(key)
+    if backend is None:
+        opened = opener()
+        with _BACKEND_LOCK:
+            backend = _OPEN_BACKENDS.setdefault(key, opened)
+    return backend
+
+
 def split_url(path: str) -> Tuple[str, str, str]:
     """``(scheme, bucket, prefix)`` of a volume root, as the JAX package's
     ``_kvstore_spec`` reads it: ``gs://b/p`` and ``s3://b/p`` name a bucket

@@ -1,46 +1,58 @@
-"""Chunked arrays on local disk: zarr v2 (read and write), zarr v3 and N5
-(read), with numpy and the stdlib's zlib.
+"""Chunked arrays: zarr v2 (read and write), zarr v3 and N5 (read),
+through the KV plane.
 
 The JAX package's ``load-zarr``/``save-zarr`` go through tensorstore's
 ``zarr``, ``zarr3`` and ``n5`` drivers; the port reads and writes the
-same files itself:
+same files itself, through a :class:`~volume.storage.KVBackend`: a local
+directory (a bare path or ``file://``), ``gs://`` or ``s3://``
+(``storage.open_kv``), or a KV handed in with a key prefix (an array
+inside an OCDBT store, ``volume/ocdbt.py``):
 
 - zarr v2: ``.zarray`` JSON metadata, C order, ``dimension_separator``
-  "." (tensorstore's default) or "/", chunks stored raw (``compressor:
-  null``) or compressed with ``zlib`` or ``gzip``; every chunk file a
-  full chunk. A store the port creates writes zlib.
+  "." (tensorstore's default) or "/", every chunk file a full chunk,
+  compressed by any compressor of ``volume/compressors.py`` (raw, zlib,
+  gzip, zstd, blosc; tensorstore's own default is blosc). A store the
+  port creates writes zlib. The dtype ``bfloat16``, which numpy lacks, is
+  known here only: :meth:`ChunkedArray.read` gives its uint16 bits,
+  :meth:`ChunkedArray.read_values` a ``torch.bfloat16`` tensor, and :meth:`ZarrArray.write` rounds what
+  it is given to the nearest bfloat16 (ties to even), as tensorstore
+  converts.
 - zarr v3: ``zarr.json``, a regular chunk grid, the ``default`` ("c/0/0")
   or ``v2`` chunk key encoding, the ``bytes`` codec (either endian),
-  optionally followed by ``gzip``.
+  optionally followed by ``gzip``, ``zstd`` or ``blosc``.
 - N5: ``attributes.json``, blocks keyed "i/j/k" in the array's dimension
   order, each a big-endian header (mode, rank, the block's own shape)
-  and its voxels in Fortran order, big-endian, raw or gzip.
+  and its voxels in Fortran order, big-endian, compressed as zarr v2's.
+
+Each chunk's read from the KV plane and its decode are timed into the
+telemetry spans ``zarr/kv_read`` and ``zarr/decode``.
 
 A chunk that is missing reads as the fill value (zarr's ``null``, and
 N5's, is zero). A write that covers part of a zarr v2 chunk reads,
-modifies and rewrites it. A codec that is not in the stdlib (blosc,
-zstd, sharding; tensorstore's own default is blosc) raises naming its
-ROADMAP item.
+modifies and rewrites it. What the port does not read (zarr v3
+``sharding_indexed``, another compressor) raises naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
 import itertools
 import json
-import os
 import struct
-import threading
-import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.volume import compressors
+from chunkflow_tpu_torch.volume.storage import (
+    KVBackend,
+    StorageBackend,
+    open_kv,
+)
+
 DEFAULT_CHUNK = 128
-
-
-def _not_supported(path: str, what: str):
-    raise NotImplementedError(
-        f"{path}: {what} is not ported (ROADMAP, queue 1: chunk file "
-        f"formats; the port reads raw, zlib and gzip chunks)")
+_not_supported = compressors.not_supported
 
 
 def _fill(value, dtype: np.dtype):
@@ -51,39 +63,84 @@ def _fill(value, dtype: np.dtype):
     return dtype.type(value)
 
 
-def _inflate(data: bytes) -> bytes:
-    # wbits 32 + 15: a zlib or a gzip stream, by its header
-    return zlib.decompress(data, 47)
+def _fill_of(value, dtype: np.dtype, bfloat16: bool):
+    """The fill value as stored: a bfloat16 one as its uint16 bits."""
+    if not bfloat16:
+        return _fill(value, dtype)
+    bits = np.array(_fill(value, np.dtype("<f4"))).view(np.uint32)
+    return dtype.type(int(bits) >> 16)
 
 
-def _metadata(path: str, name: str, what: str) -> dict:
-    meta_path = os.path.join(path, name)
-    if not os.path.exists(meta_path):
-        raise FileNotFoundError(f"{path}: no {name} (not {what})")
-    with open(meta_path) as f:
-        return json.load(f)
+def bfloat16_tensor(bits: np.ndarray):
+    """uint16 bits as the ``torch.bfloat16`` tensor they encode."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def bfloat16_bits(values) -> np.ndarray:
+    """Values (a numpy array or a tensor) rounded to the nearest bfloat16,
+    ties to even, as uint16 bits."""
+    import torch
+
+    if not isinstance(values, torch.Tensor):
+        values = torch.from_numpy(np.ascontiguousarray(values,
+                                                       dtype=np.float32))
+    values = values.detach().cpu().to(torch.bfloat16).contiguous()
+    return values.view(torch.int16).numpy().view(np.uint16)
+
+
+def _dtype(name: str) -> Tuple[np.dtype, bool]:
+    """(the numpy dtype a stored dtype name reads as, whether it is
+    bfloat16, which reads as its uint16 bits)."""
+    if name == "bfloat16":
+        return np.dtype("<u2"), True
+    return np.dtype(name), False
+
+
+def _store(path: str, kv: Optional[KVBackend]) -> Tuple[KVBackend, str]:
+    """(the KV plane, the key prefix) of an array at ``path``: ``path``
+    is the array's root, or, with ``kv``, its key prefix in ``kv``."""
+    if kv is None:
+        return open_kv(path), ""
+    prefix = path.strip("/")
+    return kv, f"{prefix}/" if prefix else ""
 
 
 class ChunkedArray:
-    """A chunked array on disk: ``shape``, ``chunks``, ``dtype``,
+    """A chunked array on a KV plane: ``shape``, ``chunks``, ``dtype``,
     ``fill_value``, and a subclass's ``_read_chunk(cell)`` giving one
     whole chunk in C order."""
 
     path: str
+    kv: KVBackend
+    prefix: str
     shape: Tuple[int, ...]
     chunks: Tuple[int, ...]
     dtype: np.dtype
     fill_value: np.generic
+    compressor: compressors.Compressor
+    bfloat16: bool = False
 
     def _read_chunk(self, cell) -> np.ndarray:
         raise NotImplementedError
 
-    def _read_file(self, *key: str) -> Optional[bytes]:
-        try:
-            with open(os.path.join(self.path, *key), "rb") as f:
-                return f.read()
-        except FileNotFoundError:
-            return None
+    def _read_file(self, key: str) -> Optional[bytes]:
+        with telemetry.span("zarr/kv_read"):
+            return self.kv.read_bytes(self.prefix + key)
+
+    def _metadata(self, name: str, what: str) -> dict:
+        data = self._read_file(name)
+        if data is None:
+            raise FileNotFoundError(f"{self.path}: no {name} (not {what})")
+        return json.loads(data)
+
+    def _decode(self, data: bytes, stored: np.dtype, count: int) -> np.ndarray:
+        """A chunk's values from its stored bytes (``count`` values)."""
+        with telemetry.span("zarr/decode"):
+            raw = self.compressor.decode(data, count * stored.itemsize)
+        return np.frombuffer(raw, dtype=stored, count=count)
 
     def _fill_chunk(self) -> np.ndarray:
         return np.full(self.chunks, self.fill_value, dtype=self.dtype)
@@ -126,28 +183,34 @@ class ChunkedArray:
             out[in_sel] = self._read_chunk(cell)[in_cell]
         return out
 
+    def read_values(self, index=None):
+        """:meth:`read`, but a ``bfloat16`` array as a ``torch.bfloat16``
+        tensor on the CPU (numpy has no bfloat16)."""
+        arr = self.read(index)
+        return bfloat16_tensor(arr) if self.bfloat16 else arr
+
 
 class ZarrArray(ChunkedArray):
-    """A zarr v2 array in the directory ``path``."""
+    """A zarr v2 array at ``path`` (with ``kv``: the key prefix ``path``
+    in ``kv``)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, kv: Optional[KVBackend] = None):
         self.path = path
-        meta = _metadata(path, ".zarray", "a zarr v2 array")
+        self.kv, self.prefix = _store(path, kv)
+        meta = self._metadata(".zarray", "a zarr v2 array")
         if meta.get("zarr_format") != 2:
             _not_supported(path, f"zarr_format {meta.get('zarr_format')}")
         if meta.get("order", "C") != "C":
             _not_supported(path, "Fortran-order chunks")
         if meta.get("filters"):
             _not_supported(path, f"filters {meta['filters']}")
-        compressor = meta.get("compressor")
-        if compressor is not None and compressor.get("id") not in ("zlib",
-                                                                   "gzip"):
-            _not_supported(path, f"the {compressor.get('id')} compressor")
         self.shape = tuple(meta["shape"])
         self.chunks = tuple(meta["chunks"])
-        self.dtype = np.dtype(meta["dtype"])
-        self.compressor = compressor
-        self.fill_value = _fill(meta.get("fill_value"), self.dtype)
+        self.dtype, self.bfloat16 = _dtype(meta["dtype"])
+        self.compressor = compressors.from_zarr(
+            path, meta.get("compressor"), self.dtype.itemsize)
+        self.fill_value = _fill_of(meta.get("fill_value"), self.dtype,
+                                   self.bfloat16)
         self.separator = meta.get("dimension_separator", ".")
 
     @classmethod
@@ -165,9 +228,7 @@ class ZarrArray(ChunkedArray):
             "compressor": {"id": "zlib", "level": int(level)},
             "fill_value": 0, "filters": None, "dimension_separator": ".",
         }
-        os.makedirs(path, exist_ok=True)
-        _write_atomic(os.path.join(path, ".zarray"),
-                      json.dumps(meta).encode())
+        open_kv(path).write_bytes(".zarray", json.dumps(meta).encode())
         return cls(path)
 
     def _key(self, index: Tuple[int, ...]) -> str:
@@ -177,29 +238,20 @@ class ZarrArray(ChunkedArray):
         data = self._read_file(self._key(index))
         if data is None:
             return self._fill_chunk()
-        if self.compressor is not None:
-            data = _inflate(data)
-        return np.frombuffer(data, dtype=self.dtype).reshape(
+        count = int(np.prod(self.chunks))
+        return self._decode(data, self.dtype, count).reshape(
             self.chunks).copy()
 
     def _write_chunk(self, index, block: np.ndarray) -> None:
         data = np.ascontiguousarray(block, dtype=self.dtype).tobytes()
-        if self.compressor is not None:
-            level = int(self.compressor.get("level", 1))
-            if self.compressor["id"] == "gzip":
-                import gzip
-
-                data = gzip.compress(data, compresslevel=level, mtime=0)
-            else:
-                data = zlib.compress(data, level)
-        path = os.path.join(self.path, self._key(index))
-        if self.separator == "/":
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-        _write_atomic(path, data)
+        self.kv.write_bytes(self.prefix + self._key(index),
+                            self.compressor.encode(data))
 
     def write(self, index, array) -> None:
+        """Write ``array`` (a numpy array, or for a ``bfloat16`` array also
+        a tensor) at ``index``, converted to the array's dtype."""
         box = self._box(index)
-        array = np.asarray(array)
+        array = bfloat16_bits(array) if self.bfloat16 else np.asarray(array)
         want = tuple(b - a for a, b in box)
         if array.shape != want:
             raise ValueError(f"{self.path}: writing {array.shape} into a "
@@ -215,65 +267,61 @@ class ZarrArray(ChunkedArray):
 
 
 class Zarr3Array(ChunkedArray):
-    """A zarr v3 array in the directory ``path`` (read only)."""
+    """A zarr v3 array at ``path`` (read only; with ``kv``: the key prefix
+    ``path`` in ``kv``)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, kv: Optional[KVBackend] = None):
         self.path = path
-        meta = _metadata(path, "zarr.json", "a zarr v3 array")
+        self.kv, self.prefix = _store(path, kv)
+        meta = self._metadata("zarr.json", "a zarr v3 array")
         if meta.get("zarr_format") != 3 or meta.get("node_type") != "array":
             _not_supported(path, "a zarr v3 node that is not an array")
         grid = meta["chunk_grid"]
         if grid.get("name") != "regular":
             _not_supported(path, f"the {grid.get('name')} chunk grid")
-        codecs = [c["name"] for c in meta["codecs"]]
-        if codecs not in (["bytes"], ["bytes", "gzip"]):
-            _not_supported(path, f"the codecs {codecs}")
-        endian = meta["codecs"][0].get("configuration", {}).get("endian",
-                                                                "little")
+        self.dtype, self.bfloat16 = _dtype(meta["data_type"])
+        endian, self.compressor = compressors.from_zarr3(
+            path, meta["codecs"], self.dtype.itemsize)
         self.shape = tuple(meta["shape"])
         self.chunks = tuple(grid["configuration"]["chunk_shape"])
-        self.dtype = np.dtype(meta["data_type"])
         self.stored = self.dtype.newbyteorder("<" if endian == "little"
                                               else ">")
-        self.gzip = codecs[-1] == "gzip"
-        self.fill_value = _fill(meta.get("fill_value"), self.dtype)
+        self.fill_value = _fill_of(meta.get("fill_value"), self.dtype,
+                                   self.bfloat16)
         encoding = meta.get("chunk_key_encoding", {"name": "default"})
         default = encoding["name"] == "default"
         self.separator = encoding.get("configuration", {}).get(
             "separator", "/" if default else ".")
-        self.prefix = ["c"] if default else []
+        self.key_prefix = ["c"] if default else []
 
     def _read_chunk(self, cell) -> np.ndarray:
         data = self._read_file(self.separator.join(
-            self.prefix + [str(i) for i in cell]))
+            self.key_prefix + [str(i) for i in cell]))
         if data is None:
             return self._fill_chunk()
-        if self.gzip:
-            data = _inflate(data)
-        return np.frombuffer(data, dtype=self.stored).reshape(
+        count = int(np.prod(self.chunks))
+        return self._decode(data, self.stored, count).reshape(
             self.chunks).astype(self.dtype)
 
 
 class N5Array(ChunkedArray):
-    """An N5 dataset in the directory ``path`` (read only), in the
-    dimension order of its ``attributes.json``, as tensorstore presents
-    it."""
+    """An N5 dataset at ``path`` (read only; with ``kv``: the key prefix
+    ``path`` in ``kv``), in the dimension order of its
+    ``attributes.json``, as tensorstore presents it."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, kv: Optional[KVBackend] = None):
         self.path = path
-        meta = _metadata(path, "attributes.json", "an N5 dataset")
-        compression = meta.get("compression", {"type": "raw"})
-        if compression.get("type") not in ("raw", "gzip"):
-            _not_supported(path, f"the {compression.get('type')} N5 "
-                                 f"compression")
+        self.kv, self.prefix = _store(path, kv)
+        meta = self._metadata("attributes.json", "an N5 dataset")
         self.shape = tuple(meta["dimensions"])
         self.chunks = tuple(meta["blockSize"])
         self.dtype = np.dtype(meta["dataType"])
-        self.gzip = compression["type"] == "gzip"
+        self.compressor = compressors.from_n5(
+            path, meta.get("compression"), self.dtype.itemsize)
         self.fill_value = self.dtype.type(0)
 
     def _read_chunk(self, cell) -> np.ndarray:
-        data = self._read_file(*(str(i) for i in cell))
+        data = self._read_file("/".join(str(i) for i in cell))
         if data is None:
             return self._fill_chunk()
         mode, rank = struct.unpack(">HH", data[:4])
@@ -282,25 +330,58 @@ class N5Array(ChunkedArray):
         # the block's own shape: an edge block may be smaller
         size = struct.unpack(f">{rank}I", data[4:4 + 4 * rank])
         body = data[4 + 4 * rank + (4 if mode == 1 else 0):]
-        if self.gzip:
-            body = _inflate(body)
-        values = np.frombuffer(body, dtype=self.dtype.newbyteorder(">"),
-                               count=int(np.prod(size)))
+        count = int(np.prod(size))
+        values = self._decode(body, self.dtype.newbyteorder(">"), count)
         block = self._fill_chunk()
         block[tuple(slice(0, s) for s in size)] = values.reshape(
             size, order="F")
         return block
 
 
-def open_array(path: str, driver: str = "zarr") -> ChunkedArray:
-    """The array at ``path`` in the format tensorstore's ``driver`` names:
-    ``zarr`` (v2), ``zarr3`` or ``n5``."""
+def open_array(path: str, driver: str = "zarr",
+               kv: Optional[KVBackend] = None) -> ChunkedArray:
+    """The array at ``path`` (a local path, ``file://``, ``gs://`` or
+    ``s3://``; with ``kv``, a key prefix in ``kv``) in the format
+    tensorstore's ``driver`` names: ``zarr`` (v2), ``zarr3`` or ``n5``."""
     return {"zarr": ZarrArray, "zarr3": Zarr3Array, "n5": N5Array}[driver](
-        path)
+        path, kv)
 
 
-def _write_atomic(path: str, data: bytes) -> None:
-    tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
+class ArrayBackend(StorageBackend):
+    """A :class:`ChunkedArray` on the storage plane (read only): its
+    chunks are the blocks, its domain starts at 0, as tensorstore's zarr
+    and N5 drivers present it."""
+
+    def __init__(self, array: ChunkedArray, token: str,
+                 max_workers: int = 8):
+        self.array = array
+        self.cache_token = token
+        self._pool = ThreadPoolExecutor(max_workers=max_workers,
+                                        thread_name_prefix="zarr-read")
+
+    @property
+    def domain(self):
+        return (0,) * len(self.array.shape), tuple(self.array.shape)
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self.array.dtype
+
+    @property
+    def block_shape(self):
+        return tuple(self.array.chunks)
+
+    def as_values(self, arr: np.ndarray):
+        """A cutout of this backend as :meth:`ChunkedArray.read_values`
+        gives it (a ``bfloat16`` array's bits as a ``torch.bfloat16``
+        tensor)."""
+        return bfloat16_tensor(arr) if self.array.bfloat16 else arr
+
+    def read_async(self, lo, hi):
+        return self._pool.submit(self.array.read, tuple(
+            slice(int(a), int(b)) for a, b in zip(lo, hi)))
+
+    def write_async(self, lo, hi, arr):
+        raise NotImplementedError(f"{self.array.path}: the storage-plane "
+                                  f"view of a zarr or N5 array is read "
+                                  f"only")

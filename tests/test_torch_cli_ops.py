@@ -359,10 +359,14 @@ def test_every_jax_command_runs_or_names_its_item(command):
 
 def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
     """Every command is ported; an option that is not (an orbax checkpoint
-    directory, a multi-device mesh) refuses its chain the same way."""
-    (tmp_path / "orbax").mkdir()
+    of zarr v3 arrays inside ``sharding_indexed``, a multi-device mesh)
+    refuses its chain the same way."""
+    from tests.test_torch_orbax import save
+
+    zarr3 = save(tmp_path / "orbax", {"conv_out": {"bias": np.zeros(
+        3, np.float32)}}, use_zarr3=True)
     for option, item in (
-            (["-f", "pytorch", "-w", str(tmp_path / "orbax")],
+            (["-f", "pytorch", "-w", zarr3],
              "convnet engines, orbax checkpoints"),
             (["-f", "identity", "--mesh", "data=2"], "multi-GPU engine")):
         with pytest.raises(NotImplementedError, match=item):
@@ -372,6 +376,21 @@ def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
                       "2", "8", "8"])
         # the chain is refused whole: nothing ran, the file was not written
         assert not os.path.exists(tmp_path / "x.h5")
+
+
+def test_inference_with_an_orbax_directory_matches_the_jax_cli():
+    """``inference -w <orbax dir>`` (the committed full-width parity
+    checkpoint) in both CLIs on one task: float32 within the forward
+    gate, 1e-5."""
+    from tests.test_torch_orbax import FIXTURE
+
+    args = ["inference", "-f", "flax", "-w", str(FIXTURE), "-p", "4", "16",
+            "16", "-v", "2", "8", "8", "-c", "3", "-b", "2"]
+    jax_out, port_out = run_both(args)
+    ref = np.asarray(jax_out[0]["chunk"].array, np.float64)
+    got = np.asarray(port_out[0]["chunk"].host().array, np.float64)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-5
 
 
 def test_threshold_after_create_chunk_parses():

@@ -516,3 +516,52 @@ def test_setup_env_on_a_cloud_volume(cloud):
     with pytest.raises(FileNotFoundError, match="no existing info"):
         jax_setup.setup_environment(volume_path=urls["port"],
                                     overwrite_info=False, **kwargs)
+
+
+@pytest.mark.parametrize("driver", ["zarr", "zarr3", "n5",
+                                    "neuroglancer_precomputed"])
+@pytest.mark.parametrize("scheme", ["gs", "s3"])
+def test_load_tensorstore_on_buckets_is_the_jax_plugin(cloud, scheme,
+                                                       driver):
+    """A dataset tensorstore writes into a bucket (its default codecs:
+    blosc for zarr and N5): the port's ``load_tensorstore`` over
+    ``scheme://`` and over tensorstore's kvstore spec equals the JAX
+    plugin's cutout."""
+    import tensorstore as ts
+
+    from chunkflow_tpu.flow.plugin import load_plugin as jax_load_plugin
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+
+    url = _url(scheme, driver)
+    kvstore = jax_precomputed._kvstore_spec(url)  # the fake's endpoint
+    data = np.random.default_rng(5).integers(0, 4000, (16, 40, 48)).astype(
+        np.uint16)
+    spec = {"driver": driver, "kvstore": kvstore}
+    if driver == "neuroglancer_precomputed":
+        spec.update(multiscale_metadata={"type": "image",
+                                         "data_type": "uint16",
+                                         "num_channels": 1},
+                    scale_metadata={"size": [48, 40, 16],
+                                    "resolution": [4, 4, 40],
+                                    "encoding": "raw",
+                                    "chunk_size": [16, 16, 8]})
+        store = ts.open(spec, create=True).result()
+        store[...] = data.transpose(2, 1, 0)[..., None]
+    else:
+        store = ts.open(spec, create=True, dtype="uint16", shape=data.shape,
+                        chunk_layout=ts.ChunkLayout(
+                            write_chunk_shape=[8, 16, 16])).result()
+        store[...] = data
+    box = ((2, 3, 5), (14, 37, 45))
+    if driver == "neuroglancer_precomputed":  # indexed x, y, z
+        box = tuple(b[::-1] for b in box)
+    ref = jax_load_plugin("load_tensorstore")(JaxBox(*box), driver=driver,
+                                              kvstore=kvstore)
+    for where in (url, kvstore):
+        got = load_plugin("load_tensorstore")(BoundingBox(*box),
+                                              driver=driver, kvstore=where)
+        assert np.array_equal(got.array, np.asarray(ref.array))
+    want = data[2:14, 3:37, 5:45]
+    if driver == "neuroglancer_precomputed":
+        want = want.transpose(2, 1, 0)[..., None]
+    assert np.array_equal(got.array, want)

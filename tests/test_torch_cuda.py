@@ -906,3 +906,36 @@ def test_synapse_plugins_on_a_card_chunk(cuda, tmp_path):
                  (card[1], host[1])):
         assert (a is None and b is None) or np.array_equal(a, b)
     assert card[2] == host[2] and card[2]
+
+
+def test_orbax_checkpoint_loads_on_the_card(cuda):
+    """The committed orbax checkpoint (OCDBT, zstd zarr arrays) read by the
+    port's own decoders into the parity engine on the card: the seeded
+    weights bitwise, and one chunk's kernel path bitwise its plain path."""
+    from pathlib import Path
+    from unittest import mock
+
+    from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
+
+    path = Path(__file__).resolve().parent / "data" / "orbax_parity_seed0"
+    inferencer = Inferencer(input_patch_size=(4, 32, 32),
+                            output_patch_overlap=(2, 8, 8),
+                            num_output_channels=3, framework="flax",
+                            model_variant="parity", weight_path=str(path),
+                            batch_size=2)
+    model = inferencer.engine.model
+    assert next(model.parameters()).is_cuda
+    seeded = seeded_init(UNet3D(in_channels=1, out_channels=3),
+                         torch.Generator().manual_seed(0))
+    loaded = model.state_dict()
+    for key, value in seeded.state_dict().items():
+        assert torch.equal(loaded[key].cpu(), value), key
+    chunk = Chunk(np.random.default_rng(21).integers(
+        0, 256, (6, 64, 64)).astype(np.uint8))
+    got = inferencer(chunk).host().array
+    with mock.patch.object(gather, "gather_patches",
+                           gather.gather_patches_plain), \
+            mock.patch.object(accumulate, "fused_accumulate_patches",
+                              accumulate.fused_accumulate_patches_plain):
+        plain = inferencer(chunk).host().array
+    assert np.isfinite(got).all() and np.array_equal(got, plain)

@@ -296,11 +296,19 @@ def test_zarr_written_by_tensorstore_reads_in_the_port(tmp_path, compressor,
 
 
 def test_zarr_null_fill_reads_as_zeros_and_blosc_raises(tmp_path):
+    """tensorstore's default zarr store (blosc, a null fill) reads
+    bitwise; a blosc cname tensorstore does not write raises naming its
+    item."""
     store = _ts_open(tmp_path / "b", create=True, dtype="float32",
                      shape=(4, 6, 8))  # tensorstore's defaults: blosc, null
     meta = json.loads((tmp_path / "b" / ".zarray").read_text())
     assert meta["compressor"]["id"] == "blosc" and meta["fill_value"] is None
-    store[...] = _arr("float32", (4, 6, 8))
+    store[1:4] = _arr("float32", (3, 6, 8))
+    want = np.zeros((4, 6, 8), np.float32)
+    want[1:4] = _arr("float32", (3, 6, 8))
+    assert np.array_equal(ZarrArray(str(tmp_path / "b")).read(), want)
+    meta["compressor"]["cname"] = "lzma"
+    (tmp_path / "b" / ".zarray").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="chunk file formats"):
         ZarrArray(str(tmp_path / "b"))
     meta.update(compressor={"id": "zlib", "level": 1})
@@ -308,6 +316,34 @@ def test_zarr_null_fill_reads_as_zeros_and_blosc_raises(tmp_path):
     (tmp_path / "n" / ".zarray").write_text(json.dumps(meta))
     assert np.array_equal(ZarrArray(str(tmp_path / "n")).read(),
                           np.zeros((4, 6, 8), np.float32))
+
+
+def test_jax_save_zarr_reads_in_the_port(tmp_path):
+    """The JAX CLI's ``save-zarr`` creates its store with tensorstore's
+    default compressor (blosc); the port CLI's ``load-zarr`` and the
+    port's ``load_tensorstore`` plugin read it bitwise."""
+    from chunkflow_tpu.core.bbox import BoundingBox as JaxBox
+    from chunkflow_tpu_torch import BoundingBox
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+
+    arr = _arr("uint16", (6, 20, 24), seed=11)
+    task = jax_new_task()
+    task["chunk"] = JaxChunk(arr.copy(), voxel_offset=(2, 4, 8))
+    store = str(tmp_path / "z")
+    list(jax_stage(["save-zarr", "-p", store])(iter([task])))
+    meta = json.loads((tmp_path / "z" / ".zarray").read_text())
+    assert meta["compressor"]["id"] == "blosc"
+    box = ((2, 4, 8), (8, 24, 32))
+    args = ["load-zarr", "-p", store]
+    port_task, jax_task = new_task(), jax_new_task()
+    port_task["bbox"], jax_task["bbox"] = BoundingBox(*box), JaxBox(*box)
+    got = list(port_stage(args)(iter([port_task])))[0]["chunk"]
+    ref = list(jax_stage(args)(iter([jax_task])))[0]["chunk"]
+    assert_same_chunk(got, ref)
+    assert np.array_equal(got.array, arr)
+    plugin = load_plugin("load_tensorstore")(BoundingBox(*box),
+                                            kvstore=f"file://{store}")
+    assert np.array_equal(plugin.array, arr)
 
 
 def test_zarr_selection_outside_the_array_raises(tmp_path):
@@ -428,19 +464,36 @@ def test_load_zarr_drivers_match_the_jax_cli(tmp_path, name):
 @pytest.mark.parametrize("driver", ["zarr3", "n5"],
                          ids=["zarr3-zstd", "n5-blosc"])
 def test_zarr3_and_n5_codecs_outside_the_stdlib_raise(tmp_path, driver):
+    """zstd zarr v3 and blosc N5 (tensorstore's N5 default) read bitwise;
+    a codec the port still lacks (zarr v3 ``sharding_indexed``, N5 xz)
+    raises naming its item."""
     from chunkflow_tpu_torch.volume.zarr import open_array
 
     ts = pytest.importorskip("tensorstore")
-    spec = {"driver": driver, "kvstore": {"driver": "file",
-                                          "path": str(tmp_path / "s")}}
-    kwargs = {}
-    if driver == "zarr3":
-        kwargs["codec"] = ts.CodecSpec({"driver": "zarr3",
-                                        "codecs": [{"name": "zstd"}]})
-    ts.open(spec, create=True, dtype="uint8", shape=(4, 5, 6),
-            **kwargs).result()  # tensorstore's N5 default: blosc
-    with pytest.raises(NotImplementedError, match="chunk file formats"):
-        open_array(str(tmp_path / "s"), driver)
+    arr = _arr("uint16", (4, 5, 6), seed=12)
+    codecs = {"zarr3": [{"name": "bytes"}, {"name": "zstd"}]}
+    unported = {
+        "zarr3": {"codec": ts.CodecSpec({"driver": "zarr3", "codecs": [{
+            "name": "sharding_indexed", "configuration": {
+                "chunk_shape": [2, 5, 6], "codecs": [{"name": "bytes"}],
+                "index_codecs": [{"name": "bytes"},
+                                 {"name": "crc32c"}]}}]})},
+        "n5": {"codec": ts.CodecSpec({"driver": "n5",
+                                      "compression": {"type": "xz"}})}}
+    for name, kwargs in (("s", {"codec": ts.CodecSpec(
+            {"driver": "zarr3", "codecs": codecs["zarr3"]})}
+            if driver == "zarr3" else {}), ("u", unported[driver])):
+        spec = {"driver": driver, "kvstore": {"driver": "file",
+                                              "path": str(tmp_path / name)}}
+        store = ts.open(spec, create=True, dtype="uint16", shape=arr.shape,
+                        **kwargs).result()
+        store[...] = arr
+        if name == "s":
+            assert np.array_equal(open_array(str(tmp_path / name),
+                                             driver).read(), arr)
+            continue
+        with pytest.raises(NotImplementedError, match="chunk file formats"):
+            open_array(str(tmp_path / name), driver)
 
 
 # ---------------------------------------------------------------------------

@@ -29,10 +29,12 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "chunkflow_tpu_torch"
 # and the cloud packages: the port speaks HTTP, SigV4 and RS256 itself,
-# with what the card machine has
+# with what the card machine has; and the compression packages: the port
+# decodes zstd, blosc and lz4 in its own host C++
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "chunkflow_tpu", "tensorstore", "click", "boto3", "botocore",
-             "google", "requests", "urllib3", "cryptography")
+             "google", "requests", "urllib3", "cryptography", "zstandard",
+             "lz4", "blosc", "numcodecs")
 
 
 def _forbidden(module: str) -> bool:
@@ -91,7 +93,9 @@ def test_importing_every_module_loads_no_jax():
                  "plugins.synapse.detect_duplicate_post",
                  "plugins.synapse.find_tbar_object", "cloud.http",
                  "cloud.aws", "cloud.google", "cloud.gcs", "cloud.s3",
-                 "cloud.sqs", "testing.cloud_fakes"):
+                 "cloud.sqs", "testing.cloud_fakes", "volume.zstd",
+                 "volume.blosc", "volume.compressors", "volume.ocdbt",
+                 "models.orbax", "plugins.load_tensorstore"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     # what the interpreter loads before the first line (a site-packages
     # .pth file may pre-import a namespace package such as ``google``) is

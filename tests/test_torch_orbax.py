@@ -1,0 +1,177 @@
+"""Orbax checkpoint directories in the port (``models/orbax.py``)
+against the JAX package on the CPU.
+
+The JAX package restores ``inference -w <dir>`` with
+``StandardCheckpointer().restore``; the port reads the same directory
+without orbax. For each family (parity, ``rsunet``, ``tpu``,
+``tpu_s2d4``), with ``use_ocdbt`` on and off, the port's engine holds
+weights bitwise equal to the JAX ``init_or_load_params`` put through
+``state_from_flax``. The committed full-width parity checkpoint
+``tests/data/orbax_parity_seed0`` (``python -m tests.test_torch_orbax``
+rewrites it) holds the seeded tree ``chip_smoke.py`` loads on the card,
+and a fresh save of that tree reads the same. What the port does not
+read raises naming its ROADMAP item.
+"""
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from chunkflow_tpu_torch.models import orbax
+from chunkflow_tpu_torch.models.convert import state_from_flax
+from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
+
+ocp = pytest.importorskip("orbax.checkpoint")
+
+torch.set_num_threads(1)
+
+FIXTURE = Path(__file__).resolve().parent / "data" / "orbax_parity_seed0"
+PIN = (4, 16, 16)
+ITEM = "convnet engines, orbax checkpoints"
+
+
+def seeded_tree():
+    """The flax-layout tree of the seeded full-width parity UNet3D
+    (``chip_smoke.py`` phases 5 and 21)."""
+    from chip_smoke import _flax_layout
+
+    model = seeded_init(UNet3D(in_channels=1, out_channels=3),
+                        torch.Generator().manual_seed(0))
+    return _flax_layout(model.state_dict())
+
+
+def save(path, tree, **options):
+    """``tree`` saved as orbax saves it (``StandardCheckpointer`` with
+    ``options`` for its handler)."""
+    handler = (ocp.PyTreeCheckpointHandler(**options) if options
+               else ocp.StandardCheckpointHandler())
+    checkpointer = ocp.Checkpointer(handler)
+    args = (ocp.args.PyTreeSave(tree) if options
+            else ocp.args.StandardSave(tree))
+    checkpointer.save(str(path), args=args)
+    return str(path)
+
+
+def jax_model(variant):
+    from chunkflow_tpu.models import rsunet, unet3d
+
+    if variant == "rsunet":
+        return rsunet.RSUNet(in_channels=1, out_channels=3)
+    if variant == "parity":
+        return unet3d.UNet3D(in_channels=1, out_channels=3)
+    return unet3d.create_tpu_optimized_model(
+        1, 3, s2d_factor=(1, 4, 4) if variant == "tpu_s2d4" else (1, 2, 2))
+
+
+def jax_state(variant, path):
+    """The JAX package's restore of ``path`` (``init_or_load_params``), in
+    the port's layout. Its template's shapes are traced, not computed: a
+    full-width ``model.init`` compiles for tens of seconds on the CPU, and
+    orbax restores into abstract arrays alike."""
+    import jax
+
+    from chunkflow_tpu.models import unet3d
+
+    real = unet3d.init_params
+    unet3d.init_params = lambda *args, **kwargs: jax.eval_shape(
+        lambda: real(*args, **kwargs))
+    try:
+        params = unet3d.init_or_load_params(jax_model(variant), path, PIN, 1)
+    finally:
+        unet3d.init_params = real
+    return state_from_flax(jax.tree_util.tree_map(np.asarray, params))
+
+
+def assert_same_state(got, want):
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+
+
+def test_the_committed_checkpoint_is_the_seeded_tree(tmp_path):
+    """The fixture, a fresh save of the same tree and the JAX restore of
+    the fixture all give the seeded weights."""
+    seeded = seeded_init(UNet3D(in_channels=1, out_channels=3),
+                         torch.Generator().manual_seed(0)).state_dict()
+    tree = seeded_tree()
+    want = state_from_flax(tree)
+    for key, value in seeded.items():
+        assert torch.equal(want[key], value)
+    assert_same_state(state_from_flax(orbax.load_params(str(FIXTURE))), want)
+    fresh = save(tmp_path / "fresh", tree)
+    assert_same_state(state_from_flax(orbax.load_params(fresh)), want)
+    assert_same_state(jax_state("parity", str(FIXTURE)), want)
+    metadata = json.loads((FIXTURE / "_METADATA").read_text())
+    assert metadata["use_ocdbt"] and not metadata["use_zarr3"]
+    size = sum(p.stat().st_size for p in FIXTURE.rglob("*") if p.is_file())
+    assert size < 3 * 2 ** 20
+
+
+@pytest.mark.parametrize("use_ocdbt", [True, False], ids=["ocdbt", "files"])
+@pytest.mark.parametrize("variant", ["parity", "rsunet", "tpu", "tpu_s2d4"])
+def test_every_family_loads_bitwise_the_jax_restore(tmp_path, variant,
+                                                    use_ocdbt):
+    from chunkflow_tpu_torch.inference import engines
+    from tests.test_torch_models import draw_params
+
+    params = draw_params(jax_model(variant), PIN, seed=3)
+    path = str(tmp_path / "ck")
+    checkpointer = ocp.Checkpointer(
+        ocp.StandardCheckpointHandler(use_ocdbt=use_ocdbt))
+    checkpointer.save(path, args=ocp.args.StandardSave(params))
+    assert (Path(path) / "manifest.ocdbt").exists() == use_ocdbt
+    engine = engines.create_engine("flax", weight_path=path,
+                                   model_variant=variant,
+                                   num_output_channels=3)
+    assert_same_state(engine.model.state_dict(), jax_state(variant, path))
+
+
+def test_a_bfloat16_leaf_reads_as_float32_exactly(tmp_path):
+    import jax.numpy as jnp
+
+    values = np.random.default_rng(1).normal(size=(3, 5)).astype(np.float32)
+    tree = {"a": {"kernel": jnp.asarray(values, jnp.bfloat16),
+                  "bias": values[0]}}
+    got = orbax.load_params(save(tmp_path / "ck", tree))
+    want = np.asarray(jnp.asarray(values, jnp.bfloat16).astype(jnp.float32))
+    assert got["a"]["kernel"].dtype == np.float32
+    assert np.array_equal(got["a"]["kernel"], want)
+    assert np.array_equal(got["a"]["bias"], values[0])
+
+
+def test_what_the_port_does_not_read_raises_naming_its_item(tmp_path):
+    tree = {"a": {"bias": np.arange(4, dtype=np.float32)}}
+    # zarr v3 arrays inside a sharding_indexed codec
+    for use_ocdbt in (True, False):
+        path = save(tmp_path / f"z3{use_ocdbt}", tree, use_zarr3=True,
+                    use_ocdbt=use_ocdbt)
+        with pytest.raises(NotImplementedError, match=ITEM) as info:
+            orbax.load_params(path)
+        assert "sharding_indexed" in str(info.value)
+    # a save whose processes' stores the root does not merge
+    path = save(tmp_path / "split", tree)
+    (Path(path) / "manifest.ocdbt").unlink()
+    with pytest.raises(NotImplementedError, match=ITEM):
+        orbax.load_params(path)
+    # a value type other than an array
+    path = save(tmp_path / "scalar", tree)
+    meta = json.loads((Path(path) / "_METADATA").read_text())
+    for leaf in meta["tree_metadata"].values():
+        leaf["value_metadata"]["value_type"] = "scalar"
+    (Path(path) / "_METADATA").write_text(json.dumps(meta))
+    with pytest.raises(NotImplementedError, match=ITEM):
+        orbax.load_params(path)
+    with pytest.raises(ValueError, match="not an orbax checkpoint"):
+        orbax.load_params(str(tmp_path))
+
+
+def write_fixture() -> None:
+    shutil.rmtree(FIXTURE, ignore_errors=True)
+    save(FIXTURE, seeded_tree())
+
+
+if __name__ == "__main__":
+    write_fixture()

@@ -27,7 +27,10 @@ from tests.test_torch_chunk import assert_same_chunk
 from tests.test_torch_cli_ops import (
     OFFSET,
     VSIZE,
+    _tasks,
     assert_same_tasks,
+    jax_stage,
+    port_stage,
     run_both,
 )
 
@@ -255,16 +258,22 @@ UNPORTED = ["skeletonize", "aggregate_skeleton_fragments", "adjust_pre",
 #: does without
 PACKAGE_GATED = {"clahe": "cv2", "czann_inference": "czmodel",
                  "napari_pixel_classifier": "apoc",
-                 "aws/cloud_watch": "boto3", "load_tensorstore": "tensorstore"}
+                 "aws/cloud_watch": "boto3"}
 
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
     """The JAX package finds each of these among its bundled plugins. The
-    five that need a package the port does without raise naming it, at
-    the command's build; the seven the annotations brought run, equal to
-    the JAX package's."""
+    four that need a package the port does without raise naming it, at
+    the command's build; the seven the annotations brought and
+    ``load_tensorstore`` run, equal to the JAX package's."""
     assert os.path.exists(jplugin.find_plugin(name))
+    if name == "load_tensorstore":
+        root, _ = _ts_dataset(tmp_path, "zarr")
+        run_both_plugins(["-n", "load_tensorstore", "-i", "bbox", "-o",
+                          "chunk", "-a", f"driver=zarr;kvstore=file://{root}"
+                          ";voxel_size=(40,4,4)"])
+        return
     if name not in PACKAGE_GATED:
         run_annotation_plugin(ANNOTATION_PLUGINS[name.split("/")[-1]],
                               tmp_path, capsys)
@@ -273,6 +282,104 @@ def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
                        match="annotations and plugins") as info:
         cli.build_stages(["--device", "cpu", "plugin", "-n", name])
     assert PACKAGE_GATED[name] in str(info.value)
+
+
+# ---------------------------------------------------------------------------
+# load_tensorstore
+# ---------------------------------------------------------------------------
+TS_DATA = np.random.default_rng(0).integers(1, 255, size=(32, 64, 64),
+                                            dtype=np.uint8)
+
+
+def _ts_dataset(tmp_path, driver):
+    """``tests/test_plugins_tensorstore.py``'s fixture array written by
+    tensorstore in ``driver``'s format, 16x32x32 chunks; precomputed as
+    x, y, z, channel at an offset."""
+    ts = pytest.importorskip("tensorstore")
+    root = str(tmp_path / driver)
+    spec = {"driver": driver, "kvstore": {"driver": "file", "path": root}}
+    data = TS_DATA
+    if driver == "neuroglancer_precomputed":
+        spec.update(multiscale_metadata={"type": "image",
+                                         "data_type": "uint8",
+                                         "num_channels": 1},
+                    scale_metadata={"size": [64, 64, 32],
+                                    "resolution": [4, 4, 40],
+                                    "encoding": "raw",
+                                    "chunk_size": [32, 32, 16],
+                                    "voxel_offset": [3, 5, 7]})
+        store = ts.open(spec, create=True).result()
+        store[...] = data.transpose(2, 1, 0)[..., None]
+        return root, data
+    store = ts.open(spec, create=True, dtype="uint8", shape=data.shape,
+                    chunk_layout=ts.ChunkLayout(
+                        write_chunk_shape=[16, 32, 32])).result()
+    store[...] = data
+    return root, data
+
+
+def run_both_plugins(args):
+    """One ``plugin`` command through both CLIs on one task with a bbox:
+    the chunks are the same."""
+    from chunkflow_tpu.core.bbox import BoundingBox as JaxBox
+    from chunkflow_tpu_torch import BoundingBox
+
+    box = ((4, 8, 8), (28, 56, 60))
+    jax_task, port_task = _tasks()
+    jax_task["bbox"], port_task["bbox"] = JaxBox(*box), BoundingBox(*box)
+    ref = list(jax_stage(["plugin", *args])(iter([jax_task])))[0]["chunk"]
+    got = list(port_stage(["plugin", *args])(iter([port_task])))[0]["chunk"]
+    assert_same_chunk(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("driver", ["zarr", "zarr3", "n5",
+                                    "neuroglancer_precomputed"])
+def test_load_tensorstore_is_the_jax_plugin(tmp_path, driver):
+    """Each driver over ``file://`` and a kvstore spec, and with the block
+    cache, bitwise the JAX plugin."""
+    from chunkflow_tpu.core.bbox import BoundingBox as JaxBox
+    from chunkflow_tpu_torch import BoundingBox
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.volume import storage
+
+    root, data = _ts_dataset(tmp_path, driver)
+    execute = plugin.load_plugin("load_tensorstore")
+    jexecute = jplugin.load_plugin("load_tensorstore")
+    box = ((3, 6, 9), (29, 60, 61)) if driver != "neuroglancer_precomputed" \
+        else ((9, 10, 12), (60, 66, 36))
+    for kvstore in (f"file://{root}", {"driver": "file", "path": root}):
+        ref = jexecute(JaxBox(*box), driver=driver, kvstore=kvstore,
+                       voxel_size=(40, 4, 4))
+        got = execute(BoundingBox(*box), driver=driver, kvstore=kvstore,
+                      voxel_size=(40, 4, 4))
+        assert_same_chunk(got, ref)
+    if driver != "neuroglancer_precomputed":
+        assert np.array_equal(got.array, data[tuple(
+            slice(a, b) for a, b in zip(*box))])
+    storage.reset_shared_cache()
+    telemetry.reset()
+    try:
+        for _ in range(2):
+            cached = execute(BoundingBox(*box), driver=driver,
+                             kvstore=f"file://{root}", cache=1)
+            assert np.array_equal(cached.array, got.array)
+        counters = telemetry.snapshot()["counters"]
+        assert counters["storage/hits"] == counters["storage/block_reads"]
+    finally:
+        storage.reset_shared_cache()
+        telemetry.reset()
+
+
+def test_load_tensorstore_unported_driver_raises(tmp_path):
+    from chunkflow_tpu_torch import BoundingBox
+
+    execute = plugin.load_plugin("load_tensorstore")
+    box = BoundingBox((0, 0, 0), (1, 1, 1))
+    with pytest.raises(NotImplementedError, match="annotations and plugins"):
+        execute(box, driver="zarr", kvstore=f"memory://{tmp_path}")
+    with pytest.raises(NotImplementedError, match="annotations and plugins"):
+        execute(box, driver="json", kvstore=f"file://{tmp_path}")
 
 
 def test_unported_names_exactly_the_package_gated_plugins():

@@ -353,17 +353,21 @@ def test_cloud_roots_open_and_unknown_codecs_raise(tmp_path, monkeypatch):
             _port_read(tmp_path / name, FULL)
         with pytest.raises(ValueError):
             _jax_read(tmp_path / name, FULL)
-    # a zarr store whose codec the port lacks (tensorstore's default,
-    # blosc) raises naming its item
+    # a zarr store in tensorstore's default codec (blosc) reads; one
+    # whose compressor the port lacks raises naming its item
     from chunkflow_tpu_torch.volume.zarr import ZarrArray
 
     (tmp_path / "z").mkdir()
-    (tmp_path / "z" / ".zarray").write_text(json.dumps({
+    meta = {
         "zarr_format": 2, "shape": [4, 4, 4], "chunks": [4, 4, 4],
         "dtype": "|u1", "order": "C", "filters": None, "fill_value": None,
         "dimension_separator": ".",
         "compressor": {"id": "blosc", "cname": "lz4", "clevel": 5,
-                       "shuffle": -1, "blocksize": 0}}))
+                       "shuffle": -1, "blocksize": 0}}
+    (tmp_path / "z" / ".zarray").write_text(json.dumps(meta))
+    assert not ZarrArray(str(tmp_path / "z")).read().any()
+    meta["compressor"] = {"id": "lzma"}
+    (tmp_path / "z" / ".zarray").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="chunk file formats"):
         ZarrArray(str(tmp_path / "z"))
 
