@@ -210,7 +210,8 @@ non-zero exit and no result line:
              ids, each one tree, each swc read back equal; the cuts,
              objects, nodes, ms per object, cable length
 20. cloud    phase 10's worker on the cloud plane, against local fakes of
-             GCS, S3 and SQS in a process of their own (SigV4 checked,
+             GCS, S3, SQS and CloudWatch in a process of their own (SigV4
+             checked,
              GCS bearer tokens from a service account's RS256 JWT, 1%
              seeded 503s): phase 10's input copied to
              ``gs://chunkflow-in/img`` (MB/s), phase 17's sharded raw
@@ -222,11 +223,13 @@ non-zero exit and no result line:
              output volume bitwise ``Inferencer.__call__`` on each cutout,
              each task acked once, the queue and ``tasks-dead`` empty, 18 +
              18 launches per computed task, a 412 on a shared shard; then
-             the chain in process without and with 25 ms added to every
-             request: bitwise, s/task and Mvox/s beside phase 10's,
-             requests by verb per task, bytes, retries, 412s, host ms in
-             ``storage/read``, ``storage/write``, ``lifecycle/commit``,
-             the drain's wall with the workers' last long polls
+             the chain in process: bitwise, s/task and Mvox/s beside phase
+             10's, requests by verb per task, bytes, retries, 412s, host
+             ms in ``storage/read``, ``storage/write``,
+             ``lifecycle/commit``, the drain's wall with the workers' last
+             long polls; that run's telemetry snapshot published through
+             the ``aws/cloud_watch`` plugin to the CloudWatch fake
+             (batches of at most 20, the MetricData count)
 21. checkpoints  the committed orbax checkpoint of the seeded parity
              UNet3D (``tests/data/orbax_parity_seed0``: OCDBT, zstd zarr
              v2 arrays) into the full-width parity engine, its weights
@@ -238,6 +241,22 @@ non-zero exit and no result line:
              blosc decoders' MB/s beside their plain versions' (the
              checkpoint's largest chunk, the committed blosc store
              ``tests/data/blosc_zarr``)
+22. mesh     the mesh engine in one process, its shards on this card
+             repeated (N shards on one card measure the engine's
+             overhead, not multi-GPU scaling), on the 64x512x512 chunk:
+             identity at ``data=4``, ``y=4``, ``y=2,x=2`` and
+             ``pipeline=4`` and ``y=2,x=2`` under
+             ``CHUNKFLOW_SHARD_REPLAY=replicated``; the full-width parity
+             UNet3D (phase 5's weights) in float32 at ``data=4`` and
+             ``y=2,x=2``; ``tpu_s2d4`` in bfloat16 at ``data=2``: each
+             bitwise ``Inferencer.__call__`` on one device, the dispatch
+             under ``torch.cuda``'s sync debug mode "error", the gather
+             and accumulate launched; identity ``y=2,x=2`` through the
+             plain path too, bitwise; the packer under ``data=2`` (four
+             requests, parity float32), each bitwise its one-device call;
+             s/chunk beside one device, launches, the ``shard/*`` byte
+             counters, the padded extents, peak memory beside the
+             analytic replay buffers
 
 The script prints the seconds of each phase and its total. Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -365,15 +384,31 @@ SKELETON_CROP = (56, 384, 192)
 SKELETON_VOXELS = 2
 SKELETON_PATHS = 200
 # phase 20: the cloud fakes' seeded share of 503s, the queue's visibility
-# timeout (s), the latency the fakes add to every request in the second
-# in-process run (ms), and the workers' time limit (s)
+# timeout (s) and the workers' time limit (s)
 CLOUD_FAIL_RATE = 0.01
 CLOUD_VISIBILITY_S = 8
 # the fake's cap on an SQS long poll: a worker with -r 0 ends at its first
 # empty receive, which real SQS holds for 20 s
 CLOUD_LONG_POLL_S = 4
-CLOUD_DELAY_MS = 25
 CLOUD_WORKER_S = 300
+# the namespace phase 20 publishes its telemetry snapshot under
+CLOUD_WATCH_NAMESPACE = "chunkflow-smoke"
+# phase 22: the mesh engine on the card repeated: each family's
+# inferencer keywords, its runs (family, CHUNKFLOW_MESH,
+# CHUNKFLOW_SHARD_REPLAY), the run also taken through the plain path, and
+# the packer's family, mesh and requests
+MESH_RUNS = (("identity", "data=4", "sharded"),
+             ("identity", "y=4", "sharded"),
+             ("identity", "y=2,x=2", "sharded"),
+             ("identity", "pipeline=4", "sharded"),
+             ("identity", "y=2,x=2", "replicated"),
+             ("parity float32", "data=4", "sharded"),
+             ("parity float32", "y=2,x=2", "sharded"),
+             ("tpu_s2d4 bfloat16", "data=2", "sharded"))
+MESH_PLAIN_RUN = ("identity", "y=2,x=2", "sharded")
+MESH_PACK = ("parity float32", "data=2")
+MESH_PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
+                    (64, 512, 512))
 # phase 11: the README's worker chain on phase 10's input volume; its
 # roi starts off the mask's grid (y 72, x 68: not multiples of 16); the
 # mask volume's voxels are 1 x 16 x 16 of the image's
@@ -1511,8 +1546,8 @@ def main() -> int:
             inference=["--framework", "pytorch", "--model-variant",
                        "parity", "--dtype", "float32"],
             fail_rate=CLOUD_FAIL_RATE, visibility=CLOUD_VISIBILITY_S,
-            long_poll=CLOUD_LONG_POLL_S,
-            delay_ms=CLOUD_DELAY_MS, worker_s=CLOUD_WORKER_S,
+            long_poll=CLOUD_LONG_POLL_S, worker_s=CLOUD_WORKER_S,
+            namespace=CLOUD_WATCH_NAMESPACE,
             raw_s_per_task=volume_s.get("parity float32")),
             weights=state, reset_counts=reset_counts,
             counts=counts).items():
@@ -1528,13 +1563,32 @@ def main() -> int:
             per_chunk=phase5_launches),
             state, reset_counts, counts, plain_functions).items():
         kernels[kname]["launches"] += n
+
+    # ---- 22. mesh: the mesh engine, its shards on this card repeated ----
+    lap("22 mesh")
+    torch.cuda.empty_cache()
+    for kname, n in mesh_phase(torch, dict(
+            chunk=chunk_u8.host().array, pin=PIN, overlap=OVERLAP,
+            batch=BATCH, device="cuda", card=card, runs=MESH_RUNS,
+            families={
+                "identity": dict(framework="identity"),
+                "parity float32": dict(framework="pytorch",
+                                       model_variant="parity",
+                                       weight_path=str(weights)),
+                "tpu_s2d4 bfloat16": dict(framework="pytorch",
+                                          model_variant="tpu_s2d4",
+                                          dtype="bfloat16")},
+            plain_run=MESH_PLAIN_RUN, pack_family=MESH_PACK[0],
+            pack_mesh=MESH_PACK[1], pack_shapes=MESH_PACK_SHAPES),
+            reset_counts, counts, plain_functions).items():
+        kernels[kname]["launches"] += n
     lap("end")
     spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
              in zip(laps[1:-1], laps[2:])}
+    last = spans["20 cloud"] + spans["21 checkpoints"] + spans["22 mesh"]
     phase("timing", f"seconds per phase: {json.dumps(spans)}; phases 20 "
-                    f"and 21 together "
-                    f"{spans['20 cloud'] + spans['21 checkpoints']:.1f} s; "
-                    f"the script {laps[-1][1] - laps[0][1]:.1f} s")
+                    f"to 22 together {last:.1f} s; the script "
+                    f"{laps[-1][1] - laps[0][1]:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -5175,7 +5229,7 @@ def annotations_phase(torch, cfg, weights, reset_counts, counts):
 
 def cloud_phase(torch, cfg, weights, reset_counts, counts):
     """Phase 20: phase 10's worker on the cloud plane, against local fakes
-    of GCS, S3 and SQS in a process of their own
+    of GCS, S3, SQS and CloudWatch in a process of their own
     (``python -m chunkflow_tpu_torch.testing.cloud_fakes``: SigV4 checked
     on S3 and SQS, GCS bearer tokens from a service-account file's JWT on
     the fake's token endpoint, ``cfg["fail_rate"]`` seeded 503s).
@@ -5195,13 +5249,16 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
     ``Inferencer.__call__`` on each cutout, each task acked once, the
     queue and ``tasks-dead`` empty, ``per_task`` launches of each kernel
     per computed task in the survivor's run counters, a 412 on a shared
-    shard. Then the same chain in this process, twice, into fresh outputs
-    and queues: without added latency, and with ``cfg["delay_ms"]`` ms the
-    fakes add to every request; each bitwise, counted and timed: s/task,
-    Mvox/s, requests by verb per task, bytes, retries, 412s, host ms in
-    ``storage/read``, ``storage/write`` and ``lifecycle/commit``.
+    shard. Then the same chain in this process, into a fresh output and
+    queue: bitwise, counted and timed: s/task, Mvox/s, requests by verb
+    per task, bytes, retries, 412s, host ms in ``storage/read``,
+    ``storage/write`` and ``lifecycle/commit``; and that run's telemetry
+    snapshot published through the ``aws/cloud_watch`` plugin (the port's
+    own SigV4 ``PutMetricData`` client) to the CloudWatch fake under
+    ``cfg["namespace"]``: batches of at most 20, each datum with its
+    ``worker`` dimension, the count printed.
 
-    Returns the kernels' launches in the first in-process run."""
+    Returns the kernels' launches in the in-process run."""
     import itertools
     import signal
     import tempfile
@@ -5279,7 +5336,7 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
                 str(tmp / "sa.json"), str(key), urls["gcs"] + "/token")
             os.environ.update(cloud_fakes.cloud_env(
                 gcs=urls["gcs"], s3=urls["s3"], sqs=urls["sqs"],
-                credentials=sa))
+                credentials=sa, cloudwatch=urls["cloudwatch"]))
             os.environ["HOME"] = str(tmp / "home")
             env = {k: v for k, v in os.environ.items()
                    if k != "CHUNKFLOW_CHAOS"}
@@ -5305,7 +5362,8 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
             storage.reset_shared_cache()
             gcs_up = stats("gcs")
             phase("cloud", f"fakes at {urls['gcs']}, {urls['s3']}, "
-                           f"{urls['sqs']} (SigV4 checked, bearer tokens "
+                           f"{urls['sqs']}, {urls['cloudwatch']} (SigV4 "
+                           f"checked, bearer tokens "
                            f"from a service account's JWT, "
                            f"{cfg['fail_rate']:.0%} seeded 503s); input "
                            f"{cfg['volume']} uint8 to {vol_in} in blocks of "
@@ -5497,79 +5555,97 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
                            f"shard conflicts "
                            f"{counters.get('storage/shard_conflicts', 0):g}")
 
-            # ---- the same chain in this process, twice ---------------------
-            launched = None
-            for run, delay_ms in (("run", 0), ("delay", cfg["delay_ms"])):
-                out, queue = output(f"aff-{run}", f"tasks-{run}")
-                _, stages = cli.build_stages(
-                    dev_args + worker_args(queue, out, 0, num=len(boxes)))
-                for name in ("gcs", "s3", "sqs"):
-                    cloud_fakes.control(urls[name], delay_s=delay_ms / 1e3,
-                                        reset_stats=True)
-                storage.reset_shared_cache()
-                telemetry.reset()
-                reset_counts()
-                sync()
-                t = time.perf_counter()
-                done = process_stream(stages)
-                sync()
-                run_s = time.perf_counter() - t
-                got_launches = counts()
-                snap = telemetry.snapshot()
-                for name in ("gcs", "s3", "sqs"):
-                    cloud_fakes.control(urls[name], delay_s=0.0)
-                require(done == len(boxes), f"cloud: {done} tasks drained")
-                for kname, k in got_launches.items():
-                    require(not on_card or k == per_task * len(boxes),
-                            f"cloud: {kname} launched {k} times, not "
-                            f"{per_task * len(boxes)}")
-                if launched is None:
-                    launched = got_launches
-                drained(queue)
-                check_volume(out, f"the in-process run ({delay_ms} ms)")
-                c = snap["counters"]
-                require(c.get("storage/shard_conflicts", 0) >= 1,
-                        "cloud: the forced race was not retried")
+            # ---- the same chain in this process ---------------------------
+            out, queue = output("aff-run", "tasks-run")
+            _, stages = cli.build_stages(
+                dev_args + worker_args(queue, out, 0, num=len(boxes)))
+            for name in ("gcs", "s3", "sqs"):
+                cloud_fakes.control(urls[name], reset_stats=True)
+            storage.reset_shared_cache()
+            telemetry.reset()
+            reset_counts()
+            sync()
+            t = time.perf_counter()
+            done = process_stream(stages)
+            sync()
+            run_s = time.perf_counter() - t
+            launched = counts()
+            snap = telemetry.snapshot()
+            require(done == len(boxes), f"cloud: {done} tasks drained")
+            for kname, k in launched.items():
+                require(not on_card or k == per_task * len(boxes),
+                        f"cloud: {kname} launched {k} times, not "
+                        f"{per_task * len(boxes)}")
+            drained(queue)
+            check_volume(out, "the in-process run")
+            c = snap["counters"]
+            require(c.get("storage/shard_conflicts", 0) >= 1,
+                    "cloud: the forced race was not retried")
 
-                def per(prefix):
-                    verbs = {k.rsplit("/", 1)[-1]: v / len(boxes)
-                             for k, v in c.items()
-                             if k.startswith(f"{prefix}/requests/")}
-                    return ", ".join(f"{v} {verbs[v]:.1f}"
-                                     for v in sorted(verbs))
+            def per(prefix):
+                verbs = {k.rsplit("/", 1)[-1]: v / len(boxes)
+                         for k, v in c.items()
+                         if k.startswith(f"{prefix}/requests/")}
+                return ", ".join(f"{v} {verbs[v]:.1f}"
+                                 for v in sorted(verbs))
 
-                def mean_ms(name):
-                    h = snap["hists"].get(name)
-                    return h["mean"] * 1e3 if h else 0.0
+            def mean_ms(name):
+                h = snap["hists"].get(name)
+                return h["mean"] * 1e3 if h else 0.0
 
-                mb = (c.get("storage/http/bytes_sent", 0)
-                      + c.get("storage/http/bytes_received", 0)) / 1e6
-                phase("cloud", f"in process, {delay_ms} ms added per "
-                               f"request: {run_s / len(boxes):.4f} s/task, "
-                               f"{vox_in * len(boxes) / run_s / 1e6:.3f} "
-                               f"Mvox/s of input (phase 10 from disk: "
-                               + (f"{cfg['raw_s_per_task']:.4f} s/task"
-                                  if cfg.get("raw_s_per_task")
-                                  else "not run")
-                               + f"); requests per task: storage "
-                                 f"{per('storage/http')}, queue "
-                                 f"{per('queue/http')}; storage MB per "
-                                 f"task {mb / len(boxes):.1f}; retries "
-                                 f"{c.get('storage/http/retries', 0):g} "
-                                 f"storage, "
-                                 f"{c.get('queue/http/retries', 0):g} "
-                                 f"queue; 412s "
-                                 f"{c.get('storage/http/412', 0):g} (shard "
-                                 f"conflicts "
-                                 f"{c.get('storage/shard_conflicts', 0):g})"
-                                 f"; host ms per task: storage/read "
-                                 f"{mean_ms('storage/read'):.1f} (a span "
-                                 f"per cutout), storage/write "
-                                 f"{mean_ms('storage/write'):.1f}, "
-                                 f"lifecycle/commit "
-                                 f"{mean_ms('lifecycle/commit'):.1f}; "
-                                 f"launches {got_launches}; output == "
-                                 f"reference bitwise")
+            mb = (c.get("storage/http/bytes_sent", 0)
+                  + c.get("storage/http/bytes_received", 0)) / 1e6
+            phase("cloud", f"in process: "
+                           f"{run_s / len(boxes):.4f} s/task, "
+                           f"{vox_in * len(boxes) / run_s / 1e6:.3f} "
+                           f"Mvox/s of input (phase 10 from disk: "
+                           + (f"{cfg['raw_s_per_task']:.4f} s/task"
+                              if cfg.get("raw_s_per_task")
+                              else "not run")
+                           + f"); requests per task: storage "
+                             f"{per('storage/http')}, queue "
+                             f"{per('queue/http')}; storage MB per "
+                             f"task {mb / len(boxes):.1f}; retries "
+                             f"{c.get('storage/http/retries', 0):g} "
+                             f"storage, "
+                             f"{c.get('queue/http/retries', 0):g} "
+                             f"queue; 412s "
+                             f"{c.get('storage/http/412', 0):g} (shard "
+                             f"conflicts "
+                             f"{c.get('storage/shard_conflicts', 0):g})"
+                             f"; host ms per task: storage/read "
+                             f"{mean_ms('storage/read'):.1f} (a span "
+                             f"per cutout), storage/write "
+                             f"{mean_ms('storage/write'):.1f}, "
+                             f"lifecycle/commit "
+                             f"{mean_ms('lifecycle/commit'):.1f}; "
+                             f"launches {launched}; output == "
+                             f"reference bitwise")
+
+            # ---- the run's telemetry to CloudWatch ------------------------
+            from chunkflow_tpu_torch.plugins.aws import cloud_watch
+
+            t = time.perf_counter()
+            cloud_watch.execute(log={"timer": {"inference": run_s}},
+                                name=cfg["namespace"])
+            publish_ms = (time.perf_counter() - t) * 1e3
+            calls = stats("cloudwatch")["calls"]
+            data = [d for _, batch in calls for d in batch]
+            worker = [{"Name": "worker", "Value": telemetry.worker_id()}]
+            require(calls and all(ns == cfg["namespace"]
+                                  and 0 < len(batch) <= 20
+                                  for ns, batch in calls)
+                    and all(d["Dimensions"] == worker for d in data),
+                    f"cloud: the CloudWatch fake recorded {calls!r:.300}")
+            names = {d["MetricName"] for d in data}
+            require({"inference/chunks", "inference-time",
+                     "storage/http/requests/GET"} <= names,
+                    "cloud: the published snapshot lacks the run's metrics")
+            phase("cloud", f"aws/cloud_watch: {len(data)} MetricData in "
+                           f"{len(calls)} PutMetricData calls (at most 20 "
+                           f"each, SigV4 checked) to the CloudWatch fake "
+                           f"under {cfg['namespace']!r}, {publish_ms:.1f} "
+                           f"ms")
         finally:
             os.environ.clear()
             os.environ.update(saved_env)
@@ -5769,6 +5845,311 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
     phase("checkpoints", f"phase 21 took {time.perf_counter() - t_phase:.1f}"
                          f" s")
     return launched
+
+
+def mesh_expected_launches(spec, replay, zyx, pin, overlap, batch):
+    """``(gather, accumulate)``: the launches one chunk of shape ``zyx``
+    takes under the mesh ``spec``, from the engine's partition and replay
+    plans. Each shard gathers its rows in batches of ``batch`` (the
+    pipeline: its first stage gathers every micro-batch) and replays in
+    batches of ``batch`` its plan's ``r`` rows (sharded) or every
+    reference row (replicated)."""
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel.engine import (
+        axis_geometry,
+        partition_for_mesh,
+        replay_plan_1d,
+        replay_plan_spatial,
+    )
+
+    grid = enumerate_patches(zyx, pin, pin, overlap)
+    pout = tuple(grid.output_patch_size)
+    n = spec.n_devices
+    sharded = replay == "sharded"
+
+    def batches(rows):
+        return -(-rows // batch)
+
+    n_ref = batches(grid.num_patches) * batch
+    if spec.kind == "spatial":
+        ny, nx = spec.shape
+        gy = axis_geometry(zyx[1], ny, pin[1], pout[1])
+        gx = axis_geometry(zyx[2], nx, pin[2], pout[2])
+        part = partition_for_mesh(grid, (ny, nx), batch, gy[0], gx[0],
+                                  gy[1], gx[1])
+        rows = (replay_plan_spatial(part, pout, (ny, nx), gy[0], gx[0],
+                                    batch).r
+                if sharded else len(part.valid))
+        return n * batches(part.per_dev), n * batches(rows)
+    if spec.kind == "data":
+        _, out_starts, valid = pad_to_batch(grid, batch * n)
+        gather = n * batches(len(valid) // n)
+    else:
+        _, out_starts, valid = pad_to_batch(grid, batch)
+        gather = batches(len(valid))
+    if not sharded:
+        return gather, n * batches(n_ref)
+    plan = replay_plan_1d(out_starts, valid, n_ref, len(valid), pout, n,
+                          -(-zyx[1] // n), batch)
+    return gather, n * batches(plan.r)
+
+
+def mesh_phase(torch, cfg, reset_counts, counts, plain_functions):
+    """Phase 22: the mesh engine (``parallel/engine.py``) in one process,
+    its shards on ``cfg["device"]`` repeated (``Inferencer._mesh``): N
+    shards queued on one card measure the engine's overhead, not
+    multi-GPU scaling.
+
+    ``cfg["chunk"]`` (host uint8) goes through each family of
+    ``cfg["families"]`` on one device, then through each of its meshes in
+    ``cfg["runs"]`` (``CHUNKFLOW_MESH`` and ``CHUNKFLOW_SHARD_REPLAY`` per
+    run, read per chunk), each run as ``stage`` + ``infer_async`` with the
+    dispatch under ``torch.cuda.set_sync_debug_mode("error")`` after a
+    warm-up (the warm-up carries the sampled readiness probe, which
+    syncs). Required: every mesh bitwise the family's one device
+    (``torch.equal`` on the host copies); gather and accumulate launched
+    exactly as often as the plans say (:func:`mesh_expected_launches`), so
+    a shard that ran a plain version shows; the peak memory at least the
+    N shards' analytic replay buffers (``shard/replay_buffer_bytes``, or
+    the full chunk's under ``replicated``), and a sharded replay's peak
+    below the replicated replay's of the same family and mesh;
+    the first run of ``cfg["plain_run"]`` bitwise again with every kernel
+    wrapper patched to its plain version (no launch); the packer under
+    ``cfg["pack_mesh"]`` on ``cfg["pack_family"]``, each of the
+    ``cfg["pack_shapes"]`` requests bitwise its own one-device call.
+    Printed beside ``cfg["card"]``: s/chunk of each mesh and of the one
+    device, the launches, the ``shard/*`` byte counters, the padded
+    extents, and the peak memory against the analytic replay buffers.
+    The packer's launches depend on how its batches fill, so there
+    gather and accumulate are only required to launch.
+
+    Returns the kernels' launches in the counted runs."""
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.parallel.engine import (
+        axis_geometry,
+        parse_mesh_spec,
+    )
+    from chunkflow_tpu_torch.serve.packer import PatchPacker
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    card = cfg["card"]
+    pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["batch"]
+    chunk = Chunk(cfg["chunk"])
+    _, y, x = chunk.shape[-3:]
+    vox = int(np.prod(chunk.shape[-3:]))
+    widest = max(parse_mesh_spec(mesh).n_devices
+                 for _, mesh, _ in cfg["runs"] + ((cfg["pack_family"],
+                                                   cfg["pack_mesh"], ""),))
+    devices = [dev] * widest
+    keys = ("CHUNKFLOW_MESH", "CHUNKFLOW_SHARD_REPLAY")
+    saved = {k: os.environ.get(k) for k in keys}
+    launched_total = {}
+    peaks = {}  # (family, mesh, replay) -> GiB
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+
+    def infer(inf, checked):
+        """One chunk, staged then dispatched (under the sync check when
+        ``checked``), then read back: (host array, s)."""
+        sync()
+        t = time.perf_counter()
+        staged = inf.stage(chunk)
+        if checked and on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inf.infer_async(staged, consume=True)
+        finally:
+            if checked and on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        host = out.host().array
+        return host, time.perf_counter() - t
+
+    def extents(spec, replay):
+        """The padded y/x extents a mesh computes on, and its slabs."""
+        if spec.kind == "spatial":
+            gy = axis_geometry(y, spec.shape[0], pin[1], pin[1])
+            gx = axis_geometry(x, spec.shape[1], pin[2], pin[2])
+            return (f"slab {gy[0]}x{gx[0]}, halos y {gy[1]}+{gy[2]} x "
+                    f"{gx[1]}+{gx[2]}, padded to {gy[3]}x{gx[3]} (from "
+                    f"{y}x{x}; the pad is zeros)")
+        if replay == "sharded":
+            slab = -(-y // spec.n_devices)
+            return (f"replay slab y {slab} + 2 x {pin[1]} margin, padded to "
+                    f"{slab * spec.n_devices}x{x}")
+        return f"full {y}x{x} replay on every shard"
+
+    try:
+        for family, kwargs in cfg["families"].items():
+            runs = [(mesh, replay) for fam, mesh, replay in cfg["runs"]
+                    if fam == family]
+            inf = Inferencer(input_patch_size=pin,
+                             output_patch_overlap=overlap,
+                             num_output_channels=3, batch_size=batch,
+                             device=cfg["device"], **kwargs)
+            inf._mesh = devices
+            os.environ["CHUNKFLOW_MESH"] = "1"
+            os.environ.pop("CHUNKFLOW_SHARD_REPLAY", None)
+            infer(inf, False)  # warm-up
+            peak_reset()
+            ref, single_s = infer(inf, True)
+            single_peak = peak()
+            require(ref.shape == (3,) + tuple(chunk.shape[-3:])
+                    and np.isfinite(ref).all(),
+                    f"mesh {family}: one device gave {ref.shape}")
+            phase("mesh", f"{family} one device: {single_s:.4f} s/chunk, "
+                          f"{vox / single_s / 1e6:.2f} Mvox/s, peak "
+                          f"{single_peak:.2f} GiB ({card})")
+            for mesh, replay in runs:
+                os.environ["CHUNKFLOW_MESH"] = mesh
+                os.environ["CHUNKFLOW_SHARD_REPLAY"] = replay
+                label = f"{family} {mesh} {replay}"
+                infer(inf, False)  # warm-up: the sampled readiness probe
+                telemetry.reset()
+                reset_counts()
+                peak_reset()
+                got, mesh_s = infer(inf, True)
+                launched = counts()
+                mesh_peak = peak()
+                snap = telemetry.snapshot()
+                require(np.array_equal(got, ref),
+                        f"mesh {label}: differs from one device, max abs "
+                        f"{np.abs(got.astype(np.float64) - ref).max()}")
+                spec = parse_mesh_spec(mesh)
+                want = dict(zip(("gather", "accumulate"),
+                                mesh_expected_launches(
+                                    spec, replay, tuple(chunk.shape[-3:]),
+                                    pin, overlap, batch)))
+                require(not on_card or launched == want,
+                        f"mesh {label}: launches {launched}, the plans "
+                        f"give {want}")
+                for kname, n in launched.items():
+                    launched_total[kname] = launched_total.get(kname, 0) + n
+                if (family, mesh, replay) == cfg["plain_run"]:
+                    with plain_functions():
+                        plain, _ = infer(inf, False)
+                    require(counts() == launched,
+                            f"mesh {label}: the plain path launched")
+                    require(np.array_equal(plain, got),
+                            f"mesh {label}: the plain path differs")
+                    phase("mesh", f"{label}: the kernel path == the plain "
+                                  f"path bitwise ({card})")
+                c, g = snap["counters"], snap["gauges"]
+                nbytes = {k: c.get(f"shard/{k}", 0.0) / 1e6
+                          for k in ("halo_bytes", "gather_bytes",
+                                    "replay_strip_bytes", "handoff_bytes")}
+                buf = g.get("shard/replay_buffer_bytes")
+                # the analytic blend buffers (outputs and weight, float32)
+                # of the N shards: a slab+margin each, or the full chunk
+                bufs = spec.n_devices * (buf if buf else
+                                         (3 + 1) * 4 * vox) / 2**30
+                require(not on_card or mesh_peak >= bufs,
+                        f"mesh {label}: peak {mesh_peak:.3f} GiB below the "
+                        f"{spec.n_devices} shards' replay buffers "
+                        f"{bufs:.3f} GiB")
+                peaks[(family, mesh, replay)] = mesh_peak
+                phase("mesh", f"{label}: bitwise one device; {mesh_s:.4f} "
+                              f"s/chunk against {single_s:.4f} "
+                              f"({mesh_s / single_s:.2f}x; "
+                              f"{spec.n_devices} shards on one card: the "
+                              f"engine's overhead, not multi-GPU scaling); "
+                              f"launches {launched}; shard MB "
+                              + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in nbytes.items())
+                              + f"; {extents(spec, replay)}; peak "
+                                f"{mesh_peak:.2f} GiB (one device "
+                                f"{single_peak:.2f}), replay buffers "
+                              + (f"{buf / 2**30:.3f} GiB a shard x "
+                                 f"{spec.n_devices}" if buf else
+                                 f"full chunk x {spec.n_devices}")
+                              + f", {bufs:.3f} GiB for {spec.n_devices}: "
+                                f"{mesh_peak - bufs:.3f} GiB above them "
+                                f"({card})")
+            del inf
+            if on_card:
+                torch.cuda.empty_cache()
+
+        for (family, mesh, replay), gib in peaks.items():
+            full = peaks.get((family, mesh, "replicated"))
+            if replay == "sharded" and full is not None:
+                require(not on_card or gib < full,
+                        f"mesh {family} {mesh}: the sharded replay peaks at "
+                        f"{gib:.3f} GiB, the replicated at {full:.3f}")
+                phase("mesh", f"{family} {mesh}: peak {gib:.2f} GiB sharded "
+                              f"against {full:.2f} replicated ({card})")
+
+        # ---- the packer under a mesh ------------------------------------
+        rng = np.random.default_rng(22)
+        requests = [Chunk(rng.integers(0, 256, shape, dtype=np.uint8),
+                          voxel_offset=(100 * i, 0, 0))
+                    for i, shape in enumerate(cfg["pack_shapes"])]
+        inf = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                         num_output_channels=3, batch_size=batch,
+                         device=cfg["device"],
+                         **cfg["families"][cfg["pack_family"]])
+        inf._mesh = devices
+        os.environ["CHUNKFLOW_MESH"] = "1"
+        os.environ.pop("CHUNKFLOW_SHARD_REPLAY", None)
+        refs = [inf(r).host().array for r in requests]
+        os.environ["CHUNKFLOW_MESH"] = cfg["pack_mesh"]
+        packer = PatchPacker(inf, max_wait_ms=20.0)
+        try:
+            packer.infer(requests[0], timeout=300).host()  # warm-up
+            telemetry.reset()
+            reset_counts()
+            sync()
+            t = time.perf_counter()
+            handles = [packer.submit(r) for r in requests]
+            outs = [h.result(timeout=600).host().array for h in handles]
+            packed_s = time.perf_counter() - t
+            launched = counts()
+        finally:
+            packer.close()
+        snap = telemetry.snapshot()
+        require(all(np.array_equal(o, r) for o, r in zip(outs, refs)),
+                f"mesh packer {cfg['pack_mesh']}: a result differs from "
+                f"its one-device call")
+        for kname, n in launched.items():
+            require(not on_card or n > 0,
+                    f"mesh packer: {kname} never launched")
+            launched_total[kname] = launched_total.get(kname, 0) + n
+        chips = snap["gauges"].get("serving/chips")
+        require(chips == parse_mesh_spec(cfg["pack_mesh"]).n_devices,
+                f"mesh packer: serving/chips {chips}")
+        phase("mesh", f"packer, {cfg['pack_family']} under "
+                      f"{cfg['pack_mesh']}: {len(requests)} requests "
+                      f"{[tuple(r.shape) for r in requests]} bitwise each "
+                      f"one-device call; {packed_s:.4f} s, "
+                      f"{snap['counters'].get('serving/batches', 0):g} "
+                      f"batches of {batch} x {chips:g} slots, "
+                      f"{snap['counters'].get('serving/filler_slots', 0):g}"
+                      f" filler slots; launches {launched} ({card})")
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    phase("mesh", f"phase 22 took {time.perf_counter() - t_phase:.1f} s; "
+                  f"launches in its counted runs {launched_total}")
+    return launched_total
 
 
 def _brief(counters):

@@ -2112,11 +2112,20 @@ def _inference_options(p):
                    default="parity")
     p.add_argument("--sharding",
                    choices=["none", "patch", "spatial", "spatial2d"],
-                   default="none", help="multi-device layouts (not ported: "
-                                        "raises)")
+                   default="none",
+                   help="legacy multi-device layout names over all local "
+                        "devices; aliases for the mesh engine (patch -> "
+                        "data=N, spatial -> y=N, spatial2d -> near-square "
+                        "y,x). Prefer --mesh / CHUNKFLOW_MESH")
     p.add_argument("--mesh", default=None,
-                   help="multi-device mesh spec; 1 runs single-device, "
-                        "others raise (not ported)")
+                   help="mesh spec: 1 (one device), auto, data=N "
+                        "(patch-parallel over N devices), y=A or y=A,x=B "
+                        "(the chunk sharded in slabs with halo exchange), "
+                        "pipeline=N (layer-parallel stages over engines "
+                        "declaring the stage protocol). Every shape is "
+                        "bitwise the one-device path. Overrides "
+                        "CHUNKFLOW_MESH; does not compose with the legacy "
+                        "--sharding names")
     _triple(p, "--shape-bucket", default=None,
             help="pad chunk shapes up to multiples of this zyx quantum")
     p.add_argument("--blend", choices=["auto", "scatter", "fold"],

@@ -35,8 +35,6 @@ UNPORTED = {
         f"needs czmodel, which neither machine has ({_PLUGINS_ITEM})",
     "napari_pixel_classifier.py":
         f"needs apoc, which neither machine has ({_PLUGINS_ITEM})",
-    "aws/cloud_watch.py":
-        f"needs boto3, which neither machine has ({_PLUGINS_ITEM})",
 }
 
 

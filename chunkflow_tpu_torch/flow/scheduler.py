@@ -271,6 +271,22 @@ class DepthController:
 _END = object()
 
 
+def _note_mesh(inferencer) -> None:
+    """One ``scheduler/mesh`` event when the stream's inferencer runs the
+    mesh engine (``parallel/engine.py``), so a reader of the telemetry
+    can attribute the stream's throughput to its mesh."""
+    getter = getattr(inferencer, "shard_engine", None)
+    if getter is None:
+        return
+    try:
+        engine = getter()
+    except ValueError:
+        return  # a malformed CHUNKFLOW_MESH raises at dispatch, loudly
+    if engine is not None:
+        telemetry.event("scheduler", "mesh", mesh=engine.spec.describe(),
+                        devices=engine.spec.n_devices)
+
+
 def _is_end(item) -> bool:
     return isinstance(item, tuple) and len(item) == 2 and item[0] is _END
 
@@ -465,6 +481,7 @@ def schedule_chunks(
         "prefetch": prefetch_depth, "ring": ring, "inflight": ring,
         "post": post_depth,
     })
+    _note_mesh(inferencer)
     q, thread = _start_pump(_staged(inferencer, chunks, ctl),
                             ctl.depths["prefetch"])
     in_flight: deque = deque()
@@ -535,6 +552,8 @@ def scheduled_inference_stage(
         ctl = ctl_arg or DepthController(depths={
             "prefetch": prefetch_depth, "ring": ring, "inflight": depth,
         })
+        _note_mesh(inferencer)
+
         def staged_tasks():
             # the prefetch thread's side: (task, staged chunk, owned, t0)
             for task in stream:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,6 +84,14 @@ class Engine(NamedTuple):
     # quantized copies of ``params`` (an nn.Module or a tree of tensors)
     params: object = None
     call: Optional[Callable] = None
+    # the stage protocol (parallel/pipeline.py): an engine that a
+    # ``pipeline=N`` mesh can split declares its layer stack as
+    # uniform-activation bodies ``(params, x) -> x`` and a tail
+    # ``(params, x) -> [B, Cout, *pout]``, with ``apply`` their literal
+    # composition on ``params`` (bitwise). None: the forward is opaque,
+    # and a pipeline mesh raises
+    stage_bodies: Optional[Tuple[Callable, ...]] = None
+    stage_tail: Optional[Callable] = None
 
 
 def create_identity_engine(
@@ -94,18 +102,27 @@ def create_identity_engine(
 ) -> Engine:
     """Crop-and-repeat oracle: output is the input's first channel's
     central crop, repeated across output channels. Identity through the
-    whole blend path must reproduce the input exactly."""
+    whole blend path must reproduce the input exactly. It declares the
+    stage protocol: one identity body and the crop-and-repeat tail, whose
+    composition is ``apply``."""
     pin = tuple(input_patch_size)
     pout = tuple(output_patch_size)
     margin = tuple((i - o) // 2 for i, o in zip(pin, pout))
     window = tuple(slice(m, m + o) for m, o in zip(margin, pout))
 
-    def apply(batch):
+    def stage_body(params, x):
+        return x
+
+    def stage_tail(params, batch):
         center = batch[(slice(None), slice(0, 1)) + window]
         return center.expand((batch.shape[0], num_output_channels) + pout)
 
+    def apply(batch):
+        return stage_tail(None, stage_body(None, batch))
+
     return Engine(apply=apply, num_input_channels=num_input_channels,
-                  num_output_channels=num_output_channels)
+                  num_output_channels=num_output_channels,
+                  stage_bodies=(stage_body,), stage_tail=stage_tail)
 
 
 def build_model(model_variant: str = "parity", num_input_channels: int = 1,

@@ -26,6 +26,12 @@ The forward runs at the precision ``precision=`` or
 the ``_forward`` seam (``inference/precision.py``), so every route runs
 it; the blend stays float32.
 
+A mesh (``mesh=``, the legacy ``sharding=`` names, else
+``CHUNKFLOW_MESH``, read per chunk) runs the scatter path through the
+mesh engine (``parallel/engine.py``) over the local devices, or over
+the device list in ``_mesh`` when a caller sets one; every mesh kind is
+bitwise this one-device path. Fold stays on one device.
+
 The entry points run on the card (``device="cuda"``, the default) and
 raise when there is none, unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain PyTorch versions run. Options of the JAX
@@ -34,10 +40,11 @@ the ROADMAP item that ports them; none is ignored.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import sys
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +69,7 @@ from chunkflow_tpu_torch.inference.precision import (
 from chunkflow_tpu_torch.ops import gather
 from chunkflow_tpu_torch.ops.blend import (
     build_local_blend,
+    device_valid,
     normalize_blend,
     stack_budget_bytes,
 )
@@ -70,16 +78,12 @@ from chunkflow_tpu_torch.ops.fold_blend import (
     fold_grid,
     fold_pad_shape,
 )
-from chunkflow_tpu_torch.parallel.mesh import (
-    mesh_env_spec,
+from chunkflow_tpu_torch.parallel import engine as mesh_engine
+from chunkflow_tpu_torch.parallel.engine import (
+    MeshSpec,
+    ShardedEngine,
     parse_mesh_spec,
-    require_single_device,
 )
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP, queue "
-                              f"1: {item})")
 
 
 def _host_payload(chunk: Chunk):
@@ -102,17 +106,6 @@ def _host_payload(chunk: Chunk):
             # arr is a fresh float32 copy here (dt is not float32)
             arr = arr.mul_(float(scale))
     return arr
-
-
-def _device_valid(valid: np.ndarray, device) -> torch.Tensor:
-    """``pad_to_batch``'s validity column (ones, then zeros for the padding
-    rows) built on the device, not copied there: a copy from pageable
-    memory would wait for the device."""
-    out = torch.ones(len(valid), dtype=torch.float32, device=device)
-    n = int(np.count_nonzero(valid))
-    if n < len(valid):
-        out[n:] = 0.0
-    return out
 
 
 def resolve_blend(blend: str) -> str:
@@ -182,6 +175,20 @@ class Inferencer:
         self.output_dtype = output_dtype
         if sharding not in ("none", "patch", "spatial", "spatial2d"):
             raise ValueError(f"unknown sharding mode {sharding!r}")
+        self.sharding = sharding
+        # the mesh spec (parallel/engine.py): an explicit ``mesh`` wins
+        # over CHUNKFLOW_MESH, which is re-read per chunk; the legacy
+        # ``sharding`` names are fixed layouts over the local devices
+        if mesh is not None and sharding != "none":
+            raise ValueError(
+                f"mesh={mesh!r} does not compose with the legacy "
+                f"sharding={sharding!r}; pick one"
+            )
+        self.mesh_spec = mesh
+        self._shard_engines: dict = {}
+        # an explicit device list for the mesh engine (tests and
+        # chip_smoke.py set one; it may repeat a device)
+        self._mesh = None
         self.blend_mode = resolve_blend(blend)
         if self.blend_mode == "fold" and sharding != "none":
             raise ValueError(
@@ -189,10 +196,6 @@ class Inferencer:
                 f"(got sharding={sharding!r}); use blend='scatter' or "
                 f"sharding='none'"
             )
-        if sharding != "none" or (
-                mesh is not None and parse_mesh_spec(mesh).kind != "single"):
-            _not_ported("multi-device execution (sharding / mesh)",
-                        "multi-GPU engine")
         self.precision = resolve_precision(precision)
         self.shape_bucket = (
             Cartesian.from_collection(shape_bucket)
@@ -232,6 +235,7 @@ class Inferencer:
         # CHUNKFLOW_INT8): float32 is the engine's apply itself
         self._apply = wrap_apply(self.engine.apply, self.precision,
                                  self.engine.params, self.engine.call)
+        self._device_forwards: dict = {}
         pout = tuple(self.output_patch_size)
         self._bump = torch.tensor(bump_map(pout), device=self.device)
         self._local_blend = build_local_blend(
@@ -343,11 +347,15 @@ class Inferencer:
 
     # ------------------------------------------------------------------
     def _forward(self, patches):
-        """Engine forward with optional 8-fold test-time augmentation:
-        the product of {yx-transpose, y-flip, x-flip}; each variant's
-        output is transformed back and the eight are summed in the JAX
-        package's order, then divided by 8."""
-        apply = self._apply
+        """The engine forward at the inferencer's precision, with the
+        optional test-time augmentation (:meth:`_tta`)."""
+        return self._tta(self._apply, patches)
+
+    def _tta(self, apply: Callable, patches):
+        """``apply``, or with 8-fold test-time augmentation: the product
+        of {yx-transpose, y-flip, x-flip}; each variant's output is
+        transformed back and the eight are summed in the JAX package's
+        order, then divided by 8."""
         if not self.augment:
             return apply(patches)
         acc = None
@@ -369,6 +377,69 @@ class Inferencer:
                 y = torch.flip(y, dims=(-2,))
             acc = y if acc is None else acc + y
         return acc / 8.0
+
+    def _forward_on(self, device) -> Callable:
+        """The forward with its parameters on ``device``, for the mesh
+        engine's shards: :meth:`_forward` itself on the inferencer's
+        device or for an engine without parameters (the identity);
+        otherwise the engine's call on a copy of its parameters there, at
+        the same precision, built once per device."""
+        call = self.engine.call
+
+        def make(params):
+            return functools.partial(self._tta, wrap_apply(
+                functools.partial(call, params), self.precision, params,
+                call))
+
+        return mesh_engine.on_device(
+            device, self.device, self._forward,
+            None if call is None else self.engine.params, make,
+            self._device_forwards)
+
+    # ------------------------------------------------------------------
+    def _resolve_shard_spec(self) -> MeshSpec:
+        """The mesh spec of this call: the legacy ``sharding`` names map
+        to fixed layouts over the devices; else ``mesh`` wins over
+        ``CHUNKFLOW_MESH`` (re-read per chunk: the kill switch works
+        mid-stream)."""
+        if self.sharding != "none":
+            n = len(self._mesh if self._mesh is not None
+                    else mesh_engine.local_devices(self.device))
+            if n <= 1:
+                return MeshSpec("single", (1,))
+            if self.sharding == "patch":
+                return MeshSpec("data", (n,))
+            if self.sharding == "spatial":
+                return MeshSpec("spatial", (n, 1))
+            # spatial2d: the near-square (y, x) factorization, y outer
+            from chunkflow_tpu_torch.parallel.spatial2d import (
+                near_square_shape,
+            )
+
+            return MeshSpec("spatial", near_square_shape(n))
+        if self.mesh_spec is not None:
+            return parse_mesh_spec(self.mesh_spec)
+        return parse_mesh_spec(os.environ.get("CHUNKFLOW_MESH", "1"))
+
+    def shard_engine(self) -> Optional[ShardedEngine]:
+        """The mesh engine of the resolved spec, or None for one device
+        (the ``CHUNKFLOW_MESH=1`` kill switch); one engine per spec."""
+        spec = self._resolve_shard_spec()
+        if spec.kind == "single":
+            return None
+        engine = self._shard_engines.get(spec)
+        if engine is None:
+            engine = ShardedEngine.for_inferencer(self, spec,
+                                                  devices=self._mesh)
+            self._shard_engines[spec] = engine
+        return engine
+
+    def _run_sharded(self, arr, grid, shard_engine=None):
+        """One chunk through the mesh engine: every mesh kind bitwise the
+        one-device path (``parallel/engine.py``)."""
+        engine = shard_engine if shard_engine is not None \
+            else self.shard_engine()
+        return engine.run(arr, grid)
 
     # ------------------------------------------------------------------
     def __call__(self, chunk: Chunk) -> Chunk:
@@ -512,18 +583,17 @@ class Inferencer:
                 f"scatter fallback",
                 file=sys.stderr,
             )
+        shard_engine = None
         if use_fold:
             if not self._fold_mesh_noted:
                 self._fold_mesh_noted = True
-                if mesh_env_spec().kind != "single":
+                if self._resolve_shard_spec().kind != "single":
                     print("fold blend is a single-device program; the "
                           "configured mesh spec is ignored for fold "
                           "traffic (use blend='scatter' to shard)",
                           file=sys.stderr)
         else:
-            # CHUNKFLOW_MESH, read per chunk as the JAX package reads it
-            require_single_device(torch.cuda.device_count()
-                                  if self.device.type == "cuda" else 1)
+            shard_engine = self.shard_engine()
         with torch.no_grad():
             arr = self._upload(chunk)
             if use_fold:
@@ -543,14 +613,19 @@ class Inferencer:
                     self.output_patch_size,
                     self.output_patch_overlap,
                 )
-                in_starts, out_starts, valid = pad_to_batch(
-                    grid, self.batch_size)
-                out, weight = self._local_blend(
-                    arr,
-                    torch.from_numpy(in_starts),
-                    torch.from_numpy(out_starts),
-                    _device_valid(valid, self.device),
-                )
-                result = normalize_blend(out, weight, self.output_dtype)
+                if shard_engine is not None:
+                    result = self._run_sharded(arr, grid, shard_engine)
+                else:
+                    in_starts, out_starts, valid = pad_to_batch(
+                        grid, self.batch_size)
+                    out, weight = self._local_blend(
+                        arr,
+                        torch.from_numpy(in_starts),
+                        torch.from_numpy(out_starts),
+                        device_valid(valid, self.device),
+                    )
+                    result = normalize_blend(out, weight,
+                                             self.output_dtype)
         telemetry.inc("inference/chunks")
         return self._postprocess_result(result, chunk, orig_zyx, run_zyx)
+

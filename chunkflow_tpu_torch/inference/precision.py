@@ -58,26 +58,25 @@ Selection: explicit ``precision`` is strict (an unknown value raises
 unknown value prints one note on stderr (once per value) and runs
 float32, so a typo never selects a quantized forward. ``CHUNKFLOW_INT8``
 is lenient the same way (a typo runs ``fake``). Both are resolved once,
-when the inferencer is built. ``wrap_stages`` (the pipeline mesh's) is
-not ported: the multi-GPU engine is.
+when the inferencer is built. :func:`wrap_stages` wraps a staged engine
+(the ``pipeline=N`` mesh's, ``parallel/pipeline.py``) the same way.
 """
 from __future__ import annotations
 
 import copy
 import math
-import os
-import sys
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.overrides import TorchFunctionMode
 
+from chunkflow_tpu_torch.core import envmode
 from chunkflow_tpu_torch.ops import int8_conv
 
 __all__ = ["PRECISIONS", "resolve_precision", "wrap_apply", "int8_mode",
-           "precision_tag", "Int8Mode"]
+           "precision_tag", "Int8Mode", "wrap_stages"]
 
 PRECISIONS = ("float32", "bfloat16", "int8")
 
@@ -102,28 +101,6 @@ _INT8_CHOICES = {
 _INT8_WARNED: set = set()
 
 
-def _resolve_env(var: str, choices: Dict[str, Tuple[str, ...]],
-                 default: str, note: str, warned: set,
-                 aliases: Optional[Dict[str, str]] = None) -> str:
-    """The mode ``var`` selects, case-insensitively; ``default`` with one
-    stderr note per unknown value otherwise (the JAX package's
-    ``core/envmode.py:resolve``)."""
-    raw = os.environ.get(var, "")
-    env = raw.lower()
-    if aliases:
-        env = aliases.get(env, env)
-    for mode, values in choices.items():
-        if env in values:
-            return mode
-    if env not in warned:
-        warned.add(env)
-        expected = ", ".join("/".join(v for v in values if v) or "(unset)"
-                             for values in choices.values())
-        print(f"{var}={raw!r} is not a recognized value (expected one of "
-              f"{expected}); {note}", file=sys.stderr)
-    return default
-
-
 def resolve_precision(value: Optional[str] = None) -> str:
     """The effective forward precision: ``float32``, ``bfloat16`` or
     ``int8``."""
@@ -134,7 +111,7 @@ def resolve_precision(value: Optional[str] = None) -> str:
             raise ValueError(
                 f"precision must be one of {PRECISIONS} (got {value!r})")
         return v
-    return _resolve_env(
+    return envmode.resolve(
         "CHUNKFLOW_PRECISION", _ENV_CHOICES, "float32",
         "running the float32 default — a typo must not silently select a "
         "quantized forward", _WARNED_VALUES, _ALIASES)
@@ -143,7 +120,7 @@ def resolve_precision(value: Optional[str] = None) -> str:
 def int8_mode() -> str:
     """``fake`` | ``real`` | ``fakeint``: the ``CHUNKFLOW_INT8`` leg of
     the int8 precision, read when a forward is wrapped."""
-    return _resolve_env(
+    return envmode.resolve(
         "CHUNKFLOW_INT8", _INT8_CHOICES, "fake",
         "running the fake-quant reference leg — a typo must not silently "
         "select the real integer matmul path", _INT8_WARNED)
@@ -625,4 +602,59 @@ def wrap_apply(apply: Callable, precision: str, params=None,
             return out.float()
 
         return int8_real_apply
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def wrap_stages(stage_bodies, stage_tail, precision: str, params=None):
+    """Precision-wrap a staged engine so that the composition of the
+    wrapped pieces is bitwise :func:`wrap_apply` of the unwrapped
+    composition, what the pipeline mesh's bitwise contract rests on.
+    Returns ``(entry, bodies, tail)``:
+
+    - ``entry(x)``: the activation cast, once, on the gathered batch
+      before stage 0 (the handoffs then carry one dtype);
+    - ``bodies``: each ``(params, x) -> x`` body on the rounded or
+      quantized parameters (copied once, here, as :func:`wrap_apply`
+      does), the activations untouched;
+    - ``tail``: the tail on those parameters, its result cast to float32
+      for the blend.
+
+    float32 returns the bodies and the tail themselves. The int8
+    ``real`` and ``fakeint`` legs replace operations inside the whole
+    forward and cannot be split at stage seams: they return ``(None,
+    None, None)``, and a pipeline mesh raises."""
+    if stage_bodies is None or stage_tail is None:
+        return None, None, None
+    if precision == "float32":
+        return (lambda x: x), tuple(stage_bodies), stage_tail
+    if precision == "bfloat16":
+        rounded = _cast_float_leaves(params, torch.bfloat16)
+
+        def entry(x):
+            return x.to(torch.bfloat16)
+
+        bodies = tuple((lambda _, x, _b=body: _b(rounded, x))
+                       for body in stage_bodies)
+
+        def tail(_, x):
+            return stage_tail(rounded, x).float()
+
+        return entry, bodies, tail
+    if precision == "int8":
+        if int8_mode() != "fake":
+            # real/fakeint replace ops of the whole forward: not
+            # splittable at stage seams
+            return None, None, None
+        quantized = _quant_float_leaves(params)
+
+        def entry(x):
+            return _fake_quant_int8(x, per_row=True)
+
+        bodies = tuple((lambda _, x, _b=body: _b(quantized, x))
+                       for body in stage_bodies)
+
+        def tail(_, x):
+            return stage_tail(quantized, x).float()
+
+        return entry, bodies, tail
     raise ValueError(f"unknown precision {precision!r}")

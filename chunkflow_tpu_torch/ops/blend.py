@@ -13,8 +13,10 @@ from __future__ import annotations
 import os
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
+from chunkflow_tpu_torch.core import envmode
 from chunkflow_tpu_torch.ops import accumulate as _accumulate
 from chunkflow_tpu_torch.ops import gather as _gather
 
@@ -28,6 +30,41 @@ def stack_budget_bytes() -> int:
     path."""
     return int(
         float(os.environ.get("CHUNKFLOW_BLEND_STACK_MAX_GB", "4")) * 2**30)
+
+
+_REPLAY_CHOICES = {
+    "sharded": ("", "1", "on", "sharded", "slab"),
+    "replicated": ("0", "off", "replicated", "full"),
+}
+_REPLAY_WARNED: set = set()
+
+
+def shard_replay_mode() -> str:
+    """``sharded`` or ``replicated``: how the mesh engine
+    (``parallel/engine.py``) replays the blend accumulation,
+    ``CHUNKFLOW_SHARD_REPLAY`` as the JAX package reads it. ``sharded``
+    (the default) replays on each shard only the windows that touch its
+    output slab, into a slab+margin buffer; ``replicated`` replays every
+    window on every shard into a full-chunk buffer. An unknown value
+    prints one note and runs the default. Re-read per chunk."""
+    return envmode.resolve(
+        "CHUNKFLOW_SHARD_REPLAY", _REPLAY_CHOICES, "sharded",
+        "running the sharded (slab) replay default — a typo must not "
+        "silently select the full-chunk replicated replay",
+        _REPLAY_WARNED)
+
+
+def device_valid(valid: np.ndarray, device) -> torch.Tensor:
+    """A validity column of ones, then zeros (``pad_to_batch``'s, and every
+    mesh shard's and replay plan's) built on ``device``, not copied there:
+    a copy from pageable memory would wait for the device."""
+    n = int(np.count_nonzero(valid))
+    if not (valid[:n] == 1).all():
+        raise ValueError("a validity column is ones, then zeros")
+    out = torch.ones(len(valid), dtype=torch.float32, device=device)
+    if n < len(valid):
+        out[n:] = 0.0
+    return out
 
 
 def make_accumulate(output_patch_size: Tuple[int, int, int],

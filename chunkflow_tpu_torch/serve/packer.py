@@ -28,13 +28,19 @@ patch order -> normalize``; the packer runs the same operations:
    True)`` batch by batch in ascending order with the request's own
    validity, then ``normalize_blend`` and the inferencer's crop.
 
-Fold blend, a dry run and ``CHUNKFLOW_SERVE=0`` fall back to
-``inferencer(...)`` (bitwise by construction) and count
-``serving/fallbacks``. Telemetry: ``serving/occupancy`` (gauge and
-histogram), ``serving/queue_age``, ``serving/patch_queue``, the counters
-``serving/batches``, ``serving/packed_patches``, ``serving/filler_slots``,
-``serving/fallbacks``, ``serving/packer_errors``, and the spans
-``serving/forward``, ``serving/scatter``.
+Under a mesh (``CHUNKFLOW_MESH``, ``mesh=``; ``parallel/engine.py``) the
+packer stays eligible: a dispatch packs ``batch_size`` rows for each
+device of the mesh and forwards through the engine's
+``serve_forward_program``, each device on its ``[B, ...]`` share, so
+results stay bitwise. Fold blend, a legacy ``sharding=`` inferencer, a
+dry run and ``CHUNKFLOW_SERVE=0`` fall back to ``inferencer(...)``
+(bitwise by construction) and count ``serving/fallbacks``.
+Telemetry: ``serving/occupancy`` (gauge and histogram),
+``serving/chips``, ``serving/queue_age``, ``serving/patch_queue``, the
+counters ``serving/batches``, ``serving/packed_patches``,
+``serving/filler_slots``, ``serving/fallbacks``,
+``serving/packer_errors``, and the spans ``serving/forward``,
+``serving/scatter``.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import time
 from collections import deque
 from typing import Optional
 
+import numpy as np
 import torch
 
 from chunkflow_tpu_torch.chunk.base import Chunk, edge_pad
@@ -53,7 +60,7 @@ from chunkflow_tpu_torch.inference.patching import (
     pad_to_batch,
 )
 from chunkflow_tpu_torch.ops import accumulate, gather
-from chunkflow_tpu_torch.ops.blend import normalize_blend
+from chunkflow_tpu_torch.ops.blend import device_valid, normalize_blend
 
 __all__ = ["serve_enabled", "RequestExpired", "PackerClosed",
            "PendingResult", "PatchPacker"]
@@ -155,11 +162,25 @@ class PatchPacker:
 
     # -- eligibility ----------------------------------------------------
     def _eligible(self) -> bool:
-        """Packed execution covers the scatter path; fold blend, a dry
-        run and the kill switch take the per-chunk path."""
+        """Packed execution covers the scatter path, on one device or a
+        mesh; fold blend, a legacy ``sharding=`` inferencer, a dry run
+        and the kill switch take the per-chunk path."""
         inf = self.inferencer
-        return (serve_enabled() and inf.blend_mode == "scatter"
-                and not inf.dry_run)
+        return (serve_enabled() and inf.sharding == "none"
+                and inf.blend_mode == "scatter" and not inf.dry_run)
+
+    def _shard_engine(self):
+        """The mesh engine behind the inferencer, or None for one device;
+        re-resolved per batch, so ``CHUNKFLOW_MESH=1`` takes serving back
+        to one device mid-stream."""
+        return self.inferencer.shard_engine()
+
+    def _slots(self) -> int:
+        """Patch slots of a dispatch: the batch times the mesh's
+        devices."""
+        engine = self._shard_engine()
+        chips = engine.spec.n_devices if engine is not None else 1
+        return self.batch_size * chips
 
     # -- submission -----------------------------------------------------
     def submit(self, chunk: Chunk, deadline: Optional[float] = None,
@@ -255,16 +276,17 @@ class PatchPacker:
             self._thread.start()
 
     def _next_batch(self):
-        """Up to ``batch_size`` queued patches; a partial batch waits
+        """Up to :meth:`_slots` queued patches; a partial batch waits
         ``max_wait_s`` from its oldest item for more traffic."""
         with self._cv:
             while True:
                 if self._items:
+                    slots = self._slots()
                     oldest_t = self._items[0][2]
-                    if (len(self._items) >= self.batch_size or self._stop
+                    if (len(self._items) >= slots or self._stop
                             or time.time() - oldest_t >= self.max_wait_s):
                         batch = [self._items.popleft() for _ in range(
-                            min(self.batch_size, len(self._items)))]
+                            min(slots, len(self._items)))]
                         telemetry.gauge("serving/patch_queue",
                                         len(self._items))
                         self._cv.notify_all()
@@ -306,7 +328,14 @@ class PatchPacker:
             live.append(item)
         if not live:
             return
-        slots = self.batch_size
+        engine = self._shard_engine()
+        chips = engine.spec.n_devices if engine is not None else 1
+        slots = self.batch_size * chips
+        if len(live) > slots:
+            # collected under a wider mesh than the one in effect now (a
+            # kill-switch race): widen this dispatch to the next multiple
+            # the mesh splits, rather than drop rows
+            slots = -(-len(live) // slots) * slots
         pin = tuple(inf.input_patch_size)
         device = inf.device
         shares: dict = {}  # id(req) -> (req, [batch row], [patch index])
@@ -316,6 +345,7 @@ class PatchPacker:
             share[2].append(idx)
         occupancy = len(live) / slots
         telemetry.gauge("serving/occupancy", occupancy)
+        telemetry.gauge("serving/chips", float(chips))
         telemetry.inc("serving/batches")
         telemetry.inc("serving/packed_patches", len(live))
         telemetry.inc("serving/filler_slots", slots - len(live))
@@ -328,12 +358,16 @@ class PatchPacker:
             starts = torch.from_numpy(req.in_starts[idxs])
             patches[_rows(rows, device)] = gather.gather_patches(
                 req.device_chunk, starts, pin)
-        valid = torch.zeros(slots, dtype=torch.float32, device=device)
+        valid = np.zeros(slots, dtype=np.float32)
         valid[:len(live)] = 1.0
         with telemetry.span("serving/forward", occupancy=round(occupancy, 3)):
-            preds = inf._forward(patches)
-            # the accumulate kernel's weighting, in its order
-            weighted = preds * inf._bump * valid[:, None, None, None, None]
+            if engine is not None:
+                weighted = engine.serve_forward_program()(patches, valid)
+            else:
+                preds = inf._forward(patches)
+                # the accumulate kernel's weighting, in its order
+                weighted = (preds * inf._bump * device_valid(
+                    valid, device)[:, None, None, None, None])
         done = []
         for req, rows, idxs in shares.values():
             req.weighted[_rows(idxs, device)] = weighted[_rows(rows, device)]

@@ -1,4 +1,4 @@
-"""Local stand-ins for Google Cloud Storage, S3 and SQS (test
+"""Local stand-ins for Google Cloud Storage, S3, SQS and CloudWatch (test
 infrastructure, not a feature of the port).
 
 Each fake is a ``ThreadingHTTPServer`` on ``127.0.0.1`` (port 0 picks a
@@ -17,7 +17,11 @@ free one) holding its objects or messages in memory:
   ``secrets`` (a 403 otherwise);
 * :class:`FakeSQS`: the AWS JSON 1.0 protocol (queues, batches,
   visibility timeouts, ``ApproximateReceiveCount``, ``MD5OfBody``,
-  ``WaitTimeSeconds`` long polls), also SigV4-checked.
+  ``WaitTimeSeconds`` long polls), also SigV4-checked;
+* :class:`FakeCloudWatch`: ``PutMetricData`` over the AWS Query
+  protocol, SigV4-checked, each call's namespace and metric data
+  recorded (``calls``, also in ``/_fake/stats``), at most 20 data a
+  call.
 
 Listings page every ``page_size`` (3) items, so paging runs. Faults: a
 503 on a seeded share of requests (``fail_rate``), dropped connections
@@ -32,7 +36,8 @@ that worker processes reach::
     python -m chunkflow_tpu_torch.testing.cloud_fakes --port-file F \\
         [--sigv4] [--key KEY.pem] [--fail-rate R] [--seed S]
 
-writes ``{"gcs": url, "s3": url, "sqs": url}`` to ``F`` and serves until
+writes ``{"gcs": url, "s3": url, "sqs": url, "cloudwatch": url}`` to
+``F`` and serves until
 SIGTERM; :func:`cloud_env` gives the environment that points both
 packages' clients at such fakes.
 """
@@ -57,8 +62,8 @@ from xml.sax.saxutils import escape
 
 from chunkflow_tpu_torch.cloud import aws, google
 
-__all__ = ["FakeGCS", "FakeS3", "FakeSQS", "cloud_env", "ACCESS_KEY",
-           "SECRET_KEY", "spawn", "control"]
+__all__ = ["FakeGCS", "FakeS3", "FakeSQS", "FakeCloudWatch", "cloud_env",
+           "ACCESS_KEY", "SECRET_KEY", "spawn", "control"]
 
 ACCESS_KEY = "AKIDCHUNKFLOWTEST"
 SECRET_KEY = "chunkflow/test/secret/key/not/a/real/one"
@@ -798,12 +803,95 @@ class FakeSQS(_SigV4Fake):
 
 
 # ---------------------------------------------------------------------------
+# CloudWatch
+# ---------------------------------------------------------------------------
+def _query_error(status: int, code: str, message: str):
+    body = (f'<ErrorResponse xmlns="http://monitoring.amazonaws.com/doc/'
+            f'2010-08-01/"><Error><Type>Sender</Type><Code>{code}</Code>'
+            f'<Message>{escape(message)}</Message></Error></ErrorResponse>'
+            ).encode()
+    return status, {"Content-Type": "text/xml"}, body
+
+
+class FakeCloudWatch(_SigV4Fake):
+    """``PutMetricData`` over the AWS Query protocol: each call's
+    ``(Namespace, MetricData)`` in boto3's shape, in ``calls``."""
+
+    name = "cloudwatch"
+    #: data per call, the cap the ``aws/cloud_watch`` plugin batches to
+    max_data = 20
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.calls: list = []
+
+    def clear(self) -> None:
+        with self.lock:
+            self.calls = []
+
+    def snapshot(self) -> dict:
+        doc = super().snapshot()
+        with self.lock:
+            doc["calls"] = json.loads(json.dumps(self.calls))
+        return doc
+
+    def route(self, h, path, query, body):
+        why = self._refused(h, body)
+        if why is not None:
+            return _query_error(403, "SignatureDoesNotMatch"
+                                if "Signature" in why else "AccessDenied",
+                                why)
+        if h.command != "POST" or path != "/":
+            return _query_error(400, "InvalidAction", h.command + " " + path)
+        form = urllib.parse.parse_qs(body.decode(), keep_blank_values=True)
+        fields = {k: v[-1] for k, v in form.items()}
+        if fields.get("Action") != "PutMetricData":
+            return _query_error(400, "InvalidAction",
+                                str(fields.get("Action")))
+        if fields.get("Version") != "2010-08-01":
+            return _query_error(400, "InvalidParameterValue",
+                                f"Version {fields.get('Version')!r}")
+        namespace = fields.get("Namespace")
+        if not namespace:
+            return _query_error(400, "MissingParameter", "Namespace")
+        data = []
+        while f"MetricData.member.{len(data) + 1}.MetricName" in fields:
+            prefix = f"MetricData.member.{len(data) + 1}"
+            datum = {"MetricName": fields[f"{prefix}.MetricName"]}
+            if f"{prefix}.Value" in fields:
+                datum["Value"] = float(fields[f"{prefix}.Value"])
+            if f"{prefix}.Unit" in fields:
+                datum["Unit"] = fields[f"{prefix}.Unit"]
+            dims = []
+            while f"{prefix}.Dimensions.member.{len(dims) + 1}.Name" \
+                    in fields:
+                dim = f"{prefix}.Dimensions.member.{len(dims) + 1}"
+                dims.append({"Name": fields[f"{dim}.Name"],
+                             "Value": fields.get(f"{dim}.Value", "")})
+            if dims:
+                datum["Dimensions"] = dims
+            data.append(datum)
+        if not data or len(data) > self.max_data:
+            return _query_error(400, "InvalidParameterValue",
+                                f"{len(data)} MetricData members; 1 to "
+                                f"{self.max_data} a call")
+        with self.lock:
+            self.calls.append([namespace, data])
+        body = (b'<PutMetricDataResponse xmlns="http://monitoring.amazonaws'
+                b'.com/doc/2010-08-01/"><ResponseMetadata><RequestId>'
+                + str(uuid.uuid4()).encode()
+                + b'</RequestId></ResponseMetadata></PutMetricDataResponse>')
+        return 200, {"Content-Type": "text/xml"}, body
+
+
+# ---------------------------------------------------------------------------
 # the environment, and the fakes in a process of their own
 # ---------------------------------------------------------------------------
 def cloud_env(gcs: Optional[str] = None, s3: Optional[str] = None,
               sqs: Optional[str] = None,
               credentials: Optional[str] = None,
-              metadata: Optional[str] = None) -> Dict[str, str]:
+              metadata: Optional[str] = None,
+              cloudwatch: Optional[str] = None) -> Dict[str, str]:
     """The environment that points the port (and the JAX package's
     tensorstore, for ``gs://``) at fakes at these URLs: the endpoints, the
     test access key, a region, no instance metadata service, and the GCE
@@ -822,6 +910,8 @@ def cloud_env(gcs: Optional[str] = None, s3: Optional[str] = None,
         env["AWS_ENDPOINT_URL_S3"] = s3
     if sqs:
         env["AWS_ENDPOINT_URL_SQS"] = sqs
+    if cloudwatch:
+        env["AWS_ENDPOINT_URL_CLOUDWATCH"] = cloudwatch
     if credentials:
         env["GOOGLE_APPLICATION_CREDENTIALS"] = credentials
     return env
@@ -857,8 +947,9 @@ def control(url: str, **config) -> dict:
 
 def spawn(port_file: str, sigv4: bool = False, key: Optional[str] = None,
           fail_rate: float = 0.0, seed: int = 0, env=None):
-    """Start the three fakes in a process of their own; returns ``(proc,
-    {"gcs": url, "s3": url, "sqs": url})``. Stop it with ``terminate``."""
+    """Start the fakes in a process of their own; returns ``(proc,
+    {"gcs": url, "s3": url, "sqs": url, "cloudwatch": url})``. Stop it
+    with ``terminate``."""
     args = [sys.executable, "-m", "chunkflow_tpu_torch.testing.cloud_fakes",
             "--port-file", port_file, "--fail-rate", str(fail_rate),
             "--seed", str(seed)]
@@ -883,9 +974,10 @@ def spawn(port_file: str, sigv4: bool = False, key: Optional[str] = None,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m chunkflow_tpu_torch.testing.cloud_fakes",
-        description="Serve FakeGCS, FakeS3 and FakeSQS until SIGTERM.")
+        description="Serve FakeGCS, FakeS3, FakeSQS and FakeCloudWatch "
+                    "until SIGTERM.")
     parser.add_argument("--port-file", required=True,
-                        help="where to write the three URLs as JSON")
+                        help="where to write the fakes' URLs as JSON")
     parser.add_argument("--sigv4", action="store_true",
                         help="check SigV4 with the test access key")
     parser.add_argument("--key", default=None,
@@ -897,7 +989,9 @@ def main(argv=None) -> int:
     common = dict(fail_rate=args.fail_rate)
     fakes = {"gcs": FakeGCS(key=args.key, seed=args.seed, **common),
              "s3": FakeS3(secrets=secrets, seed=args.seed + 1, **common),
-             "sqs": FakeSQS(secrets=secrets, seed=args.seed + 2, **common)}
+             "sqs": FakeSQS(secrets=secrets, seed=args.seed + 2, **common),
+             "cloudwatch": FakeCloudWatch(secrets=secrets,
+                                          seed=args.seed + 3, **common)}
     for fake in fakes.values():
         fake.start()
     stop = threading.Event()

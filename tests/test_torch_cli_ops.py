@@ -357,18 +357,20 @@ def test_every_jax_command_runs_or_names_its_item(command):
     assert help_text
 
 
-def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
+def test_an_unported_command_in_a_chain_raises_naming_its_item(
+        tmp_path, monkeypatch):
     """Every command is ported; an option that is not (an orbax checkpoint
-    of zarr v3 arrays inside ``sharding_indexed``, a multi-device mesh)
-    refuses its chain the same way."""
+    of zarr v3 arrays inside ``sharding_indexed``) refuses its chain the
+    same way. A mesh wider than the devices (``--mesh data=2`` over one
+    device, in both CLIs) raises the JAX package's ``ValueError`` at the
+    task."""
     from tests.test_torch_orbax import save
 
     zarr3 = save(tmp_path / "orbax", {"conv_out": {"bias": np.zeros(
         3, np.float32)}}, use_zarr3=True)
     for option, item in (
             (["-f", "pytorch", "-w", zarr3],
-             "convnet engines, orbax checkpoints"),
-            (["-f", "identity", "--mesh", "data=2"], "multi-GPU engine")):
+             "convnet engines, orbax checkpoints"),):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",
                       "16", "save-h5", "-f", str(tmp_path / "x.h5"),
@@ -376,6 +378,18 @@ def test_an_unported_command_in_a_chain_raises_naming_its_item(tmp_path):
                       "2", "8", "8"])
         # the chain is refused whole: nothing ran, the file was not written
         assert not os.path.exists(tmp_path / "x.h5")
+    import jax
+
+    monkeypatch.setattr(jax, "local_devices",
+                        lambda *a, **k: jax.devices()[:1])
+    args = ["inference", "-f", "identity", "--mesh", "data=2", "-p", "4",
+            "16", "16", "-v", "2", "8", "8"]
+    with pytest.raises(ValueError) as ref:
+        list(jax_stage(args)(iter([_tasks()[0]])))
+    with pytest.raises(ValueError) as got:
+        list(port_stage(args)(iter([_tasks()[1]])))
+    assert str(got.value) == str(ref.value)
+    assert "needs 2 devices, only 1 available" in str(got.value)
 
 
 def test_inference_with_an_orbax_directory_matches_the_jax_cli():

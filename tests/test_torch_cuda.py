@@ -676,6 +676,66 @@ def test_packer_on_card_is_per_chunk(cuda, monkeypatch, precision_, leg):
         assert np.array_equal(out, ref)
 
 
+@pytest.mark.parametrize("framework, mesh", [
+    ("identity", "data=8"), ("identity", "y=4,x=2"), ("identity", "y=8"),
+    ("identity", "pipeline=8"), ("pytorch", "data=8"),
+    ("pytorch", "y=4,x=2")])
+def test_mesh_on_one_card_repeated_is_one_device(cuda, monkeypatch,
+                                                 framework, mesh):
+    """The mesh engine with its eight shards on ``[cuda:0] * 8``: the
+    identity and the parity UNet3D bitwise one device, through the gather
+    and accumulate kernels, the dispatch under the sync check."""
+    inf = Inferencer(framework=framework, model_variant="parity",
+                     **STREAM_KW)
+    inf._mesh = [torch.device("cuda", 0)] * 8
+    arr = np.random.default_rng(17).integers(0, 256, (8, 72, 80)).astype(
+        np.uint8)
+    ref = inf(Chunk(arr)).host().array
+    monkeypatch.setenv("CHUNKFLOW_MESH", mesh)
+    inf(Chunk(arr)).host()  # the first dispatch runs the readiness probe
+    staged = inf.stage(Chunk(arr))
+    gather.launches = accumulate.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = inf.infer_async(staged, consume=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert gather.launches > 0 and accumulate.launches > 0
+    assert np.array_equal(out.host().array, ref)
+
+
+@pytest.mark.parametrize("wrapper", ["distributed", "spatial", "spatial2d"])
+def test_legacy_wrapper_with_parameters_is_one_device(cuda, wrapper):
+    """A legacy wrapper with the parity UNet3D, its parameters on the
+    host, over eight shards on the cards (``[cuda:0] * 8`` on one card,
+    round-robin over several): each shard runs a copy of the parameters
+    on its card, through the gather and accumulate kernels, bitwise the
+    inferencer on one device."""
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.parallel import distributed, spatial, spatial2d
+
+    fn = {"distributed": distributed.sharded_inference,
+          "spatial": spatial.spatial_sharded_inference,
+          "spatial2d": spatial2d.spatial2d_sharded_inference}[wrapper]
+    eng = engines.create_convnet_engine("", None, model_variant="parity")
+    arr = np.random.default_rng(18).random((8, 72, 80)).astype(np.float32)
+    devices = [torch.device("cuda", k % torch.cuda.device_count())
+               for k in range(8)]
+    pin, overlap = STREAM_KW["input_patch_size"], \
+        STREAM_KW["output_patch_overlap"]
+    gather.launches = accumulate.launches = 0
+    with torch.no_grad():
+        got = fn(arr, eng, pin, pin, overlap, batch_size=2, devices=devices)
+    assert gather.launches > 0 and accumulate.launches > 0
+    assert got.device.type == "cuda"
+    assert next(eng.params.parameters()).device == torch.device("cpu")
+    inf = Inferencer(framework="prebuilt", engine=eng,
+                     crop_output_margin=False, **STREAM_KW)
+    ref = inf(Chunk(arr)).host().array
+    assert np.array_equal(got.cpu().numpy(), ref)
+
+
 # ---------------------------------------------------------------------------
 # the segmentation plane's device leg
 # ---------------------------------------------------------------------------

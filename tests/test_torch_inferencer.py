@@ -217,23 +217,43 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
                   "inference", "-f", "identity", "-p", *map(str, PIN)])
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    # fold is ported; with a mesh it still meets the multi-GPU raise
-    pytest.param({"blend": "fold", "mesh": "data=2"}, "multi-GPU",
+@pytest.mark.parametrize("kwargs, outcome", [
+    # fold with a mesh prints its note and runs one device
+    pytest.param({"blend": "fold", "mesh": "data=2"}, "bitwise",
                  id="kwargs0-fold"),
-    ({"mesh": "data=2"}, "multi-GPU"),
-    ({"sharding": "patch"}, "multi-GPU"),
-    # the precision ladder is ported: a precision with an unported
-    # option still meets that option's raise
-    pytest.param({"precision": "bf16", "sharding": "spatial"}, "multi-GPU",
+    ({"mesh": "data=2"}, "ValueError"),
+    # a legacy name over one device is the single-device path
+    ({"sharding": "patch"}, "bitwise"),
+    pytest.param({"precision": "bf16", "sharding": "spatial"}, "bitwise",
                  id="kwargs3-precision"),
-    pytest.param({"precision": "int8", "mesh": "data=2"}, "multi-GPU",
+    pytest.param({"precision": "int8", "mesh": "data=2"}, "ValueError",
                  id="kwargs4-precision"),
-    ({"mesh": "y=2"}, "multi-GPU"),
+    ({"mesh": "y=2"}, "ValueError"),
 ])
-def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Inferencer(device="cpu", **dict(IDENTITY, **kwargs))
+def test_unported_options_raise(monkeypatch, kwargs, outcome):
+    """The mesh options, once unported, against the JAX package on one
+    local device (the suite's conftest gives it eight; here it sees one,
+    as the port's CPU inferencer does): a mesh wider than the devices
+    raises the JAX ``ValueError`` with its message, anything else runs
+    bitwise the JAX package."""
+    monkeypatch.setattr(jax, "local_devices",
+                        lambda *a, **k: jax.devices()[:1])
+    arr = _chunk((8, 32, 32), "uint8", seed=9)
+    if outcome == "ValueError":
+        with pytest.raises(ValueError) as ref:
+            JaxInferencer(**dict(IDENTITY, **kwargs))(JaxChunk(arr))
+        with pytest.raises(ValueError) as got:
+            Inferencer(device="cpu", **dict(IDENTITY, **kwargs))(Chunk(arr))
+        assert str(got.value) == str(ref.value)
+        assert "needs 2 devices, only 1 available" in str(got.value)
+        return
+    ref, got = _both(arr, **dict(IDENTITY, **kwargs))
+    if kwargs.get("blend") == "fold":
+        # fold: the port's eager fold is within 4 ulp of the compiled one
+        np.testing.assert_array_max_ulp(got.array, np.asarray(ref.array),
+                                        maxulp=4)
+    else:
+        _assert_bitwise(ref, got)
 
 
 MESH_FIXTURE = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
@@ -272,13 +292,25 @@ def test_single_device_mesh_specs_run(monkeypatch, spec):
 
 def test_a_mesh_the_devices_could_hold_names_the_multi_gpu_engine(
         monkeypatch):
-    from chunkflow_tpu_torch.parallel.mesh import require_single_device
-
+    """``CHUNKFLOW_MESH=y=2,x=2`` runs the mesh engine when the devices
+    hold it (four injected CPU devices here, the suite's eight virtual
+    ones in the JAX package): bitwise the JAX package; over two devices
+    both raise the same ``ValueError``."""
     monkeypatch.setenv("CHUNKFLOW_MESH", "y=2,x=2")
-    with pytest.raises(NotImplementedError, match="multi-GPU engine"):
-        require_single_device(4)
-    with pytest.raises(ValueError, match="needs 4 devices, only 2"):
-        require_single_device(2)
+    arr = _chunk((8, 32, 32), "uint8", seed=10)
+    port = Inferencer(device="cpu", **MESH_FIXTURE)
+    port._mesh = [torch.device("cpu")] * 4
+    _assert_bitwise(JaxInferencer(**MESH_FIXTURE)(JaxChunk(arr)),
+                    port(Chunk(arr)).host())
+    monkeypatch.setattr(jax, "local_devices",
+                        lambda *a, **k: jax.devices()[:2])
+    port._mesh = [torch.device("cpu")] * 2
+    port._shard_engines.clear()
+    with pytest.raises(ValueError) as ref:
+        JaxInferencer(**MESH_FIXTURE)(JaxChunk(arr))
+    with pytest.raises(ValueError, match="needs 4 devices, only 2") as got:
+        port(Chunk(arr))
+    assert str(got.value) == str(ref.value)
 
 
 def test_tensor_payload_and_chunk_roundtrip():

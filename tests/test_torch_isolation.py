@@ -95,7 +95,11 @@ def test_importing_every_module_loads_no_jax():
                  "cloud.aws", "cloud.google", "cloud.gcs", "cloud.s3",
                  "cloud.sqs", "testing.cloud_fakes", "volume.zstd",
                  "volume.blosc", "volume.compressors", "volume.ocdbt",
-                 "models.orbax", "plugins.load_tensorstore"):
+                 "models.orbax", "plugins.load_tensorstore",
+                 "parallel.engine", "parallel.pipeline", "core.envmode",
+                 "parallel.distributed", "parallel.spatial",
+                 "parallel.spatial2d", "cloud.cloudwatch",
+                 "plugins.aws.cloud_watch"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     # what the interpreter loads before the first line (a site-packages
     # .pth file may pre-import a namespace package such as ``google``) is

@@ -257,17 +257,43 @@ UNPORTED = ["skeletonize", "aggregate_skeleton_fragments", "adjust_pre",
 #: the bundled plugins of the JAX package that need a package the port
 #: does without
 PACKAGE_GATED = {"clahe": "cv2", "czann_inference": "czmodel",
-                 "napari_pixel_classifier": "apoc",
-                 "aws/cloud_watch": "boto3"}
+                 "napari_pixel_classifier": "apoc"}
+
+
+class _Recorder:
+    """boto3's ``put_metric_data``, recorded."""
+
+    def __init__(self):
+        self.calls = []
+
+    def put_metric_data(self, Namespace, MetricData):
+        self.calls.append((Namespace, MetricData))
 
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
     """The JAX package finds each of these among its bundled plugins. The
-    four that need a package the port does without raise naming it, at
-    the command's build; the seven the annotations brought and
-    ``load_tensorstore`` run, equal to the JAX package's."""
+    three that need a package the port does without raise naming it, at
+    the command's build; the seven the annotations brought,
+    ``load_tensorstore`` and ``aws/cloud_watch`` run, equal to the JAX
+    package's (``aws/cloud_watch`` with a recording client in both:
+    ``tests/test_torch_cloud_watch.py`` holds it on the CloudWatch
+    fake)."""
     assert os.path.exists(jplugin.find_plugin(name))
+    if name == "aws/cloud_watch":
+        from chunkflow_tpu.core import telemetry as jax_telemetry
+        from chunkflow_tpu_torch.core import telemetry
+
+        # both registries empty: each execute publishes its own
+        telemetry.reset()
+        jax_telemetry.reset()
+        calls = []
+        for load in (plugin.load_plugin, jplugin.load_plugin):
+            recorder = _Recorder()
+            load(name)({"timer": {"inference": 1.5}}, client=recorder)
+            calls.append(recorder.calls)
+        assert calls[0] == calls[1] and calls[0]
+        return
     if name == "load_tensorstore":
         root, _ = _ts_dataset(tmp_path, "zarr")
         run_both_plugins(["-n", "load_tensorstore", "-i", "bbox", "-o",
