@@ -100,7 +100,8 @@ non-zero exit and no result line:
              --create-thumbnail`` on phase 10's volume, every mip bitwise
              the library composition; h5, tif, png, nrrd, mrc and zarr
              round trips at task size from card and host chunks, MB/s
-13. precision the precision ladder at full width on the 64x512x512 chunk:
+13. precision the precision ladder at full width on the chunk cut to its
+             first 20 planes (20x512x512: one patch plane, 9 patches):
              every family (parity, rsunet, tpu, tpu_mxu, tpu_s2d4) on a
              float32 engine at float32, bfloat16 and int8 ``fake``,
              ``fakeint`` and ``real`` (``CHUNKFLOW_INT8``), and ``tpu`` on a
@@ -258,6 +259,28 @@ non-zero exit and no result line:
              counters, the padded extents, peak memory beside the
              analytic replay buffers
 
+23. multihost the multi-process engine (``parallel/multihost.py``): two
+             rank processes in a gloo world on ``cuda:0`` (ranks sharing a
+             card: the backend rule picks gloo): bring-up, the store
+             allgather, the broadcast with its sentinel over collectives
+             and over the store, the consistency guard on a permuted chunk
+             (both transports); the full-width parity UNet3D (phase 5's
+             weights) on the 64x512x512 chunk through the psum recipe
+             (``sharded_inference_global``, twice, and
+             ``Inferencer(sharding="patch")``), within 1e-5 of one
+             device's ``Inferencer.__call__``, each rank's gather and
+             accumulate launches equal to its share of the padded plan;
+             with ``CHUNKFLOW_MULTIHOST_COLLECTIVES=0`` bitwise one
+             device; the all-reduce alone; the CLI task loop over two of
+             phase 10's tasks (``fetch-task-from-queue | load-precomputed |
+             inference -f identity --sharding patch | save-precomputed |
+             delete-task-in-queue``): the coordinator alone writes and
+             acks, each task once, the volume within 2e-6 of the same
+             chain in this process. With two cards or more, an NCCL world
+             of min(4, cards) ranks, a card each, on the same chunk.
+             s/chunk beside one device's, the all-reduce's ms and bytes
+             (``shard/gather_bytes``), each rank's start-up and launches
+
 The script prints the seconds of each phase and its total. Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
 one JSON object with every kernel's numbers; the last line is
@@ -406,6 +429,16 @@ MESH_RUNS = (("identity", "data=4", "sharded"),
              ("parity float32", "y=2,x=2", "sharded"),
              ("tpu_s2d4 bfloat16", "data=2", "sharded"))
 MESH_PLAIN_RUN = ("identity", "y=2,x=2", "sharded")
+# phase 23: the psum recipe's tolerance against one device (the port's
+# float32 forward's, as for the UNet3D against XLA) and the identity
+# chain's (the JAX cross-topology gate); the chain's input volume, which
+# holds two of phase 10's tasks (x 64..832 with their margins), and its
+# roi; the seconds a world may take
+MULTIHOST_TOL = 1e-5
+MULTIHOST_CLI_TOL = 2e-6
+MULTIHOST_VOLUME = (64, 512, 896)
+MULTIHOST_ROI = ((4, 64, 64), (56, 384, 768))
+MULTIHOST_WORLD_S = 600
 MESH_PACK = ("parity float32", "data=2")
 MESH_PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
                     (64, 512, 512))
@@ -435,6 +468,9 @@ VISIBILITY_S = 10
 # peak (TOP/s, the H100 SXM data sheet); the largest |sum| float32 adds
 # exactly
 PRECISION_FAMILIES = ("parity", "rsunet", "tpu", "tpu_mxu", "tpu_s2d4")
+# the legs run on the chunk's first PRECISION_DEPTH planes (one patch
+# plane: 9 patches, where the whole chunk has 36), which pays for phase 23
+PRECISION_DEPTH = 20
 PRECISION_LEGS = (("float32", None), ("bfloat16", None), ("int8", "fake"),
                   ("int8", "fakeint"), ("int8", "real"))
 PRECISION_GATES = {"bfloat16": (0.02, 0.005), "int8": (0.05, 0.01)}
@@ -1450,8 +1486,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_paths = {path: 0 for path in int8_conv.path_launches}
     for run_phase in (
-            lambda: precision_phase(torch, chunk_u8, timer, kernels,
-                                    note_err, reset_counts, counts_all),
+            lambda: precision_phase(
+                torch, Chunk(chunk_u8.host().array[:PRECISION_DEPTH]),
+                timer, kernels, note_err, reset_counts, counts_all),
             # ---- 14. packer: cross-request batches ------------------------
             lambda: packer_phase(torch, reset_counts, counts_all)):
         for kname, n in run_phase().items():
@@ -1582,12 +1619,21 @@ def main() -> int:
             pack_mesh=MESH_PACK[1], pack_shapes=MESH_PACK_SHAPES),
             reset_counts, counts, plain_functions).items():
         kernels[kname]["launches"] += n
+
+    # ---- 23. multihost: one inference over a world of processes ---------
+    lap("23 multihost")
+    torch.cuda.empty_cache()
+    for kname, n in multihost_phase(
+            torch, multihost_cfg(card, chunk_u8.host().array, weights),
+            reset_counts, counts).items():
+        kernels[kname]["launches"] += n
     lap("end")
     spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
              in zip(laps[1:-1], laps[2:])}
-    last = spans["20 cloud"] + spans["21 checkpoints"] + spans["22 mesh"]
+    last = (spans["20 cloud"] + spans["21 checkpoints"] + spans["22 mesh"]
+            + spans["23 multihost"])
     phase("timing", f"seconds per phase: {json.dumps(spans)}; phases 20 "
-                    f"to 22 together {last:.1f} s; the script "
+                    f"to 23 together {last:.1f} s; the script "
                     f"{laps[-1][1] - laps[0][1]:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -2675,7 +2721,8 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
     from chunkflow_tpu_torch.ops import gather, int8_conv
 
     dev = torch.device("cuda")
-    vox = int(np.prod(CHUNK))
+    zyx = tuple(chunk.shape[-3:])
+    vox = int(np.prod(zyx))
     gen = torch.Generator().manual_seed(13)
 
     def randint8(shape):
@@ -2730,8 +2777,8 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
                 bound_by=ab["bound_by"], library_ms=ab["library_ms"])
         del x, w
 
-    # c) every family at every leg, on the main path's chunk
-    grid = enumerate_patches(CHUNK, PIN, PIN, OVERLAP)
+    # c) every family at every leg, on the chunk given
+    grid = enumerate_patches(zyx, PIN, PIN, OVERLAP)
     in_starts, _, _ = pad_to_batch(grid, BATCH)
     n_batches = len(in_starts) // BATCH
     raw = torch.from_numpy(np.asarray(chunk.array)[None].copy()).to(dev)
@@ -2767,7 +2814,7 @@ def precision_phase(torch, chunk, timer, kernels, note_err, reset_counts,
         out = inf(chunk).array
         wall = time.perf_counter() - t
         launched = counts_all()
-        require(tuple(out.shape) == (CHANNELS,) + CHUNK
+        require(tuple(out.shape) == (CHANNELS,) + zyx
                 and bool(torch.isfinite(out).all()),
                 f"precision {label}: output not finite maps of the chunk")
         n8 = launched["conv3d_int8"]
@@ -6150,6 +6197,622 @@ def mesh_phase(torch, cfg, reset_counts, counts, plain_functions):
     phase("mesh", f"phase 22 took {time.perf_counter() - t_phase:.1f} s; "
                   f"launches in its counted runs {launched_total}")
     return launched_total
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the multi-process engine
+# ---------------------------------------------------------------------------
+
+def multihost_rank(cfg_path, pid, launched_at):
+    """One rank of phase 23's worlds, in a process of its own: joins the
+    world (``multihost.initialize``) and runs ``cfg["legs"]`` in order,
+    writing its numbers to ``<out>/rank<pid>.json``. The parent
+    (:func:`multihost_phase`) checks them."""
+    import zlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.ops import accumulate, gather
+    from chunkflow_tpu_torch.parallel import multihost, queues
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    pin, overlap, batch = (tuple(cfg["pin"]), tuple(cfg["overlap"]),
+                           cfg["batch"])
+    t0 = time.perf_counter()
+    multihost.initialize(cfg["coord"], cfg["world"], pid,
+                         device=cfg["device"])
+    init_s = time.perf_counter() - t0
+    dev = multihost.process_device()
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def launches():
+        return dict(gather=gather.launches, accumulate=accumulate.launches)
+
+    def reset():
+        gather.launches = accumulate.launches = 0
+
+    def leg_env(collectives):
+        if collectives:
+            os.environ.pop("CHUNKFLOW_MULTIHOST_COLLECTIVES", None)
+        else:
+            os.environ["CHUNKFLOW_MULTIHOST_COLLECTIVES"] = "0"
+
+    res = dict(rank=pid, world=multihost.process_count(),
+               backend=multihost.backend(), device=str(dev), init_s=init_s,
+               mesh=[str(g.device) for g in multihost.global_mesh()])
+    legs = cfg["legs"]
+    if "exchange" in legs:
+        res["allgather"] = [b.decode() for b in
+                            multihost.allgather_bytes(b"rank-%d" % pid)]
+        for label, collectives in (("broadcast", True),
+                                   ("broadcast_store", False)):
+            leg_env(collectives)
+            res[label] = [
+                multihost.broadcast_string(f"task-{label}" if pid == 0
+                                           else None),
+                multihost.broadcast_string(None)]
+        leg_env(True)
+    if "guard" in legs:
+        # a permutation of the same values on rank 1: equal plain sums,
+        # different digests, over both transports
+        rng = np.random.default_rng(23)
+        small = rng.random((8, 64, 64)).astype(np.float32)
+        if pid == 1:
+            small = np.ascontiguousarray(small[::-1])
+        small_pin = (4, 16, 16)
+        identity = engines.create_identity_engine(small_pin, small_pin, 3)
+        res["guard"] = {}
+        for label, collectives in (("collectives", True), ("store", False)):
+            leg_env(collectives)
+            try:
+                multihost.sharded_inference_global(
+                    small, identity, small_pin, small_pin, (2, 8, 8),
+                    batch_size=batch)
+            except ValueError as exc:
+                res["guard"][label] = str(exc).splitlines()[0]
+            else:
+                res["guard"][label] = None
+        leg_env(True)
+    net = dict(cfg["net"], input_patch_size=pin, output_patch_size=pin,
+               num_output_channels=3)
+    if "psum" in legs or "fallback" in legs:
+        raw = np.load(cfg["chunk"])
+        zyx = raw.shape
+        # the float32 chunk the one-device gather converts the raw one to
+        x = gather.convert_chunk(torch.from_numpy(raw)[None].to(dev))
+        ref = torch.from_numpy(np.load(cfg["reference"])).to(dev)
+        engine = engines.create_engine(**net)
+        # a first op on the device, with every kernel library loaded
+        gather.gather_patches(x, torch.zeros((1, 3), dtype=torch.int32),
+                              pin)
+        sync()
+        res["ready_s"] = time.time() - launched_at
+
+        def run(collectives):
+            leg_env(collectives)
+            reset()
+            sync()
+            t = time.perf_counter()
+            with torch.no_grad():
+                out = multihost.sharded_inference_global(
+                    x, engine, pin, pin, overlap, batch_size=batch)
+            sync()
+            return out, time.perf_counter() - t, launches()
+
+        def held(out):
+            diff = (out.double() - ref.double()).abs()
+            return dict(max_abs=float(diff.max()),
+                        bitwise=bool(torch.equal(out, ref)),
+                        finite=bool(torch.isfinite(out).all()),
+                        shape=list(out.shape))
+
+    if "psum" in legs:
+        runs = [run(True) for _ in range(2)]
+        out = runs[-1][0]
+        res["psum"] = dict(held(out), s=[r[1] for r in runs],
+                           launches=[r[2] for r in runs])
+        # replica agreement: every rank's digest of its copy
+        digest = np.asarray(multihost._chunk_digest(out), np.float64)
+        crc = zlib.crc32(out.cpu().numpy().tobytes())
+        rows = multihost.allgather_bytes(
+            digest.tobytes() + crc.to_bytes(4, "little"))
+        res["replicas"] = dict(
+            sums=[float(np.frombuffer(r[:-4], np.float64)[0]) for r in rows],
+            bitwise=len({r[-4:] for r in rows}) == 1)
+        del out, runs
+        # the same through Inferencer(sharding="patch"), the user's entry
+        telemetry.reset()
+        inf = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                         batch_size=batch, sharding="patch",
+                         crop_output_margin=False, device=dev,
+                         **{k: v for k, v in net.items()
+                            if k not in ("input_patch_size",
+                                         "output_patch_size")})
+        chunk = Chunk(raw)
+        reset()
+        sync()
+        t = time.perf_counter()
+        got = inf(chunk).array
+        inf_s = time.perf_counter() - t
+        snap = telemetry.snapshot()
+        res["inferencer"] = dict(
+            held(got), s=inf_s, launches=launches(),
+            gather_bytes=snap["counters"].get("shard/gather_bytes", 0.0),
+            all_reduce_s=snap["hists"].get("shard/all_reduce", {}).get(
+                "total", 0.0),
+            dispatch_s=snap["hists"].get("shard/dispatch", {}).get(
+                "total", 0.0))
+        del inf, got
+        # the all-reduce alone: the recipe's two buffers, ranks aligned
+        bufs = (torch.zeros((3,) + zyx, device=dev),
+                torch.zeros(zyx, device=dev))
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t = time.perf_counter()
+            for b in bufs:
+                dist.all_reduce(b)
+            sync()
+            times.append(time.perf_counter() - t)
+        res["all_reduce"] = dict(
+            ms=[1e3 * t for t in times],
+            bytes=sum(b.numel() * b.element_size() for b in bufs))
+        del bufs
+    if "fallback" in legs:
+        out, s, launched = run(False)
+        res["fallback"] = dict(held(out), s=s, launches=launched)
+        leg_env(True)
+        del out
+    if "cli" in legs:
+        counts = dict(writes=0, acks=0)
+
+        def counted(fn, key):
+            def call(*args, **kwargs):
+                counts[key] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        PrecomputedVolume.save = counted(PrecomputedVolume.save, "writes")
+        queues.FileQueue.delete = counted(queues.FileQueue.delete, "acks")
+        t = time.perf_counter()
+        rc = cli.main(cfg["cli"])
+        res["cli"] = dict(rc=rc, s=time.perf_counter() - t, **counts)
+    Path(cfg["out"], f"rank{pid}.json").write_text(json.dumps(res))
+    # no rank leaves while a peer may still use the store rank 0 serves
+    dist.barrier()
+    print("RANK_OK", pid, flush=True)
+
+
+def _multihost_world(cfg, tmp, name, world, timeout):
+    """Start ``world`` rank processes of :func:`multihost_rank` on
+    ``cfg`` (one coordinator port on 127.0.0.1); waits for all, kills the
+    others when one fails, returns each rank's numbers."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = dict(cfg, coord=f"127.0.0.1:{port}", world=world, out=str(tmp))
+    cfg_path = tmp / f"{name}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    env = dict(os.environ, CHUNKFLOW_MULTIHOST_TIMEOUT_S="120")
+    env.pop("CHUNKFLOW_MULTIHOST_COLLECTIVES", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    logs = [tmp / f"{name}-rank{pid}.log" for pid in range(world)]
+    procs = []
+    for pid in range(world):
+        with open(logs[pid], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.multihost_rank("
+                 f"{str(cfg_path)!r}, {pid}, {time.time()!r})"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + timeout
+        pending = dict(enumerate(procs))
+        while pending:
+            require(time.monotonic() < deadline,
+                    f"multihost {name}: ranks {sorted(pending)} still "
+                    f"running after {timeout} s")
+            for pid, p in list(pending.items()):
+                if p.poll() is None:
+                    continue
+                text = logs[pid].read_text()
+                require(p.returncode == 0 and f"RANK_OK {pid}" in text,
+                        f"multihost {name}: rank {pid} failed (rc "
+                        f"{p.returncode}):\n{text[-4000:]}")
+                del pending[pid]
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [json.loads((tmp / f"rank{pid}.json").read_text())
+            for pid in range(world)]
+
+
+def multihost_phase(torch, cfg, reset_counts, counts):
+    """Phase 23: the multi-process engine (``parallel/multihost.py``).
+
+    One card: two rank processes join a gloo world on ``cfg["device"]``
+    (shared: the backend rule picks gloo) and run the bring-up, the store
+    allgather, the broadcast with its sentinel (collectives and store),
+    the consistency guard on a permuted chunk (both transports), then the
+    psum recipe at full width (``sharded_inference_global``, twice, and
+    ``Inferencer(sharding="patch")``) on ``cfg["chunk"]`` with
+    ``cfg["net"]``, within ``MULTIHOST_TOL`` of one device's
+    ``Inferencer.__call__`` (computed here first), each rank launching
+    exactly its share of the padded plan; the same chunk with
+    ``CHUNKFLOW_MULTIHOST_COLLECTIVES=0``, bitwise one device; the
+    all-reduce alone; then the CLI task loop (``fetch-task-from-queue |
+    load-precomputed | inference -f identity --sharding patch |
+    save-precomputed | delete-task-in-queue``) over two tasks, where only
+    the coordinator writes and acks, its volume within the identity
+    recipe's tolerance of the same chain in this process. With two cards
+    or more: an NCCL world of min(4, cards) ranks, one a card, on the same
+    chunk. Printed beside ``cfg["card"]``: s/chunk of each leg beside one
+    device's, the all-reduce's ms and bytes, each rank's start-up and
+    launches.
+
+    Returns the kernels' launches in this process's counted runs (the
+    one-device reference and the in-process chain); the ranks count
+    theirs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import BoundingBox, Chunk
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import (
+        enumerate_patches,
+        pad_to_batch,
+    )
+    from chunkflow_tpu_torch.parallel.engine import MeshSpec
+    from chunkflow_tpu_torch.parallel.queues import open_queue
+    from chunkflow_tpu_torch.volume import storage
+    from chunkflow_tpu_torch.volume.precomputed import PrecomputedVolume
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] != "cpu"
+    card = cfg["card"]
+    pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["batch"]
+    raw = np.ascontiguousarray(cfg["chunk"])
+    zyx = tuple(raw.shape)
+    vox = int(np.prod(zyx))
+    launched_total = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def share(n):
+        """Each rank's gather and accumulate launches in the psum recipe
+        over ``n`` ranks of one device: its rows of the plan padded to
+        n x batch, in batches."""
+        rows = len(pad_to_batch(enumerate_patches(zyx, pin, pin, overlap),
+                                batch * n)[2]) // n
+        return dict(gather=rows // batch, accumulate=rows // batch)
+
+    def nums(triple):
+        return [str(v) for v in triple]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "chunk.npy", raw)
+        # one device: the reference every leg is held to
+        inf = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                         batch_size=batch, crop_output_margin=False,
+                         device=cfg["device"], num_output_channels=3,
+                         **cfg["net"])
+        chunk = Chunk(raw)
+        inf(chunk)  # warm-up
+        reset_counts()
+        sync()
+        t = time.perf_counter()
+        ref = inf(chunk).array
+        single_s = time.perf_counter() - t
+        for kname, n in counts().items():
+            launched_total[kname] = launched_total.get(kname, 0) + n
+        np.save(tmp / "reference.npy", ref.cpu().numpy())
+        require(tuple(ref.shape) == (3,) + zyx
+                and bool(torch.isfinite(ref).all()),
+                f"multihost: one device gave {tuple(ref.shape)}")
+        del inf, ref
+        phase("multihost", f"one device: {single_s:.4f} s/chunk, "
+                           f"{vox / single_s / 1e6:.2f} Mvox/s on {zyx} "
+                           f"({card})")
+
+        # the CLI task loop's volumes: two tasks, each queued twice (the
+        # world's and this process's chain)
+        vol = cfg["volume"]
+        roi_start, roi_size = cfg["roi"]
+        image = np.random.default_rng(23).integers(0, 256, vol,
+                                                   dtype=np.uint8)
+        vol_in = str(tmp / "image")
+        PrecomputedVolume.create(vol_in, volume_size=vol,
+                                 voxel_size=VOXEL_NM,
+                                 block_size=cfg["volume_block"])
+        PrecomputedVolume(vol_in).save(Chunk(image, voxel_size=VOXEL_NM))
+        dev_args = [] if on_card else ["--device", "cpu"]
+        chains = {}
+        for name in ("world", "process"):
+            out = str(tmp / f"out-{name}")
+            queue = f"file://{tmp}/queue-{name}"
+            require(cli.main(dev_args + [
+                "create-info", "-v", out, "-c", "3", "--dtype", "float32",
+                "--volume-size", *nums(roi_size),
+                "--voxel-size", *nums(VOXEL_NM),
+                "--voxel-offset", *nums(roi_start),
+                "--block-size", *nums(cfg["out_block"])]) == 0
+                and cli.main(dev_args + [
+                    "generate-tasks", "--volume-path", out, "--chunk-size",
+                    *nums(cfg["task"]), "--queue-name", queue]) == 0,
+                f"multihost: setting up the {name} chain failed")
+            require(len(open_queue(queue)) == 2,
+                    f"multihost: the {name} queue holds "
+                    f"{len(open_queue(queue))} tasks, not 2")
+            chains[name] = (out, queue, dev_args + [
+                "fetch-task-from-queue", "-q", queue, "-r", "0",
+                "load-precomputed", "-v", vol_in, "-e",
+                *nums(cfg["margin"]),
+                "inference", "--framework", "identity",
+                "--input-patch-size", *nums(pin),
+                "--output-patch-overlap", *nums(overlap),
+                "--output-crop-margin", *nums(cfg["margin"]),
+                "--num-output-channels", "3", "--batch-size", str(batch),
+                "--sharding", "patch",
+                "save-precomputed", "-v", out,
+                "delete-task-in-queue"])
+
+        # ---- two ranks on one card, gloo ----------------------------------
+        rank_cfg = dict(pin=pin, overlap=overlap, batch=batch,
+                        net=cfg["net"], chunk=str(tmp / "chunk.npy"),
+                        reference=str(tmp / "reference.npy"),
+                        device=cfg["rank_device"])
+        t = time.perf_counter()
+        ranks = _multihost_world(
+            dict(rank_cfg, legs=["exchange", "guard", "psum", "fallback",
+                                 "cli"], cli=chains["world"][2]),
+            tmp, "gloo", 2, cfg["timeout"])
+        world_s = time.perf_counter() - t
+        want_psum = share(2)
+        grid = enumerate_patches(zyx, pin, pin, overlap)
+        want_fallback = dict(zip(("gather", "accumulate"),
+                                 mesh_expected_launches(
+                                     MeshSpec("data", (1,)), "sharded", zyx,
+                                     pin, overlap, batch)))
+        for r in ranks:
+            pid = r["rank"]
+            require(r["world"] == 2 and r["backend"] == "gloo"
+                    and r["mesh"] == [cfg["rank_device"]] * 2,
+                    f"multihost: rank {pid} joined {r['world']} ranks on "
+                    f"{r['backend']}, mesh {r['mesh']}")
+            require(r["allgather"] == ["rank-0", "rank-1"]
+                    and r["broadcast"] == ["task-broadcast", None]
+                    and r["broadcast_store"] == ["task-broadcast_store",
+                                                None],
+                    f"multihost: rank {pid}'s exchanges gave "
+                    f"{r['allgather']}, {r['broadcast']}, "
+                    f"{r['broadcast_store']}")
+            for transport, msg in r["guard"].items():
+                require(msg is not None and "checksums differ" in msg,
+                        f"multihost: rank {pid}'s guard over {transport} "
+                        f"did not fire: {msg}")
+            for label in ("psum", "inferencer"):
+                leg = r[label]
+                require(leg["finite"] and leg["shape"] == [3, *zyx]
+                        and leg["max_abs"] <= MULTIHOST_TOL,
+                        f"multihost: rank {pid} {label}: max abs "
+                        f"{leg['max_abs']} against one device (> "
+                        f"{MULTIHOST_TOL})")
+            for launched in r["psum"]["launches"] + [
+                    r["inferencer"]["launches"]]:
+                require(not on_card or launched == want_psum,
+                        f"multihost: rank {pid} psum launches {launched}, "
+                        f"its share of the plan is {want_psum}")
+            require(r["fallback"]["bitwise"],
+                    f"multihost: rank {pid} without collectives differs "
+                    f"from one device, max abs {r['fallback']['max_abs']}")
+            require(not on_card or r["fallback"]["launches"]
+                    == want_fallback,
+                    f"multihost: rank {pid} fallback launches "
+                    f"{r['fallback']['launches']}, the plan gives "
+                    f"{want_fallback}")
+            require(r["cli"]["rc"] == 0, f"multihost: rank {pid}'s chain "
+                                         f"returned {r['cli']['rc']}")
+        sums = ranks[0]["replicas"]["sums"]
+        require(abs(sums[0] - sums[1]) <= 1e-6 * abs(sums[0]),
+                f"multihost: replica sums {sums} differ beyond rtol 1e-6")
+        require([(r["cli"]["writes"], r["cli"]["acks"]) for r in ranks]
+                == [(2, 2), (0, 0)],
+                f"multihost: writes and acks by rank "
+                f"{[(r['cli']['writes'], r['cli']['acks']) for r in ranks]}"
+                f", only the coordinator's 2 and 2 are allowed")
+        out_world, queue_world, _ = chains["world"]
+        require(len(open_queue(queue_world)) == 0,
+                "multihost: the world's queue is not empty")
+        # the same chain in this process (a world of one)
+        reset_counts()
+        t = time.perf_counter()
+        require(cli.main(chains["process"][2]) == 0,
+                "multihost: the in-process chain failed")
+        chain_s = time.perf_counter() - t
+        for kname, n in counts().items():
+            launched_total[kname] = launched_total.get(kname, 0) + n
+        storage.reset_shared_cache()
+        roi = BoundingBox(roi_start, tuple(a + b for a, b in
+                                           zip(roi_start, roi_size)))
+        a = PrecomputedVolume(out_world).cutout(roi).host().array
+        b = PrecomputedVolume(chains["process"][0]).cutout(roi).host().array
+        vol_err = float(np.abs(a.astype(np.float64) - b).max())
+        require(a.shape == b.shape and vol_err <= MULTIHOST_CLI_TOL,
+                f"multihost: the world's volume is {vol_err} from the "
+                f"in-process chain's (> {MULTIHOST_CLI_TOL})")
+        for r in ranks:
+            p, inf_leg, fb = r["psum"], r["inferencer"], r["fallback"]
+            ar = r["all_reduce"]
+            phase("multihost", f"gloo rank {r['rank']} on "
+                               f"{cfg['rank_device']} (2 ranks, one card): "
+                               f"initialize {r['init_s']:.3f} s, ready "
+                               f"{r['ready_s']:.2f} s after launch; psum "
+                               f"sharded_inference_global "
+                               f"{', '.join(f'{s:.4f}' for s in p['s'])} "
+                               f"s/chunk (first, second), max abs "
+                               f"{p['max_abs']:.3g} against one device "
+                               f"{single_s:.4f}; Inferencer(sharding="
+                               f"'patch') {inf_leg['s']:.4f} s/chunk, max "
+                               f"abs {inf_leg['max_abs']:.3g}, "
+                               f"shard/gather_bytes "
+                               f"{inf_leg['gather_bytes'] / 1e6:.1f} MB, "
+                               f"all-reduce span {inf_leg['all_reduce_s']:.4f}"
+                               f" s; the all-reduce alone of "
+                               f"{ar['bytes'] / 1e6:.1f} MB "
+                               f"{', '.join(f'{ms:.1f}' for ms in ar['ms'])}"
+                               f" ms; launches {p['launches'][-1]} (its "
+                               f"share {want_psum}); without collectives "
+                               f"{fb['s']:.4f} s/chunk, bitwise one device, "
+                               f"launches {fb['launches']}; chain "
+                               f"{r['cli']['s']:.2f} s, writes "
+                               f"{r['cli']['writes']}, acks "
+                               f"{r['cli']['acks']} ({card})")
+        phase("multihost", f"gloo world: guard fired on both ranks over "
+                           f"both transports; replicas bitwise "
+                           f"{ranks[0]['replicas']['bitwise']} (sums "
+                           f"{sums[0]!r}, {sums[1]!r}); chain volume "
+                           f"{vol_err:.3g} from the in-process chain's "
+                           f"({chain_s:.2f} s), queue empty, each task "
+                           f"acked once by the coordinator; {grid.num_patches}"
+                           f" patches; the world took {world_s:.1f} s")
+
+        # ---- one rank a card, NCCL ----------------------------------------
+        n_cards = torch.cuda.device_count() if on_card else 0
+        if n_cards >= 2:
+            n = min(4, n_cards)
+            t = time.perf_counter()
+            ranks = _multihost_world(
+                dict(rank_cfg, device="cuda", legs=["exchange", "psum"]),
+                tmp, "nccl", n, cfg["timeout"])
+            nccl_s = time.perf_counter() - t
+            want = share(n)
+            for r in ranks:
+                pid = r["rank"]
+                require(r["backend"] == "nccl" and r["world"] == n
+                        and r["device"] == f"cuda:{pid}",
+                        f"multihost nccl: rank {pid} on {r['backend']}, "
+                        f"{r['device']}")
+                require(r["allgather"] == [f"rank-{k}" for k in range(n)]
+                        and r["broadcast"] == ["task-broadcast", None],
+                        f"multihost nccl: rank {pid}'s exchanges")
+                for label in ("psum", "inferencer"):
+                    require(r[label]["max_abs"] <= MULTIHOST_TOL
+                            and r[label]["finite"],
+                            f"multihost nccl: rank {pid} {label} max abs "
+                            f"{r[label]['max_abs']}")
+                for launched in r["psum"]["launches"]:
+                    require(launched == want,
+                            f"multihost nccl: rank {pid} launches "
+                            f"{launched}, its share is {want}")
+                p, ar = r["psum"], r["all_reduce"]
+                phase("multihost", f"nccl rank {pid} on {r['device']} ({n} "
+                                   f"ranks, a card each): initialize "
+                                   f"{r['init_s']:.3f} s, ready "
+                                   f"{r['ready_s']:.2f} s; psum "
+                                   f"{', '.join(f'{s:.4f}' for s in p['s'])}"
+                                   f" s/chunk, max abs {p['max_abs']:.3g}; "
+                                   f"Inferencer "
+                                   f"{r['inferencer']['s']:.4f} s/chunk, "
+                                   f"shard/gather_bytes "
+                                   f"{r['inferencer']['gather_bytes'] / 1e6:.1f}"
+                                   f" MB; the all-reduce alone "
+                                   f"{', '.join(f'{ms:.1f}' for ms in ar['ms'])}"
+                                   f" ms; launches {p['launches'][-1]} "
+                                   f"({card})")
+            phase("multihost", f"nccl world of {n} took {nccl_s:.1f} s")
+        else:
+            phase("multihost", f"{n_cards} card(s): no NCCL world (it needs "
+                               f"two cards or more)")
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("multihost", f"phase 23 took {time.perf_counter() - t_phase:.1f} "
+                       f"s; launches in its counted runs {launched_total}")
+    return launched_total
+
+
+def multihost_cfg(card, chunk, weights):
+    """Phase 23's configuration as main() runs it: the full-width parity
+    UNet3D (``weights``, phase 5's) on ``chunk``, two ranks on ``cuda:0``,
+    and the chain's two tasks."""
+    return dict(
+        chunk=chunk, pin=PIN, overlap=OVERLAP, batch=BATCH, device="cuda",
+        rank_device="cuda:0", card=card,
+        net=dict(framework="pytorch", model_variant="parity",
+                 weight_path=str(weights)),
+        volume=MULTIHOST_VOLUME, volume_block=VOLUME_BLOCK,
+        roi=MULTIHOST_ROI, task=TASK, margin=MARGIN, out_block=OUT_BLOCK,
+        timeout=MULTIHOST_WORLD_S)
+
+
+def multihost_alone() -> int:
+    """Phase 23 alone at full size, as main() runs it (on a machine with
+    two cards or more it adds the NCCL world): ``python3 -c "import
+    chip_smoke; chip_smoke.multihost_alone()"``. Builds the kernels and
+    phase 5's weights, prints the card and phase 23's lines, and no
+    result line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no card")
+    sys.path.insert(0, str(ROOT))
+    from chunkflow_tpu_torch import Chunk, _build
+    from chunkflow_tpu_torch.models.convert import state_from_flax
+    from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
+    from chunkflow_tpu_torch.ops import accumulate, gather
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(smi.stdout.strip(), flush=True)
+    phase("card", f"{torch.cuda.get_device_name(0)}, "
+                  f"{torch.cuda.device_count()} device(s); torch "
+                  f"{torch.__version__}, CUDA {torch.version.cuda}")
+    _build.build_all()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    seeded = seeded_init(UNet3D(in_channels=1, out_channels=CHANNELS),
+                         torch.Generator().manual_seed(0))
+    weights = OUT_DIR / "unet3d_seed0.pt"
+    torch.save(state_from_flax(_flax_layout(seeded.state_dict())), weights)
+    chunk = Chunk.create(size=CHUNK, dtype=np.uint8, pattern="sin")
+
+    def reset_counts():
+        gather.launches = accumulate.launches = 0
+
+    def counts():
+        return dict(gather=gather.launches, accumulate=accumulate.launches)
+
+    multihost_phase(torch, multihost_cfg(card, chunk.host().array, weights),
+                    reset_counts, counts)
+    return 0
 
 
 def _brief(counters):

@@ -368,9 +368,24 @@ def _fetch_task_from_queue(args, state) -> Stage:
 
     @generator
     def stage(task):
-        from chunkflow_tpu_torch.parallel import lifecycle
+        from chunkflow_tpu_torch.parallel import lifecycle, multihost
         from chunkflow_tpu_torch.parallel.queues import open_queue
 
+        # a world of several processes (one inference spanning them): the
+        # coordinator alone touches the queue and broadcasts each body;
+        # the peers run mirror tasks, which compute but neither write nor
+        # ack (runtime.is_mirror_task)
+        crosshost = multihost.process_count() > 1
+        if crosshost and not multihost.is_coordinator():
+            while True:
+                body = multihost.broadcast_string(None)
+                if body is None:
+                    break
+                t = new_task()
+                t["bbox"] = BoundingBox.from_string(body)
+                t["replica_mirror"] = True
+                yield t
+            return
         if budget["left"] == 0:
             return
         queue = open_queue(args.queue_name,
@@ -378,11 +393,26 @@ def _fetch_task_from_queue(args, state) -> Stage:
         queue.max_empty_retries = args.retry_times
         if args.poll_interval is not None:
             queue.retry_sleep = max(0.01, args.poll_interval)
-        if not supervised:
-            for handle, body in queue:
-                yield queue_task(queue, handle, body, queue.trace_id(handle))
-                if spent():
-                    return
+        if supervised and crosshost:
+            print("fetch-task-from-queue: lifecycle supervision does not "
+                  "compose with multi-host broadcast mode yet; running "
+                  "unsupervised", file=sys.stderr)
+        if not supervised or crosshost:
+            try:
+                for handle, body in queue:
+                    if crosshost:
+                        multihost.broadcast_string(body)
+                    yield queue_task(queue, handle, body,
+                                     queue.trace_id(handle))
+                    if spent():
+                        return
+            finally:
+                # the sentinel on EVERY exit path (drained, --num spent, a
+                # downstream exception, the generator closed): a
+                # coordinator that ends without it leaves every peer
+                # blocked waiting for the next task
+                if crosshost:
+                    multihost.broadcast_string(None)
             return
         supervisor = lifecycle.LifecycleSupervisor(
             queue,

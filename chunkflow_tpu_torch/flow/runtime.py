@@ -184,11 +184,28 @@ def operator(func: Callable) -> Callable:
     return wrapper
 
 
+def is_mirror_task(task: Optional[dict]) -> bool:
+    """True for tasks mirrored onto the non-coordinator processes of a
+    multi-process world (``fetch-task-from-queue`` broadcast mode,
+    ``parallel/multihost.py``): every process runs the compute stages —
+    the global inference is a collective — but storage writes and queue
+    acks are the coordinator's, or N processes would write the same bytes
+    N times (and non-coordinators hold no lease to ack)."""
+    return bool(task and task.get("replica_mirror"))
+
+
 def write_operator(func: Callable) -> Callable:
     """An :func:`operator` whose body is a storage write (``save-*``,
-    ``mark-complete``). The JAX package skips it on the mirror tasks of a
-    multi-host run; the port runs on one host, so it is an operator."""
-    return operator(func)
+    ``mark-complete``): skipped — the task passed through untouched — on
+    mirror tasks (:func:`is_mirror_task`)."""
+
+    @functools.wraps(func)
+    def guarded(task, **kwargs):
+        if is_mirror_task(task):
+            return task
+        return func(task, **kwargs)
+
+    return operator(guarded)
 
 
 def generator(func: Callable) -> Callable:

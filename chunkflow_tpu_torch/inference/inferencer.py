@@ -30,7 +30,10 @@ A mesh (``mesh=``, the legacy ``sharding=`` names, else
 ``CHUNKFLOW_MESH``, read per chunk) runs the scatter path through the
 mesh engine (``parallel/engine.py``) over the local devices, or over
 the device list in ``_mesh`` when a caller sets one; every mesh kind is
-bitwise this one-device path. Fold stays on one device.
+bitwise this one-device path. In a world of several processes
+(``parallel/multihost.py``) ``sharding="patch"`` runs one inference over
+the world: the psum recipe, ulp-level against one device, or the
+guarded local compute without collectives. Fold stays on one device.
 
 The entry points run on the card (``device="cuda"``, the default) and
 raise when there is none, unless the caller passes ``device="cpu"``;
@@ -79,6 +82,7 @@ from chunkflow_tpu_torch.ops.fold_blend import (
     fold_pad_shape,
 )
 from chunkflow_tpu_torch.parallel import engine as mesh_engine
+from chunkflow_tpu_torch.parallel import multihost
 from chunkflow_tpu_torch.parallel.engine import (
     MeshSpec,
     ShardedEngine,
@@ -403,8 +407,15 @@ class Inferencer:
         ``CHUNKFLOW_MESH`` (re-read per chunk: the kill switch works
         mid-stream)."""
         if self.sharding != "none":
+            world = multihost.process_count() > 1
             n = len(self._mesh if self._mesh is not None
+                    else multihost.local_devices(self.device) if world
                     else mesh_engine.local_devices(self.device))
+            if self.sharding == "patch" and world:
+                # one inference over the world (``_run_multiprocess``),
+                # also with one device a process, the common layout of
+                # one card per rank
+                return MeshSpec("data", (n,))
             if n <= 1:
                 return MeshSpec("single", (1,))
             if self.sharding == "patch":
@@ -439,7 +450,7 @@ class Inferencer:
         one-device path (``parallel/engine.py``)."""
         engine = shard_engine if shard_engine is not None \
             else self.shard_engine()
-        return engine.run(arr, grid)
+        return engine.run(arr, grid, host_params=self.engine.params)
 
     # ------------------------------------------------------------------
     def __call__(self, chunk: Chunk) -> Chunk:

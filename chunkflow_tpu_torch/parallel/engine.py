@@ -1,8 +1,12 @@
 """The mesh engine: one process drives patch inference over a list of
 devices, bitwise equal to one device.
 
-The counterpart of ``chunkflow_tpu/parallel/engine.py``, its single-
-process path (``ShardedEngine._run_local``). The mesh spec
+The counterpart of ``chunkflow_tpu/parallel/engine.py``. In one process
+it runs ``ShardedEngine._run_local``; in a world of several processes
+(``parallel/multihost.py``) ``_run_multiprocess``: the data kind runs the
+psum recipe over the global device list when the backend has
+collectives, and every other case checks the consistency guard and runs
+``_run_local`` over the process's own devices. The mesh spec
 (``CHUNKFLOW_MESH``, ``inference --mesh``, ``Inferencer(mesh=...)``):
 
     1            one device: no engine is built
@@ -644,6 +648,11 @@ class ShardedEngine:
         self._mesh: Optional[List[torch.device]] = None
         self._bumps: dict = {}
         self._dispatches = 0  # the readiness probe's sampling clock
+        # the multi-process recipe's psum programs (one per mesh,
+        # ``distributed.prepare_sharded``) and the local engines of its
+        # no-collectives leg
+        self._global_programs: dict = {}
+        self._local_engines: dict = {}
         # the stage protocol (parallel/pipeline.py), precision-wrapped;
         # None: the forward is opaque and a pipeline mesh raises
         self.stage_entry = stage_entry
@@ -688,6 +697,30 @@ class ShardedEngine:
             forward_on=inferencer._forward_on,
             device=inferencer.device,
         )
+
+    @classmethod
+    def for_engine(cls, engine, input_patch_size: Triple,
+                   output_patch_size: Triple, batch_size: int,
+                   spec: MeshSpec, out_dtype: str = "float32",
+                   devices=None, device="cpu") -> "ShardedEngine":
+        """The mesh engine of a raw ``engines.Engine``: a shard on a
+        device other than the parameters' runs the engine's call on a
+        copy of them there, made on its first use and kept by the
+        engine."""
+        home = params_device(engine.params)
+        params = (None if engine.call is None or home is None
+                  else engine.params)
+        built: dict = {}
+
+        def forward_on(dev):
+            return on_device(dev, home, engine.apply, params,
+                             lambda p: functools.partial(engine.call, p),
+                             built)
+
+        return cls(engine.apply, engine.num_input_channels,
+                   engine.num_output_channels, input_patch_size,
+                   output_patch_size, batch_size, spec, out_dtype=out_dtype,
+                   devices=devices, forward_on=forward_on, device=device)
 
     # ------------------------------------------------------------------
     def mesh(self) -> List[torch.device]:
@@ -1271,12 +1304,19 @@ class ShardedEngine:
         telemetry.gauge("shard/chip_skew_s", readies[-1] - readies[0])
 
     # ------------------------------------------------------------------
-    def run(self, arr: torch.Tensor, grid: PatchGrid) -> torch.Tensor:
+    def run(self, arr: torch.Tensor, grid: PatchGrid,
+            host_params=None) -> torch.Tensor:
         """Run one chunk ``[C, Z, y, x]`` (raw, on the engine's device)
         over the mesh; returns the normalized output on the engine's
         device. Nothing here waits for a device, but the sampled
-        readiness probe. One process drives every device (the JAX
-        package's ``_run_multiprocess`` is ROADMAP item 7b)."""
+        readiness probe. In a world of several processes
+        (``parallel/multihost.py``) it runs :meth:`_run_multiprocess`;
+        ``host_params`` is the parameter tree the cross-process
+        consistency guard digests."""
+        from chunkflow_tpu_torch.parallel import multihost
+
+        if multihost.process_count() > 1:
+            return self._run_multiprocess(arr, grid, host_params)
         return self._run_local(arr, grid)
 
     def _run_local(self, arr: torch.Tensor,
@@ -1287,6 +1327,86 @@ class ShardedEngine:
         if self.spec.kind == "pipeline":
             return self._run_pipeline(arr, grid, sharded)
         return self._run_spatial(arr, grid, sharded)
+
+    def _run_multiprocess(self, arr: torch.Tensor, grid: PatchGrid,
+                          host_params) -> torch.Tensor:
+        """A world spanning processes. With collectives the data kind runs
+        the cross-process recipe (the psum program over the global device
+        list behind ``run_global``'s guard, ulp-level against one
+        device); every other case checks the guard and computes over this
+        process's local devices (bitwise one device, so every process
+        holds the same copy)."""
+        from chunkflow_tpu_torch.parallel import multihost
+
+        if multihost.backend_supports_collectives() \
+                and self.spec.kind == "data":
+            from chunkflow_tpu_torch.parallel.distributed import (
+                prepare_sharded,
+            )
+
+            # the shards' forwards carry their parameters; the raw chunk
+            # goes to the gather, which converts it as the one-device path
+            mesh = multihost.global_mesh()
+            n_glob = len(mesh)
+            program, in_starts, out_starts, valid = prepare_sharded(
+                self, grid, mesh)
+            voxels = int(np.prod(tuple(arr.shape)[1:]))
+            self._gauges(voxels, chip_patches=valid.reshape(n_glob, -1)
+                         .sum(axis=1))
+            # the cross-process recipe all-reduces partial float32 blend
+            # buffers: a ring all-reduce moves ~2(n-1) output-buffer copies
+            out_bytes = self.num_output_channels * voxels * 4
+            self._note_collectives(0.0, float(2 * (n_glob - 1) * out_bytes))
+            with telemetry.span("shard/dispatch", mesh="global"):
+                out = multihost.run_global(program, arr, in_starts,
+                                           out_starts, valid, host_params,
+                                           mesh)
+            return _send(out, self.device)
+
+        # no cross-process collectives: guard, then compute locally
+        multihost.ensure_consistent(arr, host_params)
+        spec = self._local_spec()
+        local = self._local_engines.get(spec)
+        if local is None:
+            local = self._local_engines[spec] = ShardedEngine(
+                self.forward, self.num_input_channels,
+                self.num_output_channels, self.input_patch_size,
+                self.output_patch_size, self.batch_size, spec,
+                out_dtype=self.out_dtype,
+                devices=multihost.local_devices(self.device),
+                stage_entry=self.stage_entry,
+                stage_bodies=self.stage_bodies, stage_tail=self.stage_tail,
+                stage_params=self.stage_params,
+                precision_tag=self.precision_tag,
+                forward_on=self.forward_on, device=self.device)
+        return local._run_local(arr, grid)
+
+    def _local_spec(self) -> MeshSpec:
+        """This spec clamped to the process-local device count (the
+        no-collectives leg), as the JAX package clamps it."""
+        from chunkflow_tpu_torch.parallel import multihost
+
+        n_local = len(multihost.local_devices(self.device))
+        if self.spec.kind == "data":
+            n = min(self.spec.shape[0], n_local)
+            return (MeshSpec("data", (n,)) if n > 1
+                    else MeshSpec("data", (max(n_local, 1),)))
+        if self.spec.kind == "pipeline":
+            # fewer devices means coarser stage groups: the stage
+            # protocol keeps the composition (and the bits) identical
+            n = min(self.spec.shape[0], n_local)
+            return (MeshSpec("pipeline", (n,)) if n > 1
+                    else MeshSpec("data", (max(n_local, 1),)))
+        ny, nx = self.spec.shape
+        if ny * nx <= n_local:
+            return self.spec
+        # shrink y first (the outer axis) until the mesh fits
+        while ny * nx > n_local and ny > 1:
+            ny -= 1
+        while ny * nx > n_local and nx > 1:
+            nx -= 1
+        return MeshSpec("spatial", (max(ny, 1), max(nx, 1))) \
+            if ny * nx > 1 else MeshSpec("data", (max(n_local, 1),))
 
 
 # ---------------------------------------------------------------------------
@@ -1313,7 +1433,9 @@ def sharded_inference(
     asks for the CPU; it raises without a card) as float32, and the
     result stays there. ``devices`` defaults to the local devices of
     ``device``; a shard on a device other than the parameters' runs the
-    engine's call on a copy of them there."""
+    engine's call on a copy of them there. In a world of several
+    processes (``multihost.sharded_inference_global``) the cross-process
+    guard digests ``engine.params``."""
     device = resolve_device(device)
     arr = torch.as_tensor(chunk_array).to(device=device,
                                           dtype=torch.float32)
@@ -1329,27 +1451,8 @@ def sharded_inference(
     arr = arr.contiguous()
     grid = enumerate_patches(tuple(arr.shape), pin, pout,
                              tuple(output_patch_overlap))
-    home = params_device(engine.params)
-    params = (None if engine.call is None or home is None
-              else engine.params)
-    built: dict = {}
-
-    def forward_on(dev):
-        return on_device(dev, home, engine.apply, params,
-                         lambda p: functools.partial(engine.call, p), built)
-
-    sharded = ShardedEngine(
-        engine.apply,
-        engine.num_input_channels,
-        engine.num_output_channels,
-        pin,
-        tuple(grid.output_patch_size),
-        batch_size,
-        spec,
-        out_dtype=out_dtype,
-        devices=devices,
-        forward_on=forward_on,
-        device=device,
-    )
+    sharded = ShardedEngine.for_engine(
+        engine, pin, tuple(grid.output_patch_size), batch_size, spec,
+        out_dtype=out_dtype, devices=devices, device=device)
     with torch.no_grad():
-        return sharded.run(arr, grid)
+        return sharded.run(arr, grid, host_params=engine.params)

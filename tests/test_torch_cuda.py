@@ -999,3 +999,55 @@ def test_orbax_checkpoint_loads_on_the_card(cuda):
                               accumulate.fused_accumulate_patches_plain):
         plain = inferencer(chunk).host().array
     assert np.isfinite(got).all() and np.array_equal(got, plain)
+
+
+CUDA_RANK = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from chunkflow_tpu_torch.inference import engines
+from chunkflow_tpu_torch.ops import accumulate, gather
+from chunkflow_tpu_torch.parallel import multihost
+
+pid = {pid}
+cfg = json.load(open({cfg!r}))
+multihost.initialize(cfg["coord"], 2, pid, device="cuda:0")
+pin = tuple(cfg["pin"])
+got = multihost.sharded_inference_global(
+    np.load(cfg["chunk"]), engines.create_identity_engine(pin, pin, 3), pin,
+    pin, tuple(cfg["overlap"]), batch_size=2)
+np.save(cfg["out"] + "/rank%d.npy" % pid, got.cpu().numpy())
+json.dump(dict(backend=multihost.backend(), device=str(got.device),
+               gather=gather.launches, accumulate=accumulate.launches),
+          open(cfg["out"] + "/rank%d.json" % pid, "w"))
+print("CUDA_RANK_OK", pid)
+"""
+
+
+def test_multihost_psum_on_one_card_is_within_tolerance(cuda, tmp_path):
+    """Two ranks in a gloo world on ``cuda:0`` (ranks sharing a card):
+    the identity psum recipe within 2e-6 of one device (the JAX
+    cross-topology gate), each rank through both kernels."""
+    import json
+
+    from tests.test_torch_multihost import _run_world
+
+    pin, overlap = (8, 64, 64), (2, 16, 16)
+    arr = np.random.default_rng(23).random((16, 128, 160)).astype(
+        np.float32)
+    np.save(tmp_path / "chunk.npy", arr)
+    _run_world(tmp_path, CUDA_RANK,
+               dict(out=str(tmp_path), chunk=str(tmp_path / "chunk.npy"),
+                    pin=pin, overlap=overlap), "CUDA_RANK_OK")
+    ref = Inferencer(input_patch_size=pin, output_patch_overlap=overlap,
+                     num_output_channels=3, framework="identity",
+                     batch_size=2, crop_output_margin=False)(
+        Chunk(arr)).host().array
+    for pid in range(2):
+        info = json.loads((tmp_path / f"rank{pid}.json").read_text())
+        assert info["backend"] == "gloo" and info["device"] == "cuda:0"
+        assert info["gather"] > 0 and info["accumulate"] > 0
+        got = np.load(tmp_path / f"rank{pid}.npy")
+        assert got.shape == ref.shape
+        assert np.abs(got.astype(np.float64) - ref).max() <= 2e-6
