@@ -280,6 +280,25 @@ non-zero exit and no result line:
              of min(4, cards) ranks, a card each, on the same chunk.
              s/chunk beside one device's, the all-reduce's ms and bytes
              (``shard/gather_bytes``), each rank's start-up and launches
+24. tooling  the checking tools: (a) the shape contracts' microseconds
+             per call on card tensors (the accumulate's specs, under
+             ``torch.cuda``'s sync debug mode "error", and with
+             ``CHUNKFLOW_CONTRACTS=0``), and a float32 starts table on the
+             card refused with ``ContractError`` before any launch, the
+             buffers untouched; (b) a fresh subprocess that installs the
+             lock-order sanitizer (``CHUNKFLOW_LOCKSMITH=1``, raise mode)
+             before importing the port, then runs phase 8's adaptive
+             stream (``tpu_s2d4`` bfloat16, three chunks, bitwise the
+             serial loop) and phase 14's packer fed by four threads (its
+             12 requests, bitwise each one-by-one call) on ``cuda:0``: its
+             locks, acquires, edges and violations (none allowed); (c) the
+             program cost ledger of this process over the parity UNet3D
+             main path (18 + 18 launches per chunk), fold, the packer and
+             a ``data=2`` mesh on this card repeated: per family calls,
+             compile s, exec ms, GFLOP, MB, roofline ms, util and lost s
+             against the H100 row; the ``scatter`` FLOPs equal to the
+             layers' (``conv_flops``) plus the kernels'; its dispatch wall
+             beside the device-synchronized s/chunk of the same calls
 
 The script prints the seconds of each phase and its total. Launch counts are read from each kernel wrapper's counter, set to 0 just
 before a main path runs and read just after. The line before the last is
@@ -336,9 +355,10 @@ BF16_MAX, BF16_MEAN = 0.02, 0.005
 # JAX package's own gap on the same crops with the same weights
 BF16_CROPS = ((0, 0, 0), (0, 192, 192), (16, 64, 320), (40, 384, 96))
 CROP = (8, 64, 64)
-# phase 8: distinct seeded chunks streamed per family; the family whose
-# host-side share is the largest, and the parity UNet3D
-STREAM_K = 6
+# phase 8: distinct seeded chunks streamed per family (3 since phase 24
+# was added: its time is paid for here); the family whose host-side
+# share is the largest, and the parity UNet3D
+STREAM_K = 3
 STREAM_FAMILIES = (("tpu_s2d4", "bfloat16"), ("parity", "float32"))
 # phase 9: a chunk on which the fold and scatter patch grids coincide
 UNIFORM = (68, 640, 640)
@@ -521,6 +541,16 @@ SERVE_RUNTIME_S = 240
 # the SLO config phase 15 serves under (the JAX package's defaults but the
 # storage objective, which a server reading no volume never feeds)
 SERVE_SLO_TOML = "[objective.storage_hit]\nenabled = false\n"
+# phase 24: contracted calls timed per measurement, the sanitizer
+# subprocess's runtime cap (s), the parity main-path chunks the ledger
+# times after its first (the family's compile) call, and the packer
+# requests and mesh it runs for the catalog
+CONTRACT_CALLS = 20_000
+SANITIZER_TIMEOUT_S = 300
+SANITIZER_CHUNKS = 3
+LEDGER_CHUNKS = 3
+LEDGER_PACK = 3
+LEDGER_MESH = "data=2"
 # profiler sessions taken before a trace counts as lost; the busy-wait
 # (GPU clock cycles, ~1 ms on an H100) ahead of a CUDA-event timing
 TRACE_TRIES = 4
@@ -534,6 +564,16 @@ class SmokeFailure(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def metrics_events(metrics):
+    """Every event of the JSONL telemetry files in a ``--metrics-dir``
+    (``programs.json``, the cost ledger's catalog, is no event file)."""
+    for name in sorted(os.listdir(metrics)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(metrics, name)) as f:
+                for ln in f:
+                    yield json.loads(ln)
 
 
 def phase(name: str, detail: str) -> None:
@@ -1627,6 +1667,13 @@ def main() -> int:
             torch, multihost_cfg(card, chunk_u8.host().array, weights),
             reset_counts, counts).items():
         kernels[kname]["launches"] += n
+    # ---- 24. tooling: contracts, the sanitizer, the cost ledger --------
+    lap("24 tooling")
+    torch.cuda.empty_cache()
+    for kname, n in tooling_phase(torch, dict(
+            chunks=ledger_chunks(np, Chunk), card=card),
+            reset_counts, counts).items():
+        kernels[kname]["launches"] += n
     lap("end")
     spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
              in zip(laps[1:-1], laps[2:])}
@@ -1866,14 +1913,10 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                 require(sorted(keys) == sorted(b.string for b in boxes),
                         f"volume: the ledger holds {len(keys)} keys")
                 acks = {b.string: 0 for b in boxes}
-                for name in os.listdir(metrics):
-                    with open(os.path.join(metrics, name)) as f:
-                        for ln in f:
-                            event = json.loads(ln)
-                            if event.get("name") in (
-                                    "lifecycle/committed",
-                                    "lifecycle/ledger_skip"):
-                                acks[event["body"]] += 1
+                for event in metrics_events(metrics):
+                    if event.get("name") in ("lifecycle/committed",
+                                             "lifecycle/ledger_skip"):
+                        acks[event["body"]] += 1
                 require(set(acks.values()) == {1},
                         f"volume: acks per task {acks}, not one each")
                 require(w1.get("chaos/injected") == 2,
@@ -2128,13 +2171,10 @@ def chain_phase(torch, cfg, vol_in, image, tmp, reset_counts, counts):
                 == sorted(b.string for b in boxes),
                 "chain: the ledger is short")
         acks = {b.string: 0 for b in boxes}
-        for fname in os.listdir(metrics):
-            with open(os.path.join(metrics, fname)) as f:
-                for ln in f:
-                    event = json.loads(ln)
-                    if event.get("name") in ("lifecycle/committed",
-                                             "lifecycle/ledger_skip"):
-                        acks[event["body"]] += 1
+        for event in metrics_events(metrics):
+            if event.get("name") in ("lifecycle/committed",
+                                     "lifecycle/ledger_skip"):
+                acks[event["body"]] += 1
         require(set(acks.values()) == {1}, f"chain: acks per task {acks}")
         spans = {key: h["mean"] * 1e3 for key, h in hists.items()}
         return out, wall, launched, spans
@@ -4327,13 +4367,10 @@ def encodings_phase(torch, cfg, weights, reset_counts, counts):
         require(stats["pending"] == stats["inflight"] == stats["dead"] == 0,
                 f"encodings: the queue did not drain: {stats}")
         acks = {b.string: 0 for b in boxes}
-        for name in os.listdir(metrics):
-            with open(os.path.join(metrics, name)) as f:
-                for ln in f:
-                    event = json.loads(ln)
-                    if event.get("name") in ("lifecycle/committed",
-                                             "lifecycle/ledger_skip"):
-                        acks[event["body"]] += 1
+        for event in metrics_events(metrics):
+            if event.get("name") in ("lifecycle/committed",
+                                     "lifecycle/ledger_skip"):
+                acks[event["body"]] += 1
         require(set(acks.values()) == {1},
                 f"encodings: acks per task {acks}, not one each")
         check_volume(out, "the two workers' sharded volume")
@@ -5566,12 +5603,9 @@ def cloud_phase(torch, cfg, weights, reset_counts, counts):
                             f"{c.get(f'kernels/{kname}')} times for {k} "
                             f"tasks, not {per_task} each")
             acks = {b.string: 0 for b in boxes}
-            for name in os.listdir(metrics):
-                with open(os.path.join(metrics, name)) as f:
-                    for ln in f:
-                        event = json.loads(ln)
-                        if event.get("name") == "lifecycle/committed":
-                            acks[event["body"]] += 1
+            for event in metrics_events(metrics):
+                if event.get("name") == "lifecycle/committed":
+                    acks[event["body"]] += 1
             require(set(acks.values()) == {1},
                     f"cloud: acks per task {acks}, not one each")
             left = drained(queue)
@@ -6948,6 +6982,311 @@ def _reference_rsunet(torch, out_dir, dev):
                     f"name (BatchNorm folded); vs the reference model on one "
                     f"8x64x64 patch on the card: max abs {diff:.3g} <= 1e-4")
     return files
+
+
+def ledger_chunks(np, chunk_cls):
+    """Phase 24's main-path chunks: phase 8's seed, ``LEDGER_CHUNKS + 1``
+    of them (the first is the family's compile call)."""
+    rng = np.random.default_rng(8)
+    return [chunk_cls(rng.integers(0, 256, CHUNK, dtype=np.uint8),
+                      voxel_offset=(CHUNK[0] * i, 0, 0))
+            for i in range(LEDGER_CHUNKS + 1)]
+
+
+def tooling_phase(torch, cfg, reset_counts, counts):
+    """Phase 24: the checking tools (module docstring). ``cfg``:
+    ``chunks`` (main-path chunks, ``LEDGER_CHUNKS + 1`` of them) and
+    ``card`` (the ``nvidia-smi`` line). Returns the launches of the
+    counted ledger run."""
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.core import profiling, telemetry
+    from chunkflow_tpu_torch.core.contracts import ContractError, contract
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.inference.patching import enumerate_patches
+    from chunkflow_tpu_torch.ops import accumulate
+    from chunkflow_tpu_torch.serve import PatchPacker
+
+    dev = torch.device("cuda")
+    card = cfg["card"]
+    # ---- a. contracts -----------------------------------------------------
+    P = int(np.prod(PIN))
+    out = torch.zeros((CHANNELS,) + CHUNK, device=dev)
+    weight = torch.zeros(CHUNK, device=dev)
+    preds = torch.ones((BATCH, CHANNELS) + PIN, device=dev)
+    valid = torch.ones(BATCH, device=dev)
+    bump = torch.ones(PIN, device=dev)
+    starts = torch.zeros((BATCH, 3), dtype=torch.int32)
+    specs = accumulate.fused_accumulate_patches.__contract__["args"]
+
+    def bare(out, weight, preds, valid, bump, out_starts):
+        return out
+
+    checked = contract(**specs)(bare)
+    args = (out, weight, preds, valid, bump, starts)
+
+    def per_call_us(fn):
+        t = time.perf_counter()
+        for _ in range(CONTRACT_CALLS):
+            fn(*args)
+        return (time.perf_counter() - t) / CONTRACT_CALLS * 1e6
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bare_us = min(per_call_us(bare) for _ in range(3))
+        checked_us = min(per_call_us(checked) for _ in range(3))
+        os.environ["CHUNKFLOW_CONTRACTS"] = "0"
+        try:
+            off_us = min(per_call_us(checked) for _ in range(3))
+        finally:
+            del os.environ["CHUNKFLOW_CONTRACTS"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    phase("tooling", f"contracts: {checked_us - bare_us:.2f} us per "
+                     f"contracted call on card tensors (the accumulate's "
+                     f"six specs; {checked_us:.2f} us against "
+                     f"{bare_us:.2f} us undecorated, under sync debug mode "
+                     f"'error'); with CHUNKFLOW_CONTRACTS=0 "
+                     f"{off_us - bare_us:.2f} us; {card}")
+    before = accumulate.launches
+    try:
+        accumulate.fused_accumulate_patches(
+            out, weight, preds, valid, bump,
+            torch.zeros((BATCH, 3), dtype=torch.float32, device=dev))
+        raise SmokeFailure("a float32 starts table reached the accumulate")
+    except ContractError as exc:
+        refusal = str(exc)
+    require("int32" in refusal and accumulate.launches == before,
+            f"the float32 starts table: {refusal!r}, launches "
+            f"{accumulate.launches - before}")
+    require(not bool(out.any()) and not bool(weight.any()),
+            "the refused call wrote the buffers")
+    phase("tooling", f"contracts: a float32 starts table on the card "
+                     f"refused before any launch: {refusal}")
+    del out, weight, preds, valid, bump
+
+    # ---- b. the lock-order sanitizer in a fresh process --------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_locksmith_") as tmp:
+        tmp = Path(tmp)
+        cfg_path = tmp / "sanitizer.json"
+        cfg_path.write_text(json.dumps({"out": str(tmp / "report.json")}))
+        env = dict(os.environ, CHUNKFLOW_LOCKSMITH="1",
+                   CHUNKFLOW_LOCKSMITH_MODE="raise")
+        for var in ("CHUNKFLOW_LOCKSMITH_SCOPE", "CHUNKFLOW_LOCKSMITH_HOLD_MS",
+                    "CHUNKFLOW_SCHED", "CHUNKFLOW_SERVE", "CHUNKFLOW_INT8",
+                    "CHUNKFLOW_PRECISION", "CHUNKFLOW_MESH"):
+            env.pop(var, None)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.sanitizer_child("
+             f"{str(cfg_path)!r})"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=SANITIZER_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        require(proc.returncode == 0 and "SANITIZER_OK" in proc.stdout,
+                f"the sanitizer subprocess failed (rc {proc.returncode}):\n"
+                f"{text[-4000:]}")
+        rep = json.loads((tmp / "report.json").read_text())
+    for line in proc.stdout.splitlines():
+        if line.startswith("[sanitizer]"):
+            print(line, flush=True)
+    require(rep["violations"] == 0 and rep["locks"] > 0,
+            f"the sanitizer: {rep}")
+    phase("tooling", f"locksmith (raise mode, scope chunkflow_tpu_torch): "
+                     f"{rep['locks']} locks, {rep['acquires']} acquires, "
+                     f"{rep['edges']} order edges, {rep['violations']} "
+                     f"violations, {rep['hold_violations']} hold records, "
+                     f"over phase 8's adaptive stream ({SANITIZER_CHUNKS} "
+                     f"chunks) and phase 14's packer ({len(PACK_SHAPES)} "
+                     f"requests, {PACK_THREADS} threads); the subprocess "
+                     f"took {child_s:.1f} s")
+
+    # ---- c. the program cost ledger -----------------------------------------
+    telemetry.reset()  # this phase's own catalog
+    chunks = cfg["chunks"]
+    require(len(chunks) == LEDGER_CHUNKS + 1,
+            f"the ledger needs {LEDGER_CHUNKS + 1} chunks")
+    kwargs = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                  num_output_channels=CHANNELS, batch_size=BATCH)
+    inf = Inferencer(framework="pytorch", model_variant="parity",
+                     dtype="float32", **kwargs)
+    torch.cuda.synchronize()
+    reset_counts()
+    inf(chunks[0])  # the family's first call: counted, timed as compile
+    synced = []
+    for c in chunks[1:]:
+        t = time.perf_counter()
+        inf(c)  # __call__ waits for the card
+        synced.append(time.perf_counter() - t)
+    launched = counts()
+    for kname, n in launched.items():
+        require(n == 18 * (LEDGER_CHUNKS + 1),
+                f"ledger run: {kname} launched {n} times, not "
+                f"{18 * (LEDGER_CHUNKS + 1)} (18 per chunk)")
+    per_batch = conv_flops(inf.engine.model,
+                           torch.zeros((BATCH, 1) + PIN, device=dev))
+    n_patches = enumerate_patches(CHUNK, PIN, PIN, OVERLAP).num_patches
+    n_batches = -(-n_patches // BATCH)
+    # the JAX kernels' cost functions: one multiply per gathered uint8
+    # voxel; per patch voxel *bump, *valid and + per channel, + weight
+    kernel_flops = n_batches * (BATCH * P + BATCH * (2 * CHANNELS + 1) * P)
+    # the other families, once each, for the catalog
+    fold = Inferencer(framework="identity", blend="fold", **kwargs)
+    fold(chunks[0])
+    fold(chunks[1])
+    rng = np.random.default_rng(24)
+    requests = [Chunk(rng.integers(0, 256, s, dtype=np.uint8))
+                for s in PACK_SHAPES[:LEDGER_PACK]]
+    packer = PatchPacker(inf, max_wait_ms=5.0)
+    try:
+        for r in requests:
+            packer.infer(r, timeout=300).host()
+    finally:
+        packer.close()
+    mesh = Inferencer(framework="identity", mesh=LEDGER_MESH, **kwargs)
+    mesh._mesh = [dev] * 2
+    mesh(chunks[0])
+    mesh(chunks[1])
+    torch.cuda.synchronize()
+    entries = profiling.catalog()
+    scatter = [e for e in entries if e["family"] == "scatter"]
+    require(len(scatter) == 1 and scatter[0]["calls"] == LEDGER_CHUNKS + 1,
+            f"the ledger's scatter records: {scatter}")
+    scatter = scatter[0]
+    expected = n_batches * per_batch + kernel_flops
+    require(scatter["flops"] == expected,
+            f"the ledger's scatter FLOPs {scatter['flops']} != conv_flops "
+            f"x {n_batches} + the kernels' {expected}")
+    require(scatter["device_kind"] and "h100" in
+            scatter["device_kind"].lower(),
+            f"the ledger's device {scatter['device_kind']!r}")
+    families = sorted({e["family"] for e in entries})
+    require(set(families) >= {"scatter", "fold", "serve_gather",
+                              "serve_forward", "serve_overlay",
+                              "serve_scatter", "shard"},
+            f"the ledger's families: {families}")
+    for e in sorted(entries, key=lambda e: (e["family"], e["key"])):
+        exec_s = e["exec_mean_s"]
+        phase("tooling", f"ledger {e['family']} [{e['key']}]: "
+                         f"{e['calls']} calls, compile {e['compile_s']:.3f} s, "
+                         f"exec {exec_s * 1e3 if exec_s else 0.0:.3f} ms, "
+                         f"{(e['flops'] or 0.0) / 1e9:.3f} GFLOP, "
+                         f"{(e['bytes_accessed'] or 0.0) / 1e6:.1f} MB, "
+                         f"roofline {(e['roofline_s'] or 0.0) * 1e3:.3f} ms, "
+                         f"util {e['roofline_util']}, lost {e['lost_s']} s, "
+                         f"h2d {e['h2d_bytes']}, hbm_i "
+                         f"{e['hbm_intermediate_bytes']}, collective "
+                         f"{e['collective_bytes']} ({e['device_kind']}, "
+                         f"{e['peak_source']})")
+    gauges = telemetry.snapshot()["gauges"]
+    phase("tooling", f"ledger scatter (parity float32 main path): "
+                     f"{scatter['flops'] / 1e12:.4f} TFLOP a chunk == "
+                     f"conv_flops {per_batch / 1e12:.4f} TFLOP x "
+                     f"{n_batches} batches + the kernels' "
+                     f"{kernel_flops / 1e9:.4f} GFLOP; roofline "
+                     f"{scatter['roofline_s'] * 1e3:.3f} ms against the "
+                     f"dispatch wall {scatter['exec_mean_s'] * 1e3:.3f} ms "
+                     f"(util {scatter['roofline_util']}, an upper bound) and "
+                     f"the device-synchronized {statistics.mean(synced):.4f} "
+                     f"s/chunk of the same {LEDGER_CHUNKS} calls "
+                     f"({[round(x, 4) for x in synced]}); compile call "
+                     f"{scatter['compile_s']:.3f} s; mesh {LEDGER_MESH} "
+                     f"split: compute {gauges.get('shard/compute_s_est')} s, "
+                     f"collective {gauges.get('shard/collective_s_est')} s, "
+                     f"share {gauges.get('shard/collective_share_est')}; "
+                     f"{card}")
+    del inf, fold, mesh, packer
+    telemetry.reset()
+    return launched
+
+
+def sanitizer_child(cfg_path):
+    """Phase 24's subprocess: the lock-order sanitizer installed before the
+    port is imported, then phase 8's adaptive stream and phase 14's
+    packer on ``cuda:0``; writes the sanitizer's report and prints
+    ``SANITIZER_OK``."""
+    cfg = json.loads(Path(cfg_path).read_text())
+    sys.path.insert(0, str(ROOT))
+    from chunkflow_tpu_torch.testing import locksmith
+
+    require(locksmith.install(), "CHUNKFLOW_LOCKSMITH is off")
+    import numpy as np
+    import torch
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.ops import accumulate, gather
+    from chunkflow_tpu_torch.serve import PatchPacker
+
+    kwargs = dict(input_patch_size=PIN, output_patch_overlap=OVERLAP,
+                  num_output_channels=CHANNELS)
+    variant, dtype = STREAM_FAMILIES[0]
+    rng = np.random.default_rng(8)
+    chunks = [Chunk(rng.integers(0, 256, CHUNK, dtype=np.uint8),
+                    voxel_offset=(CHUNK[0] * i, 0, 0))
+              for i in range(SANITIZER_CHUNKS)]
+    inf = Inferencer(framework="pytorch", model_variant=variant,
+                     dtype=dtype, batch_size=BATCH, **kwargs)
+    serial = [inf(c).host().array for c in chunks]
+    gather.launches = accumulate.launches = 0
+    streamed = [o.array for o in inf.stream(iter(chunks), adaptive=True)]
+    require(all(np.array_equal(a, b) for a, b in zip(streamed, serial)),
+            "the adaptive stream under the sanitizer differs from the "
+            "serial loop")
+    require(gather.launches == accumulate.launches == 18 * SANITIZER_CHUNKS,
+            f"stream launches {gather.launches}, {accumulate.launches}")
+    print(f"[sanitizer] {variant} {dtype}: {SANITIZER_CHUNKS} chunks "
+          f"streamed (adaptive) bitwise the serial loop, 18 + 18 launches "
+          f"per chunk", flush=True)
+    del inf
+    rng = np.random.default_rng(14)
+    requests = [Chunk(rng.integers(0, 256, s, dtype=np.uint8),
+                      voxel_offset=(100 * i, 0, 0))
+                for i, s in enumerate(PACK_SHAPES)]
+    inf = Inferencer(framework="pytorch", model_variant="tpu",
+                     dtype="bfloat16", batch_size=PACK_BATCH, **kwargs)
+    refs = [inf(c).host().array for c in requests]
+    packer = PatchPacker(inf, max_wait_ms=5.0)
+    results = [None] * len(requests)
+
+    def submitter(k):
+        handles = [(i, packer.submit(requests[i]))
+                   for i in range(k, len(requests), PACK_THREADS)]
+        for i, handle in handles:
+            results[i] = handle.result(timeout=600).host().array
+
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(PACK_THREADS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        packer.close()
+    require(all(r is not None and np.array_equal(r, ref)
+                for r, ref in zip(results, refs)),
+            "the packer under the sanitizer differs from one-by-one calls")
+    print(f"[sanitizer] tpu bfloat16 packer: {len(requests)} requests from "
+          f"{PACK_THREADS} threads, each bitwise its one-by-one call",
+          flush=True)
+    rep = locksmith.report()
+    for v in rep["violations"]:
+        print(f"[sanitizer] violation: {v['detail']}", flush=True)
+    summary = {"locks": rep["locks"], "acquires": rep["acquires"],
+               "edges": rep["edges"], "violations": len(rep["violations"]),
+               "hold_violations": len(rep["hold_violations"])}
+    Path(cfg["out"]).write_text(json.dumps(summary))
+    require(not rep["violations"], f"lock-order violations: {summary}")
+    print("SANITIZER_OK", flush=True)
 
 
 def _flax_layout(state):

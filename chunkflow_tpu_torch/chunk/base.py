@@ -333,11 +333,17 @@ class Chunk(np.lib.mixins.NDArrayOperatorsMixin):
         payload is copied into page-locked memory, then to the device on
         ``stream`` (default: the current stream), and the result holds
         the pinned source and the copy's event. Work on another stream
-        calls :meth:`await_upload` before it reads the payload."""
+        calls :meth:`await_upload` before it reads the payload. This is
+        the staging seam: a host payload's bytes count in
+        ``transfer/h2d_bytes`` (``core/profiling.note_h2d``)."""
         arr = self.array
         if isinstance(arr, np.ndarray):
             arr = _as_tensor(arr)
         device = torch.device(device)
+        if device.type != "cpu" and arr.device.type == "cpu":
+            from chunkflow_tpu_torch.core import profiling
+
+            profiling.note_h2d(arr.numel() * arr.element_size())
         if device.type != "cuda" or arr.device.type != "cpu":
             return self._with_array(arr.to(device))
         pinned = arr.pin_memory()

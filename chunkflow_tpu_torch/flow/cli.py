@@ -3233,7 +3233,9 @@ def _group_parser() -> argparse.ArgumentParser:
                    help="append the run's telemetry events (task claims, "
                         "commits, retries, ledger skips, depth changes, "
                         "time-series samples, alerts) to a JSONL file of "
-                        "this process here")
+                        "this process here, and at the end of the run the "
+                        "program cost ledger (programs.json, and a "
+                        "programs event log-summary reads)")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve live /metrics (Prometheus text), /healthz, "
                         "/alerts and POST /profile from this worker for the "

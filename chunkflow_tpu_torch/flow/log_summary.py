@@ -451,8 +451,9 @@ def print_program_summary(programs: List[dict], top: int = 10,
                           headroom_bytes: Optional[float] = None) -> None:
     """The DEVICE PROGRAMS table: top program families by LOST SECONDS
     ((dispatch_wall − roofline) × calls — the fusion-target ranking),
-    with XLA cost analysis and the achieved-vs-roofline figure when the
-    catalog carried one (docs/observability.md "Device program view").
+    with the catalog's cost figures (the JAX package's XLA cost
+    analysis, the port's analytic stamp: ``core/profiling.py``) and the
+    achieved-vs-roofline figure when the catalog carried one.
     ``headroom_bytes`` (the live ``device/hbm_headroom`` gauge — the
     worst chip's free HBM) prints next to the table so the ``vmem`` /
     ``hbm_i`` budget columns read against what is actually left."""

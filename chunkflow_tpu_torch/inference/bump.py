@@ -6,6 +6,9 @@ grid, computed on the host in float64 (the raw bump spans ~1e-190 at
 256-wide patches, far below float32), affinely rescaled to [1, 1e6] and
 cast to float32 — bitwise the JAX package's map. The blend divides by the
 accumulated weight, so any monotone conditioning preserves exactness.
+It carries the JAX function's result contract. The JAX package's
+``normalized_patch_mask`` has no counterpart here: no path of the port
+uses it.
 """
 from __future__ import annotations
 
@@ -14,7 +17,10 @@ from typing import Tuple
 
 import numpy as np
 
+from chunkflow_tpu_torch.core.contracts import Spec, contract
 
+
+@contract(_result=Spec("z", "y", "x", dtype="float32"))
 @functools.lru_cache(maxsize=None)
 def bump_map(patch_size: Tuple[int, int, int]) -> np.ndarray:
     """Raw bump weights, float32, conditioned to [1, 1e6]."""

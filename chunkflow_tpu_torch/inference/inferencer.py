@@ -35,6 +35,12 @@ bitwise this one-device path. In a world of several processes
 the world: the psum recipe, ulp-level against one device, or the
 guarded local compute without collectives. Fold stays on one device.
 
+``_infer`` and ``_run_fold`` carry the JAX methods' shape contracts
+(``core/contracts.py``); each chunk shape's scatter or fold step is one
+record of the program cost ledger (``core/profiling.py``: families
+``scatter`` and ``fold``), and a host payload's upload is noted as the
+family's H2D bytes.
+
 The entry points run on the card (``device="cuda"``, the default) and
 raise when there is none, unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain PyTorch versions run. Options of the JAX
@@ -58,8 +64,9 @@ from chunkflow_tpu_torch.chunk.base import (
     _as_tensor,
     edge_pad,
 )
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.core.cartesian import Cartesian
+from chunkflow_tpu_torch.core.contracts import Spec, contract
 from chunkflow_tpu_torch.core.device import resolve_device
 from chunkflow_tpu_torch.core.dtypes import numpy_dtype
 from chunkflow_tpu_torch.inference import engines
@@ -74,6 +81,7 @@ from chunkflow_tpu_torch.ops.blend import (
     build_local_blend,
     device_valid,
     normalize_blend,
+    pipeline_kernel_cost,
     stack_budget_bytes,
 )
 from chunkflow_tpu_torch.ops.fold_blend import (
@@ -252,6 +260,9 @@ class Inferencer:
             self._bump,
         )
         self._fold_mesh_noted = False
+        # the program cost ledger's records of this inferencer's steps,
+        # one per family and chunk shape (core/profiling.py)
+        self._programs: dict = {}
         # the streamed path's copy streams (compute stays on the caller's
         # current stream)
         self._h2d_stream = self._d2h_stream = None
@@ -326,6 +337,7 @@ class Inferencer:
         fixed = 8 * (co + 1) * int(np.prod(padded))
         return n * per_patch + fixed <= stack_budget_bytes()
 
+    @contract(arr=Spec(None, "z", "y", "x", dtype="float32"))
     def _run_fold(self, arr: torch.Tensor) -> torch.Tensor:
         """Pad a float32 ``[ci, z, y, x]`` chunk to a uniform grid by
         replicating its high faces, fold it, crop back. Voxels within one
@@ -335,18 +347,21 @@ class Inferencer:
         padded, _ = self._fold_geometry(zyx)
         if padded != zyx:
             arr = edge_pad(arr, padded)
-        program = build_fold_program(
-            self._forward,
-            self.num_input_channels,
-            self.num_output_channels,
-            tuple(self.input_patch_size),
-            tuple(self.output_patch_size),
-            tuple(self.output_patch_size - self.output_patch_overlap),
-            self.batch_size,
-            self._bump,
-            padded,
-            out_dtype=self.output_dtype,
-        )
+        program = profiling.cached_program(
+            self._programs, ("fold", padded),
+            lambda: build_fold_program(
+                self._forward,
+                self.num_input_channels,
+                self.num_output_channels,
+                tuple(self.input_patch_size),
+                tuple(self.output_patch_size),
+                tuple(self.output_patch_size - self.output_patch_overlap),
+                self.batch_size,
+                self._bump,
+                padded,
+                out_dtype=self.output_dtype,
+            ),
+            label="inferencer", device=self.device)
         return program(arr)[:, :zyx[0], :zyx[1], :zyx[2]]
 
     # ------------------------------------------------------------------
@@ -569,17 +584,35 @@ class Inferencer:
             out = out.crop_margin(self.crop_margin)
         return out
 
-    def _upload(self, chunk: Chunk) -> torch.Tensor:
+    def _upload(self, chunk: Chunk, h2d_key=None) -> torch.Tensor:
         """The chunk on the device as ``[c, z, y, x]`` (see
         :func:`_host_payload`). A staged chunk's payload is used as it is,
         once the current stream has waited for its copy; any other host
-        payload is copied here, synchronously."""
+        payload is copied here, synchronously, and its bytes noted as the
+        H2D bytes of the program family ``h2d_key`` (staged chunks count
+        in ``Chunk.device`` instead)."""
         chunk.await_upload()
-        arr = _host_payload(chunk).to(self.device)
+        arr = _host_payload(chunk)
+        if arr.device.type == "cpu" and self.device.type != "cpu":
+            profiling.note_h2d(arr.numel() * arr.element_size(),
+                               key=h2d_key)
+        arr = arr.to(self.device)
         if arr.dim() == 3:
             arr = arr[None]
         return arr.contiguous()
 
+    def _scatter_stamp(self, n_batches: int) -> dict:
+        """The scatter step's stamp: the JAX inter-stage formula (each
+        batch's float32 patch and prediction stacks written and re-read)
+        over the chunk's batches; FLOPs and bytes are counted."""
+        step = pipeline_kernel_cost(
+            self.batch_size, self.num_input_channels,
+            self.num_output_channels, tuple(self.input_patch_size),
+            tuple(self.output_patch_size))
+        return {"hbm_intermediate_bytes":
+                n_batches * step["hbm_intermediate_bytes"]}
+
+    @contract(chunk=Spec(ndim=(3, 4)))
     def _infer(self, chunk: Chunk) -> Chunk:
         if self.dry_run or chunk.all_zero():
             return self._blank_output(chunk)
@@ -605,8 +638,10 @@ class Inferencer:
                           file=sys.stderr)
         else:
             shard_engine = self.shard_engine()
+        h2d_key = (("fold",) if use_fold else ("scatter",)
+                   if shard_engine is None else ("shard",))
         with torch.no_grad():
-            arr = self._upload(chunk)
+            arr = self._upload(chunk, h2d_key)
             if use_fold:
                 # fold contracts on float32 (the JAX package converts
                 # before padding); conversion makes a new tensor for ints
@@ -629,14 +664,22 @@ class Inferencer:
                 else:
                     in_starts, out_starts, valid = pad_to_batch(
                         grid, self.batch_size)
-                    out, weight = self._local_blend(
-                        arr,
-                        torch.from_numpy(in_starts),
-                        torch.from_numpy(out_starts),
-                        device_valid(valid, self.device),
-                    )
-                    result = normalize_blend(out, weight,
-                                             self.output_dtype)
+
+                    def scatter():
+                        out, weight = self._local_blend(
+                            arr,
+                            torch.from_numpy(in_starts),
+                            torch.from_numpy(out_starts),
+                            device_valid(valid, self.device),
+                        )
+                        return normalize_blend(out, weight,
+                                               self.output_dtype)
+
+                    result = profiling.run_program(
+                        self._programs, ("scatter", run_zyx), scatter,
+                        label="inferencer", device=self.device,
+                        stamp=lambda: self._scatter_stamp(
+                            len(valid) // self.batch_size))
         telemetry.inc("inference/chunks")
         return self._postprocess_result(result, chunk, orig_zyx, run_zyx)
 

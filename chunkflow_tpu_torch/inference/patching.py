@@ -13,6 +13,7 @@ from typing import List, NamedTuple
 import numpy as np
 
 from chunkflow_tpu_torch.core.cartesian import Cartesian
+from chunkflow_tpu_torch.core.contracts import Spec, contract
 
 
 class PatchGrid(NamedTuple):
@@ -82,6 +83,13 @@ def enumerate_patches(
     )
 
 
+@contract(
+    _result=(
+        Spec("n", 3, dtype="int32"),
+        Spec("n", 3, dtype="int32"),
+        Spec("n", dtype="float32"),
+    ),
+)
 def pad_to_batch(grid: PatchGrid, batch_size: int):
     """Pad the patch list to a batch multiple; returns (in, out, valid).
 

@@ -6,7 +6,10 @@ gather the batch out of the raw chunk (``ops/gather.py``), run the
 engine forward, accumulate the bump-weighted predictions into the output
 and weight buffers (``ops/accumulate.py``) — where the JAX package runs
 the same steps as a ``lax.scan`` inside one program.
-:func:`normalize_blend` divides by the accumulated weight.
+:func:`normalize_blend` divides by the accumulated weight. Both carry the
+JAX entry points' shape contracts (``core/contracts.py``), and
+:func:`pipeline_kernel_cost` is the JAX function's analytic cost of one
+patch step, for the program cost ledger.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from chunkflow_tpu_torch.core import envmode
+from chunkflow_tpu_torch.core.contracts import Spec, contract
 from chunkflow_tpu_torch.ops import accumulate as _accumulate
 from chunkflow_tpu_torch.ops import gather as _gather
 
@@ -110,6 +114,12 @@ def build_local_blend(
     pin = tuple(input_patch_size)
     accumulate = make_accumulate(tuple(output_patch_size), bump)
 
+    @contract(
+        chunk=Spec(None, "z", "y", "x"),
+        in_starts=Spec("n", 3, dtype="int32"),
+        out_starts=Spec("n", 3, dtype="int32"),
+        valid=Spec("n", dtype="float32"),
+    )
     def local_blend(chunk, in_starts, out_starts, valid):
         if chunk.shape[0] != ci:
             raise ValueError(f"chunk has {chunk.shape[0]} channels, the "
@@ -132,6 +142,34 @@ def build_local_blend(
     return local_blend
 
 
+def pipeline_kernel_cost(B: int, ci: int, co: int, pin, pout,
+                         dtype="uint8", covered=None) -> dict:
+    """Analytic cost of one patch step over a batch of ``B`` patches: the
+    gather's and the accumulate's (``ops/gather.gather_kernel_cost``,
+    ``ops/accumulate.fused_kernel_cost``) summed, as the JAX
+    ``pipeline_kernel_cost`` composes them; its ``flops`` equal the JAX
+    function's. ``hbm_intermediate_bytes`` is the JAX formula: the
+    gathered float32 patch stack and the float32 prediction stack, each
+    written by one step and read by the next (x2 per stack); the port
+    materializes both. ``vmem_bytes`` is None (no VMEM on the card)."""
+    pin = tuple(pin)
+    pout = tuple(pout)
+    g = _gather.gather_kernel_cost(B, ci, pin, dtype)
+    a = _accumulate.fused_kernel_cost(B, co, pout, covered)
+    patch_stack_f32 = B * ci * int(np.prod(pin)) * 4
+    pred_stack_f32 = B * co * int(np.prod(pout)) * 4
+    return {
+        "flops": g["flops"] + a["flops"],
+        "bytes_accessed": g["bytes_accessed"] + a["bytes_accessed"],
+        "vmem_bytes": None,
+        "hbm_intermediate_bytes": 2 * (patch_stack_f32 + pred_stack_f32),
+    }
+
+
+@contract(
+    out=Spec("co", "z", "y", "x", dtype="float32"),
+    weight=Spec("z", "y", "x", dtype="float32"),
+)
 def normalize_blend(out: torch.Tensor, weight: torch.Tensor,
                     dtype: str = "float32") -> torch.Tensor:
     """Reciprocal weight normalization; zero where nothing was predicted.

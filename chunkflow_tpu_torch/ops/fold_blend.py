@@ -26,6 +26,7 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from chunkflow_tpu_torch.core.contracts import Spec, contract
 from chunkflow_tpu_torch.ops.blend import normalize_blend
 
 Triple = Tuple[int, int, int]
@@ -57,6 +58,10 @@ def _class_counts(g: int, k: int) -> list:
     return [len(range(c, g, k)) for c in range(k)]
 
 
+@contract(
+    stack=Spec("n", "co", "pz", "py", "px", dtype="float32"),
+    _result=Spec("co", None, None, None),
+)
 def fold_accumulate(stack: torch.Tensor, grid: Triple, stride: Triple,
                     pout: Triple, offset: Triple,
                     out_zyx: Triple) -> torch.Tensor:

@@ -15,6 +15,10 @@ conversion is exact int -> float32 then one IEEE float32 multiply, and
 slicing commutes with it. The TPU kernel's aligned-window machinery
 (``gather_window``, ``gather_buffer_padding``) is a Mosaic tiling rule
 and has no counterpart here.
+
+:func:`gather_kernel_cost` is the analytic cost the program cost ledger
+(``core/profiling.py``) stamps: the JAX ``gather_kernel_cost``'s FLOPs,
+and the bytes of the work itself.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from chunkflow_tpu_torch import _build
+from chunkflow_tpu_torch.core import profiling
 from chunkflow_tpu_torch.core.dtypes import numpy_dtype
 
 Triple = Tuple[int, int, int]
@@ -76,6 +81,30 @@ def convert_chunk(chunk: torch.Tensor) -> torch.Tensor:
     return chunk.to(torch.float32)
 
 
+def gather_kernel_cost(B: int, ci: int, input_patch_size: Triple,
+                       dtype) -> dict:
+    """Analytic cost of one :func:`gather_patches` call of ``B`` patches
+    of ``ci`` channels out of a ``dtype`` chunk.
+
+    ``flops`` is the JAX ``pallas_gather.gather_kernel_cost``'s: one
+    multiply per output voxel for an int chunk, none for float32.
+    ``bytes_accessed`` counts the WORK, not a tiling: every patch element
+    read once in the chunk's dtype and written once as float32, and the
+    starts table read once. The JAX function counts the Pallas kernel's
+    aligned raw windows instead, so at the main path's shape (B = 2, one
+    uint8 channel, 20x256x256) it gives 14.9 MB where this gives 13.1
+    MB. ``vmem_bytes`` is None: the card has no VMEM, and no TPU figure
+    is carried over."""
+    dt = numpy_dtype(dtype)
+    itemsize = dt.itemsize if dt is not None else 4
+    voxels = B * ci * int(np.prod(input_patch_size))
+    return {
+        "flops": voxels if int_scale(dtype) is not None else 0,
+        "bytes_accessed": voxels * (itemsize + 4) + B * 3 * 4,
+        "vmem_bytes": None,
+    }
+
+
 # each dtype's kernel arguments: its code and its scale (1.0 for float32,
 # which the kernel never scales)
 _LAUNCH_ARGS = {dtype: (code, float(int_scale(dtype) or 1.0))
@@ -95,10 +124,12 @@ def _check(chunk: torch.Tensor, in_starts: torch.Tensor,
             or in_starts.shape[1] != 3:
         raise TypeError(f"in_starts must be [B, 3] int32, got "
                         f"{tuple(in_starts.shape)} {in_starts.dtype}")
+    pin = pz, py, px = tuple(int(p) for p in input_patch_size)
+    if "meta" in (chunk.device.type, in_starts.device.type):
+        return pin  # shapes only: a meta table holds no corners
     if in_starts.device.type != "cpu":
         raise ValueError("in_starts is the host starts table: pass it on "
                          "the CPU")
-    pin = pz, py, px = tuple(int(p) for p in input_patch_size)
     _, Z, Y, X = chunk.shape
     # plain Python: a few rows check in a fraction of numpy's call overhead
     for z, y, x in in_starts.tolist():
@@ -114,11 +145,14 @@ def gather_patches_plain(chunk: torch.Tensor, in_starts: torch.Tensor,
     """``out[b] = convert(chunk[:, s_b : s_b + pin])`` in PyTorch ops —
     the plain version of the CUDA kernel, on whatever device ``chunk``
     lies. chunk ``[ci, Z, Y, X]`` raw; in_starts ``[B, 3]`` int32 on the
-    CPU; returns ``[B, ci, pz, py, px]`` float32."""
+    CPU; returns ``[B, ci, pz, py, px]`` float32 (on ``meta`` operands,
+    shapes only)."""
     pz, py, px = _check(chunk, in_starts, input_patch_size)
     B, ci = in_starts.shape[0], chunk.shape[0]
     out = torch.empty((B, ci, pz, py, px), dtype=torch.float32,
                       device=chunk.device)
+    if "meta" in (chunk.device.type, in_starts.device.type):
+        return out
     for b, (z, y, x) in enumerate(in_starts.tolist()):
         out[b] = convert_chunk(chunk[:, z:z + pz, y:y + py, x:x + px])
     return out
@@ -173,9 +207,14 @@ def gather_patches(chunk: torch.Tensor, in_starts: torch.Tensor,
     returns:   ``[B, ci, pz, py, px]`` float32 on ``chunk``'s device
 
     A CUDA chunk launches the kernel (once per ``max_batch`` rows of the
-    table, in ascending order); a CPU chunk runs the plain version.
+    table, in ascending order); a CPU (or ``meta``) chunk runs the plain
+    version.
     """
-    if chunk.device.type == "cpu":
+    if profiling.counting():
+        cost = gather_kernel_cost(in_starts.shape[0], chunk.shape[0],
+                                  input_patch_size, chunk.dtype)
+        profiling.note_work(cost["flops"], cost["bytes_accessed"])
+    if chunk.device.type in ("cpu", "meta"):
         return gather_patches_plain(chunk, in_starts, input_patch_size)
     if chunk.device.type != "cuda":
         raise ValueError(f"gather runs on cuda or cpu, not {chunk.device}")

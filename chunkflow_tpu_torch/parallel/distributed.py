@@ -12,14 +12,16 @@ needs; each rank instead blends its share of the patches into partial
 float32 ``out`` and ``weight`` buffers (the port's gather and accumulate
 kernels, ``ops/blend.build_local_blend``), and
 ``torch.distributed.all_reduce`` sums them where the JAX program runs
-``lax.psum``, at ulp-level (not bitwise) parity with one device.
+``lax.psum``, at ulp-level (not bitwise) parity with one device. Each program is a
+``shard`` record of the program cost ledger (``core/profiling.py``),
+keyed ``("shard", "global", <mesh>)`` as in the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.inference.patching import pad_to_batch
 from chunkflow_tpu_torch.ops.blend import (
     build_local_blend,
@@ -113,16 +115,15 @@ def prepare_sharded(engine, grid, mesh):
     in_starts, out_starts, valid = pad_to_batch(
         grid, engine.batch_size * len(mesh))
     programs = engine._global_programs
-    key = _mesh_key(mesh)
-    program = programs.get(key)
-    if program is None:
-        program = programs[key] = build_sharded_program(
+    key = ("shard", "global", _mesh_key(mesh))
+    program = profiling.cached_program(
+        programs, key,
+        lambda: build_sharded_program(
             engine._forward_for, engine.num_input_channels,
             engine.num_output_channels, engine.input_patch_size,
             engine.output_patch_size, engine.batch_size, mesh,
-            engine._bump, out_dtype=engine.out_dtype)
-        while len(programs) > _PROGRAMS_MAX:
-            programs.pop(next(iter(programs)))
+            engine._bump, out_dtype=engine.out_dtype),
+        label="distributed", device=engine.device, maxsize=_PROGRAMS_MAX)
     return program, in_starts, out_starts, valid
 
 

@@ -65,9 +65,14 @@ counters ``shard/halo_bytes``, ``shard/gather_bytes``,
 ``shard/replay_buffer_bytes`` and its per-chip copies; and a sampled
 readiness probe (the first dispatch, then every
 ``CHUNKFLOW_CHIP_PROBE_EVERY``-th, default 8), ``shard/chip/<i>/ready_s``
-and ``shard/chip_skew_s``. The JAX package's compute-vs-collective split
-reads XLA's cost analysis, which the port has not. Nothing is recorded
-under ``CHUNKFLOW_TELEMETRY=0``.
+and ``shard/chip_skew_s``. Each dispatch is one call of a ``shard``
+program of the cost ledger (``core/profiling.py``), keyed as the JAX
+program (kind, devices, chunk shape, rows, plan), whose first call
+counts its FLOPs; with them the collective-vs-compute split gauges
+``shard/compute_s_est``, ``shard/collective_s_est`` and
+``shard/collective_share_est``, as in the JAX package. The serving
+forward is the ledger's ``serve_forward`` program of the mesh. Nothing
+is recorded under ``CHUNKFLOW_TELEMETRY=0``.
 """
 from __future__ import annotations
 
@@ -82,7 +87,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.core.device import resolve_device
 from chunkflow_tpu_torch.inference.bump import bump_map
 from chunkflow_tpu_torch.inference.patching import (
@@ -648,6 +653,8 @@ class ShardedEngine:
         self._mesh: Optional[List[torch.device]] = None
         self._bumps: dict = {}
         self._dispatches = 0  # the readiness probe's sampling clock
+        # the cost ledger's records of this engine's dispatches
+        self._programs: dict = {}
         # the multi-process recipe's psum programs (one per mesh,
         # ``distributed.prepare_sharded``) and the local engines of its
         # no-collectives leg
@@ -842,7 +849,10 @@ class ShardedEngine:
         self._gauges(int(np.prod(chunk_shape[1:])),
                      chip_patches=valid.reshape(n_dev, -1).sum(axis=1))
         probe = self._probing()
-        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+        key = (("shard", "data", n_dev, chunk_shape, n_pad_g)
+               + ((plan.r,) if plan is not None else ()))
+
+        def dispatch():
             stacks = []
             for i, dev in enumerate(devices):
                 rows = slice(i * n_local, (i + 1) * n_local)
@@ -852,13 +862,17 @@ class ShardedEngine:
                 devices, lambda dev: _all_gather(stacks, dev), plan, slab,
                 n_pad_g, valid[:n_ref], out_starts[:n_ref], chunk_shape)
             ready = self._record(outs) if probe else None
-            result = self._collect(outs, plan is not None, chunk_shape)
+            return ready, self._collect(outs, plan is not None, chunk_shape)
+
+        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+            ready, result = self._dispatch(key, dispatch)
         # the weighted-stack all_gather: each shard's [rows, co, *pout]
         # float32 stack reaches the n-1 others
         row_bytes = self.num_output_channels * int(
             np.prod(self.output_patch_size)) * 4
         self._note_collectives(
-            0.0, float(n_dev * (n_dev - 1) * n_local * row_bytes))
+            key, 0.0, float(n_dev * (n_dev - 1) * n_local * row_bytes),
+            flops=profiling.program_flops(self._programs, key))
         if plan is not None:
             self._replay_buffer_gauges(
                 z, slab + 2 * self.output_patch_size[1], x, n_dev)
@@ -919,7 +933,10 @@ class ShardedEngine:
         # every device touches every patch: no per-device patch share
         self._gauges(int(np.prod(chunk_shape[1:])))
         probe = self._probing()
-        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+        key = (("shard", "pipeline", S, chunk_shape, n_ref)
+               + ((plan.r,) if plan is not None else ()))
+
+        def dispatch():
             chunk = _send(arr, devices[0])
             pin = self.input_patch_size
 
@@ -933,7 +950,10 @@ class ShardedEngine:
                 devices, lambda dev: _send(stack, dev), plan, slab, n_ref,
                 valid, out_starts, chunk_shape)
             ready = self._record(outs) if probe else None
-            result = self._collect(outs, plan is not None, chunk_shape)
+            return ready, self._collect(outs, plan is not None, chunk_shape)
+
+        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+            ready, result = self._dispatch(key, dispatch)
         # stage handoffs: one activation micro-batch on each of the S-1
         # edges a tick (T + S - 1 ticks); the drain gathers each device's
         # weighted stack
@@ -943,8 +963,9 @@ class ShardedEngine:
         stack_bytes = n_ref * self.num_output_channels * int(
             np.prod(self.output_patch_size)) * 4
         self._note_collectives(
-            0.0, float(S * (S - 1) * stack_bytes),
-            handoff_bytes=float((T + S - 1) * (S - 1) * act_bytes))
+            key, 0.0, float(S * (S - 1) * stack_bytes),
+            handoff_bytes=float((T + S - 1) * (S - 1) * act_bytes),
+            flops=profiling.program_flops(self._programs, key))
         if plan is not None:
             self._replay_buffer_gauges(
                 z, slab + 2 * self.output_patch_size[1], x, S)
@@ -1023,7 +1044,11 @@ class ShardedEngine:
         def dev_of(dy, dx):
             return devices[dy * nx + dx]
 
-        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+        key = (("shard", "spatial", (ny, nx), (c, z, padded_y, padded_x),
+                part.per_dev, len(part.valid))
+               + ((plan.fy, plan.fx, plan.r) if plan is not None else ()))
+
+        def dispatch():
             padded = _pad_chunk(arr, padded_y, padded_x)
             slabs = [[_send(padded[:, :, dy * yslab:(dy + 1) * yslab,
                                    dx * xslab:(dx + 1) * xslab]
@@ -1075,12 +1100,14 @@ class ShardedEngine:
                              slice(m_x, m_x + xslab))))
             ready = self._record(outs) if probe else None
             if plan is None:
-                result = _send(outs[0], self.device)
-            else:
-                rows = [torch.cat([_send(outs[dy * nx + dx], self.device)
-                                   for dx in range(nx)], dim=3)
-                        for dy in range(ny)]
-                result = torch.cat(rows, dim=2)[:, :, :y, :x]
+                return ready, _send(outs[0], self.device)
+            rows = [torch.cat([_send(outs[dy * nx + dx], self.device)
+                               for dx in range(nx)], dim=3)
+                    for dy in range(ny)]
+            return ready, torch.cat(rows, dim=2)[:, :, :y, :x]
+
+        with telemetry.span("shard/dispatch", mesh=self.spec.describe()):
+            ready, result = self._dispatch(key, dispatch)
         # halo traffic: each shard exchanges its halo rows (y, at slab
         # width) and columns (x, at the y-extended height), counted at
         # float32 as the JAX package counts them; plus the weighted-stack
@@ -1102,8 +1129,10 @@ class ShardedEngine:
             strip_bytes = float(
                 ((ny - 1) * nx * plan.fy + ny * (nx - 1) * plan.fx)
                 * row_bytes)
-        self._note_collectives(halo_bytes, gather_bytes,
-                               replay_strip_bytes=strip_bytes)
+        self._note_collectives(key, halo_bytes, gather_bytes,
+                               replay_strip_bytes=strip_bytes,
+                               flops=profiling.program_flops(
+                                   self._programs, key))
         if plan is not None:
             self._replay_buffer_gauges(
                 z, yslab + 2 * plan.margin_y, xslab + 2 * plan.margin_x,
@@ -1168,10 +1197,18 @@ class ShardedEngine:
         kill-switch race) has more rows; each device then takes its
         share of them."""
         n_chips = self.spec.n_devices
-        if self.spec.kind == "pipeline":
+        pipelined = self.spec.kind == "pipeline"
+        if pipelined:
             pipe_mod.require_stages(
                 self.stage_bodies, self.stage_tail,
                 "serving over CHUNKFLOW_MESH=" + self.spec.describe())
+        return profiling.cached_program(
+            self._programs,
+            ("serve_forward", n_chips) + (("pipeline",) if pipelined else ()),
+            self._build_serve_forward, label="sharded", device=self.device)
+
+    def _build_serve_forward(self) -> Callable:
+        n_chips = self.spec.n_devices
 
         def program(patches: torch.Tensor, valid: np.ndarray):
             devices = self.mesh()
@@ -1222,13 +1259,24 @@ class ShardedEngine:
                                      float(npatches) * pvox)
         telemetry.inc("shard/chunks")
 
-    def _note_collectives(self, halo_bytes: float, gather_bytes: float,
+    def _dispatch(self, key, body):
+        """``body()`` as one call of the ledger's program ``key``."""
+        return profiling.run_program(self._programs, key, body,
+                                     label="sharded", device=self.device)
+
+    def _note_collectives(self, key, halo_bytes: float, gather_bytes: float,
                           replay_strip_bytes: float = 0.0,
-                          handoff_bytes: float = 0.0) -> None:
+                          handoff_bytes: float = 0.0,
+                          flops=None) -> None:
         """This dispatch's analytic traffic between devices: input halos,
         weighted-stack gathers, fringe strips and stage handoffs, each a
         counter and a per-chunk gauge, and their sum in
-        ``shard/collective_bytes``."""
+        ``shard/collective_bytes`` and the family bucket of ``key``
+        (``profiling.note_collective``). ``flops`` is the program's FLOPs
+        from the ledger: with it, the collective-vs-compute split gauges
+        ``shard/compute_s_est``, ``shard/collective_s_est`` and
+        ``shard/collective_share_est``; without it only the byte planes
+        are recorded."""
         if not telemetry.enabled():
             return
         for name, nbytes in (("halo_bytes", halo_bytes),
@@ -1241,7 +1289,14 @@ class ShardedEngine:
         total = (float(halo_bytes) + float(gather_bytes)
                  + float(replay_strip_bytes) + float(handoff_bytes))
         if total > 0:
-            telemetry.inc("shard/collective_bytes", total)
+            profiling.note_collective(total, key=key, label="sharded")
+        if flops:
+            split = profiling.estimate_collective_split(
+                flops, total, profiling.device_identity(self.device)[1])
+            telemetry.gauge("shard/compute_s_est", split["compute_s"])
+            telemetry.gauge("shard/collective_s_est", split["collective_s"])
+            telemetry.gauge("shard/collective_share_est",
+                            split["collective_share"])
 
     def _replay_buffer_gauges(self, z: int, buf_y: int, buf_x: int,
                               n_chips: int) -> None:
@@ -1353,14 +1408,18 @@ class ShardedEngine:
             voxels = int(np.prod(tuple(arr.shape)[1:]))
             self._gauges(voxels, chip_patches=valid.reshape(n_glob, -1)
                          .sum(axis=1))
-            # the cross-process recipe all-reduces partial float32 blend
-            # buffers: a ring all-reduce moves ~2(n-1) output-buffer copies
-            out_bytes = self.num_output_channels * voxels * 4
-            self._note_collectives(0.0, float(2 * (n_glob - 1) * out_bytes))
             with telemetry.span("shard/dispatch", mesh="global"):
                 out = multihost.run_global(program, arr, in_starts,
                                            out_starts, valid, host_params,
                                            mesh)
+            # the cross-process recipe all-reduces partial float32 blend
+            # buffers: a ring all-reduce moves ~2(n-1) output-buffer copies
+            out_bytes = self.num_output_channels * voxels * 4
+            rec = getattr(program, "_rec", None)
+            self._note_collectives(
+                ("shard", "global"), 0.0,
+                float(2 * (n_glob - 1) * out_bytes),
+                flops=getattr(rec, "flops", None))
             return _send(out, self.device)
 
         # no cross-process collectives: guard, then compute locally

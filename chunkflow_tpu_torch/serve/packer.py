@@ -40,7 +40,12 @@ Telemetry: ``serving/occupancy`` (gauge and histogram),
 counters ``serving/batches``, ``serving/packed_patches``,
 ``serving/filler_slots``, ``serving/fallbacks``,
 ``serving/packer_errors``, and the spans ``serving/forward``,
-``serving/scatter``.
+``serving/scatter``. The program cost ledger (``core/profiling.py``)
+keeps the JAX families: ``serve_gather`` (a share's gather, and the
+request's upload as its H2D bytes), ``serve_forward``, ``serve_overlay``
+(the rows written into a request's device-resident weighted stack, noted
+as ``serve_forward``'s inter-stage bytes) and ``serve_scatter`` per chunk
+shape (the replay, which re-reads the stack: ``serve_scatter``'s).
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from chunkflow_tpu_torch.chunk.base import Chunk, edge_pad
-from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.inference.patching import (
     enumerate_patches,
     pad_to_batch,
@@ -159,6 +164,9 @@ class PatchPacker:
         self._items: deque = deque()  # (request, patch index, enqueue time)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
+        # the cost ledger's records of the packer's steps (dispatcher
+        # thread only)
+        self._programs: dict = {}
 
     # -- eligibility ----------------------------------------------------
     def _eligible(self) -> bool:
@@ -252,7 +260,7 @@ class PatchPacker:
         req.out_starts = out_starts
         device = inf.device
         with torch.no_grad():
-            arr = inf._upload(chunk)
+            arr = inf._upload(chunk, ("serve_gather",))
             if req.run_zyx != req.orig_zyx:
                 arr = edge_pad(arr, req.run_zyx)
             req.device_chunk = arr
@@ -356,21 +364,33 @@ class PatchPacker:
             if req.ready is not None:
                 torch.cuda.current_stream(device).wait_event(req.ready)
             starts = torch.from_numpy(req.in_starts[idxs])
-            patches[_rows(rows, device)] = gather.gather_patches(
-                req.device_chunk, starts, pin)
+            patches[_rows(rows, device)] = profiling.run_program(
+                self._programs, ("serve_gather",),
+                lambda: gather.gather_patches(req.device_chunk, starts,
+                                              pin),
+                label="packer", device=device)
         valid = np.zeros(slots, dtype=np.float32)
         valid[:len(live)] = 1.0
         with telemetry.span("serving/forward", occupancy=round(occupancy, 3)):
             if engine is not None:
                 weighted = engine.serve_forward_program()(patches, valid)
             else:
-                preds = inf._forward(patches)
-                # the accumulate kernel's weighting, in its order
-                weighted = (preds * inf._bump * device_valid(
-                    valid, device)[:, None, None, None, None])
+                def forward():
+                    preds = inf._forward(patches)
+                    # the accumulate kernel's weighting, in its order
+                    return (preds * inf._bump * device_valid(
+                        valid, device)[:, None, None, None, None])
+
+                weighted = profiling.run_program(
+                    self._programs, ("serve_forward",), forward,
+                    label="packer", device=device)
         done = []
         for req, rows, idxs in shares.values():
-            req.weighted[_rows(idxs, device)] = weighted[_rows(rows, device)]
+            profiling.run_program(
+                self._programs, ("serve_overlay",),
+                lambda: _overlay(req.weighted, weighted, idxs, rows,
+                                 device),
+                label="packer", device=device)
             req.remaining -= len(rows)
             if req.remaining == 0:
                 done.append(req)
@@ -390,7 +410,12 @@ class PatchPacker:
         inf = self.inferencer
         device = inf.device
         B = self.batch_size
-        with telemetry.span("serving/scatter"):
+        # the replay re-reads the weighted stack the overlays wrote
+        profiling.note_hbm_intermediate(
+            req.weighted.numel() * req.weighted.element_size(),
+            key=("serve_scatter",))
+
+        def scatter():
             out = torch.zeros((inf.num_output_channels,) + req.run_zyx,
                               dtype=torch.float32, device=device)
             weight = torch.zeros(req.run_zyx, dtype=torch.float32,
@@ -401,7 +426,12 @@ class PatchPacker:
                     out, weight, req.weighted[rows], req.valid[rows],
                     inf._bump, torch.from_numpy(req.out_starts[rows]),
                     pre_weighted=True)
-            result = normalize_blend(out, weight, inf.output_dtype)
+            return normalize_blend(out, weight, inf.output_dtype)
+
+        with telemetry.span("serving/scatter"):
+            result = profiling.run_program(
+                self._programs, ("serve_scatter", req.run_zyx), scatter,
+                label="packer", device=device)
             if device.type == "cuda":
                 torch.cuda.current_stream(device).synchronize()
         req.weighted = req.device_chunk = None
@@ -428,6 +458,18 @@ class PatchPacker:
         thread = self._thread
         if thread is not None and thread.is_alive():
             thread.join(timeout=timeout)
+
+
+def _overlay(stack, weighted, idxs, rows, device) -> None:
+    """Write a request's share of a batch's weighted rows into its
+    device-resident stack: the JAX ``serve_overlay`` step. The rows are
+    read once and written once; the write is the stack's inter-stage
+    traffic, which the replay re-reads."""
+    src = weighted[_rows(rows, device)]
+    stack[_rows(idxs, device)] = src
+    nbytes = src.numel() * src.element_size()
+    profiling.note_work(0, 2 * nbytes)
+    profiling.note_hbm_intermediate(nbytes, key=("serve_forward",))
 
 
 def _rows(indices, device):

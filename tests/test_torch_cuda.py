@@ -1051,3 +1051,105 @@ def test_multihost_psum_on_one_card_is_within_tolerance(cuda, tmp_path):
         got = np.load(tmp_path / f"rank{pid}.npy")
         assert got.shape == ref.shape
         assert np.abs(got.astype(np.float64) - ref).max() <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# compute-sanitizer: the card's counterpart of the JAX package's kernelcheck
+# ---------------------------------------------------------------------------
+SANITIZER = "/usr/local/cuda/bin/compute-sanitizer"
+
+# The four kernels at small shapes, each held to its plain version. The
+# inputs are made on the host and copied, so the only device code besides
+# the kernels is PyTorch's copies and fills. The Hopper kernel's input
+# has its pad channels zeroed: ``channels_last_padded`` leaves them
+# unwritten on purpose (the kernel multiplies them by zero weights), which
+# initcheck would report as reads of uninitialized memory.
+SANITIZED_KERNELS = r"""
+import numpy as np, torch
+from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
+
+dev = torch.device("cuda")
+rng = np.random.default_rng(0)
+chunk = torch.from_numpy(rng.integers(0, 256, (1, 6, 40, 72), dtype=np.uint8))
+starts = torch.tensor([[0, 0, 0], [2, 10, 13], [3, 24, 40]], dtype=torch.int32)
+got = gather.gather_patches(chunk.to(dev), starts, (3, 16, 32))
+assert torch.equal(got.cpu(), gather.gather_patches_plain(chunk, starts,
+                                                          (3, 16, 32)))
+out = torch.from_numpy(rng.random((2, 6, 40, 72), dtype=np.float32))
+weight = torch.from_numpy(rng.random((6, 40, 72), dtype=np.float32))
+preds = torch.from_numpy(rng.random((3, 2, 3, 16, 32), dtype=np.float32))
+valid = torch.tensor([1.0, 1.0, 0.0])
+bump = torch.from_numpy(rng.random((3, 16, 32), dtype=np.float32) + 1)
+o, w = accumulate.fused_accumulate_patches(
+    out.to(dev), weight.to(dev), preds.to(dev), valid.to(dev), bump.to(dev),
+    starts)
+ro, rw = accumulate.fused_accumulate_patches_plain(
+    out.clone(), weight.clone(), preds, valid, bump, starts)
+assert torch.equal(o.cpu(), ro) and torch.equal(w.cpu(), rw)
+g = torch.Generator().manual_seed(0)
+x = torch.randint(-127, 128, (2, 20, 7, 13, 37), generator=g, dtype=torch.int8)
+k = torch.randint(-127, 128, (24, 20, 3, 3, 3), generator=g, dtype=torch.int8)
+assert int8_conv.plan(x.shape, k.shape, 1, 1).path == "hopper"
+B, C, D, H, W = x.shape
+buf = torch.zeros((B, D, H, W, int8_conv.channel_pitch(C)), dtype=torch.int8)
+buf[..., :C] = x.permute(0, 2, 3, 4, 1)
+xc = buf.to(dev)[..., :C].permute(0, 4, 1, 2, 3)
+before = dict(int8_conv.path_launches)
+got = int8_conv.conv3d_int8(xc, k.to(dev), 1, 1)
+assert torch.equal(got.cpu(), int8_conv.conv3d_int8_plain(x, k, 1, 1))
+x = torch.randint(-127, 128, (2, 3, 7, 11, 13), generator=g, dtype=torch.int8)
+k = torch.randint(-127, 128, (5, 3, 3, 3, 3), generator=g, dtype=torch.int8)
+assert int8_conv.plan(x.shape, k.shape, 2, 1, 2).path == "generic"
+got = int8_conv.conv3d_int8(x.to(dev), k.to(dev), 2, 1, 2)
+assert torch.equal(got.cpu(), int8_conv.conv3d_int8_plain(x, k, 2, 1, 2))
+torch.cuda.synchronize()
+launched = {p: n - before[p] for p, n in int8_conv.path_launches.items()}
+assert gather.launches == accumulate.launches == 1, (gather.launches,
+                                                    accumulate.launches)
+assert launched == {"hopper": 1, "generic": 1}, launched
+print("KERNELS_OK")
+"""
+
+
+@pytest.mark.parametrize("tool", ["memcheck", "initcheck", "racecheck"])
+def test_kernels_clean_under_compute_sanitizer(cuda, tool):
+    """Out-of-bounds and misaligned accesses (memcheck), reads of
+    uninitialized device memory (initcheck) and shared-memory races
+    (racecheck): what kernelcheck checks in interpret mode on the JAX
+    package's Pallas kernels. The gather, the accumulate and both int8
+    convolutions run once each in a child process under the tool, with
+    PyTorch's caching allocator off so every allocation is its own
+    (an access past a tensor's end then lands outside any allocation);
+    the tool must report 0 errors. It skips when the tool is absent, or
+    present but unable to attach to the card ("Device not supported")."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from chunkflow_tpu_torch import _build
+
+    if not Path(SANITIZER).exists():
+        pytest.skip(f"{SANITIZER} is not installed")
+    # built here, so the child only loads them
+    _build.build_all(("gather", "accumulate", "conv3d_int8",
+                      "conv3d_int8_generic"))
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [SANITIZER, "--tool", tool, "--error-exitcode", "97",
+         sys.executable, "-c", SANITIZED_KERNELS],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    text = proc.stdout + proc.stderr
+    if "Device not supported" in text:
+        # the tool is installed but cannot attach to this card (a
+        # container without the debugger interface): it checked nothing
+        pytest.skip(f"{SANITIZER} cannot attach to the card here: "
+                    f"Device not supported")
+    assert proc.returncode == 0, text[-6000:]
+    assert "KERNELS_OK" in proc.stdout, text[-6000:]
+    summary = [line for line in text.splitlines() if "SUMMARY" in line]
+    assert summary and all("0 errors" in line for line in summary), \
+        summary or text[-6000:]

@@ -18,6 +18,7 @@ from chunkflow_tpu.ops import blend as jax_blend
 from chunkflow_tpu.ops import pallas_blend, pallas_gather, voting
 from chunkflow_tpu.chunk.base import Chunk as JaxChunk
 from chunkflow_tpu_torch import Chunk
+from chunkflow_tpu_torch.core.contracts import ContractError
 from chunkflow_tpu_torch.inference import bump, patching
 from chunkflow_tpu_torch.ops import accumulate, blend, gather
 from chunkflow_tpu_torch.ops import voting as torch_voting
@@ -174,7 +175,11 @@ def test_accumulate_direct_kernel_oracle():
     assert np.array_equal(got[1].numpy(), exp_w)
 
 
-def test_accumulate_validates_its_operands():
+def test_accumulate_validates_its_operands(monkeypatch):
+    """The entry point's shape contract (the JAX kernel's) refuses a
+    channel count that disagrees with ``out``; the wrapper's own guard,
+    which keeps the kernel inside its buffers, refuses it too when the
+    contracts are off."""
     out, weight, preds, bmp, valid, starts = (
         torch.from_numpy(a) for a in _acc_fixture(8))
     with pytest.raises(ValueError, match="leave the buffer"):
@@ -183,12 +188,16 @@ def test_accumulate_validates_its_operands():
     with pytest.raises(TypeError, match="float32"):
         accumulate.fused_accumulate_patches(
             out.double(), weight, preds, valid, bmp, starts)
-    with pytest.raises(ValueError, match=r"\[B, co"):
+    with pytest.raises(ContractError, match="'co'"):
         accumulate.fused_accumulate_patches(
             out, weight, preds[:, :2].contiguous(), valid, bmp, starts)
     with pytest.raises(TypeError, match="int32"):
         accumulate.fused_accumulate_patches(
             out, weight, preds, valid, bmp, starts.long())
+    monkeypatch.setenv("CHUNKFLOW_CONTRACTS", "0")
+    with pytest.raises(ValueError, match=r"\[B, co"):
+        accumulate.fused_accumulate_patches(
+            out, weight, preds[:, :2].contiguous(), valid, bmp, starts)
 
 
 def test_cpu_tensors_take_the_plain_path(monkeypatch):

@@ -380,6 +380,8 @@ def _worker(queue, vol_in, vol_out, num, metrics):
 def _commits(metrics):
     acks = {}
     for name in os.listdir(metrics):
+        if not name.endswith(".jsonl"):
+            continue  # programs.json, the cost ledger's catalog
         with open(os.path.join(metrics, name)) as f:
             for line in f:
                 event = json.loads(line)

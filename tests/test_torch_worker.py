@@ -229,6 +229,8 @@ def test_chaos_at_every_boundary_converges_bitwise(tmp_path, monkeypatch,
                                          "dead": 0, "receives": 0}
     acks = {body: 0 for body in bodies}
     for name in os.listdir(metrics):
+        if not name.endswith(".jsonl"):
+            continue  # programs.json, the cost ledger's catalog
         with open(os.path.join(metrics, name)) as f:
             for line in f:
                 event = json.loads(line)
