@@ -468,6 +468,23 @@ MESH_PACK_SHAPES = ((20, 256, 256), (20, 256, 448), (36, 256, 256),
 # phase 21: the committed orbax checkpoint of the seeded parity UNet3D
 # and blosc store (tests/test_torch_orbax.py, tests/test_torch_blosc.py)
 CHECKPOINT = ROOT / "tests" / "data" / "orbax_parity_seed0"
+# and its use_zarr3 twin: each leaf a sharding_indexed zarr v3 array
+CHECKPOINT_ZARR3 = ROOT / "tests" / "data" / "orbax_parity_seed0_zarr3"
+# phase 25: the committed sharded zarr v3 store (tensorstore's, written by
+# tests/test_torch_zarr3.py from SHARDED_SEED): shards of SHARDED_SHARD,
+# zstd inner chunks of SHARDED_INNER, a crc32c index at the shard's end;
+# SHARDED_HOLES, one whole shard and one inner chunk, were never written
+SHARDED_STORE = ROOT / "tests" / "data" / "sharded_zarr3"
+SHARDED_SEED = 20
+SHARDED_SHAPE = (16, 64, 64)
+SHARDED_SHARD = (8, 32, 32)
+SHARDED_INNER = (4, 16, 16)
+SHARDED_HOLES = (((8, 16), (32, 64), (0, 32)), ((0, 4), (0, 16), (16, 32)))
+# phase 25: CLAHE on the seeded chunk and a ragged crop of it: (shape,
+# grid, clip limit); the first is the CLI chain's
+CLAHE_CASES = (((64, 512, 512), 8, 2.0), ((61, 509, 503), 16, 0.0))
+CLAHE_REPS = 5
+CLAHE_SEED = 25
 BLOSC_STORE = ROOT / "tests" / "data" / "blosc_zarr"
 CODEC_REPS = 5
 # a volume worker's task (zyx) as one blosc frame
@@ -1636,7 +1653,7 @@ def main() -> int:
     for kname, n in checkpoint_phase(torch, dict(
             chunk=chunk_u8.host().array, pin=PIN, overlap=OVERLAP,
             batch=BATCH, device="cuda", checkpoint=CHECKPOINT,
-            blosc_store=BLOSC_STORE, blosc_task=BLOSC_TASK, reps=CODEC_REPS,
+            checkpoint_zarr3=CHECKPOINT_ZARR3, blosc_store=BLOSC_STORE, blosc_task=BLOSC_TASK, reps=CODEC_REPS,
             per_chunk=phase5_launches),
             state, reset_counts, counts, plain_functions).items():
         kernels[kname]["launches"] += n
@@ -1673,6 +1690,17 @@ def main() -> int:
     for kname, n in tooling_phase(torch, dict(
             chunks=ledger_chunks(np, Chunk), card=card),
             reset_counts, counts).items():
+        kernels[kname]["launches"] += n
+    # ---- 25. clahe, stores: the clahe plugin before inference, and the
+    # sharded zarr v3 store tensorstore wrote -----------------------------
+    lap("25 clahe, stores")
+    torch.cuda.empty_cache()
+    for kname, n in clahe_stores_phase(torch, dict(
+            chunk=chunk_u8.host().array, seed=CLAHE_SEED, cases=CLAHE_CASES,
+            reps=CLAHE_REPS,
+            pin=PIN, overlap=OVERLAP, batch=BATCH, device="cuda",
+            weights=CHECKPOINT_ZARR3, per_chunk=phase5_launches,
+            store=SHARDED_STORE), reset_counts, counts).items():
         kernels[kname]["launches"] += n
     lap("end")
     spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
@@ -1903,8 +1931,11 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                     worker_args(family, queue, ledger, out, 30),
                     chaos="once=lifecycle/pre_ledger:action=kill",
                     killed=True)
+                # worker 3 takes what is not in the ledger and ends with
+                # its last commit, not after a tail of empty polls
+                left = len(boxes) - len(FileLedger(ledger).keys())
                 w3, t3 = run_worker(worker_args(family, queue, ledger, out,
-                                                3 * VISIBILITY_S))
+                                                3 * VISIBILITY_S, num=left))
                 stats = open_queue(queue).stats()
                 require(stats["pending"] == stats["inflight"]
                         == stats["dead"] == 0,
@@ -1935,7 +1966,7 @@ def volume_phase(torch, cfg, weights, reset_counts, counts, in_memory,
                                 f"raise once, --num 3) {t1:.1f} s: "
                                 f"{_brief(w1)}; worker 2 SIGKILLed at its "
                                 f"first commit after {t2:.1f} s; worker 3 "
-                                f"{t3:.1f} s: {_brief(w3)}")
+                                f"(--num {left}) {t3:.1f} s: {_brief(w3)}")
                 phase("volume", f"{label}: output volume == in-process "
                                 f"reference bitwise on all {len(boxes)} "
                                 f"tasks; each task acked once; queue "
@@ -5743,7 +5774,9 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
 
     ``cfg["checkpoint"]`` (the committed full-width parity checkpoint of
     the seeded tree) loads into the parity engine through
-    ``create_convnet_engine``, its state dict bitwise ``state``. One chunk
+    ``create_convnet_engine``, its state dict bitwise ``state``; so does
+    ``cfg["checkpoint_zarr3"]`` (the same tree saved with ``use_zarr3``),
+    and one chunk through the CLI with it is bitwise the same. One chunk
     (``cfg["chunk"]``, host uint8) goes through the CLI's ``load-npy |
     inference -f flax -w <dir> | save-npy``: bitwise
     ``Inferencer.__call__`` with the same weights, whose kernel path is
@@ -5833,20 +5866,23 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
     # ---- one chunk through the CLI --------------------------------------
     chunk = cfg["chunk"]
     pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["batch"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        src, dst = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.npy")
-        np.save(src, chunk)
-        argv = ([] if on_card else ["--device", "cpu"]) + [
+
+    def cli_argv(weights, src, dst):
+        return ([] if on_card else ["--device", "cpu"]) + [
             "load-npy", "--file-name", src,
             "inference", "--framework", "flax", "--model-variant", "parity",
-            "--weight-path", path,
+            "--weight-path", weights,
             "--input-patch-size", *map(str, pin),
             "--output-patch-overlap", *map(str, overlap),
             "--num-output-channels", "3", "--batch-size", str(batch),
             "save-npy", "--file-name", dst]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        src, dst = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.npy")
+        np.save(src, chunk)
         reset_counts()
         t = time.perf_counter()
-        rc = cli.main(argv)
+        rc = cli.main(cli_argv(path, src, dst))
         cli_s = time.perf_counter() - t
         launched = counts()
         require(rc == 0, f"checkpoints: CLI exit code {rc}")
@@ -5875,6 +5911,46 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
                          f"float32, batch {batch}): {cli_s:.2f} s with the "
                          f"engine's build; == Inferencer.__call__ bitwise, "
                          f"kernel == plain bitwise; launches {launched}")
+
+    # ---- the same tree saved with use_zarr3 (sharding_indexed leaves) ----
+    path3 = str(cfg["checkpoint_zarr3"])
+    with open(os.path.join(path3, orbax.METADATA)) as f:
+        require(json.load(f).get("use_zarr3") is True,
+                f"checkpoints: {path3} is not a use_zarr3 save")
+    model3 = UNet3D(in_channels=1, out_channels=3)
+    _, load3_ms = ms(lambda: init_or_load_weights(model3, path3))
+    loaded3 = model3.state_dict()
+    require(set(loaded3) == set(state)
+            and all(torch.equal(loaded3[k], state[k]) for k in state),
+            "checkpoints: the zarr3 checkpoint's weights differ from the "
+            "seeded tree")
+    del model3, loaded3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt3_") as tmp:
+        src, dst = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.npy")
+        np.save(src, chunk)
+        reset_counts()
+        t = time.perf_counter()
+        rc = cli.main(cli_argv(path3, src, dst))
+        cli3_s = time.perf_counter() - t
+        launched3 = counts()
+        require(rc == 0, f"checkpoints: zarr3 CLI exit code {rc}")
+        got3 = np.load(dst)
+    for kname, n in launched3.items():
+        if on_card:
+            require(n == cfg["per_chunk"][kname],
+                    f"checkpoints: zarr3: {kname} launched {n} times, not "
+                    f"{cfg['per_chunk'][kname]}")
+        launched[kname] += n
+    require(np.array_equal(got3, ref), "checkpoints: the zarr3 "
+                                       "checkpoint's CLI output differs "
+                                       "from Inferencer.__call__")
+    phase("checkpoints", f"{path3[len(str(ROOT)) + 1:]} (use_zarr3: each "
+                         f"leaf a sharding_indexed zarr v3 array, zstd inner "
+                         f"chunks, a crc32c index): load {load3_ms:.1f} ms, "
+                         f"weights == the seeded tree bitwise; the same CLI "
+                         f"with -w <it>: {cli3_s:.2f} s, == "
+                         f"Inferencer.__call__ bitwise (the same weights); "
+                         f"launches {launched3}")
 
     # ---- the decoders' rates --------------------------------------------
     def rate(fn, nbytes, reps):
@@ -5925,6 +6001,141 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
                          f"{t_plain:.1f} MB/s")
     phase("checkpoints", f"phase 21 took {time.perf_counter() - t_phase:.1f}"
                          f" s")
+    return launched
+
+
+def clahe_stores_phase(torch, cfg, reset_counts, counts):
+    """Phase 25: the ``clahe`` plugin ahead of inference, and the sharded
+    zarr v3 store.
+
+    The host C++ CLAHE (``ops/clahe.py:clahe``) is held bitwise against
+    its numpy plain version on each of ``cfg["cases"]`` (a shape cut from
+    the corner of ``cfg["chunk"]``, a grid, a clip limit), and both are
+    timed; the chunk is ``cfg["chunk"]`` with noise of ``cfg["seed"]``
+    added. ``python -m chunkflow_tpu_torch --device <device> load-npy |
+    plugin -n clahe | inference -f flax --model-variant parity -w
+    <cfg["weights"]> | save-npy`` runs in process on the first case's
+    chunk: bitwise ``Inferencer.__call__`` on the host C++ CLAHE of it,
+    ``cfg["per_chunk"]`` launches of each kernel. ``cfg["store"]`` (the
+    committed sharded zarr v3 store) reads through ``load-zarr --driver
+    zarr3`` and through the ``load_tensorstore`` plugin as
+    :func:`sharded_array`. Returns the kernels' launches in the CLI run."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import Chunk
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.inference.inferencer import Inferencer
+    from chunkflow_tpu_torch.ops.clahe import clahe, clahe_plain
+
+    t_phase = time.perf_counter()
+    on_card = cfg["device"] == "cuda"
+    noise = np.random.default_rng(cfg["seed"]).integers(
+        -20, 21, cfg["chunk"].shape)
+    chunk = np.clip(cfg["chunk"] + noise, 0, 255).astype(np.uint8)
+
+    # ---- the host C++ against its plain version -----------------------
+    for shape, grid, clip in cfg["cases"]:
+        arr = np.ascontiguousarray(chunk[tuple(slice(0, n) for n in shape)])
+        times = []
+        for _ in range(cfg["reps"]):
+            t = time.perf_counter()
+            got = clahe(arr, clip, grid)
+            times.append(time.perf_counter() - t)
+        cpp_ms = statistics.median(times) * 1e3
+        t = time.perf_counter()
+        want = clahe_plain(arr, clip, grid)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        require(np.array_equal(got, want), f"clahe: the host C++ differs "
+                                           f"from its plain version on "
+                                           f"{shape}, grid {grid}, clip "
+                                           f"{clip}")
+        phase("clahe", f"{shape} uint8, grid {grid}x{grid}, clip {clip:g}: "
+                       f"host C++ {cpp_ms:.2f} ms ({arr.nbytes / cpp_ms / 1e3:.1f}"
+                       f" MB/s, median of {cfg['reps']}, "
+                       f"{os.cpu_count()} cores), numpy plain "
+                       f"{plain_ms:.1f} ms ({arr.nbytes / plain_ms / 1e3:.1f} "
+                       f"MB/s); == bitwise")
+
+    # ---- the CLI chain: clahe, then the parity UNet3D ------------------
+    shape, grid, clip = cfg["cases"][0]
+    image = np.ascontiguousarray(chunk[tuple(slice(0, n) for n in shape)])
+    weights = str(cfg["weights"])
+    pin, overlap, batch = cfg["pin"], cfg["overlap"], cfg["batch"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clahe_") as tmp:
+        src, dst = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.npy")
+        np.save(src, image)
+        reset_counts()
+        t = time.perf_counter()
+        rc = cli.main([
+            "--device", cfg["device"], "load-npy", "--file-name", src,
+            "plugin", "--name", "clahe", "--args",
+            f"clip_limit={clip};tile_size={grid}",
+            "inference", "--framework", "flax", "--model-variant", "parity",
+            "--weight-path", weights,
+            "--input-patch-size", *map(str, pin),
+            "--output-patch-overlap", *map(str, overlap),
+            "--num-output-channels", "3", "--batch-size", str(batch),
+            "save-npy", "--file-name", dst])
+        cli_s = time.perf_counter() - t
+        launched = counts()
+        require(rc == 0, f"clahe: CLI exit code {rc}")
+        got = np.load(dst)
+    for kname, n in launched.items():
+        if on_card:
+            require(n == cfg["per_chunk"][kname],
+                    f"clahe: {kname} launched {n} times, not "
+                    f"{cfg['per_chunk'][kname]}")
+    inferencer = Inferencer(
+        input_patch_size=pin, output_patch_overlap=overlap,
+        num_output_channels=3, framework="flax", model_variant="parity",
+        weight_path=weights, batch_size=batch, device=cfg["device"])
+    ref = inferencer(Chunk(clahe(image, clip, grid))).host().array
+    del inferencer
+    require(got.shape == (3,) + tuple(shape) and np.isfinite(got).all(),
+            f"clahe: output {got.shape}, or not finite")
+    require(np.array_equal(got, ref), "clahe: the CLI's output differs from "
+                                      "Inferencer.__call__ on the CLAHE'd "
+                                      "chunk")
+    phase("clahe", f"--device {cfg['device']} load-npy | plugin -n clahe | "
+                   f"inference -f flax --model-variant parity -w "
+                   f"{weights[len(str(ROOT)) + 1:]} | save-npy on {shape} "
+                   f"uint8: {cli_s:.2f} s with the engine's build; == "
+                   f"Inferencer.__call__ on the CLAHE'd chunk bitwise; "
+                   f"launches {launched}")
+
+    # ---- the sharded zarr v3 store ---------------------------------------
+    store = str(cfg["store"])
+    want = sharded_array(np)
+    size = [str(n) for n in want.shape]
+    reads = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zarr3_") as tmp:
+        dst = os.path.join(tmp, "out.npy")
+        for label, argv in (
+                ("load-zarr --driver zarr3",
+                 ["load-zarr", "--store-path", store, "--driver", "zarr3"]),
+                ("plugin -n load_tensorstore",
+                 ["create-bbox", "--start", "0", "0", "0", "--size", *size,
+                  "plugin", "--name", "load_tensorstore", "--input-names",
+                  "bbox", "--args", f"driver=zarr3;kvstore=file://{store}"])):
+            t = time.perf_counter()
+            rc = cli.main(["--device", cfg["device"], *argv, "save-npy",
+                           "--file-name", dst])
+            reads[label] = (time.perf_counter() - t) * 1e3
+            require(rc == 0, f"stores: {label}: CLI exit code {rc}")
+            got = np.load(dst)
+            require(got.dtype == want.dtype and np.array_equal(got, want),
+                    f"stores: {label} read the sharded zarr v3 store "
+                    f"otherwise than it was written")
+    phase("stores", f"{store[len(str(ROOT)) + 1:]} ({tuple(want.shape)} "
+                    f"uint8, shards {SHARDED_SHARD}, zstd inner chunks "
+                    f"{SHARDED_INNER}, a crc32c index at the end; one shard "
+                    f"and one inner chunk never written): "
+                    + ", ".join(f"{k} {v:.1f} ms" for k, v in reads.items())
+                    + " (each a whole CLI run), == the seeded array bitwise")
+    phase("clahe", f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 
@@ -7287,6 +7498,16 @@ def sanitizer_child(cfg_path):
     Path(cfg["out"]).write_text(json.dumps(summary))
     require(not rep["violations"], f"lock-order violations: {summary}")
     print("SANITIZER_OK", flush=True)
+
+
+def sharded_array(np):
+    """The values of ``SHARDED_STORE``: the seeded array, 0 (the fill
+    value) where nothing was written."""
+    arr = np.random.default_rng(SHARDED_SEED).integers(
+        1, 256, SHARDED_SHAPE, dtype=np.uint8)
+    for hole in SHARDED_HOLES:
+        arr[tuple(slice(a, b) for a, b in hole)] = 0
+    return arr
 
 
 def _flax_layout(state):

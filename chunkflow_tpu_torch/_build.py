@@ -14,8 +14,9 @@ The host C++ of the segmentation legs and plane (``csrc/host/``:
 connected components, id remapping, watershed and agglomeration,
 surface-nets meshing; the port's copies of the JAX package's
 ``native/src/``), the precomputed block codecs that run per voxel
-(``compressed_segmentation``, the PNG row filters) and the zstd and
-blosc decoders of the zarr, N5 and OCDBT stores is one more library,
+(``compressed_segmentation``, the PNG row filters), the zstd and
+blosc decoders and the CRC-32C of the zarr, N5 and OCDBT stores, and
+the ``clahe`` plugin's equalization is one more library,
 ``HOST_LIBRARY``: the same build compiles it with ``g++``, keyed by the
 hash of all its sources.
 
@@ -40,7 +41,7 @@ HOST = CSRC / "host"
 HOST_LIBRARY = "chunkflow_host"
 HOST_SOURCES = ("cc3d.cpp", "remap.cpp", "watershed.cpp",
                 "surface_nets.cpp", "compressed_segmentation.cpp", "zstd.cpp",
-                "blosc.cpp")
+                "blosc.cpp", "clahe.cpp", "crc32c.cpp")
 HOST_HEADERS = ("zslab.h",)
 
 NVCC_FLAGS = (

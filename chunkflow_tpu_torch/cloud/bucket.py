@@ -63,6 +63,11 @@ class BucketKV(KVBackend):
         return self._get(name, {"Range": f"bytes={start}-{stop - 1}"},
                          if_generation)
 
+    def read_suffix(self, name: str, length: int) -> Optional[bytes]:
+        if length <= 0:
+            raise ValueError(f"empty suffix of {length} bytes")
+        return self._get(name, {"Range": f"bytes=-{length}"})[0]
+
     def exists_many(self, names: Sequence[str]) -> Dict[str, bool]:
         if not names:
             return {}

@@ -3,13 +3,14 @@
 The counterpart of ``chunkflow_tpu/flow/plugin.py``. A name is looked
 for in the working directory, then among the bundled plugins
 (``chunkflow_tpu_torch/plugins/`` and its ``synapse/``), then in
-``$CHUNKFLOW_PLUGIN_DIR``. A bundled plugin of the JAX package that
-needs a package the port does without raises ``NotImplementedError``
-naming that package (``UNPORTED``). An ndarray a plugin returns becomes
-a ``Chunk`` with the first input chunk's metadata; when it shrank
-symmetrically (a valid-mode filter), its voxel offset moves by half the
-shrink. Anything else (``Synapses``, a dict of skeletons, a 1-D id
-array) passes through as it is.
+``$CHUNKFLOW_PLUGIN_DIR``. Every bundled plugin of the JAX package has
+its counterpart there; ``czann_inference`` and
+``napari_pixel_classifier`` import their packages at ``execute``, as the
+JAX package's do. An ndarray a plugin returns becomes a ``Chunk`` with
+the first input chunk's metadata; when it shrank symmetrically (a
+valid-mode filter), its voxel offset moves by half the shrink. Anything
+else (``Synapses``, a dict of skeletons, a 1-D id array) passes through
+as it is.
 """
 from __future__ import annotations
 
@@ -25,18 +26,6 @@ from chunkflow_tpu_torch.core.cartesian import Cartesian
 BUNDLED = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "plugins")
 
-_PLUGINS_ITEM = "ROADMAP, queue 1: annotations and plugins"
-
-#: the JAX package's bundled plugins the port does not have (their paths
-#: in the bundled directory): each needs a package the port does without
-UNPORTED = {
-    "clahe.py": f"needs cv2, which neither machine has ({_PLUGINS_ITEM})",
-    "czann_inference.py":
-        f"needs czmodel, which neither machine has ({_PLUGINS_ITEM})",
-    "napari_pixel_classifier.py":
-        f"needs apoc, which neither machine has ({_PLUGINS_ITEM})",
-}
-
 
 def find_plugin(name: str) -> str:
     """A plugin name or path as a python file."""
@@ -48,11 +37,6 @@ def find_plugin(name: str) -> str:
         path = os.path.join(BUNDLED, rel)
         if os.path.isfile(path):
             return os.path.abspath(path)
-        # the JAX package finds these among its bundled plugins
-        if os.path.normpath(rel) in UNPORTED:
-            raise NotImplementedError(
-                f"the bundled plugin {rel[:-3]!r} is not ported: "
-                f"{UNPORTED[os.path.normpath(rel)]}")
     env_dir = os.environ.get("CHUNKFLOW_PLUGIN_DIR")
     if env_dir and os.path.isfile(os.path.join(env_dir, name)):
         return os.path.abspath(os.path.join(env_dir, name))

@@ -10,8 +10,9 @@ and says how the arrays were stored:
   at the root, its ``manifest.ocdbt`` merging the processes' own
   (``ocdbt.process_0/``);
 - else one directory per leaf;
-- ``use_zarr3``: each leaf a zarr v3 array, else zarr v2 (orbax's default,
-  each chunk a zstd frame).
+- ``use_zarr3``: each leaf a zarr v3 array (one ``sharding_indexed``
+  shard of zstd inner chunks, its index checked by crc32c), else zarr v2
+  (orbax's default, each chunk a zstd frame).
 
 A leaf's array is named by its key path joined with ``"."``
 (``conv_in.kernel``) and read through ``volume/zarr.py``. A ``bfloat16``
@@ -21,8 +22,7 @@ param tree of numpy arrays that ``convert.state_from_flax`` takes, as the
 span ``orbax/open``, each chunk's read and decode into ``volume/zarr.py``'s
 spans. Anything else (an OCDBT save without a root
 manifest, a key or value type other than a dict key and an array, a
-codec the port does not read, such as the ``sharding_indexed`` arrays
-orbax writes with ``use_zarr3``) raises naming its ROADMAP item.
+codec the port does not read) raises naming its ROADMAP item.
 """
 from __future__ import annotations
 

@@ -8,8 +8,11 @@ components (``csrc/host/cc3d.cpp``), id remapping
 and the precomputed block codecs that run per voxel
 (``csrc/host/compressed_segmentation.cpp``: ``compressed_segmentation``
 and the PNG row filters, which ``volume/codecs.py`` calls); and the
-decoders of the zarr, N5 and OCDBT stores (``csrc/host/zstd.cpp``,
-``csrc/host/blosc.cpp``, which ``volume/compressors.py`` calls).
+decoders and the CRC-32C of the zarr, N5 and OCDBT stores
+(``csrc/host/zstd.cpp``, ``csrc/host/blosc.cpp``,
+``csrc/host/crc32c.cpp``, which ``volume/compressors.py`` calls); and
+the ``clahe`` plugin's equalization (``csrc/host/clahe.cpp``, which
+``ops/clahe.py`` calls).
 The library builds with ``g++`` at first use
 (``_build.load(_build.HOST_LIBRARY)``); a failed build raises.
 ``CHUNKFLOW_NATIVE_THREADS`` sets the z-slab worker count (default: the
@@ -85,6 +88,12 @@ def load() -> ctypes.CDLL:
     for fn in (lib.cf_zstd_error, lib.cf_blosc_error):
         fn.restype = ctypes.c_char_p
         fn.argtypes = [i64]
+    lib.cf_clahe_u8.restype = ctypes.c_int
+    lib.cf_clahe_u8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64, i64,
+                                i64, ctypes.c_double, ctypes.c_int,
+                                ctypes.c_int]
+    lib.cf_crc32c.restype = ctypes.c_uint32
+    lib.cf_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_char_p, i64]
     _lib = lib
     return lib
 
@@ -398,3 +407,29 @@ def blosc_decompress(data: bytes, expect: Optional[int] = None) -> bytes:
     if n < 0:
         raise ValueError(f"blosc: {lib.cf_blosc_error(n).decode()}")
     return out.tobytes()
+
+
+def clahe(sections: np.ndarray, clip_limit: float, tile_size: int,
+          threads: Optional[int] = None) -> np.ndarray:
+    """CLAHE of each uint8 section of a C-contiguous ``[z, y, x]`` array
+    (``ops/clahe.py`` checks the arguments) on ``threads`` workers
+    (default ``CHUNKFLOW_NATIVE_THREADS``, else the cores, at most 8);
+    the result is the same for every count."""
+    import os
+
+    if threads is None:
+        threads = int(os.environ.get("CHUNKFLOW_NATIVE_THREADS", "0")) or \
+            min(os.cpu_count() or 1, 8)
+    out = np.empty_like(sections)
+    if load().cf_clahe_u8(sections.ctypes.data, out.ctypes.data,
+                          *sections.shape, float(clip_limit), int(tile_size),
+                          max(int(threads), 1)):
+        raise ValueError(f"CLAHE of {sections.shape} sections on a "
+                         f"{tile_size} x {tile_size} grid")
+    return out
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """The CRC-32C of ``data`` (bytes or a buffer), continuing ``crc``."""
+    data = bytes(data)
+    return int(load().cf_crc32c(crc, data, len(data)))

@@ -446,6 +446,14 @@ class OcdbtKV(KVBackend):
             return None, 0
         return self._value(entry, start, stop), self.generation
 
+    def read_suffix(self, name: str, length: int) -> Optional[bytes]:
+        entry = self._find(name)
+        if entry is None:
+            return None
+        size = (len(entry["value"]) if "value" in entry
+                else entry["indirect"][2])
+        return self._value(entry, max(0, size - length), size)
+
     def write_bytes(self, name: str, data, if_generation=None) -> None:
         raise NotImplementedError("the port reads OCDBT stores and writes "
                                   "none")

@@ -381,6 +381,12 @@ class KVBackend(abc.ABC):
         under ``if_generation`` another generation raises
         :class:`PreconditionFailed`."""
 
+    def read_suffix(self, name: str, length: int) -> Optional[bytes]:
+        """The last ``length`` bytes of ``name`` (all of it when shorter),
+        or None when absent; a backend that can reads only those."""
+        data = self.read_bytes(name)
+        return None if data is None else data[max(0, len(data) - length):]
+
     @abc.abstractmethod
     def write_bytes(self, name: str, data, if_generation=None) -> None:
         """Write ``data`` (bytes or any buffer) as ``name``."""
@@ -448,6 +454,15 @@ class FileKV(KVBackend):
                 raise PreconditionFailed(f"{name} changed")
             f.seek(start)
             return f.read(max(0, stop - start)), generation
+
+    def read_suffix(self, name: str, length: int) -> Optional[bytes]:
+        try:
+            f = open(self._path(name), "rb")
+        except FileNotFoundError:
+            return None
+        with f:
+            f.seek(max(0, os.fstat(f.fileno()).st_size - length))
+            return f.read()
 
     def _generation(self, name: str):
         try:
@@ -535,6 +550,11 @@ class MemoryKV(KVBackend):
                 raise PreconditionFailed(f"{name} changed")
             data = self._data.get(name)
             return (None if data is None else data[start:stop]), generation
+
+    def read_suffix(self, name: str, length: int) -> Optional[bytes]:
+        with self._lock:
+            data = self._data.get(name)
+            return None if data is None else data[max(0, len(data) - length):]
 
     def _check(self, name: str, if_generation) -> None:
         if if_generation is not None and \

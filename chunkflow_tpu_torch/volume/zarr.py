@@ -8,30 +8,35 @@ directory (a bare path or ``file://``), ``gs://`` or ``s3://``
 (``storage.open_kv``), or a KV handed in with a key prefix (an array
 inside an OCDBT store, ``volume/ocdbt.py``):
 
-- zarr v2: ``.zarray`` JSON metadata, C order, ``dimension_separator``
-  "." (tensorstore's default) or "/", every chunk file a full chunk,
-  compressed by any compressor of ``volume/compressors.py`` (raw, zlib,
-  gzip, zstd, blosc; tensorstore's own default is blosc). A store the
-  port creates writes zlib. The dtype ``bfloat16``, which numpy lacks, is
+- zarr v2: ``.zarray`` JSON metadata, ``order`` C or F (each chunk's
+  values in that order), ``dimension_separator`` "." (tensorstore's
+  default) or "/", every chunk file a full chunk, compressed by any
+  compressor of ``volume/compressors.py`` (raw, zlib, gzip, bz2, zstd,
+  blosc; tensorstore's own default is blosc). ``filters`` are refused,
+  as tensorstore refuses them. A store the port creates writes zlib. The dtype ``bfloat16``, which numpy lacks, is
   known here only: :meth:`ChunkedArray.read` gives its uint16 bits,
   :meth:`ChunkedArray.read_values` a ``torch.bfloat16`` tensor, and :meth:`ZarrArray.write` rounds what
   it is given to the nearest bfloat16 (ties to even), as tensorstore
   converts.
 - zarr v3: ``zarr.json``, a regular chunk grid, the ``default`` ("c/0/0")
-  or ``v2`` chunk key encoding, the ``bytes`` codec (either endian),
-  optionally followed by ``gzip``, ``zstd`` or ``blosc``.
+  or ``v2`` chunk key encoding, and the codec pipeline of
+  ``compressors.Zarr3Codecs``: ``transpose``, then ``bytes`` (either
+  endian) or ``sharding_indexed`` (the index at the start or the end;
+  inner chunks read by ranges, only those a read overlaps; nested
+  sharding), then ``gzip``, ``zstd``, ``blosc`` or ``crc32c``.
 - N5: ``attributes.json``, blocks keyed "i/j/k" in the array's dimension
   order, each a big-endian header (mode, rank, the block's own shape)
-  and its voxels in Fortran order, big-endian, compressed as zarr v2's.
+  and its voxels in Fortran order, big-endian, compressed as zarr v2's
+  or by ``bzip2`` or ``xz``.
 
 Each chunk's read from the KV plane and its decode are timed into the
 telemetry spans ``zarr/kv_read`` and ``zarr/decode``.
 
 A chunk that is missing reads as the fill value (zarr's ``null``, and
-N5's, is zero). A write that covers part of a zarr v2 chunk reads,
-modifies and rewrites it. What the port does not read (zarr v3
-``sharding_indexed``, another compressor) raises naming its ROADMAP
-item.
+N5's, is zero), as does a shard's inner chunk that was never written. A
+write that covers part of a zarr v2 chunk reads, modifies and rewrites
+it. What the port does not read (another compressor or codec) raises
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -176,11 +181,15 @@ class ChunkedArray:
                 in_sel.append(slice(lo - a, hi - a))
             yield cell, tuple(in_cell), tuple(in_sel)
 
+    def _read_part(self, cell, in_cell) -> np.ndarray:
+        """The part ``in_cell`` (slices) of the chunk ``cell``."""
+        return self._read_chunk(cell)[in_cell]
+
     def read(self, index=None) -> np.ndarray:
         box = self._box(index)
         out = np.empty(tuple(b - a for a, b in box), dtype=self.dtype)
         for cell, in_cell, in_sel in self._cells(box):
-            out[in_sel] = self._read_chunk(cell)[in_cell]
+            out[in_sel] = self._read_part(cell, in_cell)
         return out
 
     def read_values(self, index=None):
@@ -200,8 +209,9 @@ class ZarrArray(ChunkedArray):
         meta = self._metadata(".zarray", "a zarr v2 array")
         if meta.get("zarr_format") != 2:
             _not_supported(path, f"zarr_format {meta.get('zarr_format')}")
-        if meta.get("order", "C") != "C":
-            _not_supported(path, "Fortran-order chunks")
+        self.order = meta.get("order", "C")
+        if self.order not in ("C", "F"):
+            _not_supported(path, f"the chunk order {self.order!r}")
         if meta.get("filters"):
             _not_supported(path, f"filters {meta['filters']}")
         self.shape = tuple(meta["shape"])
@@ -240,10 +250,10 @@ class ZarrArray(ChunkedArray):
             return self._fill_chunk()
         count = int(np.prod(self.chunks))
         return self._decode(data, self.dtype, count).reshape(
-            self.chunks).copy()
+            self.chunks, order=self.order).copy()
 
     def _write_chunk(self, index, block: np.ndarray) -> None:
-        data = np.ascontiguousarray(block, dtype=self.dtype).tobytes()
+        data = np.asarray(block, dtype=self.dtype).tobytes(order=self.order)
         self.kv.write_bytes(self.prefix + self._key(index),
                             self.compressor.encode(data))
 
@@ -280,28 +290,29 @@ class Zarr3Array(ChunkedArray):
         if grid.get("name") != "regular":
             _not_supported(path, f"the {grid.get('name')} chunk grid")
         self.dtype, self.bfloat16 = _dtype(meta["data_type"])
-        endian, self.compressor = compressors.from_zarr3(
-            path, meta["codecs"], self.dtype.itemsize)
         self.shape = tuple(meta["shape"])
         self.chunks = tuple(grid["configuration"]["chunk_shape"])
-        self.stored = self.dtype.newbyteorder("<" if endian == "little"
-                                              else ">")
         self.fill_value = _fill_of(meta.get("fill_value"), self.dtype,
                                    self.bfloat16)
+        self.codecs = compressors.Zarr3Codecs(
+            path, meta["codecs"], self.dtype, self.fill_value,
+            len(self.shape))
         encoding = meta.get("chunk_key_encoding", {"name": "default"})
         default = encoding["name"] == "default"
         self.separator = encoding.get("configuration", {}).get(
             "separator", "/" if default else ".")
         self.key_prefix = ["c"] if default else []
 
-    def _read_chunk(self, cell) -> np.ndarray:
-        data = self._read_file(self.separator.join(
-            self.key_prefix + [str(i) for i in cell]))
-        if data is None:
-            return self._fill_chunk()
-        count = int(np.prod(self.chunks))
-        return self._decode(data, self.stored, count).reshape(
-            self.chunks).astype(self.dtype)
+    def _read_part(self, cell, in_cell) -> np.ndarray:
+        key = self.separator.join(self.key_prefix + [str(i) for i in cell])
+        box = tuple((s.start, s.stop) for s in in_cell)
+        part = self.codecs.decode(
+            compressors.KeySource(self.kv, self.prefix + key), self.chunks,
+            box)
+        if part is None:
+            return np.full(tuple(b - a for a, b in box), self.fill_value,
+                           dtype=self.dtype)
+        return part
 
 
 class N5Array(ChunkedArray):

@@ -359,17 +359,16 @@ def test_every_jax_command_runs_or_names_its_item(command):
 
 def test_an_unported_command_in_a_chain_raises_naming_its_item(
         tmp_path, monkeypatch):
-    """Every command is ported; an option that is not (an orbax checkpoint
-    of zarr v3 arrays inside ``sharding_indexed``) refuses its chain the
+    """Every command is ported; an option that is not (an orbax OCDBT
+    checkpoint whose root manifest was never merged) refuses its chain the
     same way. A mesh wider than the devices (``--mesh data=2`` over one
     device, in both CLIs) raises the JAX package's ``ValueError`` at the
     task."""
-    from tests.test_torch_orbax import save
+    from tests.test_torch_orbax import unmerged
 
-    zarr3 = save(tmp_path / "orbax", {"conv_out": {"bias": np.zeros(
-        3, np.float32)}}, use_zarr3=True)
+    refused = unmerged(tmp_path / "orbax")
     for option, item in (
-            (["-f", "pytorch", "-w", zarr3],
+            (["-f", "pytorch", "-w", refused],
              "convnet engines, orbax checkpoints"),):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",

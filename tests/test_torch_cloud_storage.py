@@ -519,14 +519,16 @@ def test_setup_env_on_a_cloud_volume(cloud):
 
 
 @pytest.mark.parametrize("driver", ["zarr", "zarr3", "n5",
-                                    "neuroglancer_precomputed"])
+                                    "neuroglancer_precomputed",
+                                    "zarr3-sharded"])
 @pytest.mark.parametrize("scheme", ["gs", "s3"])
 def test_load_tensorstore_on_buckets_is_the_jax_plugin(cloud, scheme,
                                                        driver):
     """A dataset tensorstore writes into a bucket (its default codecs:
-    blosc for zarr and N5): the port's ``load_tensorstore`` over
-    ``scheme://`` and over tensorstore's kvstore spec equals the JAX
-    plugin's cutout."""
+    blosc for zarr and N5; ``zarr3-sharded``: shards of 8x16x16 with a
+    crc32c index at their end, read by a suffix range and inner-chunk
+    ranges): the port's ``load_tensorstore`` over ``scheme://`` and over
+    tensorstore's kvstore spec equals the JAX plugin's cutout."""
     import tensorstore as ts
 
     from chunkflow_tpu.flow.plugin import load_plugin as jax_load_plugin
@@ -547,6 +549,18 @@ def test_load_tensorstore_on_buckets_is_the_jax_plugin(cloud, scheme,
                                     "chunk_size": [16, 16, 8]})
         store = ts.open(spec, create=True).result()
         store[...] = data.transpose(2, 1, 0)[..., None]
+    elif driver == "zarr3-sharded":
+        driver = spec["driver"] = "zarr3"
+        spec["metadata"] = {
+            "shape": list(data.shape), "data_type": "uint16",
+            "chunk_grid": {"name": "regular", "configuration": {
+                "chunk_shape": [8, 16, 16]}},
+            "codecs": [{"name": "sharding_indexed", "configuration": {
+                "chunk_shape": [4, 8, 8], "codecs": [{"name": "bytes"}],
+                "index_codecs": [{"name": "bytes"}, {"name": "crc32c"}],
+                "index_location": "end"}}]}
+        store = ts.open(spec, create=True).result()
+        store[...] = data
     else:
         store = ts.open(spec, create=True, dtype="uint16", shape=data.shape,
                         chunk_layout=ts.ChunkLayout(

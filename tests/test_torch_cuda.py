@@ -1001,6 +1001,53 @@ def test_orbax_checkpoint_loads_on_the_card(cuda):
     assert np.isfinite(got).all() and np.array_equal(got, plain)
 
 
+def test_zarr3_fixtures_load_on_the_card(cuda):
+    """The committed ``use_zarr3`` checkpoint (sharding_indexed leaves)
+    loads into the parity engine on the card with the seeded weights and
+    gives the v2 checkpoint's output bitwise; the committed sharded zarr v3
+    store reads as its seeded array, here where no tensorstore is."""
+    import chip_smoke
+    from chunkflow_tpu_torch.volume.zarr import open_array
+
+    assert np.array_equal(
+        open_array(str(chip_smoke.SHARDED_STORE), "zarr3").read(),
+        chip_smoke.sharded_array(np))
+    chunk = Chunk(np.random.default_rng(22).integers(
+        0, 256, (6, 64, 64)).astype(np.uint8))
+    outputs = []
+    for path in (chip_smoke.CHECKPOINT, chip_smoke.CHECKPOINT_ZARR3):
+        inferencer = Inferencer(input_patch_size=(4, 32, 32),
+                                output_patch_overlap=(2, 8, 8),
+                                num_output_channels=3, framework="flax",
+                                model_variant="parity",
+                                weight_path=str(path), batch_size=2)
+        assert next(inferencer.engine.model.parameters()).is_cuda
+        outputs.append(inferencer(chunk).host().array)
+    assert np.isfinite(outputs[1]).all()
+    assert np.array_equal(outputs[0], outputs[1])
+
+
+def test_clahe_then_inference_on_the_card(cuda):
+    """The ``clahe`` plugin (host C++) ahead of the card's inference, as
+    ``chip_smoke.py`` phase 25 runs it: bitwise the numpy plain CLAHE
+    through ``Inferencer.__call__``."""
+    from chunkflow_tpu_torch.flow import plugin
+    from chunkflow_tpu_torch.ops.clahe import clahe_plain
+
+    raw = np.random.default_rng(23).integers(0, 256, (6, 61, 59),
+                                             dtype=np.uint8)
+    card = Chunk(torch.from_numpy(raw).cuda())
+    equalized = plugin.load_plugin("clahe")(card, clip_limit=2.0,
+                                            tile_size=8)
+    assert np.array_equal(equalized, clahe_plain(raw, 2.0, 8))
+    inferencer = Inferencer(input_patch_size=(4, 32, 32),
+                            output_patch_overlap=(2, 8, 8),
+                            num_output_channels=3, framework="identity",
+                            batch_size=2)
+    got = inferencer(Chunk(equalized)).host().array
+    assert np.isfinite(got).all() and got.shape == (3, 6, 61, 59)
+
+
 CUDA_RANK = r"""
 import json, sys
 sys.path.insert(0, {repo!r})

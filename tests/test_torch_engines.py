@@ -275,14 +275,15 @@ def test_engine_errors(tmp_path):
 def test_orbax_directory_raises_naming_its_roadmap_item(variant, tmp_path):
     """An orbax directory the JAX package saves loads into every
     variant's inferencer, bitwise the JAX restore; one the port does not
-    read (zarr v3 arrays inside ``sharding_indexed``) raises naming its
-    ROADMAP item."""
+    read (an OCDBT save whose root manifest was never merged) raises
+    naming its ROADMAP item."""
     from tests.test_torch_models import draw_params
     from tests.test_torch_orbax import (
         assert_same_state,
         jax_model,
         jax_state,
         save,
+        unmerged,
     )
 
     family = "tpu" if variant == "tpu_mxu" else variant
@@ -293,10 +294,8 @@ def test_orbax_directory_raises_naming_its_roadmap_item(variant, tmp_path):
                             **COMMON)
     assert_same_state(inferencer.engine.model.state_dict(),
                       jax_state(family, path))
-    zarr3 = save(tmp_path / "zarr3", {"conv_out": {"bias": np.zeros(
-        3, np.float32)}}, use_zarr3=True)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP, queue 1: convnet engines, orbax"):
         Inferencer(device="cpu", framework="flax", model_variant=variant,
-                   weight_path=zarr3, **COMMON)
+                   weight_path=unmerged(tmp_path / "split"), **COMMON)
 

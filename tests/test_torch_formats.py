@@ -464,15 +464,16 @@ def test_load_zarr_drivers_match_the_jax_cli(tmp_path, name):
 @pytest.mark.parametrize("driver", ["zarr3", "n5"],
                          ids=["zarr3-zstd", "n5-blosc"])
 def test_zarr3_and_n5_codecs_outside_the_stdlib_raise(tmp_path, driver):
-    """zstd zarr v3 and blosc N5 (tensorstore's N5 default) read bitwise;
-    a codec the port still lacks (zarr v3 ``sharding_indexed``, N5 xz)
-    raises naming its item."""
+    """zstd zarr v3 and blosc N5 (tensorstore's N5 default) read bitwise,
+    and so do the codecs the port once lacked (zarr v3
+    ``sharding_indexed``, N5 xz); a codec the port still lacks raises
+    naming its item."""
     from chunkflow_tpu_torch.volume.zarr import open_array
 
     ts = pytest.importorskip("tensorstore")
     arr = _arr("uint16", (4, 5, 6), seed=12)
     codecs = {"zarr3": [{"name": "bytes"}, {"name": "zstd"}]}
-    unported = {
+    once_unported = {
         "zarr3": {"codec": ts.CodecSpec({"driver": "zarr3", "codecs": [{
             "name": "sharding_indexed", "configuration": {
                 "chunk_shape": [2, 5, 6], "codecs": [{"name": "bytes"}],
@@ -482,18 +483,25 @@ def test_zarr3_and_n5_codecs_outside_the_stdlib_raise(tmp_path, driver):
                                       "compression": {"type": "xz"}})}}
     for name, kwargs in (("s", {"codec": ts.CodecSpec(
             {"driver": "zarr3", "codecs": codecs["zarr3"]})}
-            if driver == "zarr3" else {}), ("u", unported[driver])):
+            if driver == "zarr3" else {}), ("u", once_unported[driver])):
         spec = {"driver": driver, "kvstore": {"driver": "file",
                                               "path": str(tmp_path / name)}}
         store = ts.open(spec, create=True, dtype="uint16", shape=arr.shape,
                         **kwargs).result()
         store[...] = arr
-        if name == "s":
-            assert np.array_equal(open_array(str(tmp_path / name),
-                                             driver).read(), arr)
-            continue
-        with pytest.raises(NotImplementedError, match="chunk file formats"):
-            open_array(str(tmp_path / name), driver)
+        got = open_array(str(tmp_path / name), driver).read()
+        assert np.array_equal(got, arr)
+        assert np.array_equal(got, store.read().result())
+    # a codec no store of tensorstore's holds
+    meta_file = {"zarr3": "zarr.json", "n5": "attributes.json"}[driver]
+    meta = json.loads((tmp_path / "u" / meta_file).read_text())
+    if driver == "zarr3":
+        meta["codecs"] = [{"name": "bytes"}, {"name": "lz77"}]
+    else:
+        meta["compression"] = {"type": "lz77"}
+    (tmp_path / "u" / meta_file).write_text(json.dumps(meta))
+    with pytest.raises(NotImplementedError, match="chunk file formats"):
+        open_array(str(tmp_path / "u"), driver)
 
 
 # ---------------------------------------------------------------------------

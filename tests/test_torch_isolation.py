@@ -30,11 +30,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "chunkflow_tpu_torch"
 # and the cloud packages: the port speaks HTTP, SigV4 and RS256 itself,
 # with what the card machine has; and the compression packages: the port
-# decodes zstd, blosc and lz4 in its own host C++
+# decodes zstd, blosc and lz4 in its own host C++; and OpenCV: the port's
+# CLAHE is its own host C++
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "chunkflow_tpu", "tensorstore", "click", "boto3", "botocore",
              "google", "requests", "urllib3", "cryptography", "zstandard",
-             "lz4", "blosc", "numcodecs")
+             "lz4", "blosc", "numcodecs", "cv2")
 
 
 def _forbidden(module: str) -> bool:
@@ -96,6 +97,8 @@ def test_importing_every_module_loads_no_jax():
                  "cloud.sqs", "testing.cloud_fakes", "volume.zstd",
                  "volume.blosc", "volume.compressors", "volume.ocdbt",
                  "models.orbax", "plugins.load_tensorstore",
+                 "ops.clahe", "plugins.clahe", "plugins.czann_inference",
+                 "plugins.napari_pixel_classifier", "volume.crc32c",
                  "parallel.engine", "parallel.pipeline", "core.envmode",
                  "parallel.distributed", "parallel.spatial",
                  "parallel.spatial2d", "cloud.cloudwatch",

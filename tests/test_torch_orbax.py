@@ -7,10 +7,13 @@ without orbax. For each family (parity, ``rsunet``, ``tpu``,
 ``tpu_s2d4``), with ``use_ocdbt`` on and off, the port's engine holds
 weights bitwise equal to the JAX ``init_or_load_params`` put through
 ``state_from_flax``. The committed full-width parity checkpoint
-``tests/data/orbax_parity_seed0`` (``python -m tests.test_torch_orbax``
-rewrites it) holds the seeded tree ``chip_smoke.py`` loads on the card,
-and a fresh save of that tree reads the same. What the port does not
-read raises naming its ROADMAP item.
+``tests/data/orbax_parity_seed0`` and its ``use_zarr3`` twin
+``orbax_parity_seed0_zarr3`` (``python -m tests.test_torch_orbax``
+rewrites both) hold the seeded tree ``chip_smoke.py`` loads on the card,
+and a fresh save of that tree reads the same. ``use_zarr3`` saves, whose
+leaves are ``sharding_indexed`` zarr v3 arrays, load bitwise the JAX
+restore, with OCDBT on and off. What the port does not read raises
+naming its ROADMAP item.
 """
 import json
 import shutil
@@ -29,6 +32,7 @@ ocp = pytest.importorskip("orbax.checkpoint")
 torch.set_num_threads(1)
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "orbax_parity_seed0"
+ZARR3_FIXTURE = FIXTURE.with_name("orbax_parity_seed0_zarr3")
 PIN = (4, 16, 16)
 ITEM = "convnet engines, orbax checkpoints"
 
@@ -53,6 +57,15 @@ def save(path, tree, **options):
             else ocp.args.StandardSave(tree))
     checkpointer.save(str(path), args=args)
     return str(path)
+
+
+def unmerged(path):
+    """An orbax save the port still refuses: an OCDBT checkpoint whose
+    root holds no merged ``manifest.ocdbt`` (a multi-process save the
+    root never merged)."""
+    saved = save(path, {"conv_out": {"bias": np.zeros(3, np.float32)}})
+    (Path(saved) / "manifest.ocdbt").unlink()
+    return saved
 
 
 def jax_model(variant):
@@ -129,6 +142,42 @@ def test_every_family_loads_bitwise_the_jax_restore(tmp_path, variant,
     assert_same_state(engine.model.state_dict(), jax_state(variant, path))
 
 
+@pytest.mark.parametrize("use_ocdbt", [True, False], ids=["ocdbt", "files"])
+@pytest.mark.parametrize("variant", ["parity", "tpu_s2d4"])
+def test_zarr3_checkpoints_load_bitwise_the_jax_restore(tmp_path, variant,
+                                                        use_ocdbt):
+    """``use_zarr3`` saves (each leaf a ``sharding_indexed`` zarr v3
+    array) load into the port's engine as the JAX package restores
+    them."""
+    from chunkflow_tpu_torch.inference import engines
+    from tests.test_torch_models import draw_params
+
+    params = draw_params(jax_model(variant), PIN, seed=5)
+    path = save(tmp_path / "ck", params, use_zarr3=True,
+                use_ocdbt=use_ocdbt)
+    metadata = json.loads((Path(path) / "_METADATA").read_text())
+    assert metadata["use_zarr3"] and metadata["use_ocdbt"] == use_ocdbt
+    engine = engines.create_engine("flax", weight_path=path,
+                                   model_variant=variant,
+                                   num_output_channels=3)
+    assert_same_state(engine.model.state_dict(), jax_state(variant, path))
+
+
+def test_the_committed_zarr3_checkpoint_is_the_seeded_tree():
+    """``ZARR3_FIXTURE`` (the seeded tree saved with ``use_zarr3``, which
+    ``chip_smoke.py`` phase 21 loads on the card) reads as the seeded
+    weights in the port and in the JAX restore."""
+    want = state_from_flax(seeded_tree())
+    assert_same_state(state_from_flax(orbax.load_params(str(ZARR3_FIXTURE))),
+                      want)
+    assert_same_state(jax_state("parity", str(ZARR3_FIXTURE)), want)
+    metadata = json.loads((ZARR3_FIXTURE / "_METADATA").read_text())
+    assert metadata["use_ocdbt"] and metadata["use_zarr3"]
+    size = sum(p.stat().st_size for p in ZARR3_FIXTURE.rglob("*")
+               if p.is_file())
+    assert size < 3 * 2 ** 20
+
+
 def test_a_bfloat16_leaf_reads_as_float32_exactly(tmp_path):
     import jax.numpy as jnp
 
@@ -144,13 +193,16 @@ def test_a_bfloat16_leaf_reads_as_float32_exactly(tmp_path):
 
 def test_what_the_port_does_not_read_raises_naming_its_item(tmp_path):
     tree = {"a": {"bias": np.arange(4, dtype=np.float32)}}
-    # zarr v3 arrays inside a sharding_indexed codec
+    # zarr v3 arrays inside a sharding_indexed codec read as orbax restores
     for use_ocdbt in (True, False):
         path = save(tmp_path / f"z3{use_ocdbt}", tree, use_zarr3=True,
                     use_ocdbt=use_ocdbt)
-        with pytest.raises(NotImplementedError, match=ITEM) as info:
-            orbax.load_params(path)
-        assert "sharding_indexed" in str(info.value)
+        got = orbax.load_params(path)
+        restored = ocp.Checkpointer(ocp.PyTreeCheckpointHandler()).restore(
+            path)
+        assert np.array_equal(got["a"]["bias"], tree["a"]["bias"])
+        assert np.array_equal(got["a"]["bias"],
+                              np.asarray(restored["a"]["bias"]))
     # a save whose processes' stores the root does not merge
     path = save(tmp_path / "split", tree)
     (Path(path) / "manifest.ocdbt").unlink()
@@ -171,6 +223,8 @@ def test_what_the_port_does_not_read_raises_naming_its_item(tmp_path):
 def write_fixture() -> None:
     shutil.rmtree(FIXTURE, ignore_errors=True)
     save(FIXTURE, seeded_tree())
+    shutil.rmtree(ZARR3_FIXTURE, ignore_errors=True)
+    save(ZARR3_FIXTURE, seeded_tree(), use_zarr3=True)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,14 @@ found through ``$CHUNKFLOW_PLUGIN_DIR`` whose output shrank
 symmetrically (the voxel-offset fix). ``str_to_dict`` parses the
 arguments' mini-language as the JAX package does. The seven plugins
 built on the annotations (synapse detection and editing, skeletonize
-and fragment aggregation) leave the JAX tasks, output and files; each
-of the five bundled plugins that needs a package the port does without
-raises ``NotImplementedError`` naming it.
+and fragment aggregation) leave the JAX tasks, output and files; so do
+the three that need a package (``clahe`` bitwise cv2; ``czann_inference``
+and ``napari_pixel_classifier`` with their package absent and stubbed).
 """
 import os
+import sys
 import threading
+import types
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -254,8 +256,8 @@ UNPORTED = ["skeletonize", "aggregate_skeleton_fragments", "adjust_pre",
             "czann_inference", "napari_pixel_classifier", "aws/cloud_watch",
             "load_tensorstore"]
 
-#: the bundled plugins of the JAX package that need a package the port
-#: does without
+#: the bundled plugins of the JAX package that need a package beyond
+#: numpy and scipy
 PACKAGE_GATED = {"clahe": "cv2", "czann_inference": "czmodel",
                  "napari_pixel_classifier": "apoc"}
 
@@ -271,10 +273,14 @@ class _Recorder:
 
 
 @pytest.mark.parametrize("name", UNPORTED)
-def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
-    """The JAX package finds each of these among its bundled plugins. The
-    three that need a package the port does without raise naming it, at
-    the command's build; the seven the annotations brought,
+def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys,
+                                                  monkeypatch):
+    """The JAX package finds each of these among its bundled plugins, and
+    so does the port. ``clahe`` runs bitwise the JAX plugin's cv2 (a
+    non-uint8 chunk raises the same ``ValueError``); ``czann_inference``
+    and ``napari_pixel_classifier`` raise what the JAX plugins raise
+    without their package, and give what they give with a stub of it
+    (``gated_outcomes``); the seven the annotations brought,
     ``load_tensorstore`` and ``aws/cloud_watch`` run, equal to the JAX
     package's (``aws/cloud_watch`` with a recording client in both:
     ``tests/test_torch_cloud_watch.py`` holds it on the CloudWatch
@@ -304,10 +310,72 @@ def test_a_plugin_left_out_raises_naming_its_item(name, tmp_path, capsys):
         run_annotation_plugin(ANNOTATION_PLUGINS[name.split("/")[-1]],
                               tmp_path, capsys)
         return
-    with pytest.raises(NotImplementedError,
-                       match="annotations and plugins") as info:
-        cli.build_stages(["--device", "cpu", "plugin", "-n", name])
-    assert PACKAGE_GATED[name] in str(info.value)
+    if name == "clahe":
+        pytest.importorskip("cv2")
+        jax_tasks, port_tasks = run_both(["plugin", "-n", "clahe", "-a",
+                                          "clip_limit=3;tile_size=4"])
+        assert_same_tasks(port_tasks, jax_tasks)
+        jax_out, port_out = gated_outcomes(["-n", "clahe", "-i", "prob"])
+        assert port_out == jax_out == (ValueError,
+                                       "CLAHE needs a uint8 image chunk")
+        return
+    package = PACKAGE_GATED[name]
+    args = ["-n", name, "-o", "out", "-a", ARGUMENT[name]]
+    monkeypatch.setitem(sys.modules, package, None)
+    jax_out, port_out = gated_outcomes(args)
+    assert jax_out[0] is ImportError and f"'{package}' package" in jax_out[1]
+    assert port_out == jax_out
+    for module in STUBS[package]():
+        monkeypatch.setitem(sys.modules, module.__name__, module)
+    jax_out, port_out = gated_outcomes(args)
+    if name == "czann_inference":
+        assert jax_out[0] is NotImplementedError
+        assert port_out == jax_out
+    else:
+        assert_same_tasks(port_out, jax_out)
+        assert port_out[0]["out"].array.dtype == np.float32
+
+
+def gated_outcomes(args):
+    """(JAX, port): each CLI's ``plugin`` command on the same task, as
+    the tasks it leaves or the type and text of what it raised."""
+    outcomes = []
+    for stage, task in zip((jax_stage, port_stage), _tasks()):
+        try:
+            outcomes.append(list(stage(["plugin", *args])(iter([task]))))
+        except Exception as exc:  # compared across the two packages
+            outcomes.append((type(exc), str(exc)))
+    return outcomes
+
+
+def _czmodel_stub():
+    """``czmodel.pytorch.convert`` with a ``DefaultConverter``."""
+    names = ("czmodel", "czmodel.pytorch", "czmodel.pytorch.convert")
+    modules = [types.ModuleType(n) for n in names]
+    modules[-1].DefaultConverter = object
+    return modules
+
+
+class _PixelClassifier:
+    """apoc's classifier: a fixed function of the image."""
+
+    def __init__(self, opencl_filename=None):
+        self.path = opencl_filename
+
+    def predict(self, image):
+        assert self.path == "c.cl"
+        return (np.asarray(image) % 7).astype(np.uint32)
+
+
+def _apoc_stub():
+    module = types.ModuleType("apoc")
+    module.PixelClassifier = _PixelClassifier
+    return [module]
+
+
+STUBS = {"czmodel": _czmodel_stub, "apoc": _apoc_stub}
+ARGUMENT = {"czann_inference": "model_file=m.czann",
+            "napari_pixel_classifier": "classifier_path=c.cl"}
 
 
 # ---------------------------------------------------------------------------
@@ -409,8 +477,17 @@ def test_load_tensorstore_unported_driver_raises(tmp_path):
 
 
 def test_unported_names_exactly_the_package_gated_plugins():
-    assert sorted(plugin.UNPORTED) == sorted(
-        f"{name}.py" for name in PACKAGE_GATED)
+    """No bundled plugin is left out: the package-gated ones too have
+    their port file, found as the JAX package finds its own."""
+    jax_dir = os.path.dirname(jplugin.find_plugin("clahe"))
+    for root, _, files in os.walk(jax_dir):
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                rel = os.path.relpath(os.path.join(root, f), jax_dir)
+                assert os.path.isfile(os.path.join(plugin.BUNDLED, rel)), rel
+    assert not hasattr(plugin, "UNPORTED")
+    for name in PACKAGE_GATED:
+        assert plugin.find_plugin(name).startswith(plugin.BUNDLED)
 
 
 # ---------------------------------------------------------------------------

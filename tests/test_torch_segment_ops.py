@@ -88,7 +88,8 @@ def test_host_build_recipe():
     assert cmd[1:6] == ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
     assert [os.path.basename(a) for a in cmd if a.endswith(".cpp")] == [
         "cc3d.cpp", "remap.cpp", "watershed.cpp", "surface_nets.cpp",
-        "compressed_segmentation.cpp", "zstd.cpp", "blosc.cpp"]
+        "compressed_segmentation.cpp", "zstd.cpp", "blosc.cpp", "clahe.cpp",
+        "crc32c.cpp"]
     # keyed by the sources' hash, under the git-ignored build/
     path = _build.library_path(_build.HOST_LIBRARY)
     assert path.parent == _build.BUILD_DIR and "libchunkflow_host-" in \
@@ -105,9 +106,10 @@ def test_host_build_recipe():
 
 
 # host sources the port has and the JAX package has not: the precomputed
-# codecs and the zstd and blosc decoders, which the JAX package leaves to
-# tensorstore
-PORT_ONLY_SOURCES = ("compressed_segmentation.cpp", "zstd.cpp", "blosc.cpp")
+# codecs, the zstd and blosc decoders and the CRC-32C, which the JAX
+# package leaves to tensorstore, and CLAHE, which it leaves to cv2
+PORT_ONLY_SOURCES = ("compressed_segmentation.cpp", "zstd.cpp", "blosc.cpp",
+                     "clahe.cpp", "crc32c.cpp")
 
 
 def test_host_sources_are_the_jax_packages_copies():

@@ -131,16 +131,15 @@ def test_engine_loads_pt_weights(tmp_path):
 def test_engine_unported_options_raise(framework, tmp_path):
     """An orbax checkpoint directory loads (the committed one holds the
     seeded full-width weights, bitwise); one that needs what the port does
-    not read (zarr v3 arrays inside ``sharding_indexed``) raises, naming
-    its ROADMAP item."""
-    from tests.test_torch_orbax import FIXTURE, save
+    not read (an OCDBT save whose root manifest was never merged) raises,
+    naming its ROADMAP item."""
+    from tests.test_torch_orbax import FIXTURE, unmerged
 
     seeded = seeded_init(UNet3D(), torch.Generator().manual_seed(0))
     engine = engines.create_engine(framework, weight_path=str(FIXTURE),
                                    num_output_channels=3)
     for key, value in seeded.state_dict().items():
         assert torch.equal(engine.model.state_dict()[key], value)
-    zarr3 = save(tmp_path / "zarr3", {"conv_out": {"bias": np.zeros(
-        3, np.float32)}}, use_zarr3=True)
     with pytest.raises(NotImplementedError, match="orbax checkpoints"):
-        engines.create_engine(framework, weight_path=zarr3)
+        engines.create_engine(framework,
+                              weight_path=unmerged(tmp_path / "split"))
