@@ -489,6 +489,25 @@ BLOSC_STORE = ROOT / "tests" / "data" / "blosc_zarr"
 CODEC_REPS = 5
 # a volume worker's task (zyx) as one blosc frame
 BLOSC_TASK = (56, 384, 384)
+# phase 21's CLI legs: the parity output (its channels stacked in z) saved
+# into a store of each compressor, its .zarray as tensorstore writes it
+# (tensorstore's default blosc: lz4); the store's chunks (zyx)
+SAVE_STORES = (("zstd", {"id": "zstd", "level": 1}),
+               ("blosc-lz4", {"blocksize": 0, "clevel": 5, "cname": "lz4",
+                              "id": "blosc", "shuffle": -1}))
+SAVE_CHUNKS = (64, 256, 256)
+# a czyx chunk as a zyx one, its channels stacked in z (save-zarr writes
+# zyx chunks, in both packages)
+STACK_PLUGIN = '''from chunkflow_tpu_torch import Chunk
+
+
+def execute(chunk):
+    """The channels of a czyx chunk stacked in z."""
+    array = chunk.array
+    return Chunk(array.reshape((-1,) + tuple(array.shape[-2:])),
+                 voxel_offset=chunk.voxel_offset,
+                 voxel_size=chunk.voxel_size)
+'''
 CHAIN_ROI = ((4, 72, 68), (112, 768, 768))
 MASK_FACTOR = (1, 16, 16)
 # phase 12: the README's quick start runs batch 4
@@ -1653,7 +1672,9 @@ def main() -> int:
     for kname, n in checkpoint_phase(torch, dict(
             chunk=chunk_u8.host().array, pin=PIN, overlap=OVERLAP,
             batch=BATCH, device="cuda", checkpoint=CHECKPOINT,
-            checkpoint_zarr3=CHECKPOINT_ZARR3, blosc_store=BLOSC_STORE, blosc_task=BLOSC_TASK, reps=CODEC_REPS,
+            checkpoint_zarr3=CHECKPOINT_ZARR3, blosc_store=BLOSC_STORE,
+            blosc_task=BLOSC_TASK, reps=CODEC_REPS, weights=str(weights),
+            stores=SAVE_STORES, store_chunks=SAVE_CHUNKS,
             per_chunk=phase5_launches),
             state, reset_counts, counts, plain_functions).items():
         kernels[kname]["launches"] += n
@@ -1700,7 +1721,8 @@ def main() -> int:
             reps=CLAHE_REPS,
             pin=PIN, overlap=OVERLAP, batch=BATCH, device="cuda",
             weights=CHECKPOINT_ZARR3, per_chunk=phase5_launches,
-            store=SHARDED_STORE), reset_counts, counts).items():
+            store=SHARDED_STORE, checkpoint=CHECKPOINT), reset_counts,
+            counts).items():
         kernels[kname]["launches"] += n
     lap("end")
     spans = {label: round(t1 - t0, 1) for (label, t0), (_, t1)
@@ -5789,9 +5811,19 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
     decoders' MB/s beside their plain versions' on the checkpoint's
     largest chunk, ``cfg["blosc_store"]``'s lz4 chunks and one task-sized
     frame (``cfg["chunk"]``'s corner of ``cfg["blosc_task"]``) that the
-    port's ``blosc.compress`` encodes.
+    port's ``blosc.compress`` encodes. The encoders on the largest chunk:
+    the host C++ zstd at the store's level (its MB/s no lower than
+    ``zlib.compress`` at level 1's, its frame's size against the
+    committed frame's, the plain twin's bytes on its first 64 KiB, a
+    round trip through both decoders) and LZ4 (its MB/s, the plain twin's
+    bytes, both decoders). Then ``load-npy | inference -f pytorch -w
+    cfg["weights"] | plugin -n <stack channels> | save-zarr`` into a
+    store of each of ``cfg["stores"]`` (a ``.zarray`` as tensorstore
+    writes it, chunks ``cfg["store_chunks"]``), ``cfg["per_chunk"]``
+    launches each, read back through ``load-zarr`` bitwise
+    ``Inferencer.__call__``, each chunk file of the store's compressor.
 
-    Returns the kernels' launches in the CLI run."""
+    Returns the kernels' launches in the CLI runs."""
     import statistics
     import tempfile
 
@@ -5982,7 +6014,8 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
                                         "differ")
     task = np.ascontiguousarray(chunk[tuple(slice(0, s)
                                             for s in cfg["blosc_task"])])
-    task_frame = blosc.compress(task.tobytes(), task.dtype.itemsize)
+    task_frame = blosc.compress(task.tobytes(), task.dtype.itemsize,
+                                cname="lz4")
     t_cpp = rate(lambda: blosc.decompress(task_frame), task.nbytes,
                  cfg["reps"])
     t_plain = rate(lambda: blosc.decompress_plain(task_frame), task.nbytes, 1)
@@ -5995,10 +6028,124 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
                          f" MB/s; blosc lz4 shuffle on the committed store "
                          f"({len(blosc_frames)} frames, {raw} bytes): "
                          f"{b_cpp:.1f} MB/s, plain {b_plain:.3f} MB/s; "
-                         f"blosc zlib on a {tuple(task.shape)} uint8 frame "
-                         f"({len(task_frame)} -> {task.nbytes} bytes, the "
-                         f"port encodes no lz4): {t_cpp:.1f} MB/s, plain "
+                         f"blosc lz4 on a {tuple(task.shape)} uint8 frame "
+                         f"the port encodes ({len(task_frame)} -> "
+                         f"{task.nbytes} bytes): {t_cpp:.1f} MB/s, plain "
                          f"{t_plain:.1f} MB/s")
+    # ---- the encoders on the largest chunk -----------------------------
+    import zlib
+
+    from chunkflow_tpu_torch import native
+
+    data = zstd.decompress(frame, size)
+    level = json.loads(frames[key.split("/")[0] + "/.zarray"])[
+        "compressor"]["level"]
+    ours = zstd.compress(data, level)
+    z_rate = rate(lambda: zstd.compress(data, level), size, cfg["reps"])
+    lz4_rate = rate(lambda: native.lz4_compress(data), size, cfg["reps"])
+    zlib_rate = rate(lambda: zlib.compress(data, 1), size, cfg["reps"])
+    head = data[:64 * 1024]
+    require(zstd.compress_plain(head, level) == zstd.compress(head, level),
+            "checkpoints: the zstd encoder's bytes differ from its plain "
+            "twin's on the first 64 KiB")
+    require(zstd.decompress(ours) == data
+            and zstd.decompress_plain(ours) == data,
+            "checkpoints: the port's zstd frame does not decode to its "
+            "chunk")
+    block = native.lz4_compress(data)
+    require(blosc.lz4_compress_plain(head) == native.lz4_compress(head),
+            "checkpoints: the LZ4 encoder's bytes differ from its plain "
+            "twin's on the first 64 KiB")
+    require(blosc._lz4(block, size) == data, "checkpoints: the port's LZ4 "
+                                            "block does not decode")
+    require(z_rate >= zlib_rate, f"checkpoints: the zstd encoder at level "
+                                 f"{level} ({z_rate:.1f} MB/s) is slower "
+                                 f"than zlib at level 1 ({zlib_rate:.1f})")
+    phase("checkpoints", f"encoders on the largest chunk ({size} bytes): "
+                         f"host C++ zstd level {level} {z_rate:.1f} MB/s, "
+                         f"{len(ours)} bytes ({len(ours) / len(frame):.4f} "
+                         f"of the committed frame's {len(frame)}); host C++ "
+                         f"LZ4 {lz4_rate:.1f} MB/s, {len(block)} bytes; "
+                         f"zlib level 1 {zlib_rate:.1f} MB/s (median of "
+                         f"{cfg['reps']}); the plain twins' bytes equal on "
+                         f"64 KiB, both decoders bitwise")
+
+    # ---- the CLI into a store of each compressor ------------------------
+    stacked = (3 * chunk.shape[0],) + tuple(chunk.shape[1:])
+    for label, compressor in cfg["stores"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as tmp:
+            src = os.path.join(tmp, "in.npy")
+            dst = os.path.join(tmp, "out.npy")
+            store = os.path.join(tmp, "aff.zarr")
+            stack = os.path.join(tmp, "stack.py")
+            np.save(src, chunk)
+            with open(stack, "w") as f:
+                f.write(STACK_PLUGIN)
+            os.makedirs(store)
+            with open(os.path.join(store, ".zarray"), "w") as f:
+                json.dump({"chunks": list(cfg["store_chunks"]),
+                           "compressor": compressor,
+                           "dimension_separator": ".", "dtype": "<f4",
+                           "fill_value": None, "filters": None,
+                           "order": "C", "shape": list(stacked),
+                           "zarr_format": 2}, f, separators=(",", ":"))
+            reset_counts()
+            t = time.perf_counter()
+            rc = cli.main(([] if on_card else ["--device", "cpu"]) + [
+                "load-npy", "--file-name", src,
+                "inference", "--framework", "pytorch",
+                "--model-variant", "parity", "--weight-path", cfg["weights"],
+                "--input-patch-size", *map(str, pin),
+                "--output-patch-overlap", *map(str, overlap),
+                "--num-output-channels", "3", "--batch-size", str(batch),
+                "plugin", "--name", stack, "--input-names", "chunk",
+                "--output-names", "chunk",
+                "save-zarr", "--store-path", store])
+            write_s = time.perf_counter() - t
+            leg = counts()
+            require(rc == 0, f"checkpoints: {label}: CLI exit code {rc}")
+            for kname, n in leg.items():
+                if on_card:
+                    require(n == cfg["per_chunk"][kname],
+                            f"checkpoints: {label}: {kname} launched {n} "
+                            f"times, not {cfg['per_chunk'][kname]}")
+                launched[kname] += n
+            names = sorted(n for n in os.listdir(store)
+                           if not n.startswith("."))
+            stored = sum(os.path.getsize(os.path.join(store, n))
+                         for n in names)
+            with open(os.path.join(store, names[0]), "rb") as f:
+                first = f.read(16)
+            if compressor["id"] == "zstd":
+                require(first[:4] == b"\x28\xb5\x2f\xfd",
+                        f"checkpoints: {label}: a chunk that is no zstd "
+                        f"frame")
+            else:
+                require(first[2] >> 5 == blosc.WRITES[compressor["cname"]],
+                        f"checkpoints: {label}: a blosc frame of codec "
+                        f"{first[2] >> 5}")
+            t = time.perf_counter()
+            rc = cli.main(([] if on_card else ["--device", "cpu"]) + [
+                "load-zarr", "--store-path", store,
+                "save-npy", "--file-name", dst])
+            read_s = time.perf_counter() - t
+            require(rc == 0, f"checkpoints: {label}: load-zarr exit code "
+                             f"{rc}")
+            back = np.load(dst)
+        require(back.shape == stacked and np.array_equal(
+            back.reshape(ref.shape), ref), f"checkpoints: {label}: the "
+                                           f"store read back differs "
+                                           f"from Inferencer.__call__")
+        phase("checkpoints", f"load-npy | inference -f pytorch -w <.pt> | "
+                             f"plugin -n <stack> | save-zarr into a {label} "
+                             f"store ({compressor}, chunks "
+                             f"{tuple(cfg['store_chunks'])}): "
+                             f"{write_s:.2f} s, {len(names)} chunk files "
+                             f"of {stored / 1e6:.1f} MB for "
+                             f"{back.nbytes / 1e6:.1f} MB of float32; "
+                             f"load-zarr | save-npy {read_s:.2f} s; == "
+                             f"Inferencer.__call__ bitwise; launches "
+                             f"{leg}")
     phase("checkpoints", f"phase 21 took {time.perf_counter() - t_phase:.1f}"
                          f" s")
     return launched
@@ -6019,7 +6166,14 @@ def clahe_stores_phase(torch, cfg, reset_counts, counts):
     ``cfg["per_chunk"]`` launches of each kernel. ``cfg["store"]`` (the
     committed sharded zarr v3 store) reads through ``load-zarr --driver
     zarr3`` and through the ``load_tensorstore`` plugin as
-    :func:`sharded_array`. Returns the kernels' launches in the CLI run."""
+    :func:`sharded_array`. Then ``load_tensorstore`` reads a sub-box of
+    grayscale and RGB sections of the chunk through the ``png`` and
+    ``tiff`` drivers (and ``webp`` and ``avif`` where this machine's
+    Pillow decodes them), a leaf of ``cfg["checkpoint"]`` through an
+    ``ocdbt`` kvstore with its ``path``, and the sharded store through a
+    ``zip`` kvstore of it, the ``auto`` driver over that zip and an
+    ``http`` kvstore on a local ``http.server``: each equal to the file
+    read. Returns the kernels' launches in the CLI run."""
     import statistics
     import tempfile
 
@@ -6108,7 +6262,7 @@ def clahe_stores_phase(torch, cfg, reset_counts, counts):
 
     # ---- the sharded zarr v3 store ---------------------------------------
     store = str(cfg["store"])
-    want = sharded_array(np)
+    want = want_store = sharded_array(np)
     size = [str(n) for n in want.shape]
     reads = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zarr3_") as tmp:
@@ -6135,6 +6289,108 @@ def clahe_stores_phase(torch, cfg, reset_counts, counts):
                     f"and one inner chunk never written): "
                     + ", ".join(f"{k} {v:.1f} ms" for k, v in reads.items())
                     + " (each a whole CLI run), == the seeded array bitwise")
+
+    # ---- load_tensorstore: image drivers and the other kvstores ---------
+    import functools
+    import http.server
+    import socket
+    import threading
+    import zipfile
+
+    from PIL import Image, features
+
+    from chunkflow_tpu_torch import BoundingBox
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+    from chunkflow_tpu_torch.models import orbax
+    from chunkflow_tpu_torch.plugins import load_tensorstore
+    from chunkflow_tpu_torch.volume.storage import serial_cutout
+
+    load = load_plugin("load_tensorstore")
+    decodes = {f: features.check(f) for f in ("webp", "avif")}
+    timed = {}
+
+    def read(label, box, want, **args):
+        t = time.perf_counter()
+        got = load(BoundingBox(*box), **args).array
+        timed[label] = (time.perf_counter() - t) * 1e3
+        require(got.dtype == want.dtype and np.array_equal(got, want),
+                f"stores: load_tensorstore over {label} differs from the "
+                f"file read")
+
+    section = np.ascontiguousarray(chunk[0])
+    rgb = np.ascontiguousarray(chunk[:3].transpose(1, 2, 0))
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        """Keep-alive, each answer sent at once (no Nagle wait between
+        its header and body writes), no log."""
+
+        protocol_version = "HTTP/1.1"
+
+        def setup(self):
+            self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY,
+                                    1)
+            super().setup()
+
+        def log_message(self, *args):
+            pass
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kv_") as tmp:
+        for driver in ("png", "tiff") + tuple(d for d, ok in decodes.items()
+                                              if ok):
+            for kind, pixels in (("gray", section), ("rgb", rgb)):
+                path = os.path.join(tmp, f"{kind}.{driver}")
+                Image.fromarray(pixels).save(path)
+                with Image.open(path) as image:
+                    want = np.asarray(image)
+                want = want[..., None] if want.ndim == 2 else want
+                box = ((5, 7, 0), (want.shape[0] - 3, want.shape[1] - 11,
+                                   want.shape[2]))
+                read(f"{driver} {kind}", box, want[5:-3, 7:-11],
+                     driver=driver, kvstore=f"file://{path}")
+        # a leaf is 5-D, which no chunk holds: the plugin's dataset read
+        # whole on the storage plane
+        leaf = "bridge.conv2.kernel"
+        kernel = orbax.load_params(str(cfg["checkpoint"]))["bridge"][
+            "conv2"]["kernel"]
+        t = time.perf_counter()
+        dataset = load_tensorstore.open_dataset("zarr", {
+            "driver": "ocdbt", "base": f"file://{cfg['checkpoint']}/",
+            "path": f"{leaf}/"})
+        got = serial_cutout(dataset, *dataset.domain)
+        timed["ocdbt"] = (time.perf_counter() - t) * 1e3
+        require(got.dtype == kernel.dtype and np.array_equal(got, kernel),
+                "stores: the checkpoint's leaf over an ocdbt kvstore "
+                "differs from the orbax read")
+        archive = os.path.join(tmp, "store.zip")
+        with zipfile.ZipFile(archive, "w") as zf:
+            for dirpath, _, files in os.walk(store):
+                for name in files:
+                    full = os.path.join(dirpath, name)
+                    zf.write(full, os.path.relpath(full, store))
+        want_shape = tuple(want_store.shape)
+        box = ((0, 0, 0), want_shape)
+        read("zip", box, want_store, driver="zarr3",
+             kvstore={"driver": "zip", "base": f"file://{archive}"})
+        read("auto over the zip", box, want_store, driver="auto",
+             kvstore=f"file://{archive}")
+        server = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(
+                Quiet, directory=os.path.dirname(store)))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            read("http", box, want_store, driver="zarr3", kvstore={
+                "driver": "http", "base_url": f"http://127.0.0.1:"
+                f"{server.server_address[1]}/{os.path.basename(store)}/"})
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+    phase("stores", f"load_tensorstore (each == the file read, ms a read): "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in timed.items())
+                    + f"; {want_shape} zarr3 over zip and http, the "
+                      f"checkpoint's {leaf} {tuple(kernel.shape)} over "
+                      f"ocdbt; this Pillow decodes {decodes}")
     phase("clahe", f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
     return launched
 

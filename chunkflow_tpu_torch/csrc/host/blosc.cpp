@@ -1,4 +1,5 @@
-// Blosc1 frames, decode only.
+// Blosc1 frames, decode only, and the LZ4 block encoder of the frames the
+// port writes.
 //
 // A frame is a 16-byte header (format version, codec version, flags,
 // typesize, nbytes, blocksize, cbytes), then either the data as it is
@@ -13,6 +14,12 @@
 // bit-unshuffled. Every read and write is bounds-checked; a malformed
 // frame returns a negative code. volume/blosc.py:decompress_plain is the
 // same walk in Python and numpy.
+//
+// cf_lz4_compress writes one LZ4 block: greedy matches found by a hash of
+// 4-byte sequences, at most 65535 back, extended backwards over the
+// literals before them, stepping ever faster through literals; no match
+// starts in the last 12 bytes and the last 5 are literals, as the block
+// format sets. volume/blosc.py:lz4_compress_plain gives the same bytes.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -242,9 +249,91 @@ int64_t stream(int codec, const uint8_t* src, int64_t n, uint8_t* dst,
   }
 }
 
+constexpr int kLz4HashLog = 16;
+constexpr int64_t kLz4MaxOffset = 65535;
+constexpr int64_t kLz4LastLiterals = 5;
+constexpr int64_t kLz4MatchLimit = 12;  // no match starts in the last 12 bytes
+constexpr int kLz4Skip = 6;
+
+inline uint32_t lz4_hash(const uint8_t* p) {
+  uint32_t word;
+  std::memcpy(&word, p, 4);
+  return (word * 2654435761u) >> (32 - kLz4HashLog);
+}
+
+struct Lz4Out {
+  uint8_t* dst;
+  int64_t cap, pos = 0;
+  bool full = false;
+  inline void byte(uint8_t b) {
+    if (pos >= cap) {
+      full = true;
+      return;
+    }
+    dst[pos++] = b;
+  }
+  void length(int64_t extra) {  // a length's bytes past its token's 15
+    while (extra >= 255) {
+      byte(255);
+      extra -= 255;
+    }
+    byte(static_cast<uint8_t>(extra));
+  }
+  void copy(const uint8_t* src, int64_t n) {
+    if (n > cap - pos) {
+      full = true;
+      return;
+    }
+    std::memcpy(dst + pos, src, n);
+    pos += n;
+  }
+  // literals src[0..lit), then (where len > 0) a match of len at offset
+  void sequence(const uint8_t* src, int64_t lit, int64_t offset, int64_t len) {
+    int64_t ml = len > 0 ? len - 4 : 0;
+    byte(static_cast<uint8_t>((lit < 15 ? lit : 15) << 4 | (ml < 15 ? ml : 15)));
+    if (lit >= 15) length(lit - 15);
+    copy(src, lit);
+    if (len <= 0) return;
+    byte(static_cast<uint8_t>(offset));
+    byte(static_cast<uint8_t>(offset >> 8));
+    if (ml >= 15) length(ml - 15);
+  }
+};
+
 }  // namespace
 
 extern "C" {
+
+// One LZ4 block of src[0..n) into dst[0..cap); returns its size, or
+// kOutputFull where it does not fit.
+int64_t cf_lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  Lz4Out out{dst, cap};
+  std::vector<int64_t> table(static_cast<size_t>(1) << kLz4HashLog, -1);
+  int64_t ip = 0, anchor = 0;
+  int64_t last = n - kLz4MatchLimit, limit = n - kLz4LastLiterals;
+  while (ip <= last) {
+    uint32_t h = lz4_hash(src + ip);
+    int64_t cand = table[h];
+    table[h] = ip;
+    if (cand < 0 || ip - cand > kLz4MaxOffset || std::memcmp(src + cand, src + ip, 4) != 0) {
+      ip += 1 + ((ip - anchor) >> kLz4Skip);
+      continue;
+    }
+    while (ip > anchor && cand > 0 && src[ip - 1] == src[cand - 1]) {
+      ip -= 1;
+      cand -= 1;
+    }
+    int64_t len = 4;
+    while (ip + len < limit && src[cand + len] == src[ip + len]) len++;
+    out.sequence(src + anchor, ip - anchor, ip - cand, len);
+    ip += len;
+    anchor = ip;
+    if (ip - 2 <= n - 4) table[lz4_hash(src + ip - 2)] = ip - 2;
+  }
+  out.sequence(src + anchor, n - anchor, 0, 0);
+  return out.full ? kOutputFull : out.pos;
+}
+
 
 // The nbytes of a blosc frame, or a negative code.
 int64_t cf_blosc_nbytes(const uint8_t* src, int64_t n) {

@@ -89,11 +89,6 @@ class UsageError(Exception):
     into an exit with the message."""
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(f"{option} is not ported yet (ROADMAP, queue "
-                              f"1: {item})")
-
-
 def _on_off(parser, name: str, off: str, default: bool, help: str = ""):
     """A ``--name/--off`` pair of flags on one destination (click's
     two-name boolean options)."""

@@ -250,6 +250,32 @@ def init_or_load_weights(model: nn.Module,
                          f"dict, a flax .msgpack file or an orbax directory")
     with telemetry.span("weights/convert"):
         if params is not None:
+            if weight_path.endswith(".msgpack"):
+                # flax's from_state_dict ignores the leaves its template
+                # lacks
+                params = _leaves_of(params, template)
             state = state_from_flax(params)
+            missing = sorted(set(template) - set(state))
+            extra = sorted(set(state) - set(template))
+            if missing or extra:
+                # the JAX restore refuses a tree of other leaves
+                raise ValueError(
+                    f"{weight_path}: the checkpoint's leaves are not the "
+                    f"model's (missing {missing}, unexpected {extra})")
         model.load_state_dict(state)
     return model
+
+
+def _leaves_of(params, template) -> Dict:
+    """The flax leaves of ``params`` that convert to a key of the state
+    dict ``template``."""
+    kept: Dict = {}
+    for path, value in _leaves(params):
+        key = ".".join(path[:-1]) + (".bias" if path[-1] == "bias"
+                                     else ".weight")
+        if key in template:
+            node = kept
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = value
+    return kept

@@ -20,9 +20,12 @@ leaf reads as float32 (exactly). :func:`load_params` gives the nested
 param tree of numpy arrays that ``convert.state_from_flax`` takes, as the
 ``.msgpack`` reader does; opening the store is timed into the telemetry
 span ``orbax/open``, each chunk's read and decode into ``volume/zarr.py``'s
-spans. Anything else (an OCDBT save without a root
-manifest, a key or value type other than a dict key and an array, a
-codec the port does not read) raises naming its ROADMAP item.
+spans. What the JAX package's restore refuses raises ``ValueError``
+naming the file or the leaf, as the restore does: an OCDBT save without a
+root manifest (a multi-process save the root never merged), a leaf keyed
+by other than a dict key or whose value is not an array (an added
+``step: 5``); ``convert.init_or_load_weights`` refuses a tree whose leaves
+are not the model's.
 """
 from __future__ import annotations
 
@@ -37,15 +40,15 @@ from chunkflow_tpu_torch.volume.ocdbt import MANIFEST, OcdbtKV
 from chunkflow_tpu_torch.volume.storage import FileKV, KVBackend
 from chunkflow_tpu_torch.volume.zarr import open_array
 
-ITEM = "ROADMAP, queue 1: convnet engines, orbax checkpoints"
 METADATA = "_METADATA"
 #: orbax's key types: a dict key (the only kind a flax param tree has)
 DICT_KEY = 2
 ARRAY_TYPES = ("jax.Array", "np.ndarray")
 
 
-def _unported(path: str, what: str):
-    raise NotImplementedError(f"{path}: {what} is not ported ({ITEM})")
+def _refused(path: str, what: str):
+    raise ValueError(f"{path}: {what}; the JAX package's orbax restore "
+                     f"refuses it too")
 
 
 def open_store(path: str, metadata: dict) -> KVBackend:
@@ -54,8 +57,8 @@ def open_store(path: str, metadata: dict) -> KVBackend:
     if not metadata.get("use_ocdbt"):
         return base
     if base.read_bytes(MANIFEST) is None:
-        _unported(path, "an OCDBT checkpoint without a root manifest.ocdbt "
-                        "(a multi-process save the root does not merge)")
+        _refused(path, "an OCDBT checkpoint without a root manifest.ocdbt "
+                       "(a multi-process save the root did not merge)")
     return OcdbtKV(base)
 
 
@@ -69,7 +72,7 @@ def load_params(path: str) -> Dict:
         raise ValueError(f"{path}: not an orbax checkpoint (no "
                          f"{METADATA})") from None
     if "tree_metadata" not in metadata:
-        _unported(path, f"a {METADATA} without tree_metadata")
+        _refused(path, f"a {METADATA} without tree_metadata")
     with telemetry.span("orbax/open"):
         kv = open_store(path, metadata)
     driver = "zarr3" if metadata.get("use_zarr3") else "zarr"
@@ -77,20 +80,16 @@ def load_params(path: str) -> Dict:
     for name, leaf in metadata["tree_metadata"].items():
         keys = leaf["key_metadata"]
         if any(k.get("key_type") != DICT_KEY for k in keys):
-            _unported(path, f"the leaf {name}, keyed by other than dict "
-                            f"keys")
+            _refused(path, f"the leaf {name}, keyed by other than dict "
+                           f"keys")
         value = leaf["value_metadata"]
         if value.get("skip_deserialize"):
             continue
         if value.get("value_type") not in ARRAY_TYPES:
-            _unported(path, f"the leaf {name} of value type "
-                            f"{value.get('value_type')!r}")
+            _refused(path, f"the leaf {name} of value type "
+                           f"{value.get('value_type')!r}, not an array")
         parts = [str(k["key"]) for k in keys]
-        try:
-            array = open_array(".".join(parts), driver, kv=kv)
-        except NotImplementedError as exc:
-            _unported(path, f"the leaf {name}: {exc}")
-        values = array.read_values()
+        values = open_array(".".join(parts), driver, kv=kv).read_values()
         if isinstance(values, torch.Tensor):  # bfloat16
             values = values.float().numpy()
         node = tree

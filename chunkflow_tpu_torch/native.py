@@ -8,7 +8,7 @@ components (``csrc/host/cc3d.cpp``), id remapping
 and the precomputed block codecs that run per voxel
 (``csrc/host/compressed_segmentation.cpp``: ``compressed_segmentation``
 and the PNG row filters, which ``volume/codecs.py`` calls); and the
-decoders and the CRC-32C of the zarr, N5 and OCDBT stores
+codecs and the CRC-32C of the zarr, N5 and OCDBT stores
 (``csrc/host/zstd.cpp``, ``csrc/host/blosc.cpp``,
 ``csrc/host/crc32c.cpp``, which ``volume/compressors.py`` calls); and
 the ``clahe`` plugin's equalization (``csrc/host/clahe.cpp``, which
@@ -82,9 +82,15 @@ def load() -> ctypes.CDLL:
     lib.cf_zstd_decompress.restype = i64
     lib.cf_zstd_decompress.argtypes = [ctypes.c_char_p, i64,
                                        ctypes.c_void_p, i64]
+    lib.cf_zstd_compress.restype = i64
+    lib.cf_zstd_compress.argtypes = [ctypes.c_char_p, i64, ctypes.c_int,
+                                     ctypes.c_void_p, i64]
     lib.cf_blosc_decompress.restype = i64
     lib.cf_blosc_decompress.argtypes = [ctypes.c_char_p, i64,
                                         ctypes.c_void_p, i64, _INFLATE]
+    lib.cf_lz4_compress.restype = i64
+    lib.cf_lz4_compress.argtypes = [ctypes.c_char_p, i64, ctypes.c_void_p,
+                                    i64]
     for fn in (lib.cf_zstd_error, lib.cf_blosc_error):
         fn.restype = ctypes.c_char_p
         fn.argtypes = [i64]
@@ -367,6 +373,19 @@ def zstd_decompress(data: bytes, size: int, exact: bool = True) -> bytes:
     return out[:n].tobytes()
 
 
+def zstd_compress(data: bytes, level: int) -> bytes:
+    """``data`` as one zstd frame at ``level``."""
+    lib = load()
+    # a frame is never larger than its blocks stored raw
+    cap = len(data) + 3 * (len(data) // (128 * 1024) + 1) + 32
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.cf_zstd_compress(data, len(data), int(level), out.ctypes.data,
+                             cap)
+    if n < 0:
+        raise ValueError(f"zstd: {lib.cf_zstd_error(n).decode()}")
+    return out[:n].tobytes()
+
+
 #: a zlib stream's decoder for the host C++: (source, its size, output,
 #: its capacity) -> bytes written, or a negative code
 _INFLATE = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -407,6 +426,18 @@ def blosc_decompress(data: bytes, expect: Optional[int] = None) -> bytes:
     if n < 0:
         raise ValueError(f"blosc: {lib.cf_blosc_error(n).decode()}")
     return out.tobytes()
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """``data`` as one LZ4 block."""
+    lib = load()
+    # the LZ4 block format's bound on its output
+    cap = len(data) + len(data) // 255 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.cf_lz4_compress(data, len(data), out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"lz4: {lib.cf_blosc_error(n).decode()}")
+    return out[:n].tobytes()
 
 
 def clahe(sections: np.ndarray, clip_limit: float, tile_size: int,

@@ -393,13 +393,19 @@ class FileQueue(QueueBase):
             src = os.path.join(self.pending_dir, name)
             dst = os.path.join(self.claimed_dir, name)
             try:
+                # a rename keeps the mtime: stamp the task first, or a task
+                # older than the visibility timeout lands in claimed/
+                # already expired and another worker's sweep takes it back
+                os.utime(src)
                 os.rename(src, dst)  # the atomic claim
             except OSError:
                 continue  # another worker claimed it first
-            os.utime(dst)
+            try:
+                with open(dst) as f:
+                    body, trace_id = unpack_task(f.read())
+            except FileNotFoundError:
+                continue  # the claim expired before it was read
             self._bump_count(name)
-            with open(dst) as f:
-                body, trace_id = unpack_task(f.read())
             self._note_receive(name, trace_id)
             return name, body
         return None

@@ -1,4 +1,4 @@
-"""Blosc1 frames, decode only.
+"""Blosc1 frames: the decoders and the frames the port writes.
 
 :func:`decompress` runs the host C++ (``csrc/host/blosc.cpp``); it is the
 only decoder the storage plane calls. :func:`decompress_plain` is the same
@@ -16,9 +16,13 @@ stream's own). The codec is the flags' top three bits: ``blosclz``,
 bit-unshuffled (0x04). A frame that does not decode raises
 ``ValueError``.
 
-:func:`compress` writes the frames the port stores: the zlib codec (the
-one inner codec it can encode, which tensorstore's blosc reads too), one
-stream per block, byte-shuffled by the typesize.
+:func:`compress` writes the frames the port stores, one stream per block,
+byte-shuffled by the typesize, in the codec of the store's cname: LZ4
+blocks for ``lz4`` and ``lz4hc`` (the host C++ ``cf_lz4_compress``;
+:func:`lz4_compress_plain` gives its bytes), zstd frames for ``zstd``
+(``volume/zstd.py``, at the store's clevel) and zlib streams for ``zlib``
+and for the two cnames the port does not encode, ``blosclz`` and
+``snappy`` (every blosc reader decodes them all).
 """
 from __future__ import annotations
 
@@ -34,28 +38,52 @@ CNAMES = {"blosclz": 0, "lz4": 1, "lz4hc": 1, "snappy": 2, "zlib": 3,
           "zstd": 4}
 
 
+_LZ4_HASH_LOG = 16
+
+
 class BloscError(ValueError):
     """A blosc frame that does not decode."""
 
 
 #: the block size :func:`compress` writes (a multiple of every typesize)
 BLOCK = 256 * 1024
-#: the header flags: byte shuffle, one stream per block, the zlib codec
-_SHUFFLE, _NOSPLIT, _ZLIB = 0x01, 0x10, 3 << 5
+#: the header flags: byte shuffle, one stream per block
+_SHUFFLE, _NOSPLIT = 0x01, 0x10
+#: the codec :func:`compress` writes for each cname
+WRITES = {"blosclz": 3, "lz4": 1, "lz4hc": 1, "snappy": 3, "zlib": 3,
+          "zstd": 4}
 
 
-def compress(data, typesize: int = 1, level: int = 5) -> bytes:
+def _encode(codec: int, raw: bytes, level: int) -> bytes:
+    if codec == 1:
+        from chunkflow_tpu_torch import native
+
+        return native.lz4_compress(raw)
+    if codec == 4:
+        from chunkflow_tpu_torch.volume import zstd
+
+        return zstd.compress(raw, level)
+    return zlib.compress(raw, level)
+
+
+def compress(data, typesize: int = 1, level: int = 5,
+             cname: str = "zlib") -> bytes:
     """A frame holding ``data``: blocks of :data:`BLOCK` bytes, each
-    byte-shuffled by ``typesize`` (where it is above 1) and deflated at
-    ``level``, or kept as they are where that is no smaller."""
+    byte-shuffled by ``typesize`` (where it is above 1) and compressed at
+    ``level`` by the codec :data:`WRITES` gives ``cname``, or kept as they
+    are where that is no smaller."""
     data = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
     typesize = int(typesize)
     if not 1 <= typesize <= 255:
         raise BloscError(f"typesize {typesize} is outside 1..255")
+    if cname not in WRITES:
+        raise BloscError(f"the blosc cname {cname!r} is not one of "
+                         f"{sorted(WRITES)}")
+    codec = WRITES[cname]
     nbytes = len(data)
     blocksize = max(1, min(BLOCK, nbytes))
     nblocks = -(-nbytes // blocksize)
-    flags = _NOSPLIT | _ZLIB | (_SHUFFLE if typesize > 1 else 0)
+    flags = _NOSPLIT | codec << 5 | (_SHUFFLE if typesize > 1 else 0)
     starts, streams, pos = [], [], 16 + 4 * nblocks
     for i in range(nblocks):
         block = data[i * blocksize:(i + 1) * blocksize]
@@ -65,7 +93,7 @@ def compress(data, typesize: int = 1, level: int = 5) -> bytes:
             block = np.concatenate([body.reshape(-1),
                                     block[count * typesize:]])
         raw = block.tobytes()
-        packed = zlib.compress(raw, int(level))
+        packed = _encode(codec, raw, int(level))
         if len(packed) >= len(raw):
             packed = raw  # a stream its block's own size is stored as is
         starts.append(pos)
@@ -191,6 +219,60 @@ def _lz4(data: bytes, size: int) -> bytes:
         if len(out) + length > size:
             raise BloscError("lz4 match out of bounds")
         _copy_back(out, offset, length)
+
+
+def lz4_compress_plain(data) -> bytes:
+    """``data`` as one LZ4 block (Python and numpy): the bytes of the host
+    C++ ``cf_lz4_compress``."""
+    data = bytes(data)
+    n = len(data)
+    out = bytearray()
+
+    def length(extra: int) -> None:
+        out.extend(b"\xff" * (extra // 255))
+        out.append(extra % 255)
+
+    def sequence(lit: int, offset: int, match: int) -> None:
+        ml = match - 4 if match else 0
+        out.append(min(lit, 15) << 4 | min(ml, 15))
+        if lit >= 15:
+            length(lit - 15)
+        out.extend(data[anchor:anchor + lit])
+        if match:
+            out.extend(struct.pack("<H", offset))
+            if ml >= 15:
+                length(ml - 15)
+
+    hashes = []
+    if n >= 4:
+        words = np.frombuffer(data, np.uint8).astype(np.uint32)
+        words = words[:-3] | words[1:-2] << 8 | words[2:-1] << 16 | \
+            words[3:] << 24
+        hashes = ((words * np.uint32(2654435761))
+                  >> np.uint32(32 - _LZ4_HASH_LOG)).tolist()
+    table = {}
+    ip = anchor = 0
+    last, limit = n - 12, n - 5
+    while ip <= last:
+        cand = table.get(hashes[ip], -1)
+        table[hashes[ip]] = ip
+        if cand < 0 or ip - cand > 65535 or \
+                data[cand:cand + 4] != data[ip:ip + 4]:
+            ip += 1 + ((ip - anchor) >> 6)
+            continue
+        while ip > anchor and cand > 0 and data[ip - 1] == data[cand - 1]:
+            ip -= 1
+            cand -= 1
+        match = 4
+        while ip + match < limit and data[cand + match] == data[ip + match]:
+            match += 1
+        sequence(ip - anchor, ip - cand, match)
+        ip += match
+        anchor = ip
+        if ip - 2 <= n - 4:
+            table[hashes[ip - 2]] = ip - 2
+    sequence(n - anchor, 0, 0)
+    return bytes(out)
 
 
 def _snappy(data: bytes, size: int) -> bytes:

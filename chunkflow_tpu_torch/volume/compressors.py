@@ -10,10 +10,10 @@ here onto one of seven compressors:
   its header);
 - ``bz2`` (zarr v2 ``bz2``, N5 ``bzip2``) and ``xz`` (N5 ``xz``): the
   stdlib's ``bz2`` and ``lzma``;
-- ``zstd``: the host C++ decoder (``volume/zstd.py``);
+- ``zstd``: the host C++ encoder and decoder (``volume/zstd.py``);
 - ``blosc``: the host C++ decoder (``volume/blosc.py``), for every cname
   tensorstore writes (``blosclz``, ``lz4``, ``lz4hc``, ``snappy``,
-  ``zlib``, ``zstd``).
+  ``zlib``, ``zstd``), and frames of the store's cname written.
 
 A zarr v3 array's ``codecs`` are a pipeline (:class:`Zarr3Codecs`):
 ``transpose`` (array to array), then ``bytes`` or ``sharding_indexed``
@@ -27,14 +27,16 @@ index, then only the inner chunks a read overlaps
 ``read_suffix``). A missing shard or inner chunk reads as the fill value;
 a ``crc32c`` that does not match raises ``ValueError``.
 
-A store the port creates writes zlib. A write into an existing blosc
-store (tensorstore's default, so every store the JAX ``save-zarr``
-creates) stores blosc frames of the zlib codec, byte-shuffled by the
-dtype's size (``blosc.compress``), whatever the store's cname; into a
-``bz2`` store, bz2 streams at its level. The port has no zstd encoder: a
-write into a zstd store raises, as does anything else unported (another
-compressor id or codec, a blosc cname tensorstore does not write),
-naming its ROADMAP item.
+A store the port creates writes zlib. A write into an existing store
+writes its compressor at its level: zstd frames into a zstd store
+(``zstd.compress``), and into a blosc store (tensorstore's default, so
+every store the JAX ``save-zarr`` creates) blosc frames byte-shuffled by
+the dtype's size, of the store's cname's codec: LZ4 for ``lz4`` and
+``lz4hc`` (tensorstore's default), zstd for ``zstd``, zlib for ``zlib``
+and, as the port encodes neither, for ``blosclz`` and ``snappy``
+(``blosc.compress``). A compressor id, codec or blosc cname that
+tensorstore does not register raises ``ValueError``, as tensorstore
+does.
 """
 from __future__ import annotations
 
@@ -51,7 +53,6 @@ import numpy as np
 from chunkflow_tpu_torch.core import telemetry
 from chunkflow_tpu_torch.volume import blosc, zstd
 
-ITEM = "ROADMAP, queue 1: chunk file formats"
 READS = "raw, zlib, gzip, bz2, xz, zstd and blosc"
 #: the bound on a zstd frame's output where nothing states its size
 ZSTD_MAX_BYTES = 1 << 36
@@ -59,21 +60,22 @@ ZSTD_MAX_BYTES = 1 << 36
 MISSING = 2 ** 64 - 1
 
 
-def not_supported(path: str, what: str):
-    raise NotImplementedError(
-        f"{path}: {what} is not ported ({ITEM}; the port reads {READS} "
-        f"chunks)")
+def refused(path: str, what: str):
+    """Raise for a store tensorstore does not open either (its own error
+    is a ``ValueError`` too)."""
+    raise ValueError(f"{path}: {what}, which tensorstore does not open "
+                     f"either (the port reads {READS} chunks)")
 
 
 class Compressor:
     """One compressor: ``decode(data, size)`` gives the ``size`` bytes of a
     chunk (``size`` None: as many as the data holds), ``encode(data)`` the
-    bytes to store."""
+    bytes to store (a blosc one in the codec of its ``cname``)."""
 
     def __init__(self, name: str, level: int = 1, typesize: int = 1,
-                 path: str = ""):
+                 path: str = "", cname: str = "zlib"):
         self.name, self.level, self.typesize = name, int(level), typesize
-        self.path = path
+        self.path, self.cname = path, cname
 
     def decode(self, data: bytes, size: Optional[int] = None) -> bytes:
         if self.name == "raw":
@@ -102,9 +104,8 @@ class Compressor:
             return lzma.compress(data, format=lzma.FORMAT_XZ,
                                  preset=self.level)
         if self.name == "zstd":
-            not_supported(self.path, "writing zstd chunks (the port has "
-                                     "no zstd encoder)")
-        return blosc.compress(data, self.typesize, self.level)
+            return zstd.compress(data, self.level)
+        return blosc.compress(data, self.typesize, self.level, self.cname)
 
 
 class Crc32c:
@@ -135,8 +136,9 @@ class Crc32c:
 def _blosc(path: str, config: dict, typesize: int) -> Compressor:
     cname = config.get("cname")
     if cname not in blosc.CNAMES:
-        not_supported(path, f"the blosc cname {cname!r}")
-    return Compressor("blosc", config.get("clevel", 5), typesize, path)
+        refused(path, f"the blosc cname {cname!r}")
+    return Compressor("blosc", config.get("clevel", 5), typesize, path,
+                      cname)
 
 
 def from_zarr(path: str, compressor: Optional[dict],
@@ -149,7 +151,7 @@ def from_zarr(path: str, compressor: Optional[dict],
         return Compressor(cid, compressor.get("level", 1), path=path)
     if cid == "blosc":
         return _blosc(path, compressor, typesize)
-    not_supported(path, f"the {cid} compressor")
+    refused(path, f"the {cid} compressor")
 
 
 def from_n5(path: str, compression: Optional[dict],
@@ -165,7 +167,7 @@ def from_n5(path: str, compression: Optional[dict],
         return Compressor("xz", compression.get("preset", 6), path=path)
     if kind == "blosc":
         return _blosc(path, compression, typesize)
-    not_supported(path, f"the {kind} N5 compression")
+    refused(path, f"the {kind} N5 compression")
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +255,7 @@ class Transpose:
     def __init__(self, path: str, config: dict, ndim: int):
         order = config.get("order")
         if not isinstance(order, list) or sorted(order) != list(range(ndim)):
-            not_supported(path, f"the transpose order {order!r}")
+            refused(path, f"the transpose order {order!r}")
         self.order = tuple(int(i) for i in order)
 
 
@@ -302,11 +304,11 @@ class Sharding:
                 self.index.transposes or not all(
                     isinstance(c, Crc32c)
                     for c in self.index.to_bytes_codecs):
-            not_supported(path, "a shard index that is not bytes "
+            refused(path, "a shard index that is not bytes "
                                 "(and crc32c)")
         location = config.get("index_location", "end")
         if location not in ("start", "end"):
-            not_supported(path, f"the index location {location!r}")
+            refused(path, f"the index location {location!r}")
         self.at_end = location == "end"
 
     def decode(self, source: Source, shape, box: Box,
@@ -376,10 +378,10 @@ class Zarr3Codecs:
             elif name == "crc32c" and self.to_bytes is not None:
                 self.to_bytes_codecs.append(Crc32c(path))
             else:
-                not_supported(path, f"the codecs "
+                refused(path, f"the codecs "
                                     f"{[c.get('name') for c in codecs]}")
         if self.to_bytes is None:
-            not_supported(path, f"the codecs {[c.get('name') for c in codecs]}"
+            refused(path, f"the codecs {[c.get('name') for c in codecs]}"
                                 f" (no array-to-bytes codec)")
 
     def decode(self, source: Source, shape, box: Box

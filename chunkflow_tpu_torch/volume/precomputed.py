@@ -75,9 +75,11 @@ def _plain(value):
 class PrecomputedVolume:
     """One precomputed layer (every mip), czyx semantics."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, kv: Optional[KVBackend] = None):
+        """The layer at the root ``path``, or with ``kv`` the layer that
+        is ``kv`` (``path`` then names it)."""
         self.path = path
-        self._kv = open_kv(path)
+        self._kv = open_kv(path) if kv is None else kv
         self._backends: Dict[int, PrecomputedBackend] = {}
         self._info: Optional[dict] = None
 

@@ -57,7 +57,7 @@ from chunkflow_tpu_torch.volume.storage import (
 )
 
 DEFAULT_CHUNK = 128
-_not_supported = compressors.not_supported
+_refused = compressors.refused
 
 
 def _fill(value, dtype: np.dtype):
@@ -208,12 +208,12 @@ class ZarrArray(ChunkedArray):
         self.kv, self.prefix = _store(path, kv)
         meta = self._metadata(".zarray", "a zarr v2 array")
         if meta.get("zarr_format") != 2:
-            _not_supported(path, f"zarr_format {meta.get('zarr_format')}")
+            _refused(path, f"zarr_format {meta.get('zarr_format')}")
         self.order = meta.get("order", "C")
         if self.order not in ("C", "F"):
-            _not_supported(path, f"the chunk order {self.order!r}")
+            _refused(path, f"the chunk order {self.order!r}")
         if meta.get("filters"):
-            _not_supported(path, f"filters {meta['filters']}")
+            _refused(path, f"filters {meta['filters']}")
         self.shape = tuple(meta["shape"])
         self.chunks = tuple(meta["chunks"])
         self.dtype, self.bfloat16 = _dtype(meta["dtype"])
@@ -285,10 +285,10 @@ class Zarr3Array(ChunkedArray):
         self.kv, self.prefix = _store(path, kv)
         meta = self._metadata("zarr.json", "a zarr v3 array")
         if meta.get("zarr_format") != 3 or meta.get("node_type") != "array":
-            _not_supported(path, "a zarr v3 node that is not an array")
+            _refused(path, "a zarr v3 node that is not an array")
         grid = meta["chunk_grid"]
         if grid.get("name") != "regular":
-            _not_supported(path, f"the {grid.get('name')} chunk grid")
+            _refused(path, f"the {grid.get('name')} chunk grid")
         self.dtype, self.bfloat16 = _dtype(meta["data_type"])
         self.shape = tuple(meta["shape"])
         self.chunks = tuple(grid["configuration"]["chunk_shape"])
@@ -337,7 +337,7 @@ class N5Array(ChunkedArray):
             return self._fill_chunk()
         mode, rank = struct.unpack(">HH", data[:4])
         if mode not in (0, 1):
-            _not_supported(self.path, f"N5 block mode {mode}")
+            _refused(self.path, f"N5 block mode {mode}")
         # the block's own shape: an edge block may be smaller
         size = struct.unpack(f">{rank}I", data[4:4 + 4 * rank])
         body = data[4 + 4 * rank + (4 if mode == 1 else 0):]

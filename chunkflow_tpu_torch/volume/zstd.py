@@ -1,11 +1,14 @@
-"""Zstandard frames (RFC 8878), decode only.
+"""Zstandard frames (RFC 8878): the port's encoder and decoders.
 
-:func:`decompress` runs the host C++ (``csrc/host/zstd.cpp``); it is the
-only decoder the storage plane calls. :func:`decompress_plain` is the same
-algorithm in pure Python, for the tests: it is slow (a few hundred KB/s)
-and sees only small inputs there.
+:func:`compress` and :func:`decompress` run the host C++
+(``csrc/host/zstd.cpp``); they are the only encoder and decoder the
+storage plane calls. :func:`compress_plain` and :func:`decompress_plain`
+are the same algorithms in pure Python, for the tests: they are slow (a
+few hundred KB/s) and see only small inputs there. :func:`compress_plain`
+gives the bytes of :func:`compress`, so the C++ is held byte for byte
+where no ``zstandard`` is installed.
 
-Both decode a run of frames: zstd frames, each with raw, RLE and
+Both decoders decode a run of frames: zstd frames, each with raw, RLE and
 compressed blocks (Huffman literals with direct or FSE-compressed weights,
 treeless literals, one or four streams; FSE sequences in predefined, RLE,
 compressed and repeat modes, with the three repeat offsets), an optional
@@ -13,12 +16,26 @@ content size, an optional XXH64 content checksum (verified), and
 skippable frames between them. A frame that names a dictionary raises, as
 does any frame that does not decode within its own bytes and the output
 size: a malformed frame raises :class:`ZstdError` and never reads or
-writes outside its buffers. The port writes no zstd.
+writes outside its buffers.
+
+The encoder writes one frame: the content size, a window of at most
+2**23 bytes (single-segment when the content fits it), blocks of up to
+128 KB (RLE where a block is one byte value, raw where compressing does
+not make it smaller), the XXH64 checksum. A compressed block's matches
+come from a hash table of 4-byte sequences, chained and searched deeper,
+and lazily, as the level rises (:data:`LEVELS`; a level below 1 searches
+as level 1 and skips ahead faster through literals); the three repeat
+offsets are kept as the decoder keeps them. Literals are Huffman-coded
+(weights direct or FSE-compressed, one stream or four) where that is
+smaller than raw; each sequence code goes predefined, RLE or
+FSE-compressed, whichever is smallest.
 """
 from __future__ import annotations
 
 import struct
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 MAGIC = 0xFD2FB528
 SKIPPABLE_MASK = 0xFFFFFFF0
@@ -668,4 +685,606 @@ def decompress_plain(data) -> bytes:
             if xxh64(out[frame_start:]) & 0xFFFFFFFF != want:
                 raise ZstdError("content checksum mismatch")
             pos += 4
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# the encoder
+# ---------------------------------------------------------------------------
+#: from the lowest level up, the last level of each row and its search:
+#: (window log, hash log, chain depth, lazy, skip log). A position is
+#: searched for its rep0 match, then up to ``chain depth`` earlier
+#: positions with the same hash; with ``lazy`` a match waits while the
+#: next position has a longer one; literals are stepped over ever faster,
+#: by 1 + (the run so far >> skip log). Levels below 1 search as level 1
+#: with a skip log of 8 + level (at least 1); level 0 is level 3.
+LEVELS = ((1, (19, 16, 1, 0, 8)), (2, (20, 16, 2, 0, 8)),
+          (3, (21, 17, 3, 0, 8)), (4, (21, 17, 6, 0, 10)),
+          (6, (21, 17, 8, 1, 8)), (9, (22, 18, 16, 1, 9)),
+          (15, (22, 18, 32, 1, 10)), (22, (23, 19, 64, 1, 11)))
+MIN_MATCH = 4
+#: a match at a new offset is at least this long: a shorter one costs
+#: about as many bits as its literals, and on noisy data ends each run of
+#: literals, so stepping through them never speeds up
+_HASH_MIN_MATCH = 5
+#: the positions a match inserts at each of its ends
+_INSERT_ENDS = 16
+_HASH_MUL = 2654435761
+_HUFFMAN_MAX_BITS = 11
+
+
+def params(level: int) -> Tuple[int, int, int, int, int]:
+    """``(window log, hash log, chain depth, lazy, skip log)`` of
+    ``level`` (:data:`LEVELS`)."""
+    level = int(level)
+    if level == 0:
+        level = 3
+    if level < 1:
+        window, hashes, depth, lazy, _ = LEVELS[0][1]
+        return window, hashes, depth, lazy, max(1, 8 + level)
+    for top, row in LEVELS:
+        if level <= top:
+            return row
+    return LEVELS[-1][1]
+
+
+def compress(data, level: int = 3) -> bytes:
+    """``data`` as one zstd frame at ``level`` (host C++)."""
+    from chunkflow_tpu_torch import native
+
+    return native.zstd_compress(bytes(data), int(level))
+
+
+class _BitWriter:
+    """Bits appended from the least significant; :meth:`finish` adds the
+    end mark a backward bitstream's reader looks for."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.count = 0
+        self.total = 0
+
+    def add(self, value: int, nbits: int) -> None:
+        self.acc |= value << self.count
+        self.count += nbits
+        self.total += nbits
+        while self.count >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.count -= 8
+
+    def flush(self) -> bytes:
+        if self.count:
+            self.out.append(self.acc & 0xFF)
+        return bytes(self.out)
+
+    def finish(self) -> bytes:
+        self.add(1, 1)
+        return self.flush()
+
+
+class _FseTable(_Fse):
+    """An FSE table and its encoder: the state of a symbol whose next-state
+    range holds a given state."""
+
+    def __init__(self, norm: List[int], log: int):
+        super().__init__(norm, log)
+        self.norm = norm
+        self.states = {}
+        for i, s in enumerate(self.symbols):
+            self.states.setdefault(s, []).append(i)
+
+    def encode(self, symbol: int, state: int) -> Tuple[int, int, int]:
+        """``(the state of symbol, the bits that lead from it to state,
+        their count)``."""
+        count = max(self.norm[symbol], 1)
+        value = state + (1 << self.log)
+        nbits = self.log - _highbit(count) - 1
+        if nbits < 0 or value >> nbits >= 2 * count:
+            nbits += 1
+        i = self.states[symbol][(value >> nbits) - count]
+        return i, state - self.base[i], nbits
+
+    def start(self, symbol: int) -> int:
+        """The first state of ``symbol``: the one with the most bits, at
+        least one where the symbol does not fill the table."""
+        return self.states[symbol][0]
+
+
+class _RleTable:
+    log = 0
+
+    def encode(self, symbol: int, state: int) -> Tuple[int, int, int]:
+        return 0, 0, 0
+
+    def start(self, symbol: int) -> int:
+        return 0
+
+
+def _table_log(max_log: int, total: int, max_symbol: int) -> int:
+    """The accuracy of a table for ``total`` symbols up to
+    ``max_symbol`` (zstd's ``FSE_optimalTableLog``)."""
+    log = min(max_log, _highbit(total - 1) - 2)
+    log = max(log, min(_highbit(total) + 1, _highbit(max_symbol) + 2))
+    return max(5, min(log, max_log))
+
+
+def _normalize(counts: List[int], total: int, log: int) -> List[int]:
+    """``counts`` as a distribution over ``1 << log`` states: -1 for a
+    symbol below one state, each other rounded to nearest, the rounding's
+    excess taken from the largest, one state at a time."""
+    size = 1 << log
+    low = total >> log
+    norm = [0] * len(counts)
+    remaining = size
+    for s, c in enumerate(counts):
+        if not c:
+            continue
+        if c <= low:
+            norm[s] = -1
+            remaining -= 1
+            continue
+        p = c * size // total
+        if 2 * (c * size - p * total) >= total:
+            p += 1
+        norm[s] = max(p, 1)
+        remaining -= norm[s]
+    while remaining < 0:
+        s = max(range(len(norm)), key=lambda k: (norm[k], -k))
+        norm[s] -= 1
+        remaining += 1
+    if remaining:
+        s = max(range(len(norm)), key=lambda k: (norm[k], -k))
+        norm[s] += remaining
+    return norm
+
+
+def _write_ncount(norm: List[int], log: int) -> bytes:
+    """The table description :meth:`_Fse.read` reads."""
+    w = _BitWriter()
+    w.add(log - 5, 4)
+    remaining = 1 << log
+    s = 0
+    while remaining > 0:
+        prob = norm[s]
+        nb = _highbit(remaining + 1) + 1
+        low = (1 << (nb - 1)) - 1
+        threshold = (1 << nb) - 1 - (remaining + 1)
+        v = prob + 1
+        if v < threshold:
+            w.add(v, nb - 1)
+        elif v <= low:
+            w.add(v, nb)
+        else:
+            w.add(v + threshold, nb)
+        remaining -= abs(prob)
+        s += 1
+        if prob == 0:
+            zeros = 0
+            while norm[s + zeros] == 0:
+                zeros += 1
+            s += zeros
+            while zeros >= 3:
+                w.add(3, 2)
+                zeros -= 3
+            w.add(zeros, 2)
+    return w.flush()
+
+
+def _huffman_lengths(counts: List[int]) -> List[int]:
+    """Code lengths of at most :data:`_HUFFMAN_MAX_BITS` bits, and a
+    complete code, for the symbols with a count."""
+    order = sorted((c, s) for s, c in enumerate(counts) if c)
+    n = len(order)
+    weight = [c for c, _ in order] + [0] * (n - 1)
+    parent = [0] * (2 * n - 1)
+    leaf, inner = 0, n
+    for node in range(n, 2 * n - 1):
+        pair = []
+        for _ in range(2):
+            if leaf < n and (inner >= node or weight[leaf] <= weight[inner]):
+                pair.append(leaf)
+                leaf += 1
+            else:
+                pair.append(inner)
+                inner += 1
+        weight[node] = weight[pair[0]] + weight[pair[1]]
+        parent[pair[0]] = parent[pair[1]] = node
+    depth = [0] * (2 * n - 1)
+    for k in range(2 * n - 3, -1, -1):
+        depth[k] = depth[parent[k]] + 1
+    limit = _HUFFMAN_MAX_BITS
+    bits = [min(d, limit) for d in depth[:n]]
+    kraft = sum(1 << (limit - b) for b in bits)
+    while kraft > 1 << limit:
+        k = max(range(n), key=lambda i: (bits[i] if bits[i] < limit else -1,
+                                         -i))
+        kraft -= 1 << (limit - bits[k] - 1)
+        bits[k] += 1
+    while kraft < 1 << limit:
+        for k in range(n - 1, -1, -1):
+            if bits[k] > 1 and kraft + (1 << (limit - bits[k])) <= 1 << limit:
+                kraft += 1 << (limit - bits[k])
+                bits[k] -= 1
+                break
+    lengths = [0] * len(counts)
+    for (_, s), b in zip(order, bits):
+        lengths[s] = b
+    return lengths
+
+
+def _fse_weights(weights: List[int]) -> Optional[bytes]:
+    """Huffman weights FSE-compressed (two interleaved states), or None
+    where that cannot be written."""
+    n = len(weights)
+    counts = [0] * 12
+    for w in weights:
+        counts[w] += 1
+    if n < 2 or sum(1 for c in counts if c) < 2:
+        return None
+    log = _table_log(6, n, max(weights))
+    norm = _normalize(counts[:max(weights) + 1], n, log)
+    table = _FseTable(norm, log)
+    w = _BitWriter()
+    states = [0] * n
+    states[n - 1] = table.start(weights[n - 1])
+    states[n - 2] = table.start(weights[n - 2])
+    for k in range(n - 3, -1, -1):
+        states[k], bits, nbits = table.encode(weights[k], states[k + 2])
+        w.add(bits, nbits)
+    w.add(states[1], log)
+    w.add(states[0], log)
+    body = _write_ncount(norm, log) + w.finish()
+    return bytes([len(body)]) + body if len(body) < 128 else None
+
+
+def _literals_header(kind: int, size: int) -> bytes:
+    if size < 32:
+        return bytes([kind | size << 3])
+    if size < 4096:
+        return (kind | 1 << 2 | size << 4).to_bytes(2, "little")
+    return (kind | 3 << 2 | size << 4).to_bytes(3, "little")
+
+
+def _huffman_literals(lits: bytes) -> Optional[bytes]:
+    counts = [0] * 256
+    for b in lits:
+        counts[b] += 1
+    lengths = _huffman_lengths(counts)
+    max_bits = max(lengths)
+    last = max(s for s in range(256) if counts[s])
+    weights = [max_bits + 1 - b if b else 0 for b in lengths[:last]]
+    tree = _fse_weights(weights)
+    if len(weights) <= 128:
+        direct = bytes([127 + len(weights)]) + bytes(
+            (weights[i] << 4) | (weights[i + 1] if i + 1 < len(weights)
+                                 else 0)
+            for i in range(0, len(weights), 2))
+        if tree is None or len(direct) <= len(tree):
+            tree = direct
+    if tree is None:
+        return None
+    per_length = [0] * (max_bits + 1)
+    for b in lengths:
+        if b:
+            per_length[b] += 1
+    start = [0] * (max_bits + 1)
+    for b in range(max_bits, 0, -1):
+        start[b - 1] = start[b] + per_length[b] * (1 << (max_bits - b))
+    codes = [0] * 256
+    for s in range(256):
+        b = lengths[s]
+        if b:
+            codes[s] = start[b] >> (max_bits - b)
+            start[b] += 1 << (max_bits - b)
+    n = len(lits)
+    if n < 1024:
+        parts = [lits]
+    else:
+        each = (n + 3) // 4
+        parts = [lits[i * each:(i + 1) * each] for i in range(3)] + \
+            [lits[3 * each:]]
+    streams = []
+    for part in parts:
+        w = _BitWriter()
+        for b in reversed(part):
+            w.add(codes[b], lengths[b])
+        streams.append(w.finish())
+    body = tree
+    if len(parts) == 4:
+        body += struct.pack("<3H", *(len(s) for s in streams[:3]))
+    body += b"".join(streams)
+    if len(parts) == 1:
+        fmt = 0
+    else:
+        big = max(n, len(body))
+        fmt = 1 if big < 1024 else 2 if big < 16384 else 3
+    width = (10, 10, 14, 18)[fmt]
+    if len(body) >= 1 << width:
+        return None
+    header = 2 | fmt << 2 | n << 4 | len(body) << (4 + width)
+    return header.to_bytes((3, 3, 4, 5)[fmt], "little") + body
+
+
+def _literals_section(lits: bytes) -> bytes:
+    raw = _literals_header(0, len(lits)) + lits
+    if not lits:
+        return raw
+    if lits.count(lits[0]) == len(lits):
+        rle = _literals_header(1, len(lits)) + lits[:1]
+        return rle if len(rle) < len(raw) else raw
+    huffman = _huffman_literals(lits)
+    return huffman if huffman is not None and len(huffman) < len(raw) \
+        else raw
+
+
+def _ll_code(ll: int) -> int:
+    if ll < 16:
+        return ll
+    if ll >= 64:
+        return _highbit(ll) + 19
+    code = 16
+    while _LL_BASE[code + 1] <= ll:
+        code += 1
+    return code
+
+
+def _ml_code(ml: int) -> int:
+    base = ml - 3
+    if base < 32:
+        return base
+    if base >= 128:
+        return _highbit(base) + 36
+    code = 32
+    while _ML_BASE[code + 1] <= ml:
+        code += 1
+    return code
+
+
+def _chain_bits(table, codes: List[int]) -> int:
+    """The bits ``codes`` take through ``table``, its initial state's
+    included."""
+    state = table.start(codes[-1])
+    total = table.log
+    for code in reversed(codes[:-1]):
+        state, _, nbits = table.encode(code, state)
+        total += nbits
+    return total
+
+
+def _sequence_table(codes: List[int], name: str):
+    """``(mode, description, table)`` for one kind of code: RLE where
+    there is one symbol, else predefined or FSE-compressed, whichever
+    takes fewer bits."""
+    default, log, max_log, max_symbol = _KINDS[name]
+    top = max(codes)
+    if all(c == codes[0] for c in codes):
+        return 1, bytes([codes[0]]), _RleTable()
+    choices = []
+    if top < len(default):
+        table = _FseTable(default, log)
+        choices.append((_chain_bits(table, codes), 0, b"", table))
+    counts = [0] * (top + 1)
+    for c in codes:
+        counts[c] += 1
+    log = _table_log(max_log, len(codes), top)
+    norm = _normalize(counts, len(codes), log)
+    table = _FseTable(norm, log)
+    description = _write_ncount(norm, log)
+    choices.append((_chain_bits(table, codes) + 8 * len(description), 2,
+                    description, table))
+    _, mode, description, table = min(choices, key=lambda c: (c[0], c[1]))
+    return mode, description, table
+
+
+def _sequences_section(seqs) -> bytes:
+    n = len(seqs)
+    if n < 128:
+        out = bytearray([n])
+    elif n < 0x7F00:
+        out = bytearray([(n >> 8) + 128, n & 255])
+    else:
+        out = bytearray([255]) + (n - 0x7F00).to_bytes(2, "little")
+    if not n:
+        return bytes(out)
+    ll_codes = [_ll_code(ll) for ll, _, _ in seqs]
+    ml_codes = [_ml_code(ml) for _, _, ml in seqs]
+    of_codes = [_highbit(v) for _, v, _ in seqs]
+    tables = {}
+    modes = 0
+    descriptions = b""
+    for name, codes, shift in (("ll", ll_codes, 6), ("of", of_codes, 4),
+                               ("ml", ml_codes, 2)):
+        mode, description, tables[name] = _sequence_table(codes, name)
+        modes |= mode << shift
+        descriptions += description
+    ll_t, of_t, ml_t = tables["ll"], tables["of"], tables["ml"]
+    w = _BitWriter()
+    i = n - 1
+    ll_s = ll_t.start(ll_codes[i])
+    ml_s = ml_t.start(ml_codes[i])
+    of_s = of_t.start(of_codes[i])
+    while True:
+        ll, value, ml = seqs[i]
+        w.add(ll - _LL_BASE[ll_codes[i]], _LL_BITS[ll_codes[i]])
+        w.add(ml - _ML_BASE[ml_codes[i]], _ML_BITS[ml_codes[i]])
+        w.add(value - (1 << of_codes[i]), of_codes[i])
+        i -= 1
+        if i < 0:
+            break
+        of_s, bits, nbits = of_t.encode(of_codes[i], of_s)
+        w.add(bits, nbits)
+        ml_s, bits, nbits = ml_t.encode(ml_codes[i], ml_s)
+        w.add(bits, nbits)
+        ll_s, bits, nbits = ll_t.encode(ll_codes[i], ll_s)
+        w.add(bits, nbits)
+    w.add(ml_s, ml_t.log)
+    w.add(of_s, of_t.log)
+    w.add(ll_s, ll_t.log)
+    return bytes(out) + bytes([modes]) + descriptions + w.finish()
+
+
+def _offset_value(offset: int, ll: int, reps: List[int]) -> int:
+    """The offset value of a match after ``ll`` literals, the repeat
+    offsets updated as the decoder updates them."""
+    if ll:
+        value = 1 if offset == reps[0] else 2 if offset == reps[1] else \
+            3 if offset == reps[2] else offset + 3
+    else:
+        value = 1 if offset == reps[1] else 2 if offset == reps[2] else \
+            3 if offset == reps[0] - 1 else offset + 3
+    if value > 3:
+        reps[2], reps[1], reps[0] = reps[1], reps[0], offset
+    elif value - 1 + (ll == 0):
+        if value - 1 + (ll == 0) > 1:
+            reps[2] = reps[1]
+        reps[1], reps[0] = reps[0], offset
+    return value
+
+
+def _match_length(data: bytes, a: int, b: int, end: int) -> int:
+    n, most, step = 0, end - b, 256
+    while step:
+        while n + step <= most and \
+                data[a + n:a + n + step] == data[b + n:b + n + step]:
+            n += step
+        step >>= 4
+    return n
+
+
+class _Matcher:
+    """The match finder over one frame's bytes."""
+
+    def __init__(self, data: bytes, level: int):
+        window, hash_log, self.depth, self.lazy, self.skip = params(level)
+        self.data = data
+        self.max_distance = (1 << window) - 1
+        words = np.frombuffer(data, np.uint8).astype(np.uint32)
+        if len(data) >= 4:
+            words = words[:-3] | words[1:-2] << 8 | words[2:-1] << 16 | \
+                words[3:] << 24
+            self.hashes = ((words * np.uint32(_HASH_MUL))
+                           >> np.uint32(32 - hash_log)).tolist()
+        else:
+            self.hashes = []
+        self.table = [-1] * (1 << hash_log)
+        self.chain = [-1] * len(data) if self.depth > 1 else None
+
+    def insert(self, p: int) -> int:
+        h = self.hashes[p]
+        first = self.table[h]
+        self.table[h] = p
+        if self.chain is not None:
+            self.chain[p] = first
+        return first
+
+    def search(self, ip: int, end: int, rep: int):
+        """The longest match at ``ip`` ending by ``end``: ``(length,
+        offset)``, the match at the repeat offset ``rep`` first; ``ip`` is
+        inserted."""
+        data = self.data
+        best, offset = 0, 0
+        if rep <= min(ip, self.max_distance):
+            best = _match_length(data, ip - rep, ip, end)
+            offset = rep
+        cand = self.insert(ip)
+        tries = self.depth
+        while cand >= 0 and ip - cand <= self.max_distance:
+            length = _match_length(data, cand, ip, end)
+            if length > best and length >= _HASH_MIN_MATCH:
+                best, offset = length, ip - cand
+            tries -= 1
+            if not tries or self.chain is None:
+                break
+            cand = self.chain[cand]
+        return best, offset
+
+    def parse(self, start: int, end: int, reps: List[int]):
+        """The literals and ``(literal length, offset value, match
+        length)`` sequences of the block ``[start, end)``."""
+        lits, seqs = [], []
+        ip = anchor = start
+        last = end - MIN_MATCH
+        top = len(self.data) - MIN_MATCH
+        while ip <= last:
+            # the repeat offset a match right after the last one codes as
+            # 1 is rep1, after literals rep0
+            length, offset = self.search(ip, end,
+                                         reps[0] if ip > anchor else reps[1])
+            if length < MIN_MATCH:
+                ip += 1 + ((ip - anchor) >> self.skip)
+                continue
+            probed = ip
+            while self.lazy and ip + 1 <= last:
+                more, other = self.search(ip + 1, end, reps[0])
+                probed = ip + 1
+                if more <= length:
+                    break
+                ip, length, offset = ip + 1, more, other
+            # a match reaches back over the literals before it
+            while ip > anchor and ip > offset and \
+                    self.data[ip - 1] == self.data[ip - 1 - offset]:
+                ip -= 1
+                length += 1
+            lits.append(self.data[anchor:ip])
+            seqs.append((ip - anchor, _offset_value(offset, ip - anchor, reps),
+                         length))
+            # a long match is inserted at its two ends only
+            stop = min(ip + length, top + 1)
+            for p in range(probed + 1, min(ip + _INSERT_ENDS, stop)):
+                self.insert(p)
+            for p in range(max(probed + 1, ip + _INSERT_ENDS,
+                               ip + length - _INSERT_ENDS), stop):
+                self.insert(p)
+            ip += length
+            anchor = ip
+        lits.append(self.data[anchor:end])
+        return b"".join(lits), seqs
+
+
+def _block_header(last: bool, kind: int, size: int) -> bytes:
+    return (int(last) | kind << 1 | size << 3).to_bytes(3, "little")
+
+
+def compress_plain(data, level: int = 3) -> bytes:
+    """``data`` as one zstd frame at ``level`` (pure Python): the bytes of
+    :func:`compress`."""
+    data = bytes(data)
+    n = len(data)
+    window = params(level)[0]
+    single = n <= 1 << window
+    if single and n < 256:
+        fcs_flag, fcs = 0, n.to_bytes(1, "little")
+    elif n < 65536 + 256:
+        fcs_flag, fcs = 1, (n - 256).to_bytes(2, "little")
+    elif n < 1 << 32:
+        fcs_flag, fcs = 2, n.to_bytes(4, "little")
+    else:
+        fcs_flag, fcs = 3, n.to_bytes(8, "little")
+    out = bytearray(struct.pack("<I", MAGIC))
+    out.append(fcs_flag << 6 | int(single) << 5 | 1 << 2)
+    if not single:
+        out.append((window - 10) << 3)
+    out += fcs
+    if not n:
+        out += _block_header(True, 0, 0)
+    matcher = _Matcher(data, level)
+    reps = [1, 4, 8]
+    for start in range(0, n, MAX_BLOCK):
+        end = min(n, start + MAX_BLOCK)
+        last = end == n
+        block = data[start:end]
+        if block.count(block[0]) == len(block):
+            out += _block_header(last, 1, len(block)) + block[:1]
+            continue
+        saved = reps[:]
+        lits, seqs = matcher.parse(start, end, reps)
+        body = _literals_section(lits) + _sequences_section(seqs)
+        if len(body) < len(block):
+            out += _block_header(last, 2, len(body)) + body
+        else:
+            reps[:] = saved
+            out += _block_header(last, 0, len(block)) + block
+    out += struct.pack("<I", xxh64(data) & 0xFFFFFFFF)
     return bytes(out)

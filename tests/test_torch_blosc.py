@@ -5,7 +5,7 @@ writes on the CPU: zarr v2 arrays of every cname tensorstore writes
 1/2/4/8, each chunk decoded by both to tensorstore's values; zarr v2 and
 N5 at tensorstore's defaults and zarr v3 with the ``blosc`` and ``zstd``
 codecs read bitwise through ``volume/zarr.py``; the port's writes into a
-blosc store (compressed frames of the zlib codec) and into a ``bfloat16``
+blosc store (compressed frames of the store's cname) and into a ``bfloat16``
 store (rounded as tensorstore rounds) read back in tensorstore and the
 JAX ``load-zarr``; a malformed frame raises; the committed store
 ``tests/data/blosc_zarr`` (rewritten by ``python -m
@@ -153,10 +153,10 @@ def test_a_bfloat16_store_reads_as_bfloat16(tmp_path):
 
 
 def test_the_port_writes_a_blosc_store_tensorstore_reads(tmp_path):
-    """A write into a tensorstore blosc store stores compressed frames of
-    the zlib codec, byte-shuffled, which tensorstore and both decoders
-    read; ``blosc.compress`` round-trips every typesize, a ragged tail
-    and more than one block."""
+    """A write into a tensorstore blosc-lz4 store stores compressed
+    frames of the lz4 codec, byte-shuffled, which tensorstore and both
+    decoders read; ``blosc.compress`` round-trips every typesize, a ragged
+    tail and more than one block."""
     arr = _array("uint16", (6, 20, 30), seed=9)
     _ts_zarr(tmp_path, arr, {"id": "blosc", "cname": "lz4", "clevel": 5,
                              "shuffle": 1, "blocksize": 0},
@@ -170,7 +170,7 @@ def test_the_port_writes_a_blosc_store_tensorstore_reads(tmp_path):
     assert np.array_equal(read.read().result(), arr)
     assert np.array_equal(ZarrArray(str(tmp_path)).read(), arr)
     frame = (tmp_path / "0.0.0").read_bytes()
-    assert frame[2] == 0x71  # zlib, one stream a block, byte shuffle
+    assert frame[2] == 0x31  # lz4, one stream a block, byte shuffle
     assert frame[3] == 2 and len(frame) < 3 * 10 * 30 * 2
     # one voxel, a ragged typesize tail, more than one block
     for shape, dtype in (((1, 1, 1), "uint8"), ((2, 3, 5), "float64"),

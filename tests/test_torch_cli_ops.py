@@ -7,8 +7,8 @@ get equal inputs (seeded numpy chunks, one per package) and must leave
 equal tasks behind: chunks BITWISE with the same dtype and metadata,
 skips, markers and files the same. Whole command lines run through both
 CLIs too. The registry: the port has every command the JAX CLI has,
-with its options; an option not ported yet (a cloud URL) raises
-``NotImplementedError`` naming its ROADMAP item before anything runs.
+with its options; a chain whose weights the JAX restore refuses raises
+``ValueError`` in both CLIs.
 """
 import json
 import os
@@ -359,25 +359,34 @@ def test_every_jax_command_runs_or_names_its_item(command):
 
 def test_an_unported_command_in_a_chain_raises_naming_its_item(
         tmp_path, monkeypatch):
-    """Every command is ported; an option that is not (an orbax OCDBT
-    checkpoint whose root manifest was never merged) refuses its chain the
-    same way. A mesh wider than the devices (``--mesh data=2`` over one
+    """Every command is ported. A chain whose inference loads weights the
+    JAX restore refuses (an orbax OCDBT checkpoint whose root manifest was
+    never merged) raises ``ValueError`` in both CLIs, and the chain's
+    ``save-h5`` ahead of it writes its file in the port where it does in
+    the JAX CLI. A mesh wider than the devices (``--mesh data=2`` over one
     device, in both CLIs) raises the JAX package's ``ValueError`` at the
     task."""
+    import jax
+
+    from chunkflow_tpu.models import unet3d
     from tests.test_torch_orbax import unmerged
 
     refused = unmerged(tmp_path / "orbax")
-    for option, item in (
-            (["-f", "pytorch", "-w", refused],
-             "convnet engines, orbax checkpoints"),):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["--device", "cpu", "create-chunk", "--size", "4", "16",
-                      "16", "save-h5", "-f", str(tmp_path / "x.h5"),
-                      "inference", *option, "-p", "4", "16", "16", "-v",
-                      "2", "8", "8"])
-        # the chain is refused whole: nothing ran, the file was not written
-        assert not os.path.exists(tmp_path / "x.h5")
-    import jax
+    # the JAX template's shapes traced, not compiled (as jax_state does)
+    real = unet3d.init_params
+    monkeypatch.setattr(unet3d, "init_params", lambda *a, **k: jax.eval_shape(
+        lambda: real(*a, **k)))
+    written = {}
+    for name, run in (("jax", lambda argv: jax_main.main(
+            argv, standalone_mode=False)), ("port", lambda argv: cli.main(
+            ["--device", "cpu", *argv]))):
+        out = tmp_path / f"{name}.h5"
+        with pytest.raises(ValueError):
+            run(["create-chunk", "--size", "4", "16", "16", "save-h5", "-f",
+                 str(out), "inference", "-f", "pytorch", "-w", refused, "-p",
+                 "4", "16", "16", "-v", "2", "8", "8"])
+        written[name] = os.path.exists(out)
+    assert written["port"] == written["jax"]
 
     monkeypatch.setattr(jax, "local_devices",
                         lambda *a, **k: jax.devices()[:1])

@@ -579,3 +579,31 @@ def test_load_tensorstore_on_buckets_is_the_jax_plugin(cloud, scheme,
     if driver == "neuroglancer_precomputed":
         want = want.transpose(2, 1, 0)[..., None]
     assert np.array_equal(got.array, want)
+
+
+@pytest.mark.parametrize("scheme", ["gs", "s3"])
+def test_load_tensorstore_shorthand_on_buckets_is_refused_by_the_jax_plugin(
+        cloud, scheme):
+    """A fault of the reference the port does not follow: the JAX plugin
+    turns ``gs://bucket/store`` into a kvstore of the driver ``gs``, which
+    tensorstore does not register, and ``s3://bucket/store`` into one
+    without its bucket, and raises ``ValueError`` on both; the port reads
+    both shorthands equal to the spec form."""
+    import tensorstore as ts
+
+    from chunkflow_tpu.flow.plugin import load_plugin as jax_load_plugin
+    from chunkflow_tpu_torch.flow.plugin import load_plugin
+
+    url = _url(scheme, "shorthand")
+    kvstore = jax_precomputed._kvstore_spec(url)
+    data = np.random.default_rng(6).integers(0, 200, (6, 20, 24)).astype(
+        np.uint8)
+    ts.open({"driver": "zarr", "kvstore": kvstore}, create=True,
+            dtype="uint8", shape=data.shape).result()[...] = data
+    box = ((1, 2, 3), (5, 18, 20))
+    with pytest.raises(ValueError):
+        jax_load_plugin("load_tensorstore")(JaxBox(*box), kvstore=url)
+    ref = jax_load_plugin("load_tensorstore")(JaxBox(*box), kvstore=kvstore)
+    got = load_plugin("load_tensorstore")(BoundingBox(*box), kvstore=url)
+    assert np.array_equal(got.array, np.asarray(ref.array))
+    assert np.array_equal(got.array, data[1:5, 2:18, 3:20])

@@ -274,9 +274,9 @@ def test_engine_errors(tmp_path):
 @pytest.mark.parametrize("variant", list(engines.MODEL_VARIANTS))
 def test_orbax_directory_raises_naming_its_roadmap_item(variant, tmp_path):
     """An orbax directory the JAX package saves loads into every
-    variant's inferencer, bitwise the JAX restore; one the port does not
-    read (an OCDBT save whose root manifest was never merged) raises
-    naming its ROADMAP item."""
+    variant's inferencer, bitwise the JAX restore; one the JAX restore
+    refuses (an OCDBT save whose root manifest was never merged) raises
+    its ``ValueError``."""
     from tests.test_torch_models import draw_params
     from tests.test_torch_orbax import (
         assert_same_state,
@@ -294,8 +294,10 @@ def test_orbax_directory_raises_naming_its_roadmap_item(variant, tmp_path):
                             **COMMON)
     assert_same_state(inferencer.engine.model.state_dict(),
                       jax_state(family, path))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, queue 1: convnet engines, orbax"):
+    split = unmerged(tmp_path / "split")
+    with pytest.raises(ValueError):
+        jax_state(family, split)
+    with pytest.raises(ValueError, match="manifest.ocdbt"):
         Inferencer(device="cpu", framework="flax", model_variant=variant,
-                   weight_path=unmerged(tmp_path / "split"), **COMMON)
+                   weight_path=split, **COMMON)
 

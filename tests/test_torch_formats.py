@@ -297,8 +297,8 @@ def test_zarr_written_by_tensorstore_reads_in_the_port(tmp_path, compressor,
 
 def test_zarr_null_fill_reads_as_zeros_and_blosc_raises(tmp_path):
     """tensorstore's default zarr store (blosc, a null fill) reads
-    bitwise; a blosc cname tensorstore does not write raises naming its
-    item."""
+    bitwise; a blosc cname tensorstore does not write raises
+    ``ValueError``, as tensorstore does."""
     store = _ts_open(tmp_path / "b", create=True, dtype="float32",
                      shape=(4, 6, 8))  # tensorstore's defaults: blosc, null
     meta = json.loads((tmp_path / "b" / ".zarray").read_text())
@@ -309,8 +309,10 @@ def test_zarr_null_fill_reads_as_zeros_and_blosc_raises(tmp_path):
     assert np.array_equal(ZarrArray(str(tmp_path / "b")).read(), want)
     meta["compressor"]["cname"] = "lzma"
     (tmp_path / "b" / ".zarray").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="chunk file formats"):
+    with pytest.raises(ValueError, match="lzma"):
         ZarrArray(str(tmp_path / "b"))
+    with pytest.raises(ValueError):
+        _ts_open(tmp_path / "b")
     meta.update(compressor={"id": "zlib", "level": 1})
     (tmp_path / "n").mkdir()
     (tmp_path / "n" / ".zarray").write_text(json.dumps(meta))
@@ -466,8 +468,8 @@ def test_load_zarr_drivers_match_the_jax_cli(tmp_path, name):
 def test_zarr3_and_n5_codecs_outside_the_stdlib_raise(tmp_path, driver):
     """zstd zarr v3 and blosc N5 (tensorstore's N5 default) read bitwise,
     and so do the codecs the port once lacked (zarr v3
-    ``sharding_indexed``, N5 xz); a codec the port still lacks raises
-    naming its item."""
+    ``sharding_indexed``, N5 xz); a codec no store of tensorstore's holds
+    raises ``ValueError`` in both."""
     from chunkflow_tpu_torch.volume.zarr import open_array
 
     ts = pytest.importorskip("tensorstore")
@@ -500,8 +502,11 @@ def test_zarr3_and_n5_codecs_outside_the_stdlib_raise(tmp_path, driver):
     else:
         meta["compression"] = {"type": "lz77"}
     (tmp_path / "u" / meta_file).write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="chunk file formats"):
+    with pytest.raises(ValueError, match="lz77"):
         open_array(str(tmp_path / "u"), driver)
+    with pytest.raises(ValueError):
+        ts.open({"driver": driver, "kvstore": {
+            "driver": "file", "path": str(tmp_path / "u")}}).result()
 
 
 # ---------------------------------------------------------------------------

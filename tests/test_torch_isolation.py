@@ -102,7 +102,7 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.engine", "parallel.pipeline", "core.envmode",
                  "parallel.distributed", "parallel.spatial",
                  "parallel.spatial2d", "cloud.cloudwatch",
-                 "plugins.aws.cloud_watch"):
+                 "plugins.aws.cloud_watch", "volume.kvstores"):
         assert f"chunkflow_tpu_torch.{name}" in report["imported"]
     # what the interpreter loads before the first line (a site-packages
     # .pth file may pre-import a namespace package such as ``google``) is

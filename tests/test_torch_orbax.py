@@ -12,8 +12,11 @@ weights bitwise equal to the JAX ``init_or_load_params`` put through
 rewrites both) hold the seeded tree ``chip_smoke.py`` loads on the card,
 and a fresh save of that tree reads the same. ``use_zarr3`` saves, whose
 leaves are ``sharding_indexed`` zarr v3 arrays, load bitwise the JAX
-restore, with OCDBT on and off. What the port does not read raises
-naming its ROADMAP item.
+restore, with OCDBT on and off. A checkpoint the JAX restore refuses (an
+OCDBT save whose root manifest was never merged, an added scalar leaf, an
+extra or missing array leaf, a ``.msgpack`` missing a module) raises
+``ValueError`` in both packages; a ``.msgpack`` with a leaf the model
+lacks loads in both, bitwise.
 """
 import json
 import shutil
@@ -34,7 +37,6 @@ torch.set_num_threads(1)
 FIXTURE = Path(__file__).resolve().parent / "data" / "orbax_parity_seed0"
 ZARR3_FIXTURE = FIXTURE.with_name("orbax_parity_seed0_zarr3")
 PIN = (4, 16, 16)
-ITEM = "convnet engines, orbax checkpoints"
 
 
 def seeded_tree():
@@ -60,9 +62,9 @@ def save(path, tree, **options):
 
 
 def unmerged(path):
-    """An orbax save the port still refuses: an OCDBT checkpoint whose
-    root holds no merged ``manifest.ocdbt`` (a multi-process save the
-    root never merged)."""
+    """An orbax save both packages refuse: an OCDBT checkpoint whose root
+    holds no merged ``manifest.ocdbt`` (a multi-process save the root
+    never merged)."""
     saved = save(path, {"conv_out": {"bias": np.zeros(3, np.float32)}})
     (Path(saved) / "manifest.ocdbt").unlink()
     return saved
@@ -203,21 +205,68 @@ def test_what_the_port_does_not_read_raises_naming_its_item(tmp_path):
         assert np.array_equal(got["a"]["bias"], tree["a"]["bias"])
         assert np.array_equal(got["a"]["bias"],
                               np.asarray(restored["a"]["bias"]))
-    # a save whose processes' stores the root does not merge
-    path = save(tmp_path / "split", tree)
-    (Path(path) / "manifest.ocdbt").unlink()
-    with pytest.raises(NotImplementedError, match=ITEM):
+    # what the JAX restore refuses raises its class, ValueError, naming
+    # the file or the leaf: a save whose processes' stores the root does
+    # not merge, and a leaf that is not an array (an added step: 5)
+    path = unmerged(tmp_path / "split")
+    with pytest.raises(ValueError, match="manifest.ocdbt"):
         orbax.load_params(path)
-    # a value type other than an array
-    path = save(tmp_path / "scalar", tree)
+    with pytest.raises(ValueError):
+        jax_state("parity", path)
+    path = save(tmp_path / "scalar", dict(seeded_tree(), step=5))
     meta = json.loads((Path(path) / "_METADATA").read_text())
-    for leaf in meta["tree_metadata"].values():
-        leaf["value_metadata"]["value_type"] = "scalar"
-    (Path(path) / "_METADATA").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match=ITEM):
+    assert meta["tree_metadata"]["('step',)"]["value_metadata"][
+        "value_type"] not in orbax.ARRAY_TYPES
+    with pytest.raises(ValueError, match="step"):
         orbax.load_params(path)
+    with pytest.raises(ValueError):
+        jax_state("parity", path)
     with pytest.raises(ValueError, match="not an orbax checkpoint"):
         orbax.load_params(str(tmp_path))
+
+
+def _flax_msgpack(path, tree):
+    from flax import serialization
+
+    path.write_bytes(serialization.to_bytes(tree))
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["orbax-extra", "orbax-missing",
+                                  "msgpack-missing"])
+def test_a_tree_of_other_leaves_raises_in_both_packages(tmp_path, case):
+    """An orbax tree with an extra array leaf or without ``bridge``, and a
+    ``.msgpack`` without ``bridge``: the JAX loader raises ``ValueError``,
+    and so does the port's, naming the leaves."""
+    from chunkflow_tpu_torch.models.convert import init_or_load_weights
+
+    tree = seeded_tree()
+    if case == "orbax-extra":
+        tree["extra"] = {"bias": np.zeros(3, np.float32)}
+        name = "extra.bias"
+    else:
+        del tree["bridge"]
+        name = "bridge"
+    path = (_flax_msgpack(tmp_path / "w.msgpack", tree)
+            if case.startswith("msgpack") else save(tmp_path / "ck", tree))
+    with pytest.raises(ValueError):
+        jax_state("parity", path)
+    with pytest.raises(ValueError, match=name):
+        init_or_load_weights(UNet3D(in_channels=1, out_channels=3), path)
+
+
+def test_a_msgpack_leaf_the_model_lacks_is_ignored_as_flax_does(tmp_path):
+    """A ``.msgpack`` with a leaf the model has no parameter for loads in
+    the JAX package (flax's ``from_state_dict`` ignores it) and in the
+    port, bitwise."""
+    from chunkflow_tpu_torch.models.convert import init_or_load_weights
+
+    tree = dict(seeded_tree(), extra={"bias": np.zeros(3, np.float32)})
+    path = _flax_msgpack(tmp_path / "w.msgpack", tree)
+    model = init_or_load_weights(UNet3D(in_channels=1, out_channels=3), path)
+    want = jax_state("parity", path)
+    assert_same_state(model.state_dict(), want)
+    assert_same_state(want, state_from_flax(seeded_tree()))
 
 
 def write_fixture() -> None:

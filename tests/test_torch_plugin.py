@@ -466,14 +466,19 @@ def test_load_tensorstore_is_the_jax_plugin(tmp_path, driver):
 
 
 def test_load_tensorstore_unported_driver_raises(tmp_path):
+    """A memory kvstore and a driver tensorstore does not register raise
+    ``ValueError`` in both plugins (the JAX one's is tensorstore's)."""
+    from chunkflow_tpu.core.bbox import BoundingBox as JaxBox
     from chunkflow_tpu_torch import BoundingBox
 
     execute = plugin.load_plugin("load_tensorstore")
-    box = BoundingBox((0, 0, 0), (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="annotations and plugins"):
-        execute(box, driver="zarr", kvstore=f"memory://{tmp_path}")
-    with pytest.raises(NotImplementedError, match="annotations and plugins"):
-        execute(box, driver="json", kvstore=f"file://{tmp_path}")
+    jexecute = jplugin.load_plugin("load_tensorstore")
+    for args in (dict(driver="zarr", kvstore=f"memory://{tmp_path}"),
+                 dict(driver="jsonl", kvstore=f"file://{tmp_path}")):
+        with pytest.raises(ValueError, match="tensorstore refuses"):
+            execute(BoundingBox((0, 0, 0), (1, 1, 1)), **args)
+        with pytest.raises(ValueError):
+            jexecute(JaxBox((0, 0, 0), (1, 1, 1)), **args)
 
 
 def test_unported_names_exactly_the_package_gated_plugins():

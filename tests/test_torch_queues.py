@@ -174,3 +174,31 @@ def test_queue_counters():
     q.receive()
     counters = telemetry.snapshot()["counters"]
     assert counters["queue/sent"] == 2 and counters["queue/receives"] == 1
+
+
+def test_a_stale_task_claimed_during_another_workers_sweep_stays_claimed(
+        tmp_path, monkeypatch):
+    # a task sent longer ago than the visibility timeout: the claim's
+    # rename keeps that mtime, so a sweep by a second worker between the
+    # rename and the read found the fresh claim expired and took it back
+    q = queues.FileQueue(str(tmp_path / "q"), visibility_timeout=10.0)
+    other = queues.FileQueue(str(tmp_path / "q"), visibility_timeout=10.0)
+    q.send_messages(["0-4_0-4_0-4"])
+    (name,) = queues.os.listdir(q.pending_dir)
+    old = time.time() - 60.0
+    queues.os.utime(queues.os.path.join(q.pending_dir, name), (old, old))
+    rename = queues.os.rename
+    swept = []
+
+    def rename_then_sweep(src, dst):
+        rename(src, dst)
+        if dst.startswith(q.claimed_dir) and not swept:
+            swept.append(dst)
+            other._requeue_expired()
+
+    monkeypatch.setattr(queues.os, "rename", rename_then_sweep)
+    handle, body = q.receive()
+    assert swept and body == "0-4_0-4_0-4" and handle == name
+    assert queues.os.listdir(q.claimed_dir) == [name]
+    assert other.receive() is None
+    assert q.receive_count(handle) == 1

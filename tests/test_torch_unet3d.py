@@ -130,16 +130,18 @@ def test_engine_loads_pt_weights(tmp_path):
 @pytest.mark.parametrize("framework", ["pytorch", "flax", "jax"])
 def test_engine_unported_options_raise(framework, tmp_path):
     """An orbax checkpoint directory loads (the committed one holds the
-    seeded full-width weights, bitwise); one that needs what the port does
-    not read (an OCDBT save whose root manifest was never merged) raises,
-    naming its ROADMAP item."""
-    from tests.test_torch_orbax import FIXTURE, unmerged
+    seeded full-width weights, bitwise); one the JAX restore refuses (an
+    OCDBT save whose root manifest was never merged) raises its
+    ``ValueError``."""
+    from tests.test_torch_orbax import FIXTURE, jax_state, unmerged
 
     seeded = seeded_init(UNet3D(), torch.Generator().manual_seed(0))
     engine = engines.create_engine(framework, weight_path=str(FIXTURE),
                                    num_output_channels=3)
     for key, value in seeded.state_dict().items():
         assert torch.equal(engine.model.state_dict()[key], value)
-    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
-        engines.create_engine(framework,
-                              weight_path=unmerged(tmp_path / "split"))
+    split = unmerged(tmp_path / "split")
+    with pytest.raises(ValueError):
+        jax_state("parity", split)
+    with pytest.raises(ValueError, match="manifest.ocdbt"):
+        engines.create_engine(framework, weight_path=split)

@@ -7,8 +7,8 @@ and RLE blocks, concatenated and skippable frames; both decoders give the
 bytes ``zstandard`` was given. A frame without its content size decodes
 into an output that grows up to its bound. A flipped checksum, a
 truncated frame and a dictionary id raise, and no corrupted frame decodes
-out of bounds. A write into a zstd store raises: the port has no zstd
-encoder.
+out of bounds. The port's own zstd frames are held in
+``tests/test_torch_encoders.py``.
 """
 import struct
 
@@ -152,21 +152,3 @@ def test_xxh64_is_the_frame_checksum():
         frame = _frame(data, 1, checksum=True)
         assert zstd.xxh64(data) & 0xFFFFFFFF == \
             struct.unpack("<I", frame[-4:])[0]
-
-
-def test_a_write_into_a_zstd_store_raises(tmp_path):
-    ts = pytest.importorskip("tensorstore")
-    from chunkflow_tpu_torch.volume.zarr import ZarrArray
-
-    arr = np.arange(4 * 6 * 8, dtype=np.uint16).reshape(4, 6, 8)
-    store = ts.open({"driver": "zarr", "kvstore": {
-        "driver": "file", "path": str(tmp_path)},
-        "metadata": {"compressor": {"id": "zstd", "level": 3}}},
-        create=True, dtype="uint16", shape=arr.shape).result()
-    store[...] = arr
-    before = (tmp_path / "0.0.0").read_bytes()
-    port = ZarrArray(str(tmp_path))
-    assert np.array_equal(port.read(), arr)
-    with pytest.raises(NotImplementedError, match="chunk file formats"):
-        port.write((slice(0, 2),), arr[:2] + 1)
-    assert (tmp_path / "0.0.0").read_bytes() == before
