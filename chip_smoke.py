@@ -496,6 +496,18 @@ SAVE_STORES = (("zstd", {"id": "zstd", "level": 1}),
                ("blosc-lz4", {"blocksize": 0, "clevel": 5, "cname": "lz4",
                               "id": "blosc", "shuffle": -1}))
 SAVE_CHUNKS = (64, 256, 256)
+# phase 21's created store: save-zarr of the stacked parity output into a
+# path with no store; the .zarray tensorstore 0.1.80 creates for that
+# shape and dtype (tests/test_torch_zarr_writes.py holds it equal)
+CREATED_STORE = (3 * CHUNK[0], CHUNK[1], CHUNK[2])
+CREATED_ZARRAY = (
+    '{"chunks":[101,101,101],"compressor":{"blocksize":0,"clevel":5,'
+    '"cname":"lz4","id":"blosc","shuffle":-1},"dimension_separator":".",'
+    '"dtype":"<f4","fill_value":null,"filters":null,"order":"C",'
+    '"shape":[192,512,512],"zarr_format":2}')
+# phase 21's encoder legs on the task-sized frame: (cname, shuffle)
+TASK_ENCODERS = (("lz4", 1), ("lz4", 2), ("lz4hc", 1), ("blosclz", -1),
+                 ("snappy", -1))
 # a czyx chunk as a zyx one, its channels stacked in z (save-zarr writes
 # zyx chunks, in both packages)
 STACK_PLUGIN = '''from chunkflow_tpu_torch import Chunk
@@ -1675,6 +1687,7 @@ def main() -> int:
             checkpoint_zarr3=CHECKPOINT_ZARR3, blosc_store=BLOSC_STORE,
             blosc_task=BLOSC_TASK, reps=CODEC_REPS, weights=str(weights),
             stores=SAVE_STORES, store_chunks=SAVE_CHUNKS,
+            created_zarray=CREATED_ZARRAY, task_encoders=TASK_ENCODERS,
             per_chunk=phase5_launches),
             state, reset_counts, counts, plain_functions).items():
         kernels[kname]["launches"] += n
@@ -5822,6 +5835,13 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
     writes it, chunks ``cfg["store_chunks"]``), ``cfg["per_chunk"]``
     launches each, read back through ``load-zarr`` bitwise
     ``Inferencer.__call__``, each chunk file of the store's compressor.
+    Then the legs that take no inference: ``load-npy | save-zarr`` of that
+    output into a path with no store (its ``.zarray``
+    ``cfg["created_zarray"]``, read back bitwise); the task-sized frame in
+    each of ``cfg["task_encoders"]`` (cname, shuffle), its MB/s both ways,
+    the encoders' and the bit shuffle's bytes their plain twins', every
+    frame decoded bitwise; and ``save_params`` of ``state`` read back
+    bitwise by ``init_or_load_weights``.
 
     Returns the kernels' launches in the CLI runs."""
     import statistics
@@ -6146,9 +6166,147 @@ def checkpoint_phase(torch, cfg, state, reset_counts, counts,
                              f"load-zarr | save-npy {read_s:.2f} s; == "
                              f"Inferencer.__call__ bitwise; launches "
                              f"{leg}")
+    created_store_legs(torch, cfg, state, ref, task, rate,
+                       lambda: UNet3D(in_channels=1, out_channels=3))
     phase("checkpoints", f"phase 21 took {time.perf_counter() - t_phase:.1f}"
                          f" s")
     return launched
+
+
+def created_store_legs(torch, cfg, state, output, task, rate, model):
+    """Phase 21's legs that take no inference, on the host.
+
+    ``load-npy | save-zarr`` of ``output`` (czyx float32, its channels
+    stacked in z) into a path with no store: its ``.zarray`` is
+    ``cfg["created_zarray"]``, its frames blosc lz4 byte-shuffled, and
+    ``load-zarr`` reads it back bitwise. The uint8 ``task`` as one blosc
+    frame of each of ``cfg["task_encoders"]`` (cname, shuffle): MB/s to
+    encode and decode (``rate``, median of ``cfg["reps"]``), the cname's
+    codec in the flags, decoded bitwise by the host C++ (and the frame of
+    its first block by the plain decoder); the host C++ blosclz, snappy,
+    LZ4 and LZ4 HC encoders give their plain twins' bytes on its first
+    block,
+    the bit shuffle on all of it. ``save_params`` of ``state`` read back
+    by ``init_or_load_weights`` into ``model()``, bitwise."""
+    import tempfile
+
+    import numpy as np
+
+    from chunkflow_tpu_torch import native
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.models.convert import init_or_load_weights
+    from chunkflow_tpu_torch.models.unet3d import save_params
+    from chunkflow_tpu_torch.volume import blosc
+
+    on_card = cfg["device"] == "cuda"
+    t_legs = time.perf_counter()
+    stacked = (-1,) + tuple(output.shape[-2:])
+
+    def ms(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # ---- save-zarr into a path with no store ----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_create_") as tmp:
+        src = os.path.join(tmp, "in.npy")
+        dst = os.path.join(tmp, "out.npy")
+        store = os.path.join(tmp, "created.zarr")
+        stacked_ref = np.ascontiguousarray(output.reshape(stacked))
+        np.save(src, stacked_ref)
+        t = time.perf_counter()
+        rc = cli.main(([] if on_card else ["--device", "cpu"]) + [
+            "load-npy", "--file-name", src,
+            "save-zarr", "--store-path", store])
+        create_s = time.perf_counter() - t
+        require(rc == 0, f"checkpoints: created store: CLI exit code {rc}")
+        with open(os.path.join(store, ".zarray")) as f:
+            zarray = f.read()
+        require(json.loads(zarray) == json.loads(cfg["created_zarray"]),
+                f"checkpoints: the created store's .zarray {zarray} is not "
+                f"tensorstore's")
+        names = sorted(n for n in os.listdir(store) if not n.startswith("."))
+        stored = sum(os.path.getsize(os.path.join(store, n)) for n in names)
+        with open(os.path.join(store, names[0]), "rb") as f:
+            first = f.read(16)
+        require(first[2] >> 5 == blosc.WRITES["lz4"] and first[2] & 0x05
+                == 0x01, f"checkpoints: created store: a frame of flags "
+                         f"{first[2]:#x}, not byte-shuffled lz4")
+        t = time.perf_counter()
+        rc = cli.main(([] if on_card else ["--device", "cpu"]) + [
+            "load-zarr", "--store-path", store,
+            "save-npy", "--file-name", dst])
+        read_s = time.perf_counter() - t
+        require(rc == 0, f"checkpoints: created store: load-zarr exit code "
+                         f"{rc}")
+        back = np.load(dst)
+    require(np.array_equal(back, stacked_ref), "checkpoints: the created "
+                                               "store read back differs")
+    phase("checkpoints", f"load-npy | save-zarr into a path with no store "
+                         f"({tuple(stacked_ref.shape)} float32, "
+                         f"{stacked_ref.nbytes / 1e6:.1f} MB): {create_s:.2f}"
+                         f" s, the .zarray tensorstore creates (chunks "
+                         f"{tuple(json.loads(zarray)['chunks'])}, blosc lz4 "
+                         f"shuffle -1), {len(names)} chunk files of "
+                         f"{stored / 1e6:.1f} MB; load-zarr | save-npy "
+                         f"{read_s:.2f} s, bitwise")
+
+    # ---- the encoders of every blosc cname on the task-sized frame -----
+    raw = task.tobytes()
+    head = raw[:blosc.BLOCK]
+    depth = blosc.hc_depth(5)
+    twins = {"blosclz": (native.blosclz_compress,
+                         blosc.blosclz_compress_plain),
+             "snappy": (native.snappy_compress, blosc.snappy_compress_plain),
+             "lz4": (native.lz4_compress, blosc.lz4_compress_plain),
+             "lz4hc": (lambda d: native.lz4hc_compress(d, depth),
+                       lambda d: blosc.lz4hc_compress_plain(d, depth))}
+    for cname, (cpp_fn, plain_fn) in twins.items():
+        require(cpp_fn(head) == plain_fn(head), f"checkpoints: the {cname} "
+                                                f"encoder's bytes differ "
+                                                f"from its plain twin's")
+    require(native.bitshuffle(raw, 1) == blosc.bitshuffle_plain(raw, 1),
+            "checkpoints: the bit shuffle differs from its plain twin")
+    encoded = []
+    for cname, shuffle in cfg["task_encoders"]:
+        enc = rate(lambda: blosc.compress(raw, 1, 5, cname, shuffle),
+                   len(raw), cfg["reps"])
+        task_frame = blosc.compress(raw, 1, 5, cname, shuffle)
+        dec = rate(lambda: blosc.decompress(task_frame), len(raw),
+                   cfg["reps"])
+        require(task_frame[2] >> 5 == blosc.WRITES[cname]
+                and blosc.decompress(task_frame) == raw,
+                f"checkpoints: the {cname} frame (shuffle {shuffle}) does "
+                f"not decode to the task")
+        first_block = blosc.compress(head, 1, 5, cname, shuffle)
+        require(blosc.decompress_plain(first_block) == head,
+                f"checkpoints: the plain decoder differs on the {cname} "
+                f"frame's first block")
+        encoded.append(f"{cname} shuffle {shuffle} {len(task_frame)} bytes, "
+                       f"encode {enc:.1f} MB/s, decode {dec:.1f} MB/s")
+    phase("checkpoints", f"blosc frames of a {tuple(task.shape)} uint8 task "
+                         f"({len(raw)} bytes; median of {cfg['reps']}): "
+                         f"{'; '.join(encoded)}; C++ == the plain twins on "
+                         f"its first {len(head)} bytes, the bit shuffle on "
+                         f"all of it; every frame decodes bitwise")
+
+    # ---- the weights through save_params and back -----------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_params_") as tmp:
+        target = os.path.join(tmp, "parity.msgpack")
+        _, save_ms = ms(lambda: save_params(state, target))
+        size_mb = os.path.getsize(target) / 1e6
+        reloaded = model()
+        _, load_back_ms = ms(lambda: init_or_load_weights(reloaded, target))
+    back_state = reloaded.state_dict()
+    require(set(back_state) == set(state)
+            and all(torch.equal(back_state[k], state[k]) for k in state),
+            "checkpoints: save_params read back differs from the seeded "
+            "tree")
+    phase("checkpoints", f"save_params of the parity weights: "
+                         f"{save_ms:.1f} ms for {size_mb:.2f} MB of flax "
+                         f"msgpack, read back by init_or_load_weights in "
+                         f"{load_back_ms:.1f} ms, bitwise; the added legs "
+                         f"took {time.perf_counter() - t_legs:.1f} s")
 
 
 def clahe_stores_phase(torch, cfg, reset_counts, counts):

@@ -430,7 +430,12 @@ class Chunk(np.lib.mixins.NDArrayOperatorsMixin):
         return out
 
     def astype(self, dtype) -> "Chunk":
+        """The chunk converted to ``dtype``; a numpy payload converted to
+        a torch dtype numpy lacks (bfloat16) becomes a tensor."""
         arr = self.array
+        if not _is_tensor(arr) and isinstance(dtype, torch.dtype) and \
+                numpy_dtype(dtype) is None:
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
         if _is_tensor(arr):
             return self._with_array(arr.to(torch_dtype(dtype)))
         return self._with_array(arr.astype(dtype))

@@ -200,6 +200,20 @@ class _Registry:
         self.sink_bytes = 0
         self.max_sink_bytes = 0
 
+    def add_counter(self, name: str, n: float) -> None:
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def set_gauge(self, name: str, value: float) -> None:
+        with self.lock:
+            self.gauges[name] = value
+
+    def emit(self, payload: dict) -> None:
+        """Append ``payload`` to the sink (:meth:`write`, under the
+        lock)."""
+        with self.lock:
+            self.write(payload)
+
     def add_hist(self, name: str, value: float) -> None:
         with self.lock:
             h = self.hists.get(name)
@@ -321,8 +335,7 @@ def inc(name: str, n: float = 1) -> None:
     """Add ``n`` to a counter."""
     if not enabled():
         return
-    with _REG.lock:
-        _REG.counters[name] = _REG.counters.get(name, 0) + n
+    _REG.add_counter(name, n)
 
 
 def gauge(name: str, value: float) -> None:
@@ -332,14 +345,11 @@ def gauge(name: str, value: float) -> None:
     memory, as spans)."""
     if not enabled():
         return
-    with _REG.lock:
-        _REG.gauges[name] = value
+    _REG.set_gauge(name, value)
     _REG.add_hist(name, value)
     if _REG.sink is not None:
-        payload = _stamp({"kind": "gauge", "name": name, "t": time.time(),
-                          "value": value})
-        with _REG.lock:
-            _REG.write(payload)
+        _REG.emit(_stamp({"kind": "gauge", "name": name, "t": time.time(),
+                          "value": value}))
 
 
 def chip_gauge(plane: str, chip: int, metric: str, value: float) -> None:
@@ -448,11 +458,9 @@ class _Span:
         self.duration = time.perf_counter() - self.t0
         _REG.add_hist(self.name, self.duration)
         if _REG.sink is not None:
-            payload = _stamp({"kind": "span", "name": self.name,
+            _REG.emit(_stamp({"kind": "span", "name": self.name,
                               "t": time.time(), "dur_s": self.duration,
-                              "pid": os.getpid(), **self.attrs})
-            with _REG.lock:
-                _REG.write(payload)
+                              "pid": os.getpid(), **self.attrs}))
         return False
 
 

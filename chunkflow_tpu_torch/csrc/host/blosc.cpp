@@ -1,5 +1,5 @@
-// Blosc1 frames, decode only, and the LZ4 block encoder of the frames the
-// port writes.
+// Blosc1 frames: the decoder, and the encoders of the frames the port
+// writes.
 //
 // A frame is a 16-byte header (format version, codec version, flags,
 // typesize, nbytes, blocksize, cbytes), then either the data as it is
@@ -15,11 +15,32 @@
 // frame returns a negative code. volume/blosc.py:decompress_plain is the
 // same walk in Python and numpy.
 //
-// cf_lz4_compress writes one LZ4 block: greedy matches found by a hash of
-// 4-byte sequences, at most 65535 back, extended backwards over the
-// literals before them, stepping ever faster through literals; no match
-// starts in the last 12 bytes and the last 5 are literals, as the block
-// format sets. volume/blosc.py:lz4_compress_plain gives the same bytes.
+// The encoders share one greedy match finder: a hash of 4-byte sequences
+// (the last position of each hash kept), matches extended backwards over
+// the literals before them, stepping ever faster through literals. Each
+// codec sets how far back a match may reach and where matches stop:
+//   cf_lz4_compress      one LZ4 block; at most 65535 back, no match
+//                        starting in the last 12 bytes, the last 5
+//                        literals, as the block format sets;
+//   cf_lz4hc_compress    the same block, each match the longest of a
+//                        hash chain's candidates (chain_matches), for
+//                        lz4hc stores;
+//   cf_blosclz_compress  one blosclz stream (c-blosc 1.x's decoder):
+//                        literal runs of at most 32 bytes, matches of 3+
+//                        bytes up to 73727 back (13-bit near and 16-bit
+//                        far distances), the last 5 bytes literals, since
+//                        the decoder never copies a last match;
+//   cf_snappy_compress   snappy's raw format: a varint length, literals,
+//                        copies with 1-byte offsets (lengths 4-11, under
+//                        2048 back) or 2-byte offsets (lengths 1-64),
+//                        at most 65535 back.
+// cf_bitshuffle is the inverse of the decoder's bit-unshuffle: 8 elements
+// at a time, their bits transposed as an 8x8 matrix per byte of the type.
+// A block whose element count is not a multiple of 8 stays as it is, as
+// c-blosc 1.x leaves it in a frame of format version 2.
+// volume/blosc.py's lz4_compress_plain, lz4hc_compress_plain,
+// blosclz_compress_plain, snappy_compress_plain and bitshuffle_plain give
+// the same bytes.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -213,22 +234,31 @@ void unshuffle(const uint8_t* src, uint8_t* dst, int64_t typesize,
   std::memcpy(dst + done, src + done, size - done);
 }
 
+// The 8x8 bit matrix in x (row j = byte j) transposed: bit k of byte j
+// becomes bit j of byte k. Its own inverse.
+inline uint64_t transpose8(uint64_t x) {
+  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x ^= t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x ^= t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  return x ^ t ^ (t << 28);
+}
+
 // The bit-transposed rows (byte b, bit k) of `count` elements, a multiple
-// of 8, back into elements.
+// of 8, back into elements: 8 elements at a time, per byte of the type.
 void bitunshuffle(const uint8_t* src, uint8_t* dst, int64_t typesize,
                   int64_t count) {
   int64_t row = count / 8;
-  std::memset(dst, 0, count * typesize);
-  for (int64_t b = 0; b < typesize; ++b) {
-    for (int k = 0; k < 8; ++k) {
-      const uint8_t* bits = src + (b * 8 + k) * row;
-      for (int64_t m = 0; m < row; ++m) {
-        uint8_t byte = bits[m];
-        if (!byte) continue;
-        for (int j = 0; j < 8; ++j) {
-          dst[(m * 8 + j) * typesize + b] |=
-              static_cast<uint8_t>(((byte >> j) & 1) << k);
-        }
+  for (int64_t m = 0; m < row; ++m) {
+    for (int64_t b = 0; b < typesize; ++b) {
+      uint64_t x = 0;
+      for (int k = 0; k < 8; ++k) {
+        x |= static_cast<uint64_t>(src[(b * 8 + k) * row + m]) << (8 * k);
+      }
+      x = transpose8(x);
+      for (int j = 0; j < 8; ++j) {
+        dst[(m * 8 + j) * typesize + b] = static_cast<uint8_t>(x >> (8 * j));
       }
     }
   }
@@ -249,19 +279,17 @@ int64_t stream(int codec, const uint8_t* src, int64_t n, uint8_t* dst,
   }
 }
 
-constexpr int kLz4HashLog = 16;
-constexpr int64_t kLz4MaxOffset = 65535;
-constexpr int64_t kLz4LastLiterals = 5;
-constexpr int64_t kLz4MatchLimit = 12;  // no match starts in the last 12 bytes
-constexpr int kLz4Skip = 6;
+constexpr int kHashLog = 16;
+constexpr int kSkip = 6;  // the step through literals grows every 64 bytes
 
-inline uint32_t lz4_hash(const uint8_t* p) {
+inline uint32_t hash4(const uint8_t* p) {
   uint32_t word;
   std::memcpy(&word, p, 4);
-  return (word * 2654435761u) >> (32 - kLz4HashLog);
+  return (word * 2654435761u) >> (32 - kHashLog);
 }
 
-struct Lz4Out {
+// A bounded byte sink: `full` once anything did not fit.
+struct Out {
   uint8_t* dst;
   int64_t cap, pos = 0;
   bool full = false;
@@ -272,7 +300,7 @@ struct Lz4Out {
     }
     dst[pos++] = b;
   }
-  void length(int64_t extra) {  // a length's bytes past its token's 15
+  void run255(int64_t extra) {  // 255s, then the rest: LZ4's and blosclz's
     while (extra >= 255) {
       byte(255);
       extra -= 255;
@@ -287,36 +315,23 @@ struct Lz4Out {
     std::memcpy(dst + pos, src, n);
     pos += n;
   }
-  // literals src[0..lit), then (where len > 0) a match of len at offset
-  void sequence(const uint8_t* src, int64_t lit, int64_t offset, int64_t len) {
-    int64_t ml = len > 0 ? len - 4 : 0;
-    byte(static_cast<uint8_t>((lit < 15 ? lit : 15) << 4 | (ml < 15 ? ml : 15)));
-    if (lit >= 15) length(lit - 15);
-    copy(src, lit);
-    if (len <= 0) return;
-    byte(static_cast<uint8_t>(offset));
-    byte(static_cast<uint8_t>(offset >> 8));
-    if (ml >= 15) length(ml - 15);
-  }
 };
 
-}  // namespace
-
-extern "C" {
-
-// One LZ4 block of src[0..n) into dst[0..cap); returns its size, or
-// kOutputFull where it does not fit.
-int64_t cf_lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
-  Lz4Out out{dst, cap};
-  std::vector<int64_t> table(static_cast<size_t>(1) << kLz4HashLog, -1);
+// The greedy matches of src[0..n): emit(literals, count, offset, length)
+// for each match (offset back, length >= 4), then emit(literals, count,
+// 0, 0) for the literals after the last. A match starts at or before
+// `last` and ends at or before `limit`, at most `max_offset` back.
+template <class Emit>
+void greedy_matches(const uint8_t* src, int64_t n, int64_t max_offset,
+                    int64_t last, int64_t limit, Emit&& emit) {
+  std::vector<int64_t> table(static_cast<size_t>(1) << kHashLog, -1);
   int64_t ip = 0, anchor = 0;
-  int64_t last = n - kLz4MatchLimit, limit = n - kLz4LastLiterals;
   while (ip <= last) {
-    uint32_t h = lz4_hash(src + ip);
+    uint32_t h = hash4(src + ip);
     int64_t cand = table[h];
     table[h] = ip;
-    if (cand < 0 || ip - cand > kLz4MaxOffset || std::memcmp(src + cand, src + ip, 4) != 0) {
-      ip += 1 + ((ip - anchor) >> kLz4Skip);
+    if (cand < 0 || ip - cand > max_offset || std::memcmp(src + cand, src + ip, 4) != 0) {
+      ip += 1 + ((ip - anchor) >> kSkip);
       continue;
     }
     while (ip > anchor && cand > 0 && src[ip - 1] == src[cand - 1]) {
@@ -325,15 +340,225 @@ int64_t cf_lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap
     }
     int64_t len = 4;
     while (ip + len < limit && src[cand + len] == src[ip + len]) len++;
-    out.sequence(src + anchor, ip - anchor, ip - cand, len);
+    emit(src + anchor, ip - anchor, ip - cand, len);
     ip += len;
     anchor = ip;
-    if (ip - 2 <= n - 4) table[lz4_hash(src + ip - 2)] = ip - 2;
+    if (ip - 2 <= n - 4) table[hash4(src + ip - 2)] = ip - 2;
   }
-  out.sequence(src + anchor, n - anchor, 0, 0);
+  emit(src + anchor, n - anchor, 0, 0);
+}
+
+// The matches of src[0..n) as greedy_matches gives them, but each the
+// longest of up to `depth` earlier positions of its hash (a chain through
+// the last 64 KiB), stepping one byte at a time, and every position
+// entered in the chains, as LZ4 HC searches.
+template <class Emit>
+void chain_matches(const uint8_t* src, int64_t n, int64_t max_offset,
+                   int64_t last, int64_t limit, int depth, Emit&& emit) {
+  constexpr int64_t kWindow = int64_t{1} << 16;
+  std::vector<int64_t> head(static_cast<size_t>(1) << kHashLog, -1);
+  std::vector<int64_t> prev(kWindow, -1);
+  int64_t ip = 0, anchor = 0, entered = 0;
+  while (ip <= last) {
+    for (; entered < ip; ++entered) {
+      uint32_t h = hash4(src + entered);
+      prev[entered & (kWindow - 1)] = head[h];
+      head[h] = entered;
+    }
+    int64_t best = 0, from = -1;
+    int64_t cand = head[hash4(src + ip)];
+    for (int d = 0; d < depth && cand >= 0 && ip - cand <= max_offset; ++d) {
+      if (std::memcmp(src + cand, src + ip, 4) == 0) {
+        int64_t len = 4;
+        while (ip + len < limit && src[cand + len] == src[ip + len]) len++;
+        if (len > best) {
+          best = len;
+          from = cand;
+        }
+      }
+      int64_t next = prev[cand & (kWindow - 1)];
+      if (next >= cand) break;  // a slot a later position took over
+      cand = next;
+    }
+    if (best == 0) {
+      ip += 1;
+      continue;
+    }
+    while (ip > anchor && from > 0 && src[ip - 1] == src[from - 1]) {
+      ip -= 1;
+      from -= 1;
+      best += 1;
+    }
+    emit(src + anchor, ip - anchor, ip - from, best);
+    ip += best;
+    anchor = ip;
+  }
+  emit(src + anchor, n - anchor, 0, 0);
+}
+
+// An LZ4 sequence: a token, literals, then (where len > 0) a 2-byte
+// offset and the match length past its token's 15.
+void lz4_sequence(Out& out, const uint8_t* lits, int64_t lit, int64_t offset,
+                  int64_t len) {
+  int64_t ml = len > 0 ? len - 4 : 0;
+  out.byte(static_cast<uint8_t>((lit < 15 ? lit : 15) << 4 | (ml < 15 ? ml : 15)));
+  if (lit >= 15) out.run255(lit - 15);
+  out.copy(lits, lit);
+  if (len <= 0) return;
+  out.byte(static_cast<uint8_t>(offset));
+  out.byte(static_cast<uint8_t>(offset >> 8));
+  if (ml >= 15) out.run255(ml - 15);
+}
+
+constexpr int64_t kBlosclzNear = 8191;  // distances below are 13-bit
+constexpr int64_t kBlosclzMaxOffset = 65535 + kBlosclzNear + 1;
+
+// blosclz: literal runs of at most 32 bytes (control byte run - 1); a
+// match is a control byte of (length - 2, at most 7) << 5 and the
+// distance's top 5 bits, length bytes past 7 - 2 + 3, then the distance's
+// low byte, or 255 and a 16-bit far distance.
+void blosclz_sequence(Out& out, const uint8_t* lits, int64_t lit,
+                      int64_t offset, int64_t len) {
+  while (lit > 0) {
+    int64_t run = lit < 32 ? lit : 32;
+    out.byte(static_cast<uint8_t>(run - 1));
+    out.copy(lits, run);
+    lits += run;
+    lit -= run;
+  }
+  if (len <= 0) return;
+  int64_t m = len - 3, distance = offset - 1;
+  uint8_t code = static_cast<uint8_t>((m < 6 ? m : 6) + 1) << 5;
+  bool near = distance < kBlosclzNear;
+  out.byte(code | static_cast<uint8_t>(near ? distance >> 8 : 31));
+  if (m >= 6) out.run255(m - 6);
+  if (near) {
+    out.byte(static_cast<uint8_t>(distance));
+  } else {
+    int64_t far = distance - kBlosclzNear;
+    out.byte(255);
+    out.byte(static_cast<uint8_t>(far >> 8));
+    out.byte(static_cast<uint8_t>(far));
+  }
+}
+
+// snappy: a literal's tag holds its length - 1 below 60, else 60-63 for
+// 1-4 little-endian length bytes; a copy is split into parts of at most
+// 64 bytes (the last at least 4), each with a 1- or 2-byte offset.
+void snappy_copy(Out& out, int64_t offset, int64_t len) {
+  if (len < 12 && offset < 2048) {
+    out.byte(static_cast<uint8_t>(1 | (len - 4) << 2 | (offset >> 8) << 5));
+    out.byte(static_cast<uint8_t>(offset));
+  } else {
+    out.byte(static_cast<uint8_t>(2 | (len - 1) << 2));
+    out.byte(static_cast<uint8_t>(offset));
+    out.byte(static_cast<uint8_t>(offset >> 8));
+  }
+}
+
+void snappy_sequence(Out& out, const uint8_t* lits, int64_t lit,
+                     int64_t offset, int64_t len) {
+  if (lit > 0) {
+    int64_t n = lit - 1;
+    if (n < 60) {
+      out.byte(static_cast<uint8_t>(n << 2));
+    } else {
+      int bytes = n < (1 << 8) ? 1 : n < (1 << 16) ? 2 : n < (1 << 24) ? 3 : 4;
+      out.byte(static_cast<uint8_t>((59 + bytes) << 2));
+      for (int i = 0; i < bytes; ++i) out.byte(static_cast<uint8_t>(n >> (8 * i)));
+    }
+    out.copy(lits, lit);
+  }
+  while (len >= 68) {
+    snappy_copy(out, offset, 64);
+    len -= 64;
+  }
+  if (len > 64) {
+    snappy_copy(out, offset, 60);
+    len -= 60;
+  }
+  if (len > 0) snappy_copy(out, offset, len);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One LZ4 block of src[0..n) into dst[0..cap); returns its size, or
+// kOutputFull where it does not fit.
+int64_t cf_lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  Out out{dst, cap};
+  greedy_matches(src, n, 65535, n - 12, n - 5,
+                 [&](const uint8_t* lits, int64_t lit, int64_t offset, int64_t len) {
+                   lz4_sequence(out, lits, lit, offset, len);
+                 });
   return out.full ? kOutputFull : out.pos;
 }
 
+// One LZ4 block of src[0..n) as LZ4 HC finds its matches (chain_matches,
+// `depth` candidates a position), as cf_lz4_compress.
+int64_t cf_lz4hc_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                          int depth) {
+  Out out{dst, cap};
+  chain_matches(src, n, 65535, n - 12, n - 5, depth,
+                [&](const uint8_t* lits, int64_t lit, int64_t offset, int64_t len) {
+                  lz4_sequence(out, lits, lit, offset, len);
+                });
+  return out.full ? kOutputFull : out.pos;
+}
+
+// One blosclz stream of src[0..n), n > 0, as cf_lz4_compress.
+int64_t cf_blosclz_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  Out out{dst, cap};
+  greedy_matches(src, n, kBlosclzMaxOffset, n - 12, n - 5,
+                 [&](const uint8_t* lits, int64_t lit, int64_t offset, int64_t len) {
+                   blosclz_sequence(out, lits, lit, offset, len);
+                 });
+  return out.full ? kOutputFull : out.pos;
+}
+
+// One snappy stream of src[0..n), as cf_lz4_compress.
+int64_t cf_snappy_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  Out out{dst, cap};
+  for (uint64_t length = static_cast<uint64_t>(n);; length >>= 7) {
+    if (length < 0x80) {
+      out.byte(static_cast<uint8_t>(length));
+      break;
+    }
+    out.byte(static_cast<uint8_t>(length | 0x80));
+  }
+  greedy_matches(src, n, 65535, n - 4, n,
+                 [&](const uint8_t* lits, int64_t lit, int64_t offset, int64_t len) {
+                   snappy_sequence(out, lits, lit, offset, len);
+                 });
+  return out.full ? kOutputFull : out.pos;
+}
+
+// src[0..nbytes) bit-shuffled by `typesize` into dst: row (b, k) holds
+// bit k of byte b of every element, 8 elements a byte.
+void cf_bitshuffle(const uint8_t* src, uint8_t* dst, int64_t typesize,
+                   int64_t nbytes) {
+  int64_t count = nbytes / typesize;
+  if (count % 8 != 0) {
+    std::memcpy(dst, src, nbytes);
+    return;
+  }
+  int64_t row = count / 8;
+  for (int64_t m = 0; m < row; ++m) {
+    for (int64_t b = 0; b < typesize; ++b) {
+      uint64_t x = 0;
+      for (int j = 0; j < 8; ++j) {
+        x |= static_cast<uint64_t>(src[(m * 8 + j) * typesize + b]) << (8 * j);
+      }
+      x = transpose8(x);
+      for (int k = 0; k < 8; ++k) {
+        dst[(b * 8 + k) * row + m] = static_cast<uint8_t>(x >> (8 * k));
+      }
+    }
+  }
+  int64_t done = count * typesize;
+  std::memcpy(dst + done, src + done, nbytes - done);
+}
 
 // The nbytes of a blosc frame, or a negative code.
 int64_t cf_blosc_nbytes(const uint8_t* src, int64_t n) {

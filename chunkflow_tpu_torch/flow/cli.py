@@ -1130,20 +1130,42 @@ def _save_zarr_options(p):
 
 
 def _save_zarr(args, state) -> Stage:
-    """Write the chunk into a zyx zarr v2 array at its voxel offset,
-    creating it (zlib, the chunk's dtype; bfloat16 as float32) when the
-    store does not exist."""
+    """Write the chunk into a zyx zarr v2 array at its voxel offset. A
+    store that does not exist is created as the JAX stage's tensorstore
+    creates it (``ZarrArray.create``): the chunk's dtype, ``bfloat16``
+    too. A bfloat16 chunk goes into an existing store as tensorstore
+    writes it: as it is into a ``bfloat16`` store, widened to float32
+    into one that float32 casts into safely, and ``TypeError`` for any
+    other. ``--dtype`` takes ``bfloat16`` or a name numpy knows: an
+    unknown name raises numpy's ``TypeError``, as in the JAX stage, and a
+    dtype numpy knows but not as a number (ml_dtypes' ``int4`` and float8
+    types, where a library has registered them) ``NotImplementedError``."""
+    import torch
+
     from chunkflow_tpu_torch.chunk.base import as_native_dtype
     from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    if args.dtype is None or args.dtype == "bfloat16":
+        convert = None if args.dtype is None else torch.bfloat16
+    elif np.dtype(args.dtype).kind in "biufc":
+        convert = np.dtype(args.dtype)
+    else:
+        raise NotImplementedError(
+            f"save-zarr --dtype {args.dtype}: the port holds numpy dtypes "
+            f"and bfloat16 (ROADMAP.md, smaller deviations: zarr dtypes)")
 
     @write_operator
     def stage(task):
         chunk = task[args.input_chunk_name]
-        if args.dtype is not None:
-            chunk = chunk.astype(np.dtype(args.dtype))
+        if convert is not None:
+            chunk = chunk.astype(convert)
         if args.resolution is not None:
             chunk = chunk.with_voxel_size(args.resolution)
-        arr = as_native_dtype(chunk.array)
+        arr = chunk.array
+        bfloat16 = (isinstance(arr, torch.Tensor)
+                    and arr.dtype == torch.bfloat16)
+        if not bfloat16:
+            arr = as_native_dtype(arr)
         try:
             store = ZarrArray(args.store_path)
         except FileNotFoundError:
@@ -1152,8 +1174,18 @@ def _save_zarr(args, state) -> Stage:
             size = (tuple(args.volume_size)
                     if args.volume_size and any(args.volume_size)
                     else tuple(int(s) for s in chunk.bbox.stop))
-            store = ZarrArray.create(args.store_path, size, arr.dtype,
+            store = ZarrArray.create(args.store_path, size,
+                                     "bfloat16" if bfloat16 else arr.dtype,
                                      chunks=args.chunk_size)
+        if bfloat16 and not store.bfloat16:
+            # numpy's "safe" rule, which tensorstore applies: bfloat16
+            # goes where float32 goes
+            if not np.can_cast(np.float32, store.dtype, "safe"):
+                raise TypeError(
+                    f"save-zarr: a bfloat16 chunk does not cast safely "
+                    f"into the {store.dtype} store {args.store_path}, as "
+                    f"tensorstore refuses it")
+            arr = as_native_dtype(arr)  # widened exactly to float32
         store.write(chunk.bbox.slices, arr)
         return task
 

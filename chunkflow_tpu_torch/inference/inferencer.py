@@ -70,7 +70,7 @@ from chunkflow_tpu_torch.core.contracts import Spec, contract
 from chunkflow_tpu_torch.core.device import resolve_device
 from chunkflow_tpu_torch.core.dtypes import numpy_dtype
 from chunkflow_tpu_torch.inference import engines
-from chunkflow_tpu_torch.inference.bump import bump_map
+from chunkflow_tpu_torch.inference.bump import bump_const
 from chunkflow_tpu_torch.inference.patching import enumerate_patches, pad_to_batch
 from chunkflow_tpu_torch.inference.precision import (
     resolve_precision,
@@ -249,7 +249,7 @@ class Inferencer:
                                  self.engine.params, self.engine.call)
         self._device_forwards: dict = {}
         pout = tuple(self.output_patch_size)
-        self._bump = torch.tensor(bump_map(pout), device=self.device)
+        self._bump = bump_const(pout, self.device)
         self._local_blend = build_local_blend(
             self._forward,
             num_input_channels,

@@ -78,6 +78,38 @@ def state_from_flax(params) -> Dict[str, torch.Tensor]:
     }
 
 
+def flax_from_state(state) -> Dict:
+    """The flax param tree of the JAX package's model of the same family
+    and widths whose :func:`state_from_flax` is ``state`` (the port
+    model's state dict): a map per module, in the state dict's order,
+    which is the JAX model's init order; ``kernel`` (Conv3d and, flipped,
+    ConvTranspose3d weights back in flax's ``[kz, ky, kx, I, O]``) or
+    ``scale`` (a 1-D weight), then ``bias``. Leaves are numpy arrays of
+    the tensors' dtypes (``bfloat16`` stays a tensor)."""
+    tree: Dict = {}
+    for key, value in state.items():
+        *module, leaf = key.split(".")
+        value = value.detach().cpu()
+        if leaf == "weight" and value.ndim == 5:
+            value = (value.permute(2, 3, 4, 0, 1).flip((0, 1, 2))
+                     if module[-1].startswith("up")
+                     else value.permute(2, 3, 4, 1, 0))
+            name = "kernel"
+        elif leaf == "weight" and value.ndim == 1:
+            name = "scale"
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise ValueError(f"{key}: no flax leaf for a {tuple(value.shape)}"
+                             f" {leaf}")
+        node = tree
+        for part in module:
+            node = node.setdefault(part, {})
+        value = value.contiguous()
+        node[name] = value if value.dtype == torch.bfloat16 else value.numpy()
+    return tree
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A ``.pt``/``.pth`` state dict on the CPU; a ``{"state_dict": ...}``
     wrapper and DataParallel ``module.`` prefixes are taken off."""

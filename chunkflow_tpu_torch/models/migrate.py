@@ -73,3 +73,33 @@ def load_reference_model(module, weight_path: Optional[str],
     model.load_state_dict(state_from_torch_by_name(state,
                                                    model.state_dict()))
     return model
+
+
+def load_torch_module(path: str):
+    """The JAX package's name for :func:`load_user_module`: a user
+    ``model.py`` executed as the module ``chunkflow_user_torch_model``."""
+    return load_user_module(path, "chunkflow_user_torch_model")
+
+
+def flax_params_from_reference_model(model_py: str, weight_path: str,
+                                     model: nn.Module, input_patch_size=None,
+                                     num_input_channels: int = 1,
+                                     name_map=None, module=None) -> Dict:
+    """A reference ``model.py`` and checkpoint as the flax param tree of
+    the JAX package's mirror of ``model`` (the port's mirror, whose
+    weights this loads by name, BatchNorm folded): the tree the JAX
+    function of this name gives, bitwise, as numpy arrays. The port's
+    template is ``model``'s own state dict, so ``input_patch_size`` and
+    ``num_input_channels`` are not needed; ``module`` is the executed
+    ``model.py`` where it already ran. ``name_map`` raises
+    ``NotImplementedError``: the port pairs by the names alone."""
+    from chunkflow_tpu_torch.models.convert import flax_from_state
+
+    if name_map:
+        raise NotImplementedError(
+            "name_map: the port pairs a reference model's weights by their "
+            "own names (ROADMAP.md, smaller deviations: migrate name_map)")
+    if module is None:
+        module = load_torch_module(model_py)
+    load_reference_model(module, weight_path, model)
+    return flax_from_state(model.state_dict())

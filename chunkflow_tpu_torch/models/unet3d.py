@@ -360,3 +360,18 @@ def create_tpu_optimized_model(
         s2d_factor=s2d_factor,
         conv_impl=conv_impl,
     )
+
+
+def save_params(weights, path: str) -> str:
+    """Write a port model's weights (the model or its state dict, UNet3D
+    of any variant or RSUNet) as the JAX package's ``save_params`` writes
+    its params: ``flax.serialization.to_bytes`` of the flax tree that
+    ``models/convert.py:state_from_flax`` inverts
+    (:func:`~chunkflow_tpu_torch.models.convert.flax_from_state`), so a
+    JAX worker's ``init_or_load_params`` loads them. Returns ``path``."""
+    from chunkflow_tpu_torch.models import flax_msgpack
+    from chunkflow_tpu_torch.models.convert import flax_from_state
+
+    state = weights.state_dict() if isinstance(weights, nn.Module) \
+        else weights
+    return flax_msgpack.dump(flax_from_state(state), path)

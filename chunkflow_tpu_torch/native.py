@@ -88,9 +88,15 @@ def load() -> ctypes.CDLL:
     lib.cf_blosc_decompress.restype = i64
     lib.cf_blosc_decompress.argtypes = [ctypes.c_char_p, i64,
                                         ctypes.c_void_p, i64, _INFLATE]
-    lib.cf_lz4_compress.restype = i64
-    lib.cf_lz4_compress.argtypes = [ctypes.c_char_p, i64, ctypes.c_void_p,
-                                    i64]
+    for fn in (lib.cf_lz4_compress, lib.cf_blosclz_compress,
+               lib.cf_snappy_compress):
+        fn.restype = i64
+        fn.argtypes = [ctypes.c_char_p, i64, ctypes.c_void_p, i64]
+    lib.cf_lz4hc_compress.restype = i64
+    lib.cf_lz4hc_compress.argtypes = [ctypes.c_char_p, i64, ctypes.c_void_p,
+                                      i64, ctypes.c_int]
+    lib.cf_bitshuffle.restype = None
+    lib.cf_bitshuffle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, i64, i64]
     for fn in (lib.cf_zstd_error, lib.cf_blosc_error):
         fn.restype = ctypes.c_char_p
         fn.argtypes = [i64]
@@ -428,16 +434,49 @@ def blosc_decompress(data: bytes, expect: Optional[int] = None) -> bytes:
     return out.tobytes()
 
 
+def _stream(fn, name: str, data: bytes, cap: int) -> bytes:
+    out = np.empty(cap, dtype=np.uint8)
+    n = fn(data, len(data), out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"{name}: {load().cf_blosc_error(n).decode()}")
+    return out[:n].tobytes()
+
+
 def lz4_compress(data: bytes) -> bytes:
     """``data`` as one LZ4 block."""
-    lib = load()
     # the LZ4 block format's bound on its output
-    cap = len(data) + len(data) // 255 + 16
-    out = np.empty(cap, dtype=np.uint8)
-    n = lib.cf_lz4_compress(data, len(data), out.ctypes.data, cap)
-    if n < 0:
-        raise ValueError(f"lz4: {lib.cf_blosc_error(n).decode()}")
-    return out[:n].tobytes()
+    return _stream(load().cf_lz4_compress, "lz4", data,
+                   len(data) + len(data) // 255 + 16)
+
+
+def lz4hc_compress(data: bytes, depth: int) -> bytes:
+    """``data`` as one LZ4 block, each match the longest of ``depth``
+    candidates (LZ4 HC's search)."""
+    lib = load()
+    return _stream(lambda *a: lib.cf_lz4hc_compress(*a, int(depth)),
+                   "lz4hc", data, len(data) + len(data) // 255 + 16)
+
+
+def blosclz_compress(data: bytes) -> bytes:
+    """``data`` (not empty) as one blosclz stream."""
+    # a control byte for every 32 literals
+    return _stream(load().cf_blosclz_compress, "blosclz", data,
+                   len(data) + len(data) // 32 + 16)
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """``data`` as one snappy stream."""
+    # snappy's own bound: a tag per 60 literals, the varint length
+    return _stream(load().cf_snappy_compress, "snappy", data,
+                   len(data) + len(data) // 6 + 32)
+
+
+def bitshuffle(data: bytes, typesize: int) -> bytes:
+    """One blosc block bit-shuffled by ``typesize``; a block of a count of
+    elements that is not a multiple of 8 comes back as it is."""
+    out = np.empty(len(data), dtype=np.uint8)
+    load().cf_bitshuffle(data, out.ctypes.data, int(typesize), len(data))
+    return out.tobytes()
 
 
 def clahe(sections: np.ndarray, clip_limit: float, tile_size: int,

@@ -89,7 +89,7 @@ import torch
 
 from chunkflow_tpu_torch.core import profiling, telemetry
 from chunkflow_tpu_torch.core.device import resolve_device
-from chunkflow_tpu_torch.inference.bump import bump_map
+from chunkflow_tpu_torch.inference.bump import bump_const
 from chunkflow_tpu_torch.inference.patching import (
     PatchGrid,
     enumerate_patches,
@@ -757,8 +757,7 @@ class ShardedEngine:
     def _bump(self, device: torch.device) -> torch.Tensor:
         bump = self._bumps.get(device)
         if bump is None:
-            bump = torch.tensor(bump_map(self.output_patch_size),
-                                device=device)
+            bump = bump_const(self.output_patch_size, device)
             self._bumps[device] = bump
         return bump
 

@@ -70,46 +70,56 @@ def _refused(what: str):
                      f"too")
 
 
+def parse_kvstore(kvstore):
+    """The JAX plugin's spelling: ``scheme://path`` as the tensorstore
+    kvstore spec ``{"driver": scheme, "path": path}`` (``://path`` as a
+    ``file`` one); anything else as it is."""
+    if isinstance(kvstore, str) and "://" in kvstore:
+        driver, path = kvstore.split("://", 1)
+        return {"driver": driver or "file", "path": path}
+    return kvstore
+
+
 def open_kvstore(kvstore) -> Tuple[Optional[KVBackend], str]:
     """A kvstore (shorthand or spec) as ``(None, the port's volume-root
     URL)``, or as ``(KV plane, key prefix in it)`` where a URL does not
     name it."""
-    if isinstance(kvstore, str):
-        if "://" not in kvstore:
-            return None, kvstore
-        scheme, path = kvstore.split("://", 1)
-        if scheme in ("", "file"):
-            return None, path
-        if scheme in ("gs", "s3"):
-            return None, f"{scheme}://{path}"
-        _refused(_MEMORY if scheme == "memory" else
-                 f"the {scheme}:// kvstore shorthand (a {scheme} kvstore "
-                 f"is a spec with its own members)")
-    if not isinstance(kvstore, dict):
+    spec = parse_kvstore(kvstore)
+    if isinstance(spec, str):
+        return None, spec
+    if not isinstance(spec, dict):
         _refused(f"the kvstore {kvstore!r}")
-    driver = kvstore.get("driver")
-    path = kvstore.get("path", "")
+    driver = spec.get("driver")
+    path = spec.get("path", "")
+    if isinstance(kvstore, str):  # the scheme://path shorthand
+        if driver == "file":
+            return None, path
+        if driver in ("gs", "s3"):
+            return None, f"{driver}://{path}"
+        _refused(_MEMORY if driver == "memory" else
+                 f"the {driver}:// kvstore shorthand (a {driver} kvstore "
+                 f"is a spec with its own members)")
     if driver == "file":
         return None, path
     if driver in ("gcs", "s3"):
-        if not kvstore.get("bucket"):
+        if not spec.get("bucket"):
             _refused(f"a {driver} kvstore without its bucket")
         scheme = "gs" if driver == "gcs" else "s3"
-        return None, f"{scheme}://{kvstore['bucket']}/{path}"
+        return None, f"{scheme}://{spec['bucket']}/{path}"
     if driver == "ocdbt":
         from chunkflow_tpu_torch.volume.ocdbt import OcdbtKV
 
-        return OcdbtKV(_kv_root(_base(kvstore))), path
+        return OcdbtKV(_kv_root(_base(spec))), path
     if driver == "http":
         from chunkflow_tpu_torch.volume.kvstores import HttpKV
 
-        if not kvstore.get("base_url"):
+        if not spec.get("base_url"):
             _refused("an http kvstore without its base_url")
-        return HttpKV(kvstore["base_url"]), path
+        return HttpKV(spec["base_url"]), path
     if driver == "zip":
         from chunkflow_tpu_torch.volume.kvstores import ZipKV
 
-        kv, key = _kv_key(_base(kvstore))
+        kv, key = _kv_key(_base(spec))
         return ZipKV(kv, key), path
     _refused(_MEMORY if driver == "memory" else f"the {driver} kvstore")
 

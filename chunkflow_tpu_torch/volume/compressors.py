@@ -27,14 +27,13 @@ index, then only the inner chunks a read overlaps
 ``read_suffix``). A missing shard or inner chunk reads as the fill value;
 a ``crc32c`` that does not match raises ``ValueError``.
 
-A store the port creates writes zlib. A write into an existing store
-writes its compressor at its level: zstd frames into a zstd store
-(``zstd.compress``), and into a blosc store (tensorstore's default, so
-every store the JAX ``save-zarr`` creates) blosc frames byte-shuffled by
-the dtype's size, of the store's cname's codec: LZ4 for ``lz4`` and
-``lz4hc`` (tensorstore's default), zstd for ``zstd``, zlib for ``zlib``
-and, as the port encodes neither, for ``blosclz`` and ``snappy``
-(``blosc.compress``). A compressor id, codec or blosc cname that
+A store the port creates is the one tensorstore creates: blosc, cname
+``lz4``, clevel 5, shuffle -1 (``volume/zarr.py``). A write into an
+existing store writes its compressor at its level: zstd frames into a
+zstd store (``zstd.compress``), and into a blosc store blosc frames
+shuffled as the store's ``shuffle`` says, in the codec of its cname: LZ4
+for ``lz4`` (found by LZ4 HC's hash chains for ``lz4hc``), blosclz,
+snappy, zlib or zstd for the others (``blosc.compress``). A compressor id, codec, blosc cname or shuffle that
 tensorstore does not register raises ``ValueError``, as tensorstore
 does.
 """
@@ -70,12 +69,13 @@ def refused(path: str, what: str):
 class Compressor:
     """One compressor: ``decode(data, size)`` gives the ``size`` bytes of a
     chunk (``size`` None: as many as the data holds), ``encode(data)`` the
-    bytes to store (a blosc one in the codec of its ``cname``)."""
+    bytes to store (a blosc one in the codec of its ``cname``, shuffled as
+    its ``shuffle`` says)."""
 
     def __init__(self, name: str, level: int = 1, typesize: int = 1,
-                 path: str = "", cname: str = "zlib"):
+                 path: str = "", cname: str = "zlib", shuffle=1):
         self.name, self.level, self.typesize = name, int(level), typesize
-        self.path, self.cname = path, cname
+        self.path, self.cname, self.shuffle = path, cname, shuffle
 
     def decode(self, data: bytes, size: Optional[int] = None) -> bytes:
         if self.name == "raw":
@@ -105,7 +105,8 @@ class Compressor:
                                  preset=self.level)
         if self.name == "zstd":
             return zstd.compress(data, self.level)
-        return blosc.compress(data, self.typesize, self.level, self.cname)
+        return blosc.compress(data, self.typesize, self.level, self.cname,
+                              self.shuffle)
 
 
 class Crc32c:
@@ -137,8 +138,13 @@ def _blosc(path: str, config: dict, typesize: int) -> Compressor:
     cname = config.get("cname")
     if cname not in blosc.CNAMES:
         refused(path, f"the blosc cname {cname!r}")
+    shuffle = config.get("shuffle", 1)
+    try:
+        blosc.shuffle_flags(shuffle, typesize)
+    except blosc.BloscError:
+        refused(path, f"the blosc shuffle {shuffle!r}")
     return Compressor("blosc", config.get("clevel", 5), typesize, path,
-                      cname)
+                      cname, shuffle)
 
 
 def from_zarr(path: str, compressor: Optional[dict],

@@ -43,7 +43,7 @@ from chunkflow_tpu_torch.chunk.base import (
     as_native_dtype,
     layer_type_from_precomputed,
 )
-from chunkflow_tpu_torch.core.bbox import BoundingBox
+from chunkflow_tpu_torch.core.bbox import BoundingBox, PhysicalBoundingBox
 from chunkflow_tpu_torch.core.cartesian import Cartesian, to_cartesian
 from chunkflow_tpu_torch.volume.codecs import make_codec
 from chunkflow_tpu_torch.volume.sharding import ShardedChunks, ShardingSpec
@@ -287,6 +287,49 @@ class PrecomputedVolume:
             for mip in range(num_mips):
                 cache.invalidate_token(f"{path}|mip{mip}")
         return vol
+
+    # ---- the reference's spellings (its volume.py:74-137) ---------------
+    @property
+    def bounding_box(self) -> BoundingBox:
+        """:meth:`bounds` at mip 0."""
+        return self.bounds(0)
+
+    @property
+    def bbox(self) -> BoundingBox:
+        return self.bounding_box
+
+    @property
+    def start(self) -> Cartesian:
+        return self.voxel_offset(0)
+
+    @property
+    def stop(self) -> Cartesian:
+        return self.bounds(0).stop
+
+    @property
+    def shape(self) -> tuple:
+        """(c, z, y, x) at mip 0, the channels first as the reference's."""
+        return (self.num_channels,) + tuple(self.volume_size(0))
+
+    @property
+    def block_bounding_boxes(self) -> List[BoundingBox]:
+        """The storage blocks' boxes at mip 0, those at the far edges
+        clipped to the volume."""
+        return self.bounds(0).decompose_to_unaligned_block_bounding_boxes(
+            self.block_size(0))
+
+    @property
+    def physical_bounding_box(self) -> PhysicalBoundingBox:
+        box = self.bounds(0)
+        return PhysicalBoundingBox(box.start, box.stop, self.voxel_size(0))
+
+    @classmethod
+    def from_numpy(cls, arr, vol_path: str,
+                   **kwargs) -> "PrecomputedVolume":
+        """A volume holding the zyx (or czyx) array ``arr`` at the origin
+        (the reference's ``CloudVolume.from_numpy``): :meth:`from_chunk`
+        of ``Chunk(arr)``."""
+        return cls.from_chunk(Chunk(arr), vol_path, **kwargs)
 
     @classmethod
     def from_chunk(cls, chunk: Chunk, path: str,

@@ -239,6 +239,10 @@ class GatherFuture:
             raise first
         return None
 
+    def done(self) -> bool:
+        """Whether every member (that can say) is done."""
+        return all(f.done() for f in self._futures if hasattr(f, "done"))
+
     @property
     def copy(self) -> "GatherFuture":
         return GatherFuture([getattr(f, "copy", f) for f in self._futures])
@@ -594,6 +598,13 @@ def open_backend_cached(key: str, opener) -> StorageBackend:
         with _BACKEND_LOCK:
             backend = _OPEN_BACKENDS.setdefault(key, opened)
     return backend
+
+
+def reset_open_backends() -> None:
+    """Forget the backends :func:`open_backend_cached` opened (a test
+    that rewrites a store in place)."""
+    with _BACKEND_LOCK:
+        _OPEN_BACKENDS.clear()
 
 
 def split_url(path: str) -> Tuple[str, str, str]:

@@ -12,12 +12,16 @@ inside an OCDBT store, ``volume/ocdbt.py``):
   values in that order), ``dimension_separator`` "." (tensorstore's
   default) or "/", every chunk file a full chunk, compressed by any
   compressor of ``volume/compressors.py`` (raw, zlib, gzip, bz2, zstd,
-  blosc; tensorstore's own default is blosc). ``filters`` are refused,
-  as tensorstore refuses them. A store the port creates writes zlib. The dtype ``bfloat16``, which numpy lacks, is
-  known here only: :meth:`ChunkedArray.read` gives its uint16 bits,
-  :meth:`ChunkedArray.read_values` a ``torch.bfloat16`` tensor, and :meth:`ZarrArray.write` rounds what
-  it is given to the nearest bfloat16 (ties to even), as tensorstore
-  converts.
+  blosc). ``filters`` are refused, as tensorstore refuses them. A store
+  the port creates (:meth:`ZarrArray.create`) has the ``.zarray``
+  tensorstore 0.1.80 writes for the same dtype and shape: blosc ``lz4``
+  at clevel 5 with shuffle -1, a null fill value, C order, "." keys and
+  tensorstore's chunk grid (:func:`default_chunks`). The dtype
+  ``bfloat16``, which numpy lacks, is known here only:
+  :meth:`ChunkedArray.read` gives its uint16 bits,
+  :meth:`ChunkedArray.read_values` a ``torch.bfloat16`` tensor, and
+  :meth:`ZarrArray.write` rounds what it is given to the nearest
+  bfloat16 (ties to even), as tensorstore converts.
 - zarr v3: ``zarr.json``, a regular chunk grid, the ``default`` ("c/0/0")
   or ``v2`` chunk key encoding, and the codec pipeline of
   ``compressors.Zarr3Codecs``: ``transpose``, then ``bytes`` (either
@@ -56,8 +60,32 @@ from chunkflow_tpu_torch.volume.storage import (
     open_kv,
 )
 
-DEFAULT_CHUNK = 128
+#: the elements of a chunk tensorstore aims at where no chunks are given
+CHUNK_ELEMENTS = 1 << 20
+#: the compressor of a store the port creates: tensorstore's default
+DEFAULT_COMPRESSOR = {"blocksize": 0, "clevel": 5, "cname": "lz4",
+                      "id": "blosc", "shuffle": -1}
 _refused = compressors.refused
+
+
+def default_chunks(shape: Sequence[int]) -> Tuple[int, ...]:
+    """tensorstore's chunk grid for a new zarr array of ``shape`` with no
+    chunks given, whatever the dtype: the largest edge ``c`` such that a
+    chunk of ``min(c, s)`` along each dimension ``s`` (at least 1) holds
+    at most :data:`CHUNK_ELEMENTS` elements."""
+    extents = [max(1, int(s)) for s in shape]
+
+    def elements(edge: int) -> int:
+        return int(np.prod([min(edge, e) for e in extents], dtype=object))
+
+    lo, hi = 1, max(extents, default=1)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if elements(mid) <= CHUNK_ELEMENTS:
+            lo = mid
+        else:
+            hi = mid - 1
+    return tuple(min(lo, e) for e in extents)
 
 
 def _fill(value, dtype: np.dtype):
@@ -225,20 +253,25 @@ class ZarrArray(ChunkedArray):
 
     @classmethod
     def create(cls, path: str, shape: Sequence[int], dtype,
-               chunks: Optional[Sequence[int]] = None,
-               level: int = 1) -> "ZarrArray":
-        """A new zlib-compressed array of zeros (fill value 0)."""
+               chunks: Optional[Sequence[int]] = None) -> "ZarrArray":
+        """A new array whose chunks all read as zeros, with the
+        ``.zarray`` that tensorstore 0.1.80 writes for ``dtype`` (a numpy
+        dtype or ``"bfloat16"``) and ``shape``: ``chunks`` where given,
+        else :func:`default_chunks`, and :data:`DEFAULT_COMPRESSOR`; its
+        JSON keys sorted and compact, as tensorstore writes them."""
         shape = tuple(int(s) for s in shape)
         if chunks is None:
-            chunks = tuple(min(s, DEFAULT_CHUNK) for s in shape)
+            chunks = default_chunks(shape)
+        name = "bfloat16" if str(dtype) == "bfloat16" else np.dtype(dtype).str
         meta = {
-            "zarr_format": 2, "shape": list(shape),
             "chunks": [int(c) for c in chunks],
-            "dtype": np.dtype(dtype).str, "order": "C",
-            "compressor": {"id": "zlib", "level": int(level)},
-            "fill_value": 0, "filters": None, "dimension_separator": ".",
+            "compressor": dict(DEFAULT_COMPRESSOR),
+            "dimension_separator": ".", "dtype": name, "fill_value": None,
+            "filters": None, "order": "C", "shape": list(shape),
+            "zarr_format": 2,
         }
-        open_kv(path).write_bytes(".zarray", json.dumps(meta).encode())
+        open_kv(path).write_bytes(".zarray", json.dumps(
+            meta, sort_keys=True, separators=(",", ":")).encode())
         return cls(path)
 
     def _key(self, index: Tuple[int, ...]) -> str:

@@ -473,6 +473,43 @@ def test_file_round_trip_of_a_card_chunk(cuda, tmp_path, fmt):
     assert tuple(got.voxel_size) == (40, 4, 4)
 
 
+@pytest.mark.parametrize("store_dtype", ["bfloat16", "float32", "uint8"])
+def test_bfloat16_inference_output_into_an_existing_store(cuda, tmp_path,
+                                                          store_dtype):
+    """A bfloat16 inference output on the card, saved through the CLI's
+    stage into a zyx store made before: as it is into a ``bfloat16``
+    store, widened to float32 into a float32 one, and ``TypeError`` into
+    a uint8 one, as tensorstore writes it."""
+    from chunkflow_tpu_torch.flow import cli
+    from chunkflow_tpu_torch.flow.runtime import new_task
+    from chunkflow_tpu_torch.volume.zarr import ZarrArray
+
+    chunk = Chunk.create(size=(6, 48, 48), dtype=np.uint8, pattern="random")
+    out = Inferencer(input_patch_size=(4, 32, 32),
+                     output_patch_overlap=(2, 16, 16), num_output_channels=1,
+                     framework="pytorch", model_variant="parity",
+                     dtype="bfloat16", output_dtype="bfloat16",
+                     batch_size=2)(chunk)
+    assert out.array.is_cuda and out.array.dtype == torch.bfloat16
+    task = new_task()
+    task["chunk"] = Chunk(out.array[0], voxel_offset=(0, 0, 0))
+    path = str(tmp_path / "z")
+    ZarrArray.create(path, tuple(out.array.shape[1:]), store_dtype)
+    save = cli.build_stages(["save-zarr", "-p", path])[1][0]
+    if store_dtype == "uint8":
+        with pytest.raises(TypeError):
+            list(save(iter([task])))
+        return
+    list(save(iter([task])))
+    got = ZarrArray(path).read_values()
+    want = out.array[0].cpu()
+    if store_dtype == "bfloat16":
+        assert torch.equal(got, want)
+    else:
+        assert got.dtype == np.float32
+        assert np.array_equal(got, want.float().numpy())
+
+
 # ---------------------------------------------------------------------------
 # the int8 convolution kernel and the precision ladder on the card
 # ---------------------------------------------------------------------------

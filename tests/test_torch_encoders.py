@@ -182,9 +182,8 @@ def test_a_zstd_store_the_port_writes_reads_in_tensorstore(tmp_path, level):
 
 @pytest.mark.parametrize("cname", sorted(blosc.WRITES))
 def test_a_blosc_store_gets_frames_of_its_cname(tmp_path, cname):
-    """Frames of the codec ``blosc.WRITES`` gives the cname (zlib for the
-    two the port does not encode), read by tensorstore and both
-    decoders."""
+    """Frames of the codec ``blosc.WRITES`` gives the cname (each its own
+    codec; ``lz4hc`` LZ4's), read by tensorstore and both decoders."""
     arr = _array((5, 40, 61), seed=len(cname))
     store = _ts_zarr(tmp_path, np.zeros_like(arr), {
         "id": "blosc", "cname": cname, "clevel": 5, "shuffle": 1,

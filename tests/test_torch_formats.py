@@ -358,8 +358,8 @@ def test_zarr_selection_outside_the_array_raises(tmp_path):
 
 @pytest.mark.parametrize("start", [None, (2, 3, 4)])
 def test_save_zarr_and_load_zarr_match_the_jax_cli(tmp_path, start):
-    """The port creates the store; the JAX ``save-zarr`` writes into it
-    (tensorstore keeps its zlib codec); each package's ``load-zarr``
+    """The port creates the store, tensorstore's default blosc-lz4 one;
+    the JAX ``save-zarr`` writes into it; each package's ``load-zarr``
     reads what both wrote."""
     pytest.importorskip("tensorstore")
     arr = _arr("uint16", (5, 12, 14), seed=8)
@@ -371,7 +371,8 @@ def test_save_zarr_and_load_zarr_match_the_jax_cli(tmp_path, start):
     list(port_stage(["save-zarr", "-p", store, "--volume-size", "12", "16",
                      "20", "--chunk-size", "4", "8", "8"])(iter([port_task])))
     assert json.loads((tmp_path / "s" / ".zarray").read_text())[
-        "compressor"]["id"] == "zlib"
+        "compressor"] == {"blocksize": 0, "clevel": 5, "cname": "lz4",
+                          "id": "blosc", "shuffle": -1}
     list(jax_stage(["save-zarr", "-p", store])(iter([jax_task])))
     want = np.zeros((12, 16, 20), np.uint16)
     want[1:6, 2:14, 3:17] = arr
