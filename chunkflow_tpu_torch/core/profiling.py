@@ -32,10 +32,19 @@ no ledger, no counters, no files, no capture threads.
 2. **Roofline accounting.** :func:`catalog` scores each record against
    :data:`DEVICE_PEAKS`, keyed on the device's name:
    ``roofline_s = max(flops / peak_flops, bytes / peak_bw)`` and
-   ``roofline_util = roofline_s / exec_mean_s``. ``exec_mean_s`` is the
-   mean dispatch wall, as in the JAX package: under CUDA's asynchronous
-   launches it lies between host dispatch time and device time, so the
-   utilisation is an upper bound. The notes :func:`note_h2d`,
+   ``roofline_util = roofline_s / device_mean_s``. On a CUDA device each
+   call after the first is bracketed by a pair of timing events on the
+   current stream; finished pairs are read by ``query()`` at the next
+   call and in :func:`catalog`, never by waiting, into ``device_mean_s``
+   (``device_calls`` read, ``device_pending`` not yet finished). Where
+   no pair has been read (the CPU, or a card whose pairs are all
+   pending) the utilisation falls back to ``exec_mean_s``, the mean
+   dispatch wall, as in the JAX package: under CUDA's asynchronous
+   launches that lies between host dispatch time and device time, so the
+   utilisation is then an upper bound; ``util_basis`` says which
+   (``device`` or ``dispatch``), and ``lost_s`` and the achieved FLOP/s
+   use the same time. The dispatch wall stays as ``dispatch_total_s``
+   and ``exec_mean_s``. The notes :func:`note_h2d`,
    :func:`note_hbm_intermediate` and :func:`note_collective` add the
    staged, inter-stage and cross-device bytes per family.
 
@@ -69,12 +78,13 @@ import json
 import os
 import threading
 import time
+from collections import deque
 from typing import Optional, Tuple
 
 from chunkflow_tpu_torch.core import telemetry
 
 __all__ = [
-    "instrument_program", "cached_program", "run_program",
+    "instrument_program", "cached_program", "run_program", "EventPairs",
     "program_flops", "stamp_cost", "catalog",
     "write_catalog", "device_peaks", "DEVICE_PEAKS",
     "device_identity", "estimate_collective_split", "count_work",
@@ -289,14 +299,48 @@ class count_work:
 # ---------------------------------------------------------------------------
 # program cost ledger
 # ---------------------------------------------------------------------------
+class EventPairs:
+    """A reused pool of timing CUDA event pairs: :meth:`take` hands out a
+    pair (a new one only when none is free), :meth:`read` gives a pair's
+    device seconds and takes it back once its end has fired, else None.
+    Nothing here waits on an event. The cost ledger brackets its program
+    calls with one pool per record, the inferencer its forwards with one
+    of its own (``ops/blend.build_local_blend``)."""
+
+    def __init__(self):
+        self._free: deque = deque()
+        self._lock = threading.Lock()
+
+    def take(self) -> tuple:
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+        import torch
+
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def read(self, pair: tuple) -> Optional[float]:
+        start, end = pair
+        if not end.query():
+            return None
+        seconds = start.elapsed_time(end) / 1e3
+        with self._lock:
+            self._free.append(pair)
+        return seconds
+
+
 class _ProgramRecord:
     """One program family key's cost story. ``compile_s`` is None until
-    the program's first call."""
+    the program's first call. On a CUDA device (``events``) later calls
+    leave timing event pairs in ``pending`` until they are read into
+    ``device_s`` and ``device_calls``."""
 
     __slots__ = (
         "family", "key", "label", "build_s", "compile_s", "flops",
         "bytes_accessed", "vmem_bytes", "hbm_intermediate", "optimal_s",
         "calls", "dispatch_s", "platform", "device_kind", "device", "lock",
+        "events", "pending", "device_s", "device_calls",
     )
 
     def __init__(self, family: str, key: str, label: str, build_s: float,
@@ -317,6 +361,31 @@ class _ProgramRecord:
         self.device_kind = ""
         self.device = device
         self.lock = threading.Lock()
+        self.events = EventPairs() if _on_card(device) else None
+        self.pending: deque = deque()
+        self.device_s = 0.0
+        self.device_calls = 0
+
+    def drain_locked(self) -> None:
+        """Read the finished pairs, oldest first (caller holds the
+        lock)."""
+        while self.pending:
+            seconds = self.events.read(self.pending[0])
+            if seconds is None:
+                return
+            self.pending.popleft()
+            self.device_s += seconds
+            self.device_calls += 1
+
+
+def _on_card(device) -> bool:
+    """Whether ``device`` names a CUDA device of a process that has one."""
+    if device is None:
+        return False
+    import torch
+
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_available())
 
 
 _LEDGER_LOCK = threading.Lock()
@@ -338,12 +407,22 @@ class _InstrumentedProgram:
         rec = self._rec
         if rec.compile_s is None:
             return self._first_call(args, kwargs)
+        pair = None
+        if rec.events is not None:
+            with rec.lock:
+                rec.drain_locked()
+            pair = rec.events.take()
+            pair[0].record()
         t0 = time.perf_counter()
         out = self._fn(*args, **kwargs)
         dt = time.perf_counter() - t0
+        if pair is not None:
+            pair[1].record()
         with rec.lock:
             rec.calls += 1
             rec.dispatch_s += dt
+            if pair is not None:
+                rec.pending.append(pair)
         return out
 
     def _first_call(self, args, kwargs):
@@ -603,10 +682,12 @@ def program_flops(cache: dict, key) -> Optional[float]:
 def catalog() -> list:
     """The cost ledger with roofline derivations, one dict per program:
     compile seconds, FLOPs / bytes accessed (the analytic stamp), the
-    dispatch stats, and against :func:`device_peaks` ``roofline_s`` (the
-    cost-model floor per call) and ``roofline_util`` (floor / mean
-    dispatch wall; an upper bound under asynchronous launches, see the
-    module docstring)."""
+    dispatch stats, the device time read so far (``device_mean_s``,
+    ``device_calls``, ``device_pending``), and against
+    :func:`device_peaks` ``roofline_s`` (the cost-model floor per call)
+    and ``roofline_util`` (floor / mean device time, else floor / mean
+    dispatch wall, an upper bound under asynchronous launches:
+    ``util_basis``; see the module docstring)."""
     with _LEDGER_LOCK:
         records = list(_LEDGER.values())
     h2d = h2d_by_family()
@@ -615,6 +696,7 @@ def catalog() -> list:
     out = []
     for rec in records:
         with rec.lock:
+            rec.drain_locked()
             entry = {
                 "family": rec.family,
                 "key": rec.key,
@@ -630,12 +712,17 @@ def catalog() -> list:
                 "optimal_s": rec.optimal_s,
                 "calls": rec.calls + (1 if rec.compile_s is not None else 0),
                 "dispatch_total_s": round(rec.dispatch_s, 4),
+                "device_total_s": round(rec.device_s, 6),
+                "device_calls": rec.device_calls,
+                "device_pending": len(rec.pending),
                 "platform": rec.platform,
                 "device_kind": rec.device_kind,
             }
             calls, dispatch_s = rec.calls, rec.dispatch_s
             flops, nbytes = rec.flops, rec.bytes_accessed
             kind = rec.device_kind
+            device_mean = (rec.device_s / rec.device_calls
+                           if rec.device_calls else None)
         peaks = device_peaks(kind)
         entry["peak_flops_per_s"] = peaks["flops_per_s"]
         entry["peak_bytes_per_s"] = peaks["bytes_per_s"]
@@ -649,19 +736,26 @@ def catalog() -> list:
         entry["roofline_s"] = roofline_s
         exec_s = dispatch_s / calls if calls else None
         entry["exec_mean_s"] = round(exec_s, 6) if exec_s else None
+        entry["device_mean_s"] = (round(device_mean, 6) if device_mean
+                                  else None)
+        # the time the utilisation, the lost seconds and the achieved
+        # rate are taken on: the device's where read, else the dispatch
+        # wall's
+        basis_s = device_mean or exec_s
+        entry["util_basis"] = "device" if device_mean else "dispatch"
         entry["roofline_util"] = (
-            round(roofline_s / exec_s, 4)
-            if roofline_s and exec_s else None
+            round(roofline_s / basis_s, 4)
+            if roofline_s and basis_s else None
         )
-        # lost seconds: (dispatch wall - roofline_s) x calls, the wall
-        # spent above the cost-model floor: the "what next" ranking key
-        # of log-summary's DEVICE PROGRAMS table, clamped at zero
+        # lost seconds: (mean time - roofline_s) x calls, the time spent
+        # above the cost-model floor: the "what next" ranking key of
+        # log-summary's DEVICE PROGRAMS table, clamped at zero
         entry["lost_s"] = (
-            round(max(0.0, exec_s - roofline_s) * calls, 6)
-            if roofline_s is not None and exec_s else None
+            round(max(0.0, basis_s - roofline_s) * calls, 6)
+            if roofline_s is not None and basis_s else None
         )
         entry["achieved_flops_per_s"] = (
-            round(flops / exec_s, 2) if flops and exec_s else None
+            round(flops / basis_s, 2) if flops and basis_s else None
         )
         entry["h2d_bytes"] = h2d.get(rec.family)
         # a stamp on the program wins; else the family's noted bytes

@@ -39,9 +39,20 @@ Span names follow ``<layer>/<phase>``: ``pipeline/stage``,
 ``lifecycle/claim``, ``lifecycle/commit``, ``lifecycle/release``,
 ``inference/infer``, ``serving/request``, ``serving/forward``,
 ``serving/scatter``, ``segment/label``, ``segment/merge``,
-``segment/relabel``. The
-depth controller sums the first six (and ``scheduler/write``) through
-:func:`hist_totals`. Counters of the worker loop: ``pipeline/tasks``,
+``segment/relabel``, and in the executors' dispatch path
+``inference/prepare`` (a dispatch's set-up before its launch loop) and
+``scheduler/wait_result`` (the dispatching thread waiting for the oldest
+result). The depth controller sums the first six (and
+``scheduler/write``) through :func:`hist_totals`. Besides its histogram,
+each span appends one record to a bounded ring (:data:`MAX_SPAN_RECORDS`,
+:func:`recorded_spans`): its name, start and end on ``time.time_ns()``
+(the clock ``torch.profiler`` stamps device events on), its thread, the
+enclosing span on that thread and the chunk it worked on, so that a
+device trace and the host threads read on one timeline. Histograms
+without a span of their own: ``pipeline/queue_wait`` (a chunk's seconds
+from its staging to its dispatch) and ``inference/forward_device`` (a
+chunk's forward timed on the card).
+Counters of the worker loop: ``pipeline/tasks``,
 ``pipeline/chain_rebuilds``, ``inference/chunks``, ``storage/*``
 (``volume/storage.py``), ``queue/sent``, ``queue/receives``,
 ``tasks/committed``, ``tasks/retried``, ``tasks/dead_lettered``,
@@ -70,8 +81,8 @@ __all__ = [
     "summary_table", "add_flush_hook", "add_reset_hook", "timeseries",
     "start_timeseries", "stop_timeseries", "timeseries_running",
     "add_tick_hook", "remove_tick_hook", "ts_interval", "ts_points",
-    "snapshot_interval",
-    "CHIP_METRIC_RE", "MAX_EVENTS",
+    "snapshot_interval", "recorded_spans",
+    "CHIP_METRIC_RE", "MAX_EVENTS", "MAX_SPAN_RECORDS",
 ]
 
 #: per-chip metric names, ``<plane>/chip/<i>/<metric>``: the ``/metrics``
@@ -83,6 +94,11 @@ _OFF_VALUES = ("0", "off", "false", "no")
 
 #: events kept in memory (oldest dropped first)
 MAX_EVENTS = 1024
+
+#: span records kept in memory (oldest dropped first): the stream
+#: executor's 45 s window, about seven spans a chunk every 0.4 s, fits
+#: twenty times over
+MAX_SPAN_RECORDS = 16384
 
 #: upper bucket bounds (seconds) of the quantile histograms, 1 ms to
 #: 2 min, with an implicit +inf overflow bucket
@@ -195,6 +211,8 @@ class _Registry:
         # name -> [count, total, min, max, [bucket counts..., overflow]]
         self.qhists: Dict[str, list] = {}
         self.events: deque = deque(maxlen=MAX_EVENTS)
+        # (name, start_ns, end_ns, thread, parent, chunk) per span
+        self.spans: deque = deque(maxlen=MAX_SPAN_RECORDS)
         self.sink = None  # the open JSONL file of :func:`configure`
         self.sink_path: Optional[str] = None
         self.sink_bytes = 0
@@ -216,14 +234,24 @@ class _Registry:
 
     def add_hist(self, name: str, value: float) -> None:
         with self.lock:
-            h = self.hists.get(name)
-            if h is None:
-                self.hists[name] = [1, value, value, value]
-            else:
-                h[0] += 1
-                h[1] += value
-                h[2] = min(h[2], value)
-                h[3] = max(h[3], value)
+            self._hist_locked(name, value)
+
+    def add_span(self, name: str, value: float, record: tuple) -> None:
+        """A span's histogram sample and its ring record, under one
+        acquisition of the lock."""
+        with self.lock:
+            self._hist_locked(name, value)
+            self.spans.append(record)
+
+    def _hist_locked(self, name: str, value: float) -> None:
+        h = self.hists.get(name)
+        if h is None:
+            self.hists[name] = [1, value, value, value]
+        else:
+            h[0] += 1
+            h[1] += value
+            h[2] = min(h[2], value)
+            h[3] = max(h[3], value)
 
     def add_qhist(self, name: str, value: float) -> None:
         with self.lock:
@@ -431,6 +459,7 @@ class _NullSpan:
 
     __slots__ = ()
     duration = 0.0
+    start_ns = end_ns = None
 
     def __enter__(self):
         return self
@@ -438,40 +467,89 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
+#: the spans open on this thread (each thread starts with an empty
+#: context), innermost last
+_OPEN_SPANS: contextvars.ContextVar = contextvars.ContextVar(
+    "chunkflow_open_spans", default=())
+
 
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "duration")
+    __slots__ = ("name", "attrs", "t0", "duration", "start_ns", "end_ns",
+                 "_outer")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
         self.duration = 0.0
+        self.start_ns = self.end_ns = None
+
+    def set(self, **attrs) -> None:
+        """Add attributes before the span ends (a load's chunk, once it
+        has its item)."""
+        self.attrs.update(attrs)
+
+    def chunk(self):
+        """The chunk this span worked on: its own ``chunk`` attribute,
+        else the enclosing span's, else the bound task's trace id."""
+        chunk = self.attrs.get("chunk")
+        if chunk is None and self._outer:
+            return self._outer[-1].chunk()
+        return chunk if chunk is not None else _TASK_CTX.get()
 
     def __enter__(self):
+        self._outer = _OPEN_SPANS.get()
+        _OPEN_SPANS.set(self._outer + (self,))
+        self.start_ns = time.time_ns()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.duration = time.perf_counter() - self.t0
-        _REG.add_hist(self.name, self.duration)
+        self.end_ns = time.time_ns()
+        _OPEN_SPANS.set(self._outer)
+        outer = self._outer[-1].name if self._outer else None
+        _REG.add_span(self.name, self.duration, (
+            self.name, self.start_ns, self.end_ns, threading.get_ident(),
+            outer, self.chunk()))
         if _REG.sink is not None:
             _REG.emit(_stamp({"kind": "span", "name": self.name,
-                              "t": time.time(), "dur_s": self.duration,
+                              "t": self.end_ns / 1e9,
+                              "t0": self.start_ns / 1e9,
+                              "dur_s": self.duration,
                               "pid": os.getpid(), **self.attrs}))
         return False
 
 
 def span(name: str, **attrs):
-    """Time a block into the histogram ``name`` (seconds); the span
-    exposes ``.duration`` after exit. With a file configured, each span
-    writes one ``span`` event carrying ``attrs`` (not kept in memory:
-    spans would crowd the other events out of :data:`MAX_EVENTS`)."""
+    """Time a block into the histogram ``name`` (seconds) and the span
+    ring (:func:`recorded_spans`); the span exposes ``.duration``,
+    ``.start_ns`` and ``.end_ns`` after exit and takes attributes before
+    it (``.set``). With a file configured,
+    each span writes one ``span`` event carrying ``attrs`` and its start
+    ``t0`` (not kept among the events: spans would crowd the other
+    events out of :data:`MAX_EVENTS`)."""
     if not enabled():
         return _NULL_SPAN
     return _Span(name, attrs)
+
+
+def recorded_spans(since_ns: Optional[int] = None) -> List[dict]:
+    """A copy of the span ring, oldest first: ``{"name", "start_ns",
+    "end_ns", "thread", "parent", "chunk"}`` per span (``time.time_ns()``
+    stamps; ``thread`` a ``threading.get_ident()``; ``parent`` the name
+    of the enclosing span on that thread, or None). With ``since_ns``,
+    only the spans that ended at or after it."""
+    with _REG.lock:
+        records = list(_REG.spans)
+    keys = ("name", "start_ns", "end_ns", "thread", "parent", "chunk")
+    return [dict(zip(keys, r)) for r in records
+            if since_ns is None or r[2] >= since_ns]
 
 
 def hist_totals(names) -> Dict[str, float]:
@@ -713,9 +791,9 @@ def flush() -> None:
 
 
 def reset() -> None:
-    """Clear every metric and event, close the event file, stop the
-    sampler and drop the cached worker id (tests; each CLI run starts
-    here)."""
+    """Clear every metric, event and span record, close the event file,
+    stop the sampler and drop the cached worker id (tests; each CLI run
+    starts here)."""
     global _WORKER_ID
     stop_timeseries()
     _TICK_HOOKS.clear()
@@ -726,6 +804,7 @@ def reset() -> None:
         _REG.hists.clear()
         _REG.qhists.clear()
         _REG.events.clear()
+        _REG.spans.clear()
     with _WORKER_ID_LOCK:
         _WORKER_ID = None
     _run_hooks(_RESET_HOOKS)

@@ -450,7 +450,9 @@ def _fmt_quantity(value, scale: float, suffix: str) -> str:
 def print_program_summary(programs: List[dict], top: int = 10,
                           headroom_bytes: Optional[float] = None) -> None:
     """The DEVICE PROGRAMS table: top program families by LOST SECONDS
-    ((dispatch_wall − roofline) × calls — the fusion-target ranking),
+    ((mean time − roofline) × calls — the fusion-target ranking; the
+    port's catalog takes device time where its card read it, else the
+    dispatch wall, and the table then shows both),
     with the catalog's cost figures (the JAX package's XLA cost
     analysis, the port's analytic stamp: ``core/profiling.py``) and the
     achieved-vs-roofline figure when the catalog carried one.
@@ -459,8 +461,17 @@ def print_program_summary(programs: List[dict], top: int = 10,
     ``hbm_i`` budget columns read against what is actually left."""
     if not programs:
         return
-    print("device programs (top by lost seconds = (dispatch − roofline) "
-          "× calls; util is an upper bound under async dispatch):")
+    # a port catalog from a card carries device time beside the dispatch
+    # wall: both columns then, and util on the entry's ``util_basis``
+    timed = any(e.get("device_mean_s") for e in programs[:top])
+    if timed:
+        print("device programs (top by lost seconds = (device − roofline) "
+              "× calls; util on device time where read, else an upper "
+              "bound on the dispatch wall):")
+    else:
+        print("device programs (top by lost seconds = (dispatch − "
+              "roofline) × calls; util is an upper bound under async "
+              "dispatch):")
     if headroom_bytes is not None:
         print(f"  live hbm headroom: {headroom_bytes / 2**20:.1f} MiB "
               f"(min across chips) — the budget the vmem/hbm_i columns "
@@ -468,12 +479,16 @@ def print_program_summary(programs: List[dict], top: int = 10,
     print(
         f"  {'family':<14} {'key':<12} {'lost_s':>8} {'compile_s':>9} "
         f"{'flops':>9} {'bytes':>9} {'vmem':>8} {'h2d':>9} "
-        f"{'hbm_i':>8} {'exec_ms':>8} {'roofline':>8}"
+        f"{'hbm_i':>8} {'exec_ms':>8} "
+        + (f"{'device_ms':>9} " if timed else "") + f"{'roofline':>8}"
     )
     for entry in programs[:top]:
         exec_s = entry.get("exec_mean_s")
+        device_s = entry.get("device_mean_s")
         util = entry.get("roofline_util")
         lost = entry.get("lost_s")
+        device_col = (f"{device_s * 1e3 if device_s else 0.0:>9.2f} "
+                      if timed else "")
         print(
             f"  {str(entry.get('family', ''))[:14]:<14} "
             f"{str(entry.get('key', ''))[:12]:<12} "
@@ -488,6 +503,7 @@ def print_program_summary(programs: List[dict], top: int = 10,
             # pipeline — the fusion's prize, in bytes
             f"{_fmt_quantity(entry.get('hbm_intermediate_bytes'), 2**20, 'M'):>8} "
             f"{exec_s * 1e3 if exec_s else 0.0:>8.2f} "
+            f"{device_col}"
             f"{(f'{util:.1%}' if util is not None else '-'):>8}"
         )
 

@@ -15,7 +15,10 @@ stream) while chunk k computes on the dispatching thread's stream::
 The host waits only at drain time: ``pipeline/compute`` is the wait on
 the result's compute-done event (the device was still busy: a
 compute-bound pipeline stalls here), ``pipeline/drain`` the wait on its
-download event.
+download event. Every span of one chunk carries its id
+(:func:`chunk_id`: the task's ``trace_id``, else the chunk's sequence
+number), and ``pipeline/queue_wait`` takes each chunk's seconds from
+the end of its staging to the start of its dispatch.
 
 Memory bound: at most ``ring`` staged inputs plus ``ring`` (or
 ``depth``, for the task stage) dispatched outputs are on the device.
@@ -33,17 +36,21 @@ from collections import deque
 from typing import Callable, Iterable, Iterator, Optional
 
 from chunkflow_tpu_torch.core import telemetry
+from chunkflow_tpu_torch.ops.blend import fold_forward_device
 from chunkflow_tpu_torch.parallel.lifecycle import tag_culprit
 
 
-def _drain_host(out):
+def _drain_host(out, chunk):
     """Materialize a dispatched output on the host, attributing the wait:
     ``pipeline/compute`` until the device finished computing it,
-    ``pipeline/drain`` until its download landed. Counts the voxels
+    ``pipeline/drain`` until its download landed; both spans carry the
+    ``chunk`` id. Once the device has finished, folds the forwards'
+    device time (``inference/forward_device``). Counts the voxels
     (``inference/voxels``) for an achieved-rate reading."""
-    with telemetry.span("pipeline/compute"):
+    with telemetry.span("pipeline/compute", chunk=chunk):
         out.wait_computed()
-    with telemetry.span("pipeline/drain"):
+    fold_forward_device(out)
+    with telemetry.span("pipeline/drain", chunk=chunk):
         host = out.host()
     shape = getattr(getattr(host, "array", None), "shape", None)
     if shape:
@@ -54,31 +61,43 @@ def _drain_host(out):
     return host
 
 
+def _dispatch(inferencer, slot, owned: bool, crop, chunk, staged_ns):
+    """``inferencer.infer_async`` inside the ``pipeline/dispatch`` span,
+    with the chunk's wait since its staging ended (``staged_ns``, None
+    where telemetry was off) folded into ``pipeline/queue_wait``."""
+    with telemetry.span("pipeline/dispatch", chunk=chunk) as sp:
+        if staged_ns is not None and sp.start_ns is not None:
+            telemetry.observe("pipeline/queue_wait",
+                              (sp.start_ns - staged_ns) / 1e9)
+        return inferencer.infer_async(slot, crop=crop, consume=owned)
+
+
 def _device_pipeline(inferencer, chunks: Iterable, ring: int, crop=None):
-    """Yield dispatched output chunks (download started) in input order,
-    overlapping stage(k+1) / compute(k) / drain(k-1)."""
+    """Yield (sequence number, dispatched output chunk with its download
+    started) in input order, overlapping stage(k+1) / compute(k) /
+    drain(k-1)."""
     ring = max(1, int(ring))
-    staged: deque = deque()    # ring slots: (staged_chunk, pipeline_owned)
-    draining: deque = deque()  # dispatched outputs, downloads in flight
-    it = iter(chunks)
+    # ring slots: (staged_chunk, pipeline_owned, seq, staged_ns)
+    staged: deque = deque()
+    draining: deque = deque()  # (seq, dispatched output), downloads in flight
+    it = enumerate(chunks)
     exhausted = False
     while True:
         while not exhausted and len(staged) < ring:
             try:
-                chunk = next(it)
+                seq, chunk = next(it)
             except StopIteration:
                 exhausted = True
                 break
-            with telemetry.span("pipeline/stage"):
+            with telemetry.span("pipeline/stage", chunk=seq) as sp:
                 slot = inferencer.stage(chunk)
-            staged.append((slot, slot is not chunk))
+            staged.append((slot, slot is not chunk, seq, sp.end_ns))
             telemetry.gauge("pipeline/ring_occupancy", len(staged))
         if not staged:
             break
-        slot, owned = staged.popleft()
-        with telemetry.span("pipeline/dispatch"):
-            out = inferencer.infer_async(slot, crop=crop, consume=owned)
-        draining.append(out)
+        slot, owned, seq, staged_ns = staged.popleft()
+        out = _dispatch(inferencer, slot, owned, crop, seq, staged_ns)
+        draining.append((seq, out))
         telemetry.gauge("pipeline/inflight", len(draining))
         while len(draining) >= ring:
             yield draining.popleft()
@@ -104,8 +123,9 @@ def pipeline_chunks(
     abandoning the generator cancels queued (not started) post tasks.
     """
     if postprocess is None:
-        for out in _device_pipeline(inferencer, chunks, ring, crop=crop):
-            yield _drain_host(out)
+        for seq, out in _device_pipeline(inferencer, chunks, ring,
+                                         crop=crop):
+            yield _drain_host(out, seq)
         return
 
     from concurrent.futures import ThreadPoolExecutor
@@ -113,17 +133,25 @@ def pipeline_chunks(
     with ThreadPoolExecutor(max_workers=1) as pool:
         in_flight: deque = deque()
         try:
-            for out in _device_pipeline(inferencer, chunks, ring, crop=crop):
+            for seq, out in _device_pipeline(inferencer, chunks, ring,
+                                             crop=crop):
                 while len(in_flight) >= post_depth:
                     yield in_flight.popleft().result()
-                in_flight.append(
-                    pool.submit(lambda c=out: postprocess(_drain_host(c))))
+                in_flight.append(pool.submit(
+                    lambda c=out, k=seq: postprocess(_drain_host(c, k))))
             while in_flight:
                 yield in_flight.popleft().result()
         finally:
             # early close / error: do not run abandoned post tasks
             for f in in_flight:
                 f.cancel()
+
+
+def chunk_id(task: dict, seq: int):
+    """The id every span of a task's chunk carries: the task's
+    ``trace_id``, else the chunk's sequence number in the stream."""
+    trace_id = task.get("trace_id")
+    return trace_id if trace_id is not None else seq
 
 
 def stage_task_chunks(task: dict, device="cuda") -> dict:
@@ -163,13 +191,14 @@ def pipelined_inference_stage(
     ring = max(1, int(ring))
 
     def stage_fn(stream):
-        staged: deque = deque()   # (task, staged_chunk, owned, t0)
-        pending: deque = deque()  # (task, device_out, t0)
+        # (task, staged_chunk, owned, t0, chunk id, staged_ns)
+        staged: deque = deque()
+        pending: deque = deque()  # (task, device_out, t0, chunk id)
 
         def finalize(entry):
-            task, out, t0 = entry
+            task, out, t0, cid = entry
             try:
-                task[output_name] = _drain_host(out)
+                task[output_name] = _drain_host(out, cid)
             except BaseException as exc:
                 tag_culprit(exc, task)
                 raise
@@ -178,19 +207,18 @@ def pipelined_inference_stage(
             return task
 
         def dispatch_one():
-            task, slot, owned, t0 = staged.popleft()
+            task, slot, owned, t0, cid, staged_ns = staged.popleft()
             try:
-                with telemetry.span("pipeline/dispatch"):
-                    out = inferencer.infer_async(slot, crop=crop,
-                                                 consume=owned)
+                out = _dispatch(inferencer, slot, owned, crop, cid,
+                                staged_ns)
             except BaseException as exc:
                 tag_culprit(exc, task)
                 raise
-            pending.append((task, out, t0))
+            pending.append((task, out, t0, cid))
             telemetry.gauge("pipeline/inflight", len(pending))
 
         try:
-            for task in stream:
+            for seq, task in enumerate(stream):
                 if task is None:
                     # preserve order: flush in-flight work first
                     while staged:
@@ -200,15 +228,17 @@ def pipelined_inference_stage(
                     yield task
                     continue
                 chunk = task[input_name]
+                cid = chunk_id(task, seq)
                 try:
                     if check is not None:
                         check(chunk)
-                    with telemetry.span("pipeline/stage"):
+                    with telemetry.span("pipeline/stage", chunk=cid) as sp:
                         slot = inferencer.stage(chunk)
                 except BaseException as exc:
                     tag_culprit(exc, task)
                     raise
-                staged.append((task, slot, slot is not chunk, time.time()))
+                staged.append((task, slot, slot is not chunk, time.time(),
+                               cid, sp.end_ns))
                 telemetry.gauge("pipeline/ring_occupancy", len(staged))
                 if len(staged) >= ring:
                     # drain BEFORE dispatching: at most `depth` outputs in

@@ -22,6 +22,11 @@ scheduler/post         host post ops lag        ``post``
 scheduler/write        storage commits lag      ``write``
 =====================  =======================  =========================
 
+The dispatching thread's wait for the oldest result is the span
+``scheduler/wait_result``, which, like ``pipeline/queue_wait`` and the
+other readings of ``core/telemetry.py``'s span ring, is no phase of the
+controller: it reads the seven above.
+
 Growth stops at a host-memory watermark (``CHUNKFLOW_SCHED_MEM_GB``,
 default 4): resident bytes are estimated as (sum of depths) x 2 x (the
 largest chunk seen), plus what other planes reserved
@@ -53,7 +58,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import torch
 
 from chunkflow_tpu_torch.core import profiling, telemetry
-from chunkflow_tpu_torch.flow.pipeline import _drain_host
+from chunkflow_tpu_torch.flow.pipeline import _dispatch, _drain_host, chunk_id
 from chunkflow_tpu_torch.parallel.lifecycle import surrender_task, tag_culprit
 from chunkflow_tpu_torch.testing import chaos
 from chunkflow_tpu_torch.volume import storage
@@ -417,40 +422,42 @@ def _staged(inferencer, chunks: Iterable, ctl: DepthController):
     """Stage each chunk as it is pulled: run by the prefetch thread, so the
     upload's host work (the blank check, the pinned copy) overlaps the
     dispatching thread's launches, which on the card can take longer
-    than the device work they enqueue. Yields (chunk, staged chunk)."""
-    for chunk in chunks:
+    than the device work they enqueue. Yields (chunk, staged chunk,
+    sequence number, the staging's end on ``time.time_ns()``)."""
+    for seq, chunk in enumerate(chunks):
         ctl.note_slot_bytes(_chunk_nbytes(chunk))
-        with telemetry.span("pipeline/stage"):
+        with telemetry.span("pipeline/stage", chunk=seq) as sp:
             slot = inferencer.stage(chunk)
-        yield chunk, slot
+        yield chunk, slot, seq, sp.end_ns
 
 
 def _adaptive_device_pipeline(inferencer, q: _AdaptiveQueue,
                               ctl: DepthController, crop=None):
-    """Yield dispatched outputs in input order, pulling staged inputs from
-    the prefetch queue; the ring and inflight bounds are re-read every
-    iteration, so a widen takes effect mid-run."""
-    staged: deque = deque()    # (slot, pipeline_owned)
-    draining: deque = deque()  # dispatched outputs, downloads in flight
+    """Yield (sequence number, dispatched output) in input order, pulling
+    staged inputs from the prefetch queue; the ring and inflight bounds
+    are re-read every iteration, so a widen takes effect mid-run."""
+    staged: deque = deque()    # (slot, pipeline_owned, seq, staged_ns)
+    draining: deque = deque()  # (seq, output), downloads in flight
     exhausted = False
     while True:
         while not exhausted and len(staged) < ctl.depths["ring"]:
-            with telemetry.span("scheduler/load"):
+            with telemetry.span("scheduler/load") as load:
                 item = q.get()
+                if not _is_end(item):
+                    load.set(chunk=item[2])
             if _is_end(item):
                 exhausted = True
                 if item[1] is not None:
                     raise item[1]  # upstream failure re-raises here
                 break
-            chunk, slot = item
-            staged.append((slot, slot is not chunk))
+            chunk, slot, seq, staged_ns = item
+            staged.append((slot, slot is not chunk, seq, staged_ns))
             telemetry.gauge("pipeline/ring_occupancy", len(staged))
         if not staged:
             break
-        slot, owned = staged.popleft()
-        with telemetry.span("pipeline/dispatch"):
-            out = inferencer.infer_async(slot, crop=crop, consume=owned)
-        draining.append(out)
+        slot, owned, seq, staged_ns = staged.popleft()
+        out = _dispatch(inferencer, slot, owned, crop, seq, staged_ns)
+        draining.append((seq, out))
         telemetry.gauge("pipeline/inflight", len(draining))
         while len(draining) >= ctl.depths["inflight"]:
             yield draining.popleft()
@@ -487,30 +494,33 @@ def schedule_chunks(
     in_flight: deque = deque()
     pool = ThreadPoolExecutor(max_workers=ctl.limits["post"])
 
-    def finalize(out):
-        host = _drain_host(out)
+    def finalize(seq, out):
+        host = _drain_host(out, seq)
         if postprocess is None:
             return host
-        with telemetry.span("scheduler/post"):
+        with telemetry.span("scheduler/post", chunk=seq):
             return postprocess(host)
 
-    def complete(future):
-        result = future.result()
+    def complete(entry):
+        seq, future = entry
+        with telemetry.span("scheduler/wait_result", chunk=seq):
+            result = future.result()
         ctl.observe_task()
         sample_device_memory()
         q.set_capacity(ctl.depths["prefetch"])
         return result
 
     try:
-        for out in _adaptive_device_pipeline(inferencer, q, ctl, crop=crop):
+        for seq, out in _adaptive_device_pipeline(inferencer, q, ctl,
+                                                  crop=crop):
             while len(in_flight) >= ctl.depths["post"]:
                 yield complete(in_flight.popleft())
-            in_flight.append(pool.submit(finalize, out))
+            in_flight.append((seq, pool.submit(finalize, seq, out)))
         while in_flight:
             yield complete(in_flight.popleft())
     finally:
         q.close()
-        for f in in_flight:
+        for _, f in in_flight:
             f.cancel()
         pool.shutdown(wait=False)
         thread.join(timeout=5.0)
@@ -555,39 +565,41 @@ def scheduled_inference_stage(
         _note_mesh(inferencer)
 
         def staged_tasks():
-            # the prefetch thread's side: (task, staged chunk, owned, t0)
-            for task in stream:
+            # the prefetch thread's side: (task, staged chunk, owned, t0,
+            # chunk id, the staging's end on time.time_ns())
+            for seq, task in enumerate(stream):
                 if task is None:
                     yield None
                     continue
                 t0 = time.time()
+                cid = chunk_id(task, seq)
                 try:
                     chunk = task[input_name]
                     if check is not None:
                         check(chunk)
                     ctl.note_slot_bytes(_chunk_nbytes(chunk))
-                    with telemetry.span("pipeline/stage"):
+                    with telemetry.span("pipeline/stage", chunk=cid) as sp:
                         slot = inferencer.stage(chunk)
                 except BaseException as exc:
                     tag_culprit(exc, task)
                     raise
-                yield task, slot, slot is not chunk, t0
+                yield task, slot, slot is not chunk, t0, cid, sp.end_ns
 
         q, thread = _start_pump(staged_tasks(), ctl.depths["prefetch"])
-        staged: deque = deque()     # (task, slot, owned, t0)
-        pending: deque = deque()    # (task, device_out, t0)
-        finishing: deque = deque()  # post-pool futures, input order
+        staged: deque = deque()     # staged_tasks()'s items
+        pending: deque = deque()    # (task, device_out, t0, chunk id)
+        finishing: deque = deque()  # (chunk id, post-pool future), in order
         pool = ThreadPoolExecutor(max_workers=ctl.limits["post"])
 
-        def finalize(task, out, t0):
+        def finalize(task, out, t0, cid):
             # runs in the pool; the trace context is rebound from the task
             # (context variables do not follow work into pool threads)
             with telemetry.task_context(task.get("trace_id")):
                 try:
                     chaos.chaos_point("scheduler/post")
-                    result = _drain_host(out)
+                    result = _drain_host(out, cid)
                     if postprocess is not None:
-                        with telemetry.span("scheduler/post"):
+                        with telemetry.span("scheduler/post", chunk=cid):
                             result = postprocess(result)
                 except BaseException as exc:
                     tag_culprit(exc, task)
@@ -598,25 +610,27 @@ def scheduled_inference_stage(
             return task
 
         def dispatch_one():
-            task, slot, owned, t0 = staged.popleft()
+            task, slot, owned, t0, cid, staged_ns = staged.popleft()
             with telemetry.task_context(task.get("trace_id")):
                 try:
                     chaos.chaos_point("scheduler/dispatch")
-                    with telemetry.span("pipeline/dispatch"):
-                        out = inferencer.infer_async(slot, crop=crop,
-                                                     consume=owned)
+                    out = _dispatch(inferencer, slot, owned, crop, cid,
+                                    staged_ns)
                 except BaseException as exc:
                     tag_culprit(exc, task)
                     raise
-            pending.append((task, out, t0))
+            pending.append((task, out, t0, cid))
             telemetry.gauge("pipeline/inflight", len(pending))
 
         def submit_one():
-            task, out, t0 = pending.popleft()
-            finishing.append(pool.submit(finalize, task, out, t0))
+            task, out, t0, cid = pending.popleft()
+            finishing.append((cid, pool.submit(finalize, task, out, t0,
+                                               cid)))
 
         def complete():
-            task = finishing.popleft().result()
+            cid, future = finishing.popleft()
+            with telemetry.span("scheduler/wait_result", chunk=cid):
+                task = future.result()
             ctl.observe_task()
             sample_device_memory()
             q.set_capacity(ctl.depths["prefetch"])
@@ -625,8 +639,10 @@ def scheduled_inference_stage(
         try:
             try:
                 while True:
-                    with telemetry.span("scheduler/load"):
+                    with telemetry.span("scheduler/load") as load:
                         item = q.get()
+                        if item is not None and not _is_end(item):
+                            load.set(chunk=item[4])
                     if _is_end(item):
                         if item[1] is not None:
                             raise item[1]

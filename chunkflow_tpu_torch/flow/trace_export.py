@@ -7,8 +7,9 @@ metrics directory becomes one Chrome trace-event file that
 
 * each worker is a process (``process_name``; pid: the worker's rank);
 * each plane (a span or event name's ``<plane>/`` prefix) is a thread;
-* spans are complete (``X``) events (the JSONL stamp is the span's end,
-  so ``ts = t - dur_s``);
+* spans are complete (``X``) events at their start ``t0`` (the port's
+  JSONL carries it; older files stamp only the end, so there ``ts = t -
+  dur_s``);
 * gauges and snapshot counters are counter (``C``) tracks, counters with
   ``cat: "cumulative"``; per-chip gauges (``<plane>/chip/<i>/<metric>``)
   get a ``chip <i>`` track each;
@@ -42,7 +43,7 @@ _INSTANT_KINDS = (
 )
 
 #: payload keys that are structural, not event arguments
-_STRUCTURAL_KEYS = ("kind", "name", "t", "dur_s", "pid", "worker")
+_STRUCTURAL_KEYS = ("kind", "name", "t", "t0", "dur_s", "pid", "worker")
 
 
 def _plane(name: str) -> str:
@@ -71,6 +72,14 @@ def export_chrome_trace(events: List[dict]) -> dict:
         return (float(record.get("t", 0.0))
                 + offsets.get(_event_worker(record), 0.0))
 
+    def start_adj(record: dict) -> float:
+        """An event's start: a span's ``t0``, else its stamp less its
+        duration."""
+        if record.get("t0") is not None:
+            return (float(record["t0"])
+                    + offsets.get(_event_worker(record), 0.0))
+        return t_adj(record) - float(record.get("dur_s", 0.0) or 0.0)
+
     # stable pid per worker, tid per (worker, plane)
     workers = sorted({_event_worker(e) for e in events})
     pids = {worker: i + 1 for i, worker in enumerate(workers)}
@@ -87,7 +96,7 @@ def export_chrome_trace(events: List[dict]) -> dict:
     for record in events:
         if record.get("kind") == "timeseries":
             continue
-        start = t_adj(record) - float(record.get("dur_s", 0.0) or 0.0)
+        start = start_adj(record)
         base = start if base is None else min(base, start)
     if base is None:
         base = 0.0
@@ -105,10 +114,13 @@ def export_chrome_trace(events: List[dict]) -> dict:
         name = str(record.get("name", "") or kind)
         if kind == "span":
             dur_s = float(record.get("dur_s", 0.0) or 0.0)
+            ts = (round((start_adj(record) - base) * 1e6, 3)
+                  if record.get("t0") is not None
+                  else round(ts_us(record) - dur_s * 1e6, 3))
             out.append({
                 "ph": "X", "name": name, "cat": "span",
                 "pid": pid, "tid": tid_of(worker, _plane(name)),
-                "ts": round(ts_us(record) - dur_s * 1e6, 3),
+                "ts": ts,
                 "dur": round(dur_s * 1e6, 3),
                 "args": _args_of(record),
             })

@@ -250,6 +250,9 @@ class Inferencer:
         self._device_forwards: dict = {}
         pout = tuple(self.output_patch_size)
         self._bump = bump_const(pout, self.device)
+        # the streamed scatter path times each batch's forward on the card
+        self._forward_events = (profiling.EventPairs()
+                                if self.device.type == "cuda" else None)
         self._local_blend = build_local_blend(
             self._forward,
             num_input_channels,
@@ -258,6 +261,7 @@ class Inferencer:
             pout,
             batch_size,
             self._bump,
+            events=self._forward_events,
         )
         self._fold_mesh_noted = False
         # the program cost ledger's records of this inferencer's steps,
@@ -530,12 +534,21 @@ class Inferencer:
         before the download, so cropped voxels never cross. ``consume``
         declares the input a buffer the executor staged itself and will
         not touch again; the port never writes an input chunk, so a
-        caller's device-resident chunk survives either way."""
-        out = self._infer(chunk)
+        caller's device-resident chunk survives either way.
+
+        With telemetry on, the scatter path's forwards are timed on the
+        card and the result carries their event pairs, which its drain
+        reads once the chunk has finished (``ops/blend.
+        fold_forward_device``: ``inference/forward_device``)."""
+        timed = ([] if self._forward_events is not None
+                 and telemetry.enabled() else None)
+        out = self._infer(chunk, timed=timed)
         if crop is not None:
             out = out.crop_margin(crop)
         if self.device.type == "cuda" and out.is_on_device:
             out = out.copy_to_host_async(self._d2h_stream)
+            if timed is not None:
+                out._forward_pairs = (self._forward_events, timed)
         return out
 
     @property
@@ -613,7 +626,12 @@ class Inferencer:
                 n_batches * step["hbm_intermediate_bytes"]}
 
     @contract(chunk=Spec(ndim=(3, 4)))
-    def _infer(self, chunk: Chunk) -> Chunk:
+    def _infer(self, chunk: Chunk, timed: Optional[list] = None) -> Chunk:
+        """One chunk enqueued; ``timed`` gets the scatter path's forward
+        event pairs (``ops/blend.build_local_blend``). The span
+        ``inference/prepare`` covers the upload wait, the patch grid and
+        the validity column, and ends where the fold, mesh or scatter
+        program starts."""
         if self.dry_run or chunk.all_zero():
             return self._blank_output(chunk)
         orig_zyx = tuple(chunk.shape[-3:])
@@ -641,45 +659,50 @@ class Inferencer:
         h2d_key = (("fold",) if use_fold else ("scatter",)
                    if shard_engine is None else ("shard",))
         with torch.no_grad():
-            arr = self._upload(chunk, h2d_key)
-            if use_fold:
-                # fold contracts on float32 (the JAX package converts
-                # before padding); conversion makes a new tensor for ints
-                arr = gather.convert_chunk(arr)
-            if run_zyx != orig_zyx:
-                # shape-bucket padding replicates the boundary plane so
-                # the net sees plausible context instead of a zero wall
-                arr = edge_pad(arr, run_zyx)
-            if use_fold:
-                result = self._run_fold(arr)
-            else:
-                grid = enumerate_patches(
-                    run_zyx,
-                    self.input_patch_size,
-                    self.output_patch_size,
-                    self.output_patch_overlap,
-                )
-                if shard_engine is not None:
-                    result = self._run_sharded(arr, grid, shard_engine)
-                else:
+            with telemetry.span("inference/prepare"):
+                arr = self._upload(chunk, h2d_key)
+                if use_fold:
+                    # fold contracts on float32 (the JAX package converts
+                    # before padding); conversion makes a new tensor for
+                    # ints
+                    arr = gather.convert_chunk(arr)
+                if run_zyx != orig_zyx:
+                    # shape-bucket padding replicates the boundary plane
+                    # so the net sees plausible context instead of a zero
+                    # wall
+                    arr = edge_pad(arr, run_zyx)
+                if not use_fold:
+                    grid = enumerate_patches(
+                        run_zyx,
+                        self.input_patch_size,
+                        self.output_patch_size,
+                        self.output_patch_overlap,
+                    )
+                if not use_fold and shard_engine is None:
                     in_starts, out_starts, valid = pad_to_batch(
                         grid, self.batch_size)
+                    valid_rows = device_valid(valid, self.device)
+            if use_fold:
+                result = self._run_fold(arr)
+            elif shard_engine is not None:
+                result = self._run_sharded(arr, grid, shard_engine)
+            else:
 
-                    def scatter():
-                        out, weight = self._local_blend(
-                            arr,
-                            torch.from_numpy(in_starts),
-                            torch.from_numpy(out_starts),
-                            device_valid(valid, self.device),
-                        )
-                        return normalize_blend(out, weight,
-                                               self.output_dtype)
+                def scatter():
+                    out, weight = self._local_blend(
+                        arr,
+                        torch.from_numpy(in_starts),
+                        torch.from_numpy(out_starts),
+                        valid_rows,
+                        timed=timed,
+                    )
+                    return normalize_blend(out, weight, self.output_dtype)
 
-                    result = profiling.run_program(
-                        self._programs, ("scatter", run_zyx), scatter,
-                        label="inferencer", device=self.device,
-                        stamp=lambda: self._scatter_stamp(
-                            len(valid) // self.batch_size))
+                result = profiling.run_program(
+                    self._programs, ("scatter", run_zyx), scatter,
+                    label="inferencer", device=self.device,
+                    stamp=lambda: self._scatter_stamp(
+                        len(valid) // self.batch_size))
         telemetry.inc("inference/chunks")
         return self._postprocess_result(result, chunk, orig_zyx, run_zyx)
 

@@ -9,18 +9,20 @@ the same steps as a ``lax.scan`` inside one program.
 :func:`normalize_blend` divides by the accumulated weight. Both carry the
 JAX entry points' shape contracts (``core/contracts.py``), and
 :func:`pipeline_kernel_cost` is the JAX function's analytic cost of one
-patch step, for the program cost ledger.
+patch step, for the program cost ledger. :func:`fold_forward_device`
+reads the forwards' device time once a chunk has finished on the card.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from chunkflow_tpu_torch.core import envmode
+from chunkflow_tpu_torch.core import envmode, telemetry
 from chunkflow_tpu_torch.core.contracts import Spec, contract
+from chunkflow_tpu_torch.core.profiling import EventPairs
 from chunkflow_tpu_torch.ops import accumulate as _accumulate
 from chunkflow_tpu_torch.ops import gather as _gather
 
@@ -91,6 +93,23 @@ def make_accumulate(output_patch_size: Tuple[int, int, int],
     return accumulate
 
 
+def fold_forward_device(out) -> None:
+    """Fold the forward event pairs that ``Inferencer.infer_async``
+    attached to a dispatched output (``_forward_pairs``: the pool and the
+    chunk's pairs) into the histogram ``inference/forward_device``
+    (seconds per chunk). Called once the output's compute-done event has
+    fired, when every pair has finished: nothing waits, and a pair that
+    has not finished drops the chunk's sample."""
+    timed = getattr(out, "_forward_pairs", None)
+    if not timed or not timed[1]:
+        return
+    pool, pairs = timed
+    out._forward_pairs = None
+    seconds = [pool.read(pair) for pair in pairs]
+    if None not in seconds:
+        telemetry.observe("inference/forward_device", sum(seconds))
+
+
 def build_local_blend(
     forward: Callable,
     num_input_channels: int,
@@ -99,15 +118,20 @@ def build_local_blend(
     output_patch_size: Tuple[int, int, int],
     batch_size: int,
     bump: torch.Tensor,
+    events: Optional[EventPairs] = None,
 ):
-    """Returns ``local_blend(chunk, in_starts, out_starts, valid)`` ->
-    ``(out, weight)``: weighted partial sums over the patches given.
+    """Returns ``local_blend(chunk, in_starts, out_starts, valid,
+    timed=None)`` -> ``(out, weight)``: weighted partial sums over the
+    patches given.
 
     chunk:      ``[ci, Z, Y, X]`` raw (see ``gather_patches``)
     in_starts:  ``[n, 3]`` int32 on the CPU, ``n`` a batch multiple
     out_starts: ``[n, 3]`` int32 on the CPU
     valid:      ``[n]`` float32 on the chunk's device; padding rows carry
                 0 and are gathered, run and accumulated like any other
+    timed:      a list that gets each batch's forward bracketed by a pair
+                of timing events from ``events``, recorded on the current
+                stream (for :func:`fold_forward_device`)
     """
     ci = num_input_channels
     co = num_output_channels
@@ -120,7 +144,7 @@ def build_local_blend(
         out_starts=Spec("n", 3, dtype="int32"),
         valid=Spec("n", dtype="float32"),
     )
-    def local_blend(chunk, in_starts, out_starts, valid):
+    def local_blend(chunk, in_starts, out_starts, valid, timed=None):
         if chunk.shape[0] != ci:
             raise ValueError(f"chunk has {chunk.shape[0]} channels, the "
                              f"engine takes {ci}")
@@ -135,7 +159,14 @@ def build_local_blend(
         for i0 in range(0, n, batch_size):
             rows = slice(i0, i0 + batch_size)
             patches = _gather.gather_patches(chunk, in_starts[rows], pin)
-            preds = forward(patches).contiguous()
+            if timed is None:
+                preds = forward(patches).contiguous()
+            else:
+                start, end = events.take()
+                start.record()
+                preds = forward(patches).contiguous()
+                end.record()
+                timed.append((start, end))
             accumulate(out, weight, preds, valid[rows], out_starts[rows])
         return out, weight
 

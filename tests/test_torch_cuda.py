@@ -214,6 +214,80 @@ def test_dispatch_path_never_waits_for_the_card(cuda):
         assert np.array_equal(out.host().array, ref)
 
 
+def _devtrace():
+    """The benchmark's device trace (``portbench/devtrace.py``): the
+    profiler session its metrics read."""
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parent.parent / "portbench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import devtrace
+
+    return devtrace
+
+
+def test_span_holds_its_kernel_on_the_device_trace_clock(cuda):
+    """A span around a kernel that spins for milliseconds, then a
+    synchronize, contains that kernel's interval as the profiler stamps
+    it: the span ring and the device trace are on one clock."""
+    from chunkflow_tpu_torch.core import telemetry
+
+    devtrace = _devtrace()
+    tracer = devtrace.Tracer()
+    tracer.warm(torch)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    tracer.start()
+    try:
+        with telemetry.span("test/spin") as sp:
+            torch.cuda._sleep(40_000_000)
+            torch.cuda.synchronize()
+    finally:
+        events = tracer.stop(torch)
+    kernels = [(e - s, s, e) for n, s, e in events if not devtrace.is_copy(n)]
+    _, start, end = max(kernels)
+    lead, tail = start - sp.start_ns / 1e3, sp.end_ns / 1e3 - end
+    assert end - start > 5000
+    assert lead >= 0 and tail >= 0, (lead, tail)
+
+
+def test_forward_device_time_is_the_traced_forward(cuda):
+    """``inference/forward_device`` of one chunk, from the event pairs the
+    blend records around each forward, is within 10% of the device time
+    the trace gives that chunk's forward kernels (every kernel but the
+    gather, the accumulate, copies and memsets; the zero fills and the
+    normalization are a few of them)."""
+    from chunkflow_tpu_torch.core import telemetry
+    from chunkflow_tpu_torch.flow.pipeline import _drain_host
+
+    devtrace = _devtrace()
+    inferencer = Inferencer(input_patch_size=(20, 256, 256),
+                            output_patch_overlap=(4, 64, 64),
+                            num_output_channels=3, framework="pytorch",
+                            model_variant="rsunet", dtype="bfloat16",
+                            batch_size=2)
+    rng = np.random.default_rng(11)
+    chunk = Chunk(rng.integers(0, 256, (20, 640, 640)).astype(np.uint8))
+    _drain_host(inferencer.infer_async(inferencer.stage(chunk)), "warm")
+    tracer = devtrace.Tracer()
+    tracer.warm(torch)
+    telemetry.reset()
+    tracer.start()
+    try:
+        out = inferencer.infer_async(inferencer.stage(chunk), consume=True)
+        _drain_host(out, 0)
+    finally:
+        events = tracer.stop(torch)
+    h = telemetry.snapshot()["hists"]["inference/forward_device"]
+    traced = sum(e - s for n, s, e in events
+                 if not devtrace.is_copy(n) and "gather_kernel" not in n
+                 and "accumulate_kernel" not in n) / 1e6
+    assert h["count"] == 1
+    assert abs(h["total"] / traced - 1) < 0.10, (h["total"], traced)
+
+
 @pytest.mark.parametrize("shape", [(6, 48, 48), (7, 53, 61)])
 def test_fold_on_card_is_the_cpu_port(cuda, shape):
     chunk = Chunk.create(size=shape, dtype=np.uint8, pattern="random")

@@ -308,10 +308,32 @@ def test_log_summary_prints_the_jax_bytes(source, view, clean, tmp_path,
         assert "FIRING (w-a, w-b)" in port_out
 
 
+def _without_t0(mdir, dest):
+    """A copy of a metrics directory whose span events carry no start
+    ``t0``: files as the JAX package and the port before it write them."""
+    dest.mkdir()
+    for path in Path(mdir).iterdir():
+        text = path.read_text()
+        if ".jsonl" in path.name:
+            records = [json.loads(line) for line in text.splitlines()
+                       if line.strip()]
+            for record in records:
+                record.pop("t0", None)
+            text = "".join(json.dumps(r) + "\n" for r in records)
+        (dest / path.name).write_text(text)
+    return dest
+
+
 @pytest.mark.parametrize("source", ["port-run", "seeded"])
 def test_export_trace_is_the_jax_tools(source, clean, tmp_path, capsys):
     mdir = {"port-run": port_run_dir,
             "seeded": lambda p, m: seeded_dir(p)}[source](tmp_path, clean)
+    if source == "port-run":
+        # the port's spans carry their start, which the JAX tool reads as
+        # an argument and the port's places them at
+        # (test_export_places_spans_at_their_start): on the same files
+        # without it, the two tools write the same trace
+        mdir = _without_t0(mdir, tmp_path / "port-run-older")
     jax_file, port_file = tmp_path / "jax.json", tmp_path / "port.json"
     jax_out = _jax_out(["log-summary", "--metrics-dir", str(mdir),
                         "--export-trace", str(jax_file)])
@@ -330,6 +352,28 @@ def test_export_trace_is_the_jax_tools(source, clean, tmp_path, capsys):
             if e.get("cat") == "task_flow":
                 flows.setdefault(e["args"]["trace_id"], []).append(e["ph"])
         assert flows == {TRACE: ["s", "t", "f"], "b" * 32: ["s", "f"]}
+
+
+@pytest.mark.parametrize("stamped", [True, False])
+def test_export_places_spans_at_their_start(stamped):
+    """A span event with ``t0`` starts there; one of an older file, with
+    only its end ``t`` and ``dur_s``, at ``t - dur_s``."""
+    span = {"kind": "span", "name": "pipeline/dispatch", "worker": "w",
+            "t": 100.5, "dur_s": 0.25, "chunk": 3}
+    if stamped:
+        # the duration is perf_counter's, the stamps the wall clock's:
+        # they need not agree to the microsecond
+        span["t0"] = 100.2499
+    gauge = {"kind": "gauge", "name": "pipeline/inflight", "worker": "w",
+             "t": 100.0, "value": 2}
+    trace = trace_export.export_chrome_trace([gauge, span])
+    assert trace_export.validate_chrome_trace(trace) == []
+    (x,) = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    (c,) = [e for e in trace["traceEvents"] if e.get("ph") == "C"]
+    start = 100.2499 if stamped else 100.25
+    assert x["ts"] - c["ts"] == pytest.approx((start - 100.0) * 1e6)
+    assert x["dur"] == 250000.0
+    assert x["args"] == {"chunk": 3}
 
 
 def test_clock_offsets_and_timelines_are_the_jax_packages(tmp_path):

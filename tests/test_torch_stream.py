@@ -144,6 +144,27 @@ def test_stream_bitwise_serial_cases(case, adaptive):
         assert _same(got.array, ref)
 
 
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_stream_bitwise_with_telemetry_on_and_off(monkeypatch, adaptive):
+    """The spans, their ring, the chunk ids and the waits they time are
+    observation only: the streamed results are bitwise the same with
+    ``CHUNKFLOW_TELEMETRY=0``, and only the run with telemetry on records
+    spans."""
+    inferencer = _inferencer(shape_bucket=(8, 16, 16))
+    chunks = _chunks(RAGGED_SHAPES, seed=4)
+    out = {}
+    for switch in ("1", "0"):
+        monkeypatch.setenv("CHUNKFLOW_TELEMETRY", switch)
+        telemetry.reset()
+        out[switch] = list(inferencer.stream(iter(chunks), adaptive=adaptive))
+        recorded = telemetry.recorded_spans()
+        assert bool(recorded) == (switch == "1")
+    assert len(out["1"]) == len(out["0"]) == len(chunks)
+    for on, off in zip(out["1"], out["0"]):
+        assert tuple(on.voxel_offset) == tuple(off.voxel_offset)
+        assert _same(on.array, off.array)
+
+
 @pytest.mark.parametrize("executor", [pipeline_chunks, schedule_chunks])
 def test_explicit_crop_on_the_device(executor):
     """``crop`` cuts the margin before the download: the executors give
