@@ -750,6 +750,105 @@ def conv_flops(model, x) -> int:
     return total
 
 
+# RSUNet of the benchmark's configuration (portbench/configs/rsunet-bf16)
+EPILOGUE_WIDTHS = (28, 36, 48, 64, 80)
+EPILOGUE_DOWN = ((1, 2, 2),) * 4
+
+
+def epilogue_phase(torch, timer, note_err) -> dict:
+    """RSUNet's convolution epilogue (``csrc/conv_epilogue.cu``) on the
+    card: bitwise its plain version in each mode at every depth of the
+    benchmark's RSUNet (batch 2 of 20x256x256, bfloat16), its device time
+    at depth 0 (2x28x20x256x256) beside its byte bound and its plain
+    version, L2 flushed, and one whole forward's launches (32 a batch),
+    bitwise and timed against the plain epilogue's; every comparison
+    through ``note_err``. Returns the kernel's times for the closing
+    ``kernels`` line (the affine mode's); its launches there are the
+    main path's (phase 7) and the int8 legs'."""
+    from unittest import mock
+
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.models.rsunet import RSUNet
+    from chunkflow_tpu_torch.models.unet3d import seeded_init
+    from chunkflow_tpu_torch.ops import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    bf16 = torch.bfloat16
+    modes = {"bias": (False, False), "affine": (True, False),
+             "residual": (True, True), "skip": (False, True)}
+
+    def operands(c, zyx, mode):
+        affine, other = modes[mode]
+        y = torch.randn((BATCH, c) + zyx, device=dev, generator=g).to(bf16)
+        p = [torch.randn(c, device=dev, generator=g) for _ in range(3)]
+        return dict(y=y, bias=p[0], scale=p[1] if affine else None,
+                    shift=p[2] if affine else None,
+                    other=torch.randn(y.shape, device=dev, generator=g).to(
+                        bf16) if other else None)
+
+    checked = 0
+    for depth, c in enumerate(EPILOGUE_WIDTHS):
+        zyx = (PIN[0], PIN[1] >> depth, PIN[2] >> depth)
+        for mode in modes:
+            ops = operands(c, zyx, mode)
+            y = ops.pop("y")
+            ref = ce.conv_epilogue_plain(y.clone(), **ops)
+            with torch.no_grad():
+                got = ce.conv_epilogue(y, **ops)
+            require(torch.equal(got.view(torch.int16), ref.view(torch.int16)),
+                    f"conv_epilogue {mode} at depth {depth} ({c} x {zyx}): "
+                    f"kernel differs from its plain version")
+            note_err("conv_epilogue", got, ref)
+            checked += 1
+    line = {}
+    for mode in modes:
+        ops = operands(EPILOGUE_WIDTHS[0], PIN, mode)
+        y = ops.pop("y")
+        n = y.numel()
+        nbytes = n * y.element_size() * (3 if ops["other"] is not None
+                                         else 2) + 3 * y.shape[1] * 4
+        bound = nbytes / PEAK_BW * 1e3
+        with torch.no_grad():
+            ms = timer.kernel_ms(lambda: ce.conv_epilogue(y, **ops),
+                                 "conv_epilogue_kernel")
+        plain_ms = timer.call_ms(lambda: ce.conv_epilogue_plain(y, **ops))
+        line[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        phase("kernels", f"conv_epilogue, {mode}: {ms:.4f} ms/launch "
+                         f"(median device time by profiler, L2 flushed), "
+                         f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                         f"bytes), {bound / ms:.0%} of bound, plain "
+                         f"{plain_ms:.4f} ms")
+        del y, ops
+    model = RSUNet(1, CHANNELS, width=EPILOGUE_WIDTHS,
+                   down_factors=EPILOGUE_DOWN, dtype=bf16).eval()
+    seeded_init(model, torch.Generator().manual_seed(26))
+    model.to(dev)
+    x = torch.rand((BATCH, 1) + PIN, device=dev, generator=g)
+    with torch.no_grad(), engines.exact_float32():
+        ce.launches = 0
+        got = model(x)
+        launched = ce.launches
+        fwd_ms = timer.call_ms(lambda: model(x), reps=3)
+        with mock.patch.object(ce, "conv_epilogue", ce.conv_epilogue_plain):
+            ref = model(x)
+            plain_fwd_ms = timer.call_ms(lambda: model(x), reps=3)
+    require(launched == 32, f"conv_epilogue: {launched} launches in one "
+                            f"RSUNet forward, not 32")
+    note_err("conv_epilogue", got, ref)
+    phase("kernels", f"conv_epilogue == plain bitwise in {checked} "
+                     f"mode/depth cases; one rsunet-bf16 forward of "
+                     f"{BATCH}x{PIN}: {launched} launches, bitwise the "
+                     f"plain epilogue's, {fwd_ms:.2f} ms device time "
+                     f"(plain epilogue {plain_fwd_ms:.2f} ms)")
+    del model, x, got, ref
+    torch.cuda.empty_cache()
+    return dict(ms=line["affine"]["ms"],
+                plain_ms=line["affine"]["plain_ms"],
+                bound_ms=line["affine"]["bound_ms"], bound_by="bytes",
+                library_ms=None)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -781,8 +880,14 @@ def main() -> int:
         pad_to_batch,
     )
     from chunkflow_tpu_torch.models.convert import state_from_flax
+    from chunkflow_tpu_torch.models.rsunet import RSBlock
     from chunkflow_tpu_torch.models.unet3d import UNet3D, seeded_init
-    from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
+    from chunkflow_tpu_torch.ops import (
+        accumulate,
+        conv_epilogue,
+        gather,
+        int8_conv,
+    )
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     # no automatic profiler captures (a sustained stall, a page alert):
@@ -799,6 +904,14 @@ def main() -> int:
                        "entry": "fused_accumulate_patches",
                        "source": "chunkflow_tpu_torch/csrc/accumulate.cu",
                        "replaces": "chunkflow_tpu/ops/pallas_blend.py:172"},
+        # RSUNet's convolution epilogue (no TPU kernel: XLA fuses it)
+        "conv_epilogue": {"module": conv_epilogue,
+                          "plain": conv_epilogue.conv_epilogue_plain,
+                          "entry": "conv_epilogue",
+                          "source": "chunkflow_tpu_torch/csrc/"
+                                    "conv_epilogue.cu",
+                          "replaces": "none (XLA's fusion of "
+                                      "chunkflow_tpu/models/rsunet.py)"},
         # the XLA op of the JAX package's int8 real leg (no Pallas kernel)
         "conv3d_int8": {"module": int8_conv,
                         "plain": int8_conv.conv3d_int8_plain,
@@ -1085,11 +1198,16 @@ def main() -> int:
                          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, bytes), "
                          f"{bound / ms:.0%} of bound, plain {plain_ms:.4f} ms")
     del big_chunks, base_out, base_w
+    kernels["conv_epilogue"].update(epilogue_phase(torch, timer, note_err))
 
     lap("4 identity")
     # ---- 4. identity main path ------------------------------------------
-    def run_paths(inferencer, chunk, label):
-        """Kernel path (counted) then plain path; bitwise equal."""
+    def run_paths(inferencer, chunk, label, epilogues=0):
+        """Kernel path (counted) then plain path; bitwise equal.
+        ``epilogues``: the conv epilogue launches of one batch's forward
+        (RSUNet's convolutions but the head; 0 for every other model),
+        which the kernel path makes for each batch of the chunk's patches
+        and the plain path never."""
         inferencer(chunk)  # warm-up
         reset_counts()
         t = time.perf_counter()
@@ -1098,9 +1216,17 @@ def main() -> int:
         launched = counts()
         for kname, n in launched.items():
             require(n > 0, f"{label}: {kname} kernel never launched")
+        batches = -(-enumerate_patches(tuple(chunk.shape[-3:]), PIN, PIN,
+                                       OVERLAP).num_patches // BATCH)
+        require(conv_epilogue.launches == epilogues * batches,
+                f"{label}: {conv_epilogue.launches} conv epilogue launches, "
+                f"not {epilogues} x {batches} batches")
+        if epilogues:
+            launched["conv_epilogue"] = conv_epilogue.launches
         with plain_functions():
             ref = inferencer(chunk)
-        require(counts() == launched,
+        require(counts() == {k: launched[k] for k in blend}
+                and conv_epilogue.launches == epilogues * batches,
                 f"{label}: the plain path launched a kernel")
         a, b = got.array, ref.array
         diff = float((a.double() - b.double()).abs().max())
@@ -1280,9 +1406,16 @@ def main() -> int:
                 batch_size=BATCH, model_variant=variant, dtype=dtype,
                 **files)
             model = inf.engine.model
+            # RSUNet: the embedding, three a block, one a transposed conv
+            epilogues = (3 * sum(isinstance(m, RSBlock)
+                                 for m in model.modules())
+                         + len(model.width)) if variant == "rsunet" else 0
             torch.cuda.reset_peak_memory_stats()
-            result, wall, launched = run_paths(inf, chunk_u8, label)
+            result, wall, launched = run_paths(inf, chunk_u8, label,
+                                               epilogues)
             peak = torch.cuda.max_memory_allocated()
+            kernels["conv_epilogue"]["launches"] += launched.get(
+                "conv_epilogue", 0)
             out = result.array
             require(tuple(out.shape) == (CHANNELS,) + CHUNK
                     and bool(torch.isfinite(out).all())

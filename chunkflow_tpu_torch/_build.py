@@ -36,7 +36,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("gather", "accumulate", "conv3d_int8", "conv3d_int8_generic")
+KERNELS = ("gather", "accumulate", "conv3d_int8", "conv3d_int8_generic",
+           "conv_epilogue")
 HOST = CSRC / "host"
 HOST_LIBRARY = "chunkflow_host"
 HOST_SOURCES = ("cc3d.cpp", "remap.cpp", "watershed.cpp",

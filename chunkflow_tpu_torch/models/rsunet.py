@@ -12,10 +12,17 @@ the same name.
 Compute dtype as in ``models/unet3d.py`` (float32 parameters cast at
 use), except that the sigmoid is taken in the compute dtype and the
 result cast back to the input's dtype afterwards, as flax's RSUNet does.
+
+Each convolution but the head runs without its bias, and one
+:func:`ops.conv_epilogue.conv_epilogue` finishes its output in place: the
+bias, and the folded batch norm and ReLU (a block's convolutions, the
+third with its residual added before the ReLU) or the skip add (a
+transposed convolution). On a card that is one kernel launch instead of
+PyTorch's passes; on the CPU it is those passes, the same roundings.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -26,16 +33,17 @@ from chunkflow_tpu_torch.models.unet3d import (
     PARITY_FEATURE_MAPS,
     ConvTranspose3d,
     Triple,
-    _Computes,
     same_conv,
     set_compute_dtype,
 )
+from chunkflow_tpu_torch.ops import conv_epilogue
 
 
-class Affine(_Computes, nn.Module):
+class Affine(nn.Module):
     """Per-channel scale, then bias: an inference-time BatchNorm3d with
     its running statistics folded in. ``weight`` and ``bias`` are flax's
-    ``scale`` and ``bias``; both are cast to the compute dtype and
+    ``scale`` and ``bias``. The convolution's epilogue applies them
+    (``ops/conv_epilogue.py``): both cast to the compute dtype and
     combined with the input by type promotion, the two operations
     rounding one after the other, as in flax."""
 
@@ -44,11 +52,16 @@ class Affine(_Computes, nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
-        shape = (-1,) + (1,) * (x.dim() - 2)
-        dt = self._dtype(x)
-        return (x * self.weight.to(dt).view(shape)
-                + self.bias.to(dt).view(shape))
+
+def _finish(conv, x, bn: Optional[Affine] = None, other=None):
+    """``conv`` on ``x`` without its bias, then the epilogue in place:
+    the bias; ``bn`` and a ReLU when given, ``other`` (a residual, added
+    before the ReLU, or a skip) when given. The output and ``other`` are
+    brought to one layout the kernel takes first, values unchanged."""
+    y, other = conv_epilogue.dense(conv(x, add_bias=False), other)
+    return conv_epilogue.conv_epilogue(
+        y, conv.bias, None if bn is None else bn.weight,
+        None if bn is None else bn.bias, other, conv._dtype(x))
 
 
 class RSBlock(nn.Module):
@@ -66,10 +79,9 @@ class RSBlock(nn.Module):
         self.bn3 = Affine(features)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        residual = x
-        x = F.relu(self.bn2(self.conv2(x)))
-        return F.relu(self.bn3(self.conv3(x)) + residual)
+        residual = x = _finish(self.conv1, x, self.bn1)
+        x = _finish(self.conv2, x, self.bn2)
+        return _finish(self.conv3, x, self.bn3, other=residual)
 
 
 class RSUNet(nn.Module):
@@ -114,7 +126,7 @@ class RSUNet(nn.Module):
 
     def forward(self, x):
         orig_dtype = x.dtype
-        x = self.embed(x.to(self.dtype))
+        x = _finish(self.embed, x.to(self.dtype))
         depth = len(self.width)
         skips = []
         for i in range(depth - 1):
@@ -124,6 +136,6 @@ class RSUNet(nn.Module):
             x = F.max_pool3d(x, kernel_size=f, stride=f)
         x = self.bridge(x)
         for i in reversed(range(depth - 1)):
-            x = getattr(self, f"up{i}")(x) + skips[i]
+            x = _finish(getattr(self, f"up{i}"), x, other=skips[i])
             x = getattr(self, f"dec{i}")(x)
         return torch.sigmoid(self.out(x)).to(orig_dtype)

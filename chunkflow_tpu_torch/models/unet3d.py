@@ -72,26 +72,27 @@ class _Computes:
 
 class Conv3d(_Computes, nn.Conv3d):
     """``nn.Conv3d`` that casts its input and parameters to the compute
-    dtype at use."""
+    dtype at use. ``add_bias=False`` returns the convolution without its
+    bias, for a caller that adds it itself (RSUNet's epilogue)."""
 
-    def forward(self, x):
+    def forward(self, x, add_bias: bool = True):
         dt = self._dtype(x)
         y = F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride,
                      self.padding, self.dilation, self.groups)
-        return _add_bias(y, self.bias.to(dt))
+        return _add_bias(y, self.bias.to(dt)) if add_bias else y
 
 
 class ConvTranspose3d(_Computes, nn.ConvTranspose3d):
     """``nn.ConvTranspose3d`` that casts its input and parameters to the
-    compute dtype at use."""
+    compute dtype at use; ``add_bias`` as :class:`Conv3d`'s."""
 
-    def forward(self, x):
+    def forward(self, x, add_bias: bool = True):
         dt = self._dtype(x)
         y = F.conv_transpose3d(x.to(dt), self.weight.to(dt), None,
                                self.stride, self.padding,
                                self.output_padding, self.groups,
                                self.dilation)
-        return _add_bias(y, self.bias.to(dt))
+        return _add_bias(y, self.bias.to(dt)) if add_bias else y
 
 
 class MxuConv(Conv3d):
@@ -161,7 +162,7 @@ class InstanceNorm3d(_Computes, nn.InstanceNorm3d):
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
     """Give every layer of ``model`` that casts (``Conv3d``, the mxu
-    layers, ``InstanceNorm3d``, RSUNet's ``Affine``) the compute dtype."""
+    layers, ``InstanceNorm3d``) the compute dtype."""
     for module in model.modules():
         if isinstance(module, _Computes):
             module.compute_dtype = dtype

@@ -159,6 +159,217 @@ def test_convnet_kernel_path_is_the_plain_path(cuda, monkeypatch, variant,
 
 
 # ---------------------------------------------------------------------------
+# RSUNet's convolution epilogue
+# ---------------------------------------------------------------------------
+EPILOGUE_MODES = ("bias", "affine", "residual", "skip")
+# (y's dtype, the compute dtype its parameters round to): the int8 real
+# leg's float32 sums in a bfloat16 model is the third
+EPILOGUE_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
+                   "f32": (torch.float32, torch.float32),
+                   "f32_bf16_params": (torch.float32, torch.bfloat16)}
+# [N, C, D, H, W]: whole vectors with one channel a vector; planes of
+# 5 * 7 * 9 elements (ragged: no multiple of 8 or 4, and the element count
+# neither) at width 36
+EPILOGUE_SHAPES = {"vectors": (2, 28, 4, 32, 32),
+                   "ragged": (1, 36, 5, 7, 9)}
+EPILOGUE_SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _epilogue_operands(cuda, mode, dtype, shape, channels_last, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    n, c = shape[:2]
+    y = torch.randn(shape, generator=g) * 3
+    other = torch.randn(shape, generator=g) * 3
+    for i, v in enumerate(EPILOGUE_SPECIALS):
+        y.view(-1)[i * 37] = v
+        other.view(-1)[i * 41 + 1] = v
+    params = [torch.randn(c, generator=g) for _ in range(3)]
+    params[0][1], params[1][2], params[2][3] = -0.0, -0.0, float("inf")
+    params[1][4], params[2][5] = float("nan"), float("-inf")
+
+    def place(t):
+        t = t.to(dtype).to(cuda)
+        if channels_last:
+            t = t.contiguous(memory_format=torch.channels_last_3d)
+        return t
+
+    bias, scale, shift = (p.to(cuda) for p in params)
+    affine = mode in ("affine", "residual")
+    return dict(y=place(y), bias=bias, scale=scale if affine else None,
+                shift=shift if affine else None,
+                other=place(other) if mode in ("residual", "skip") else None)
+
+
+@pytest.mark.parametrize("shape", list(EPILOGUE_SHAPES))
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtypes", list(EPILOGUE_DTYPES))
+@pytest.mark.parametrize("mode", EPILOGUE_MODES)
+def test_conv_epilogue_kernel_is_its_plain_version(cuda, mode, dtypes,
+                                                   channels_last, shape):
+    """Each mode, dtype and layout, NaN, infinities and signed zeros in
+    every operand, and a ragged element count: bitwise the plain
+    sequence on the card, in place, one launch."""
+    from chunkflow_tpu_torch.ops import conv_epilogue
+
+    ydt, dt = EPILOGUE_DTYPES[dtypes]
+    ops = _epilogue_operands(cuda, mode, ydt, EPILOGUE_SHAPES[shape],
+                             channels_last)
+    y = ops.pop("y")
+    ref = conv_epilogue.conv_epilogue_plain(y.clone(), dtype=dt, **ops)
+    before = conv_epilogue.launches
+    with torch.no_grad():
+        got = conv_epilogue.conv_epilogue(y, dtype=dt, **ops)
+    assert conv_epilogue.launches == before + 1
+    assert got is y and got.dtype == ref.dtype
+    assert torch.equal(_bits(got.contiguous()), _bits(ref.contiguous()))
+
+
+def test_conv_epilogue_relu_of_signed_zero_and_nan(cuda):
+    """The ReLU's edge values alone: -0, +0, NaN, -inf after the shift."""
+    from chunkflow_tpu_torch.ops import conv_epilogue
+
+    for ydt in (torch.bfloat16, torch.float32):
+        y = torch.tensor([-0.0, 0.0, float("nan"), float("-inf"), -1.0,
+                          2.0, -0.0, 0.0], dtype=ydt,
+                         device=cuda).view(1, 8, 1, 1, 1)
+        z = torch.zeros(8, device=cuda)
+        minus = torch.full((8,), -0.0, device=cuda)
+        one = torch.ones(8, device=cuda)
+        for bias, shift in ((minus, minus), (z, z), (minus, z), (z, minus)):
+            ref = conv_epilogue.conv_epilogue_plain(y.clone(), bias, one,
+                                                    shift)
+            got = conv_epilogue.conv_epilogue(y.clone(), bias, one, shift)
+            assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("case", ["cpu_bias", "cpu_other", "float16",
+                                  "float64_bias", "bf16_y_f32_params",
+                                  "strided", "other_layout", "grad",
+                                  "offset_y", "offset_other", "channels"])
+def test_conv_epilogue_wrapper_refuses(cuda, case):
+    """The wrapper's refusals, and the launcher's (a ``y`` or ``other``
+    one element into its storage, so not 16-byte aligned; more than 2048
+    channels): each raises and launches nothing."""
+    from chunkflow_tpu_torch.ops import conv_epilogue
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        return flat[1:].view(t.shape).copy_(t)
+
+    y = torch.randn(2, 4, 3, 8, 8, device=cuda)
+    p = torch.randn(4, device=cuda)
+    kw = dict(y=y, bias=p, scale=p, shift=p, other=None, dtype=None)
+    error = ValueError
+    if case == "cpu_bias":
+        kw["bias"] = p.cpu()
+    elif case == "cpu_other":
+        kw["other"] = y.cpu()
+    elif case == "float16":
+        kw["y"], error = y.half(), TypeError
+    elif case == "float64_bias":
+        kw["bias"], error = p.double(), TypeError
+    elif case == "bf16_y_f32_params":
+        kw.update(y=y.bfloat16(), dtype=torch.float32)
+        error = TypeError
+    elif case == "strided":
+        kw["y"] = y.transpose(3, 4)
+    elif case == "other_layout":
+        kw["other"] = y.contiguous(memory_format=torch.channels_last_3d)
+    elif case == "offset_y":
+        kw["y"], error = offset(y), RuntimeError
+    elif case == "offset_other":
+        kw["other"], error = offset(y), RuntimeError
+    elif case == "channels":
+        p = torch.randn(2049, device=cuda)
+        kw.update(y=torch.randn(1, 2049, 1, 2, 2, device=cuda), bias=p,
+                  scale=p, shift=p)
+        error = RuntimeError
+    else:
+        kw["y"], error = y.requires_grad_(), RuntimeError
+    before = conv_epilogue.launches
+    with pytest.raises(error):
+        conv_epilogue.conv_epilogue(**kw)
+    assert conv_epilogue.launches == before
+
+
+def _rsunet_bf16(cuda, dtype=torch.bfloat16):
+    """The benchmark configuration's RSUNet: widths 28-80, 1x2x2 pooling,
+    seeded kernels and folded batch norms."""
+    from chunkflow_tpu_torch.models.rsunet import RSUNet
+    from chunkflow_tpu_torch.models.unet3d import seeded_init
+
+    model = RSUNet(1, 3, width=(28, 36, 48, 64, 80),
+                   down_factors=((1, 2, 2),) * 4, dtype=dtype).eval()
+    g = torch.Generator().manual_seed(7)
+    seeded_init(model, g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".bn" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.2
+                        + (1.0 if name.endswith("weight") else 0.0))
+    return model.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rsunet_forward_with_epilogue_kernel_is_the_plain_sequence(
+        cuda, monkeypatch, dtype):
+    """A whole ``rsunet-bf16``-width forward on one batch of two
+    20x256x256 patches, under the engine's flags: bitwise the same
+    forward through the plain epilogue, 32 launches a batch."""
+    from chunkflow_tpu_torch.inference import engines
+    from chunkflow_tpu_torch.ops import conv_epilogue
+
+    model = _rsunet_bf16(cuda, getattr(torch, dtype))
+    x = torch.rand((2, 1, 20, 256, 256),
+                   generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = conv_epilogue.launches
+    with torch.no_grad(), engines.exact_float32():
+        got = model(x)
+        assert conv_epilogue.launches == before + 32
+        monkeypatch.setattr(conv_epilogue, "conv_epilogue",
+                            conv_epilogue.conv_epilogue_plain)
+        ref = model(x)
+    assert conv_epilogue.launches == before + 32
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("leg", ["fake", "fakeint", "real"])
+def test_rsunet_int8_legs_with_epilogue_kernel_are_the_plain_sequence(
+        cuda, monkeypatch, leg, dtype):
+    """The int8 legs mark activations by the tensors torch functions
+    return; the kernel writes into the marked convolution output, so
+    each leg quantizes what it quantized before: bitwise the plain
+    epilogue's forward."""
+    from chunkflow_tpu_torch.inference import engines, precision
+    from chunkflow_tpu_torch.ops import conv_epilogue
+
+    engine = engines.create_engine("pytorch", model_variant="rsunet",
+                                   dtype=dtype)
+    engine.model.to(cuda)
+    batch = torch.rand((2, 1, 4, 32, 32),
+                       generator=torch.Generator().manual_seed(1)).to(cuda)
+    monkeypatch.setenv("CHUNKFLOW_INT8", leg)
+
+    def run():
+        with torch.no_grad():
+            return precision.wrap_apply(engine.apply, "int8", engine.params,
+                                        engine.call)(batch)
+
+    before = conv_epilogue.launches
+    got = run()
+    assert conv_epilogue.launches > before
+    monkeypatch.setattr(conv_epilogue, "conv_epilogue",
+                        conv_epilogue.conv_epilogue_plain)
+    ref = run()
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
 # the streamed path and fold on the card
 # ---------------------------------------------------------------------------
 STREAM_KW = dict(input_patch_size=(4, 32, 32), output_patch_overlap=(2, 16, 16),

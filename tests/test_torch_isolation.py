@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from chunkflow_tpu_torch import _build
-from chunkflow_tpu_torch.ops import accumulate, gather, int8_conv
+from chunkflow_tpu_torch.ops import accumulate, conv_epilogue, gather, int8_conv
 
 # the suite runs in several pytest-xdist workers on one machine: each
 # worker's default intra-op pool (a thread per core) oversubscribes it,
@@ -151,7 +151,8 @@ def test_every_kernel_has_a_source_and_a_launcher():
             ("accumulate", accumulate, "accumulate_patches_launch"),
             ("conv3d_int8", int8_conv, "conv3d_int8_launch"),
             ("conv3d_int8_generic", int8_conv,
-             "conv3d_int8_generic_launch")):
+             "conv3d_int8_generic_launch"),
+            ("conv_epilogue", conv_epilogue, "conv_epilogue_launch")):
         assert name in _build.KERNELS
         source = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {launcher}(' in source
